@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one H100.
+
+    python3 chip_smoke.py
+
+from the root of a checkout. It builds the CUDA kernels from ``src/repro_torch/
+kernels/csrc`` with nvcc (sm_90a) and runs three phases; any failure exits
+non-zero before the final ``ok`` line is printed.
+
+1. Kernels: each CUDA kernel at the shapes the serving path gives it, held to
+   its plain PyTorch version on the same bf16 inputs (tolerances below), and
+   timed with CUDA events over CUDA-graph replays of many launches (device
+   time, no host launch gaps), beside its plain version, one library call
+   computing the same function, and the least time the card could take.
+2. Parity: codeqwen1.5-7b cut to 2 layers at full width, one padded prefill
+   chunk and one decode step through the kernels, and again with the
+   wrappers sent to the kernels' plain versions on the card (the same
+   functions on the same weights); the logits must agree within a stated
+   number of bf16 steps.
+3. Serve: full codeqwen1.5-7b (32 layers, random FP4 weights from a seed)
+   through ServeEngine(fused=True): 16 requests, prompt 128, 32 new tokens,
+   8 slots. Every request must finish with 32 tokens, every logit must be
+   finite, and both kernels must have launched.
+
+Stdout: the card's name and power limit first, then one line per phase, a
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
+full record goes to ``results/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published H100 SXM peaks (dense): device memory and bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+
+# kernel vs plain version, both on the same bf16 inputs:
+#   cascade_matmul (f32 out): the same exact products summed in f32 in
+#     another order -> |err| <= MATMUL_RTOL * max|plain| + MATMUL_ATOL
+#   cascade_matmul (bf16 out, as served): that, plus at most one bf16 step
+#     of the largest output -> |err| <= 2^-7 * max|plain| + MATMUL_ATOL
+#   decode_attention (f32 out): online vs two-pass softmax in f32
+#   depth-2 parity (bf16 logits, kernels vs their plain versions): the same
+#     functions summed in another order. Once one f32 sum lands on the other
+#     side of a bf16 rounding edge, every later bf16 rounding on that row
+#     differs, so the two runs end about one bf16 step apart (measured on an
+#     H100: relative L2 0.0064, max one step at max|logit|, 73% of logits
+#     not bit-equal). Limits: ||kernel - plain|| <= PARITY_REL_L2 * ||plain||
+#     and every logit within PARITY_MAX_STEPS bf16 steps (units in the last
+#     place) of max|plain|
+MATMUL_RTOL, MATMUL_ATOL = 1e-4, 1e-4
+MATMUL_BF16_RTOL = 2.0 ** -7
+ATTN_ATOL = 1e-4
+PARITY_REL_L2 = 2.0 ** -6
+PARITY_MAX_STEPS = 2
+
+PROMPT_LEN, MAX_NEW, N_REQ, MAX_BATCH, CHUNK = 128, 32, 16, 8, 32
+
+
+def fail(msg: str):
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def graph_ms(torch, fn, argsets, iters: int) -> float:
+    """Device ms per call: ``iters`` calls cycling over ``argsets`` (rotated
+    so weights come cold from device memory, as layer after layer does),
+    captured once in a CUDA graph and replayed between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(min(3, iters)):
+            fn(*argsets[i % len(argsets)])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fn(*argsets[i % len(argsets)])
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    t1.synchronize()
+    ms = t0.elapsed_time(t1) / iters
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
+def copies_beyond_l2(nbytes: int) -> int:
+    return max(1, -(-160 * 2 ** 20 // max(nbytes, 1)))
+
+
+def matmul_phase(torch, dev):
+    from repro_torch.core import quant
+    from repro_torch.kernels import cascade_matmul as cm
+    from repro_torch.kernels import ops
+
+    d, f, vocab, layers = 4096, 13440, 92416, 32
+    # (M, K, N, bias, launches per decode step); extend rows: M = 32
+    shapes = [(8, d, d, True, 4 * layers), (8, d, f, False, 2 * layers),
+              (8, f, d, False, layers), (8, d, vocab, False, 1),
+              (32, d, d, True, 0), (32, d, f, False, 0), (32, f, d, False, 0),
+              (1, d, vocab, False, 0)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for m, k, n, with_bias, per_step in shapes:
+        w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+        packed, scales = quant.quantize_weight(w, 0)
+        del w
+        bias = torch.randn((n,), generator=gen, device=dev) if with_bias else None
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        got = ops.cascade_matmul(x, packed, scales, bias, out_dtype=torch.float32)
+        want = cm.cascade_matmul_plain(x, packed, scales, bias, torch.float32)
+        got16 = ops.cascade_matmul(x, packed, scales, bias, out_dtype=torch.bfloat16)
+        want16 = cm.cascade_matmul_plain(x, packed, scales, bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = MATMUL_RTOL * float(want.abs().max()) + MATMUL_ATOL
+        if not err <= tol:
+            fail(f"cascade_matmul ({m},{k},{n}) f32 out: max|err| {err} > {tol}")
+        err16 = float((got16.float() - want16.float()).abs().max())
+        tol16 = MATMUL_BF16_RTOL * float(want16.float().abs().max()) + MATMUL_ATOL
+        if not err16 <= tol16:
+            fail(f"cascade_matmul ({m},{k},{n}) bf16 out: max|err| {err16} > {tol16}")
+        wbytes = packed.numel() + scales.numel() * 4
+        nc = copies_beyond_l2(wbytes)
+        sets = [(x, packed.clone(), scales.clone(), bias) for _ in range(nc)]
+        kern = lambda a, p, s, b: ops.cascade_matmul(a, p, s, b, out_dtype=torch.bfloat16)
+        plain = lambda a, p, s, b: cm.cascade_matmul_plain(a, p, s, b, torch.bfloat16)
+        dense = quant.dequantize_weight(packed, scales, torch.bfloat16)
+        bias16 = bias.to(torch.bfloat16) if bias is not None else None
+        lib_sets = [(x, dense if i == 0 else dense.clone(), bias16)
+                    for i in range(copies_beyond_l2(dense.numel() * 2))]
+        lib = ((lambda a, wd, b: torch.addmm(b, a, wd)) if bias is not None
+               else (lambda a, wd, b: torch.matmul(a, wd)))
+        row = {
+            "M": m, "K": k, "N": n, "bias": with_bias, "launches_per_decode_step": per_step,
+            "max_abs_err": err, "tol": tol, "max_abs_err_bf16_out": err16, "tol_bf16_out": tol16,
+            "ms": graph_ms(torch, kern, sets, 40),
+            "plain_ms": graph_ms(torch, plain, sets[:1], 3),
+            "library_ms": graph_ms(torch, lib, lib_sets, 20),
+        }
+        nbytes = m * k * 2 + wbytes + (n * 4 if with_bias else 0) + m * n * 2
+        flops = 2 * m * k * n
+        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S \
+            else "operations"
+        rows.append(row)
+        del sets, lib_sets, dense
+        torch.cuda.empty_cache()
+    return rows
+
+
+def attention_phase(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    b, hq, hkv, d = MAX_BATCH, 32, 32, 128
+    t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    # one layer's view of a stacked (L, B, T, Hkv, D) cache, read in place
+    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = kc[1], vc[1]
+    pos = torch.arange(PROMPT_LEN, PROMPT_LEN + b, device=dev) + 3 * torch.arange(b, device=dev)
+    mask = torch.arange(t, device=dev)[None, :] <= pos[:, None]
+    live = int(mask.sum())     # the bound counts live keys only: masked ones add nothing
+    got = ops.decode_attention(q, k, v, mask)
+    want = da.decode_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= ATTN_ATOL:
+        fail(f"decode_attention max|err| {err} > {ATTN_ATOL}")
+    nc = copies_beyond_l2(k.numel() * 4)
+    sets = [(q, k.clone(), v.clone(), mask) for _ in range(nc)]
+    kern = lambda a, kk, vv, mk: ops.decode_attention(a, kk, vv, mk)
+    plain = lambda a, kk, vv, mk: da.decode_attention_plain(a, kk, vv, mk)
+    lib = lambda a, kk, vv, mk: F.scaled_dot_product_attention(
+        a[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mk[:, None, None, :])
+    row = {"B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d, "live_keys": live,
+           "launches_per_decode_step": 32, "max_abs_err": err, "tol": ATTN_ATOL,
+           "ms": graph_ms(torch, kern, sets, 100),
+           "plain_ms": graph_ms(torch, plain, sets, 20),
+           "library_ms": graph_ms(torch, lib, sets, 100)}
+    nbytes = q.numel() * 2 + 2 * live * hkv * d * 2 + mask.numel() + b * hq * d * 4
+    flops = 4 * live * hq * d
+    row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+    row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S \
+        else "operations"
+    return row
+
+
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """Send the wrappers' CUDA tensors to the kernels' plain versions (the
+    parity phase's reference run); the launch counts are put back after."""
+    from repro_torch.kernels import cascade_matmul as cm
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    saved = cm.cascade_matmul_cuda, da.decode_attention_cuda, dict(ops.LAUNCHES)
+    cm.cascade_matmul_cuda, da.decode_attention_cuda = (cm.cascade_matmul_plain,
+                                                        da.decode_attention_plain)
+    try:
+        yield
+    finally:
+        cm.cascade_matmul_cuda, da.decode_attention_cuda, counts = saved
+        ops.LAUNCHES.update(counts)
+
+
+def bf16_step(x: float) -> float:
+    """The bf16 step (unit in the last place) at magnitude |x| > 0."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def parity_phase(torch, dev):
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = dataclasses.replace(registry.get_config("codeqwen1.5-7b"), n_layers=2)
+    model = TransformerLM(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(3, ccfg, device=dev)
+    toks = torch.randint(0, cfg.vocab, (MAX_BATCH, CHUNK), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    out = {}
+    nxt = None
+    with torch.no_grad():
+        for name, route in (("plain", plain_versions_on_card), ("kernel", contextlib.nullcontext)):
+            with route():
+                cache = model.init_cache(MAX_BATCH, 2 * CHUNK, dtype=torch.bfloat16, device=dev)
+                l1, cache = model.prefill_extend(params, {"tokens": toks}, cache, ccfg,
+                                                 n_valid=CHUNK - 5)
+                if nxt is None:   # both runs decode the reference run's next token
+                    nxt = torch.argmax(l1[:, -1], dim=-1)[:, None].to(torch.int32)
+                l2, cache = model.decode_step(params, {"tokens": nxt}, cache, ccfg)
+            out[name] = (l1, l2)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(o).all() for o in out["kernel"]):
+        fail("depth-2 parity: kernel logits not finite")
+    pairs = list(zip(out["kernel"], out["plain"]))
+    rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) for a, b in pairs]
+    steps = [float((a - b).abs().max()) / bf16_step(float(b.abs().max())) for a, b in pairs]
+    moved = [float((a != b).float().mean()) for a, b in pairs]
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "prefill_max_abs_err": float((pairs[0][0] - pairs[0][1]).abs().max()),
+           "decode_max_abs_err": float((pairs[1][0] - pairs[1][1]).abs().max()),
+           "prefill_rel_l2": rel[0], "decode_rel_l2": rel[1],
+           "prefill_max_bf16_steps": steps[0], "decode_max_bf16_steps": steps[1],
+           "prefill_moved_share": moved[0], "decode_moved_share": moved[1],
+           "logit_absmax": float(out["plain"][1].abs().max()),
+           "tol": {"rel_l2": PARITY_REL_L2, "max_bf16_steps": PARITY_MAX_STEPS},
+           "prefill_argmax_agree": float((pairs[0][0].argmax(-1) == pairs[0][1].argmax(-1))
+                                         .float().mean()),
+           "decode_argmax_agree": float((pairs[1][0].argmax(-1) == pairs[1][1].argmax(-1))
+                                        .float().mean())}
+    if not (max(rel) <= PARITY_REL_L2 and max(steps) <= PARITY_MAX_STEPS):
+        fail(f"depth-2 parity: kernels vs plain versions out of tolerance: {res}")
+    return res
+
+
+def profile_step(torch, eng) -> dict:
+    """One engine step under torch.profiler: the device's busy time (sum of
+    kernel durations) and the kernels that take most of it. The profiler
+    slows the host, so this step's wall time is not a step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        produced = eng.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
+            "device_busy_ms": busy_ms if by_name else "not measured",
+            "device_kernels": sum(n for n, _ in by_name.values()),
+            "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
+
+
+def serve_phase(torch, dev):
+    import numpy as np
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    cfg, model = registry.load("codeqwen1.5-7b")
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    params = model.init_params(0, ccfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    scfg = ServeConfig(max_batch=MAX_BATCH, max_len=PROMPT_LEN + MAX_NEW + 1,
+                       prefill_chunk=CHUNK, fused=True)
+    eng = ServeEngine(model, params, ccfg, scfg, device=dev)
+
+    # every logit the engine picks from is checked (on the device; read once)
+    finite, step_launches = [], {}
+
+    def checked(fn, record_step):
+        def call(*a, **kw):
+            before = dict(ops.LAUNCHES)
+            logits, cache = fn(*a, **kw)
+            finite.append(torch.isfinite(logits).all())
+            if record_step:
+                step_launches.update({k: ops.LAUNCHES[k] - before[k] for k in before})
+            return logits, cache
+        return call
+
+    model.decode_step = checked(model.decode_step, True)
+    model.prefill_extend = checked(model.prefill_extend, False)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32),
+                    max_new_tokens=MAX_NEW) for i in range(N_REQ)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    launches_per_step = dict(step_launches)     # from the measured run's decode steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = eng.metrics()
+    # after the measured run: 8 more requests fill every slot (the first step
+    # admits them all), and the next step, a pure 8-slot decode, is profiled
+    for i in range(MAX_BATCH):
+        eng.submit(Request(uid=N_REQ + i, prompt=reqs[i].prompt, max_new_tokens=4))
+    eng.step()
+    profiled = profile_step(torch, eng)
+    eng.run_until_drained()
+    if not all(r.done and len(r.tokens_out) == MAX_NEW for r in reqs):
+        fail(f"serve: not every request finished with {MAX_NEW} tokens: "
+             f"{[len(r.tokens_out) for r in reqs]}")
+    if not bool(torch.stack(finite).all()):
+        fail("serve: non-finite logits")
+    if not all(v > 0 for v in launches.values()):
+        fail(f"serve: a kernel of the path never launched: {launches}")
+    ttft = [r.first_token_at - r.created_at for r in reqs]
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "requests": N_REQ, "prompt_len": PROMPT_LEN,
+        "max_new": MAX_NEW, "max_batch": MAX_BATCH, "prefill_chunk": CHUNK,
+        "effective_mode": m["effective_mode"], "init_s": init_s, "wall_s": wall,
+        "tokens_out": sum(len(r.tokens_out) for r in reqs),
+        "decode_tokens": m["decode_tokens"], "decode_steps": m["steps"],
+        "decode_tokens_per_s": m["tokens_per_s"],
+        "end_to_end_tokens_per_s": sum(len(r.tokens_out) for r in reqs) / wall,
+        "step_ms_p50": m["step_time_p50_s"] * 1e3, "step_ms_p99": m["step_time_p99_s"] * 1e3,
+        "ttft_s_p50": float(np.percentile(ttft, 50)), "ttft_s_max": float(max(ttft)),
+        "peak_mem_gb": peak_gb,
+        "launches": launches, "launches_per_decode_step": launches_per_step,
+        "profiled_decode_step": profiled,
+        "first_tokens": reqs[0].tokens_out[:8],
+    }
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke needs a CUDA GPU")
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        fail(f"the port is not importable ({e}); run chip_smoke.py from a checkout")
+    dev = torch.device("cuda")
+    print(gpu_name_and_power(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.monotonic()
+    libs = build.build()
+    regs = {n: [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines()
+                if "registers" in ln] for n, p in libs.items()}
+    print(json.dumps({"build_s": time.monotonic() - t0, "ptxas": regs}), flush=True)
+
+    mm = matmul_phase(torch, dev)
+    print(json.dumps({"cascade_matmul_shapes": mm}), flush=True)
+    att = attention_phase(torch, dev)
+    print(json.dumps({"decode_attention": att}), flush=True)
+    par = parity_phase(torch, dev)
+    print(json.dumps({"parity_depth2": par}), flush=True)
+    torch.cuda.empty_cache()
+    srv = serve_phase(torch, dev)
+    print(json.dumps({"serve": srv}), flush=True)
+
+    step = [r for r in mm if r["launches_per_decode_step"]]
+    per_step = lambda key: sum(r[key] * r["launches_per_decode_step"] for r in step)
+    kernels = [
+        {"name": "cascade_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
+         "replaces": "src/repro/kernels/cascade_matmul.py:98",
+         "shape": "one decode step at M=8: 32 x [(4096,4096)x4, (4096,13440)x2, "
+                  "(13440,4096)] + lm_head (4096,92416); times are summed over its launches",
+         "launches": srv["launches"]["cascade_matmul"],
+         "launches_per_decode_step": srv["launches_per_decode_step"]["cascade_matmul"],
+         "max_abs_err": max(r["max_abs_err"] for r in mm),
+         "max_err": max(r["max_abs_err"] for r in mm),
+         "tol": f"{MATMUL_RTOL} * max|plain| + {MATMUL_ATOL}",
+         "max_abs_err_bf16_out": max(r["max_abs_err_bf16_out"] for r in mm),
+         "tol_bf16_out": f"2^-7 * max|plain| + {MATMUL_ATOL}",
+         "ms": per_step("ms"), "kernel_ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+         "bound_ms": per_step("bound_ms"), "bound_by": "bytes",
+         "library_ms": per_step("library_ms")},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:178",
+         "shape": f"B={att['B']} Hq={att['Hq']} Hkv={att['Hkv']} T={att['T']} D={att['D']}",
+         "launches": srv["launches"]["decode_attention"],
+         "launches_per_decode_step": srv["launches_per_decode_step"]["decode_attention"],
+         "max_abs_err": att["max_abs_err"], "max_err": att["max_abs_err"], "tol": ATTN_ATOL,
+         "ms": att["ms"], "kernel_ms": att["ms"], "plain_ms": att["plain_ms"],
+         "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
+         "library_ms": att["library_ms"]},
+    ]
+    out_dir = ROOT / "results"
+    out_dir.mkdir(exist_ok=True)
+    record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
+              "decode_attention": att, "parity_depth2": par, "serve": srv}
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,61 @@
+"""Public wrappers for the port's kernels: padding, reshapes and dispatch.
+
+A tensor on the CPU goes to the kernel's plain version; a CUDA tensor goes
+to the CUDA kernel, which launches or raises. There is no fallback from one
+to the other. Every kernel launch adds one to ``LAUNCHES[name]``, so a run
+can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import cascade_matmul as _cm
+from repro_torch.kernels import decode_attention as _da
+
+#: kernel launches since the last reset, by kernel name
+LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"no kernel route for a tensor on {t.device}")
+
+
+def cascade_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                   bias: torch.Tensor | None = None, *,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """FP4-packed weight matmul: x (.., K) @ Wq (K, N) (+ bias) -> (.., N).
+
+    Leading dims of x flatten to M. Odd-K weights carry ``quantize_weight``'s
+    zero pad row; the activations get a matching zero column."""
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    n = packed.shape[1]
+    x2 = x.reshape(-1, k)
+    if packed.shape[0] * 2 == k + 1:
+        x2 = F.pad(x2, (0, 1))
+    if _route(x2) == "cuda":
+        out = _cm.cascade_matmul_cuda(x2.contiguous(), packed, scales, bias, out_dtype)
+        LAUNCHES["cascade_matmul"] += 1
+    else:
+        out = _cm.cascade_matmul_plain(x2, packed, scales, bias, out_dtype)
+    return out.reshape(*lead, n)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+    """Decode-step attention on a stacked cache. q: (B, Hq, D), one query
+    token per slot; k/v: (B, T, Hkv, D) cache buffers; valid: (B, T)
+    nonzero where the slot holds a real key. Returns (B, Hq, D) f32."""
+    if _route(q) == "cuda":
+        out = _da.decode_attention_cuda(q.contiguous(), k, v, valid, scale)
+        LAUNCHES["decode_attention"] += 1
+        return out
+    return _da.decode_attention_plain(q, k, v, valid, scale)

@@ -1,0 +1,167 @@
+"""Generic decoder-only transformer LM (the dense GQA/MHA family), in PyTorch.
+
+The param tree is the JAX package's, leaf for leaf: layer params are
+stacked ``(L, ...)`` under ``layers`` (``layers/attn/wq/{codes,scale,b}``,
+``layers/mlp/w_down/...``, ``layers/ln1/scale``, ...), beside ``embed``,
+``final_norm`` and ``lm_head``. Where the reference scans over the stack,
+this module runs a Python loop over layer views. Caches are updated in
+place (see ``layers.attn_apply``).
+
+Not ported yet: speculative verify/rewind, the paged cache, M-RoPE and
+windowed attention, sinusoidal positions, multi-codebook heads and
+stub-embedding inputs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import cascade
+from repro_torch.core.cascade import CascadeConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import cache_utils
+from repro_torch.models import layers as L
+
+
+def _index(tree, i: int):
+    """The i-th layer's view of a stacked param or cache tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+class TransformerLM:
+    def __init__(self, cfg: ArchConfig):
+        if (cfg.window or cfg.mrope_sections or cfg.n_codebooks or cfg.input_embeds
+                or cfg.rope_fraction == 0.0):
+            raise NotImplementedError(
+                f"{cfg.name}: windowed attention, M-RoPE, sinusoidal positions, "
+                "multi-codebook heads and stub-embedding inputs are not ported "
+                "yet (ROADMAP Queue 1 items 4-5)")
+        self.cfg = cfg
+        self.attn_cfg = L.AttnConfig(
+            d_model=cfg.d_model,
+            n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            qkv_bias=cfg.qkv_bias,
+            rope_theta=cfg.rope_theta,
+            rope_fraction=cfg.rope_fraction,
+            q_chunk=cfg.q_chunk,
+        )
+
+    # ------------------------------------------------------------------ init
+    def _layer_init(self, gen: torch.Generator, ccfg: CascadeConfig, device) -> dict:
+        cfg = self.cfg
+        return {
+            "ln1": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
+            "attn": L.attn_init(gen, self.attn_cfg, ccfg, device=device),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, ccfg, device=device),
+        }
+
+    def init_params(self, seed: int, ccfg: CascadeConfig, device=None) -> dict:
+        """Random params from ``seed``. In ``serve_fp4`` mode every matrix is
+        quantized as it is drawn (full width never holds a dense f32 tree)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = {
+            "layers": _stack([self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers)]),
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
+            "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=ccfg.compute_dtype,
+                                  device=device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg,
+                                                    device=device)
+        return params
+
+    # --------------------------------------------------------------- forward
+    def _embed(self, params: dict, batch: dict) -> torch.Tensor:
+        return L.embed_apply(params["embed"], batch["tokens"])
+
+    def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.norm_apply(params["final_norm"], x, cfg.norm_type)
+        if cfg.tie_embeddings:
+            cd = ccfg.compute_dtype
+            logits = torch.matmul(x.to(cd).to(torch.float32),
+                                  params["embed"]["table"].to(cd).to(torch.float32).T)
+        else:
+            logits = cascade.linear_apply(params["lm_head"], x, ccfg)
+        return logits.to(torch.float32)
+
+    def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
+               max_len: int | None = None, n_valid=None):
+        cfg = self.cfg
+        h, new_cache = L.attn_apply(
+            lp["attn"], L.norm_apply(lp["ln1"], x, cfg.norm_type),
+            self.attn_cfg, ccfg, cache=cache, mode=mode, max_len=max_len, n_valid=n_valid)
+        x = x + h
+        x = x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], x, cfg.norm_type),
+                            cfg.mlp_kind, ccfg)
+        return x, new_cache
+
+    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
+        """Full-sequence forward (no cache): logits (B, S, V) f32."""
+        x = self._embed(params, batch)
+        for i in range(self.cfg.n_layers):
+            x, _ = self._block(_index(params["layers"], i), x, ccfg, None, "full")
+        return self._head(params, x, ccfg)
+
+    # --------------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        cfg = self.cfg
+        device = resolve_device(device)
+        one = L.attn_cache_init(batch, max_len, self.attn_cfg, dtype, device=device)
+        return {"layers": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+                           for k, v in one.items()}}
+
+    def prefill(self, params: dict, batch: dict, ccfg: CascadeConfig,
+                max_len: int | None = None):
+        """Prompt forward that also builds the cache: logits of the last
+        position (B, 1, V) and ``{"layers": {k, v, pos}}`` stacked (L, ...)."""
+        x = self._embed(params, batch)
+        caches = []
+        for i in range(self.cfg.n_layers):
+            x, c = self._block(_index(params["layers"], i), x, ccfg, None, "prefill",
+                               max_len=max_len)
+            caches.append(c)
+        return self._head(params, x[:, -1:], ccfg), {"layers": _stack(caches)}
+
+    def decode_step(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig):
+        """One token per row against ``cache`` (updated in place)."""
+        x = self._embed(params, batch)
+        for i in range(self.cfg.n_layers):
+            x, _ = self._block(_index(params["layers"], i), x, ccfg,
+                               _index(cache["layers"], i), "decode")
+        return self._head(params, x, ccfg), cache
+
+    def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
+                       n_valid=None, all_logits: bool = False):
+        """Append a (possibly right-padded) token chunk to ``cache`` (in place).
+
+        Only the first ``n_valid`` chunk tokens are real. Returns logits of
+        the last valid token (B, 1, V), or of every chunk position (B, S, V)
+        with ``all_logits``, and the cache.
+        """
+        x = self._embed(params, batch)
+        s = x.shape[1]
+        nv = s if n_valid is None else n_valid
+        for i in range(self.cfg.n_layers):
+            x, _ = self._block(_index(params["layers"], i), x, ccfg,
+                               _index(cache["layers"], i), "extend", n_valid=nv)
+        x = x if all_logits else cache_utils.take_last_valid(x, nv)
+        return self._head(params, x, ccfg), cache
+
+    # ----------------------------------------- continuous batching cache API
+    def write_cache(self, cache: dict, sub: dict, i: int) -> dict:
+        return cache_utils.write_cache(cache, sub, i)

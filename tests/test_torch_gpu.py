@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a Hopper card (the
+kernels are built for sm_90a). This file imports torch only, so it runs on
+a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import quant
+from repro_torch.core.cascade import CascadeConfig
+from repro_torch.kernels import cascade_matmul as tcm
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import ops
+from repro_torch.models import registry
+from repro_torch.serve import engine
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    return torch.device("cuda")
+
+
+# (M, K, N, group, bias): odd K, N and K tails off every tile, G > 1 (group
+# sizes on and off the 16-row mma step, down to 1 and 2, so a step holds
+# many group edges), no bias, and full-width codeqwen shapes
+MATMUL_CASES = [(3, 64, 48, 0, True), (5, 63, 37, 0, False), (4, 96, 100, 24, True),
+                (1, 130, 70, 65, False), (7, 258, 301, 0, True), (9, 512, 72, 64, False),
+                (17, 160, 45, 32, True), (2, 48, 33, 1, False), (6, 36, 20, 2, True),
+                (8, 4096, 13440, 0, True), (33, 13440, 4096, 0, False)]
+
+
+@pytest.mark.parametrize("m,k,n,group,with_bias", MATMUL_CASES)
+@pytest.mark.parametrize("odtype", ["float32", "bfloat16"])
+def test_cascade_matmul_cuda_matches_plain(cuda, m, k, n, group, with_bias, odtype):
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + k)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    packed, scales = quant.quantize_weight(w, group)
+    x = (torch.randn((m, k), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    bias = torch.randn((n,), generator=gen, device=cuda) if with_bias else None
+    out_dtype = getattr(torch, odtype)
+    ops.reset_launch_counts()
+    got = ops.cascade_matmul(x, packed, scales, bias, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cascade_matmul"] == 1 and got.dtype == out_dtype
+    xp = torch.nn.functional.pad(x, (0, 2 * packed.shape[0] - k))
+    want = tcm.cascade_matmul_plain(xp, packed, scales, bias, out_dtype)
+    # the same exact products summed in f32 in another order (+ one bf16
+    # rounding of the result when the output is bf16)
+    tol = dict(atol=1e-4, rtol=1e-4) if odtype == "float32" else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d", [(3, 8, 2, 700, 16), (8, 32, 32, 192, 128),
+                                          (4, 8, 1, 513, 256), (2, 4, 4, 1, 64)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_attention_cuda_matches_plain(cuda, b, hq, hkv, t, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b * 100 + t)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).to(dt)
+    # a layer view of a stacked (L, B, T, Hkv, D) cache: read through strides
+    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(dt)
+    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(dt)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+    mask = torch.arange(t, device=cuda)[None, :] < lens[:, None]
+    if b > 1:
+        mask[-1] = False                 # a row with no live key: uniform average
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, kc[1], vc[1], mask)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 1
+    want = tda.decode_attention_plain(q, kc[1], vc[1], mask)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_wrapper_raises_instead_of_falling_back(cuda):
+    packed = torch.zeros((32, 8), device=cuda, dtype=torch.uint8)
+    for dtype in (torch.float16, torch.float32):   # the kernel takes bf16 activations
+        with pytest.raises(ValueError, match="not supported"):
+            ops.cascade_matmul(torch.zeros((2, 64), device=cuda, dtype=dtype), packed,
+                               torch.ones((1, 8), device=cuda))
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.decode_attention(torch.zeros((1, 3, 8), device=cuda),
+                             torch.zeros((1, 4, 2, 8), device=cuda),
+                             torch.zeros((1, 4, 2, 8), device=cuda),
+                             torch.ones((1, 4), device=cuda, dtype=torch.bool))
+
+
+def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
+    """At bf16 on the card the fused engine (CUDA kernels) emits the greedy
+    streams of the same engine with its wrappers sent to the kernels' plain
+    versions on a smoke config, and really launches both kernels."""
+    cfg, model = registry.load("codeqwen1.5-7b", smoke=True)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+    params = model.init_params(0, ccfg, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (10, 23, 7)]
+    streams = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(tcm, "cascade_matmul_cuda", tcm.cascade_matmul_plain)
+            monkeypatch.setattr(tda, "decode_attention_cuda", tda.decode_attention_plain)
+        eng = engine.ServeEngine(model, params, ccfg,
+                                 engine.ServeConfig(max_batch=2, max_len=40, prefill_chunk=8,
+                                                    fused=True), device=cuda)
+        reqs = [engine.Request(uid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(prompts)]
+        ops.reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        streams[route] = [r.tokens_out for r in reqs]
+        if route == "kernel":
+            assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert streams["kernel"] == streams["plain"]
