@@ -4,23 +4,28 @@
     python3 chip_smoke.py
 
 from the root of a checkout. It builds the CUDA kernels from ``src/repro_torch/
-kernels/csrc`` with nvcc (sm_90a) and runs three phases; any failure exits
-non-zero before the final ``ok`` line is printed.
+kernels/csrc`` with nvcc (sm_90a), all at once, and runs the phases below on
+the two served paths, the dense transformer (codeqwen1.5-7b) and Mamba-2
+(mamba2-370m); any failure exits non-zero before the final ``ok`` line is
+printed.
 
-1. Kernels: each CUDA kernel at the shapes the serving path gives it, held to
-   its plain PyTorch version on the same bf16 inputs (tolerances below), and
+1. Kernels: each CUDA kernel at the shapes the serving paths give it, held
+   to its plain PyTorch version on the same inputs (tolerances below), and
    timed with CUDA events over CUDA-graph replays of many launches (device
    time, no host launch gaps), beside its plain version, one library call
-   computing the same function, and the least time the card could take.
-2. Parity: codeqwen1.5-7b cut to 2 layers at full width, one padded prefill
-   chunk and one decode step through the kernels, and again with the
+   computing the same function where there is one, and the least time the
+   card could take. The SSD scan is also held to its plain version at a
+   multi-step shape with an initial state and at a grouped (G > 1) shape.
+2. Parity, per path: the model cut to 2 layers at full width, one padded
+   prefill chunk and one decode step through the kernels, and again with the
    wrappers sent to the kernels' plain versions on the card (the same
    functions on the same weights); the logits must agree within a stated
-   number of bf16 steps.
-3. Serve: full codeqwen1.5-7b (32 layers, random FP4 weights from a seed)
-   through ServeEngine(fused=True): 16 requests, prompt 128, 32 new tokens,
-   8 slots. Every request must finish with 32 tokens, every logit must be
-   finite, and both kernels must have launched.
+   number of bf16 steps and a relative L2 error.
+3. Serve, per path: the full model (random FP4 weights from a seed) through
+   ServeEngine(fused=True): 16 requests, prompt 128, 32 new tokens, 8
+   slots, prefill chunk 32. Every request must finish with 32 tokens, every
+   logit must be finite, and every kernel of the path must have launched in
+   that run (launch counts are reset just before it and read just after).
 
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
@@ -50,21 +55,36 @@ BF16_FLOP_PER_S = 989e12
 #   cascade_matmul (bf16 out, as served): that, plus at most one bf16 step
 #     of the largest output -> |err| <= 2^-7 * max|plain| + MATMUL_ATOL
 #   decode_attention (f32 out): online vs two-pass softmax in f32
+#   ssd_scan: the state update is the same elementwise f32 arithmetic as the
+#     plain version (no FMA contraction; expf as torch.exp) -> state within
+#     SSD_STATE_TOL (abs and rel); the readout state @ C sums over N in
+#     another order, then y rounds to bf16 -> every y within one bf16 step:
+#     |err| <= 2^-7 * |plain| + SSD_Y_ATOL
 #   depth-2 parity (bf16 logits, kernels vs their plain versions): the same
 #     functions summed in another order. Once one f32 sum lands on the other
 #     side of a bf16 rounding edge, every later bf16 rounding on that row
-#     differs, so the two runs end about one bf16 step apart (measured on an
-#     H100: relative L2 0.0064, max one step at max|logit|, 73% of logits
-#     not bit-equal). Limits: ||kernel - plain|| <= PARITY_REL_L2 * ||plain||
-#     and every logit within PARITY_MAX_STEPS bf16 steps (units in the last
-#     place) of max|plain|
+#     differs. Limits per path: ||kernel - plain|| <= rel_l2 * ||plain|| and
+#     every logit within max_steps bf16 steps (units in the last place) of
+#     max|plain|, set at about twice the readings on an H100. codeqwen: the
+#     two runs end about one step apart (relative L2 0.0064, max one step,
+#     73% of logits not bit-equal). mamba2-370m: relative L2 0.00060 /
+#     0.00096 and at most 0.44 of a step (prefill / decode; its logits leave
+#     the tied head in f32, and 25% of them moved)
 MATMUL_RTOL, MATMUL_ATOL = 1e-4, 1e-4
 MATMUL_BF16_RTOL = 2.0 ** -7
 ATTN_ATOL = 1e-4
-PARITY_REL_L2 = 2.0 ** -6
-PARITY_MAX_STEPS = 2
+SSD_STATE_TOL = 1e-5
+SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
+#: arch -> (rel_l2, max_steps)
+PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1)}
+# f32 rate outside the tensor cores (the SSD scan's arithmetic)
+F32_FLOP_PER_S = 67e12
 
 PROMPT_LEN, MAX_NEW, N_REQ, MAX_BATCH, CHUNK = 128, 32, 16, 8, 32
+
+#: the kernels each served path launches
+PATH_KERNELS = {"codeqwen1.5-7b": ("cascade_matmul", "decode_attention"),
+                "mamba2-370m": ("cascade_matmul", "ssd_scan")}
 
 
 def fail(msg: str):
@@ -117,15 +137,21 @@ def matmul_phase(torch, dev):
     from repro_torch.kernels import ops
 
     d, f, vocab, layers = 4096, 13440, 92416, 32
-    # (M, K, N, bias, launches per decode step); extend rows: M = 32
-    shapes = [(8, d, d, True, 4 * layers), (8, d, f, False, 2 * layers),
-              (8, f, d, False, layers), (8, d, vocab, False, 1),
-              (32, d, d, True, 0), (32, d, f, False, 0), (32, f, d, False, 0),
-              (1, d, vocab, False, 0)]
+    # (arch, M, K, N, bias, launches per decode step); extend rows: M = 32
+    cq = "codeqwen1.5-7b"
+    shapes = [(cq, 8, d, d, True, 4 * layers), (cq, 8, d, f, False, 2 * layers),
+              (cq, 8, f, d, False, layers), (cq, 8, d, vocab, False, 1),
+              (cq, 32, d, d, True, 0), (cq, 32, d, f, False, 0), (cq, 32, f, d, False, 0),
+              (cq, 1, d, vocab, False, 0)]
+    # mamba2-370m: in_proj (1024 -> 4384) and out_proj (2048 -> 1024) in each
+    # of 48 layers; the head is tied to the embedding (no FP4 lm_head)
+    mb, mlayers = "mamba2-370m", 48
+    shapes += [(mb, 8, 1024, 4384, False, mlayers), (mb, 8, 2048, 1024, False, mlayers),
+               (mb, 32, 1024, 4384, False, 0), (mb, 32, 2048, 1024, False, 0)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
-    for m, k, n, with_bias, per_step in shapes:
+    for arch, m, k, n, with_bias, per_step in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
         packed, scales = quant.quantize_weight(w, 0)
         del w
@@ -156,7 +182,8 @@ def matmul_phase(torch, dev):
         lib = ((lambda a, wd, b: torch.addmm(b, a, wd)) if bias is not None
                else (lambda a, wd, b: torch.matmul(a, wd)))
         row = {
-            "M": m, "K": k, "N": n, "bias": with_bias, "launches_per_decode_step": per_step,
+            "arch": arch, "M": m, "K": k, "N": n, "bias": with_bias,
+            "launches_per_decode_step": per_step,
             "max_abs_err": err, "tol": tol, "max_abs_err_bf16_out": err16, "tol_bf16_out": tol16,
             "ms": graph_ms(torch, kern, sets, 40),
             "plain_ms": graph_ms(torch, plain, sets[:1], 3),
@@ -215,6 +242,78 @@ def attention_phase(torch, dev):
     return row
 
 
+def ssd_inputs(torch, dev, bt, s, h, p, g, n, seed):
+    """SSD scan inputs as the Mamba-2 decode step hands them over: x, B and
+    C bf16 strided views of one conv output row (bt, s, h*p + 2*g*n), dt f32
+    after softplus, A = -exp(A_log) and D per head, an f32 state."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    xbc = torch.randn((bt, s, h * p + 2 * g * n), generator=gen, device=dev)
+    xbc = torch.nn.functional.silu(xbc).to(torch.bfloat16)
+    x = xbc[..., :h * p].reshape(bt, s, h, p)
+    B = xbc[..., h * p:h * p + g * n].reshape(bt, s, g, n)
+    C = xbc[..., h * p + g * n:].reshape(bt, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((bt, s, h), generator=gen, device=dev) - 2.0)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    D = torch.ones((h,), device=dev)
+    state = torch.randn((bt, h, p, n), generator=gen, device=dev)
+    return x, dt, A, B, C, D, state
+
+
+def ssd_phase(torch, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    # the decode step of mamba2-370m at 8 slots (x bf16, state carried), one
+    # multi-step shape with an initial state, one grouped shape
+    h, p, n = 32, 64, 128
+    cases = [("decode", MAX_BATCH, 1, h, p, 1, n), ("multi_step", 2, 64, h, p, 1, n),
+             ("grouped", MAX_BATCH, 1, h, p, 4, n)]
+    checks = {}
+    for name, bt, s, hh, pp, g, nn in cases:
+        x, dt, A, B, C, D, state = ssd_inputs(torch, dev, bt, s, hh, pp, g, nn, seed=7)
+        want_y, want_s = ssd.ssd_scan_plain(x, dt, A, B, C, D, state, True)
+        inplace = state.clone()
+        got_y, got_s = ops.ssd_decode(x, dt, A, B, C, D, inplace, out_state=inplace) \
+            if s == 1 else ssd.ssd_scan_cuda(x, dt, A, B, C, D, inplace, True, inplace)
+        torch.cuda.synchronize()
+        y_err = (got_y.float() - want_y.float()).abs()
+        s_err = (got_s - want_s).abs()
+        y_ok = bool((y_err <= SSD_Y_RTOL * want_y.float().abs() + SSD_Y_ATOL).all())
+        s_ok = bool((s_err <= SSD_STATE_TOL * want_s.abs() + SSD_STATE_TOL).all())
+        checks[name] = {"Bt": bt, "S": s, "H": hh, "P": pp, "G": g, "N": nn,
+                        "y_max_abs_err": float(y_err.max()),
+                        "y_max_bf16_steps": float((y_err / (2.0 ** -7 * want_y.float().abs()
+                                                            + SSD_Y_ATOL)).max()),
+                        "state_max_abs_err": float(s_err.max()),
+                        "state_bit_equal_share": float((got_s == want_s).float().mean())}
+        if not (y_ok and s_ok):
+            fail(f"ssd_scan {name}: kernel vs plain out of tolerance: {checks[name]}")
+
+    # timing at the decode shape, the state written in place as served; each
+    # argument set has its own state so the states come cold from device memory
+    x, dt, A, B, C, D, state = ssd_inputs(torch, dev, MAX_BATCH, 1, h, p, 1, n, seed=8)
+    sbytes = state.numel() * 4
+    sets = [(x, dt, A, B, C, D, state.clone()) for _ in range(copies_beyond_l2(2 * sbytes))]
+    kern = lambda *a: ops.ssd_decode(*a, out_state=a[-1])
+    plain = lambda *a: ssd.ssd_scan_plain(*a, return_final_state=True, final_state_out=a[-1])
+    row = {**checks["decode"], "checks": checks, "launches_per_decode_step": 48,
+           "ms": graph_ms(torch, kern, sets, 100),
+           "plain_ms": graph_ms(torch, plain, sets, 20),
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes this recurrence"}
+    io = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C, D))
+    nbytes = 2 * sbytes + io + x.numel() * 2                  # state in + out, inputs, y
+    flops = 5 * state.numel()      # decay mul, input mul, add, readout multiply-add
+    row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+    row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S \
+        else "operations"
+    row["bound_bytes"] = nbytes
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """Send the wrappers' CUDA tensors to the kernels' plain versions (the
@@ -222,15 +321,20 @@ def plain_versions_on_card():
     from repro_torch.kernels import cascade_matmul as cm
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
 
-    saved = cm.cascade_matmul_cuda, da.decode_attention_cuda, dict(ops.LAUNCHES)
-    cm.cascade_matmul_cuda, da.decode_attention_cuda = (cm.cascade_matmul_plain,
-                                                        da.decode_attention_plain)
+    routes = [(cm, "cascade_matmul_cuda", cm.cascade_matmul_plain),
+              (da, "decode_attention_cuda", da.decode_attention_plain),
+              (ssd, "ssd_scan_cuda", ssd.ssd_scan_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in routes], dict(ops.LAUNCHES)
+    for mod, name, plain in routes:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        cm.cascade_matmul_cuda, da.decode_attention_cuda, counts = saved
-        ops.LAUNCHES.update(counts)
+        for (mod, name, _), fn in zip(routes, saved[0]):
+            setattr(mod, name, fn)
+        ops.LAUNCHES.update(saved[1])
 
 
 def bf16_step(x: float) -> float:
@@ -238,13 +342,12 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
-def parity_phase(torch, dev):
+def parity_phase(torch, dev, arch: str):
     from repro_torch.core.cascade import CascadeConfig
     from repro_torch.models import registry
-    from repro_torch.models.transformer import TransformerLM
 
-    cfg = dataclasses.replace(registry.get_config("codeqwen1.5-7b"), n_layers=2)
-    model = TransformerLM(cfg)
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
+    model = registry.build_model(cfg)
     ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
     params = model.init_params(3, ccfg, device=dev)
     toks = torch.randint(0, cfg.vocab, (MAX_BATCH, CHUNK), device=dev,
@@ -263,25 +366,26 @@ def parity_phase(torch, dev):
             out[name] = (l1, l2)
     torch.cuda.synchronize()
     if not all(torch.isfinite(o).all() for o in out["kernel"]):
-        fail("depth-2 parity: kernel logits not finite")
+        fail(f"depth-2 parity ({arch}): kernel logits not finite")
     pairs = list(zip(out["kernel"], out["plain"]))
     rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) for a, b in pairs]
     steps = [float((a - b).abs().max()) / bf16_step(float(b.abs().max())) for a, b in pairs]
     moved = [float((a != b).float().mean()) for a, b in pairs]
-    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+    rel_limit, step_limit = PARITY_LIMITS[arch]
+    res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
            "prefill_max_abs_err": float((pairs[0][0] - pairs[0][1]).abs().max()),
            "decode_max_abs_err": float((pairs[1][0] - pairs[1][1]).abs().max()),
            "prefill_rel_l2": rel[0], "decode_rel_l2": rel[1],
            "prefill_max_bf16_steps": steps[0], "decode_max_bf16_steps": steps[1],
            "prefill_moved_share": moved[0], "decode_moved_share": moved[1],
            "logit_absmax": float(out["plain"][1].abs().max()),
-           "tol": {"rel_l2": PARITY_REL_L2, "max_bf16_steps": PARITY_MAX_STEPS},
+           "tol": {"rel_l2": rel_limit, "max_bf16_steps": step_limit},
            "prefill_argmax_agree": float((pairs[0][0].argmax(-1) == pairs[0][1].argmax(-1))
                                          .float().mean()),
            "decode_argmax_agree": float((pairs[1][0].argmax(-1) == pairs[1][1].argmax(-1))
                                         .float().mean())}
-    if not (max(rel) <= PARITY_REL_L2 and max(steps) <= PARITY_MAX_STEPS):
-        fail(f"depth-2 parity: kernels vs plain versions out of tolerance: {res}")
+    if not (max(rel) <= rel_limit and max(steps) <= step_limit):
+        fail(f"depth-2 parity ({arch}): kernels vs plain versions out of tolerance: {res}")
     return res
 
 
@@ -304,21 +408,21 @@ def profile_step(torch, eng) -> dict:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_kernels": sum(n for n, _ in by_name.values()),
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
-def serve_phase(torch, dev):
+def serve_phase(torch, dev, arch: str):
     import numpy as np
     from repro_torch.core.cascade import CascadeConfig
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 
-    cfg, model = registry.load("codeqwen1.5-7b")
+    cfg, model = registry.load(arch)
     ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
     t0 = time.monotonic()
     params = model.init_params(0, ccfg, device=dev)
@@ -366,13 +470,21 @@ def serve_phase(torch, dev):
     eng.step()
     profiled = profile_step(torch, eng)
     eng.run_until_drained()
+    tied_head_ms = None
+    if cfg.tie_embeddings:
+        # the tied head is a plain matmul over the f32-upcast embedding table,
+        # outside any kernel of the port (as in the reference): its own time
+        from repro_torch.models import layers as L
+        xh = torch.randn((MAX_BATCH, 1, cfg.d_model), device=dev).to(torch.bfloat16)
+        tied_head_ms = graph_ms(torch, lambda a: L.tied_head(params["embed"], a, torch.bfloat16),
+                                [(xh,)], 20)
     if not all(r.done and len(r.tokens_out) == MAX_NEW for r in reqs):
-        fail(f"serve: not every request finished with {MAX_NEW} tokens: "
+        fail(f"serve ({arch}): not every request finished with {MAX_NEW} tokens: "
              f"{[len(r.tokens_out) for r in reqs]}")
     if not bool(torch.stack(finite).all()):
-        fail("serve: non-finite logits")
-    if not all(v > 0 for v in launches.values()):
-        fail(f"serve: a kernel of the path never launched: {launches}")
+        fail(f"serve ({arch}): non-finite logits")
+    if not all(launches[k] > 0 for k in PATH_KERNELS[arch]):
+        fail(f"serve ({arch}): a kernel of the path never launched: {launches}")
     ttft = [r.first_token_at - r.created_at for r in reqs]
     return {
         "arch": cfg.name, "layers": cfg.n_layers, "requests": N_REQ, "prompt_len": PROMPT_LEN,
@@ -386,7 +498,7 @@ def serve_phase(torch, dev):
         "ttft_s_p50": float(np.percentile(ttft, 50)), "ttft_s_max": float(max(ttft)),
         "peak_mem_gb": peak_gb,
         "launches": launches, "launches_per_decode_step": launches_per_step,
-        "profiled_decode_step": profiled,
+        "profiled_decode_step": profiled, "tied_head_ms": tied_head_ms,
         "first_tokens": reqs[0].tokens_out[:8],
     }
 
@@ -410,49 +522,89 @@ def main() -> int:
                 if "registers" in ln] for n, p in libs.items()}
     print(json.dumps({"build_s": time.monotonic() - t0, "ptxas": regs}), flush=True)
 
-    mm = matmul_phase(torch, dev)
-    print(json.dumps({"cascade_matmul_shapes": mm}), flush=True)
-    att = attention_phase(torch, dev)
-    print(json.dumps({"decode_attention": att}), flush=True)
-    par = parity_phase(torch, dev)
-    print(json.dumps({"parity_depth2": par}), flush=True)
-    torch.cuda.empty_cache()
-    srv = serve_phase(torch, dev)
-    print(json.dumps({"serve": srv}), flush=True)
+    phase_s = {"build": time.monotonic() - t0}
 
-    step = [r for r in mm if r["launches_per_decode_step"]]
-    per_step = lambda key: sum(r[key] * r["launches_per_decode_step"] for r in step)
+    def timed(name, fn, *args):
+        t = time.monotonic()
+        out = fn(torch, dev, *args)
+        phase_s[name] = time.monotonic() - t
+        torch.cuda.empty_cache()
+        return out
+
+    mm = timed("cascade_matmul", matmul_phase)
+    print(json.dumps({"cascade_matmul_shapes": mm}), flush=True)
+    att = timed("decode_attention", attention_phase)
+    print(json.dumps({"decode_attention": att}), flush=True)
+    ssd = timed("ssd_scan", ssd_phase)
+    print(json.dumps({"ssd_scan": ssd}), flush=True)
+    par, srv = {}, {}
+    for arch in PATH_KERNELS:
+        par[arch] = timed(f"parity {arch}", parity_phase, arch)
+        print(json.dumps({"parity_depth2": par[arch]}), flush=True)
+    for arch in PATH_KERNELS:
+        srv[arch] = timed(f"serve {arch}", serve_phase, arch)
+        print(json.dumps({"serve": srv[arch]}), flush=True)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
+
+    def per_step(arch, key):
+        return sum(r[key] * r["launches_per_decode_step"] for r in mm if r["arch"] == arch)
+
+    def launches(name):
+        return {arch: srv[arch]["launches"][name] for arch in PATH_KERNELS}
+
+    cq, mb = "codeqwen1.5-7b", "mamba2-370m"
     kernels = [
         {"name": "cascade_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
          "replaces": "src/repro/kernels/cascade_matmul.py:98",
-         "shape": "one decode step at M=8: 32 x [(4096,4096)x4, (4096,13440)x2, "
-                  "(13440,4096)] + lm_head (4096,92416); times are summed over its launches",
-         "launches": srv["launches"]["cascade_matmul"],
-         "launches_per_decode_step": srv["launches_per_decode_step"]["cascade_matmul"],
+         "shape": "one codeqwen decode step at M=8: 32 x [(4096,4096)x4, (4096,13440)x2, "
+                  "(13440,4096)] + lm_head (4096,92416); times are summed over its launches "
+                  "(mamba2-370m's step: 48 x [(1024,4384), (2048,1024)], under mamba2_370m_step)",
+         "launches": sum(launches("cascade_matmul").values()),
+         "launches_by_path": launches("cascade_matmul"),
+         "launches_per_decode_step": {a: srv[a]["launches_per_decode_step"]["cascade_matmul"]
+                                      for a in PATH_KERNELS},
          "max_abs_err": max(r["max_abs_err"] for r in mm),
          "max_err": max(r["max_abs_err"] for r in mm),
          "tol": f"{MATMUL_RTOL} * max|plain| + {MATMUL_ATOL}",
          "max_abs_err_bf16_out": max(r["max_abs_err_bf16_out"] for r in mm),
          "tol_bf16_out": f"2^-7 * max|plain| + {MATMUL_ATOL}",
-         "ms": per_step("ms"), "kernel_ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-         "bound_ms": per_step("bound_ms"), "bound_by": "bytes",
-         "library_ms": per_step("library_ms")},
+         "ms": per_step(cq, "ms"), "kernel_ms": per_step(cq, "ms"),
+         "plain_ms": per_step(cq, "plain_ms"),
+         "bound_ms": per_step(cq, "bound_ms"), "bound_by": "bytes",
+         "library_ms": per_step(cq, "library_ms"),
+         "mamba2_370m_step": {key: per_step(mb, key)
+                              for key in ("ms", "plain_ms", "bound_ms", "library_ms")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:178",
          "shape": f"B={att['B']} Hq={att['Hq']} Hkv={att['Hkv']} T={att['T']} D={att['D']}",
-         "launches": srv["launches"]["decode_attention"],
-         "launches_per_decode_step": srv["launches_per_decode_step"]["decode_attention"],
+         "launches": srv[cq]["launches"]["decode_attention"],
+         "launches_per_decode_step": srv[cq]["launches_per_decode_step"]["decode_attention"],
          "max_abs_err": att["max_abs_err"], "max_err": att["max_abs_err"], "tol": ATTN_ATOL,
          "ms": att["ms"], "kernel_ms": att["ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
          "library_ms": att["library_ms"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:92",
+         "shape": f"decode: B={ssd['Bt']} H={ssd['H']} P={ssd['P']} N={ssd['N']} G={ssd['G']} "
+                  "S=1, bf16 x, f32 state carried in place",
+         "launches": srv[mb]["launches"]["ssd_scan"],
+         "launches_per_decode_step": srv[mb]["launches_per_decode_step"]["ssd_scan"],
+         "max_abs_err": max(c["y_max_abs_err"] for c in ssd["checks"].values()),
+         "state_max_abs_err": max(c["state_max_abs_err"] for c in ssd["checks"].values()),
+         "tol": f"y: 2^-7 * |plain| + {SSD_Y_ATOL}; state: {SSD_STATE_TOL} * |plain| + "
+                f"{SSD_STATE_TOL}",
+         "ms": ssd["ms"], "kernel_ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "library_ms": None, "library_note": ssd["library_note"]},
     ]
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
-              "decode_attention": att, "parity_depth2": par, "serve": srv}
+              "decode_attention": att, "ssd_scan": ssd, "parity_depth2": par, "serve": srv,
+              "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -70,8 +70,11 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Ten
     b = params.get("b")
     if cfg.mode == "serve_fp4":
         if cfg.use_kernel:
+            # activations enter the matmul in the compute dtype, as on the
+            # plain path (Mamba-2's gated norm hands over f32 after extend)
             from repro_torch.kernels import ops
-            return ops.cascade_matmul(x, params["codes"], params["scale"], b, out_dtype=cd)
+            return ops.cascade_matmul(x.to(cd), params["codes"], params["scale"], b,
+                                      out_dtype=cd)
         w = quant.dequantize_weight(params["codes"], params["scale"], cd)
     else:
         w = params["w"].to(cd)

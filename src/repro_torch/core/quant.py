@@ -4,7 +4,10 @@ The integer work here (codes, nibble packing, quantized matrices) matches
 the JAX package's ``core/quant.py`` bit for bit:
 
 * FP4 E2M1 values +/-{0, .5, 1, 1.5, 2, 3, 4, 6}, round to nearest with
-  ties to the even code, saturating at 6, NaN propagated.
+  ties to the even code, saturating at 6 (+/-inf too). E2M1 has no NaN:
+  a NaN of either sign rounds to -0 (code 8), as the reference's native
+  ``float4_e2m1fn`` cast does, and encodes by its own sign bit (+NaN to
+  code 0, -NaN to code 8).
 * Two codes per uint8 along the contraction dim, low nibble = even row.
 * Absmax group quantization of (K, N) weights into packed codes + (G, N)
   f32 scales, with a zero pad row for odd K.
@@ -29,7 +32,7 @@ def _table(values, like: torch.Tensor) -> torch.Tensor:
 
 
 def fp4_round(x: torch.Tensor) -> torch.Tensor:
-    """Round values onto the FP4 E2M1 grid (RNE, saturating, NaN kept); f32 out."""
+    """Round values onto the FP4 E2M1 grid (RNE, saturating, NaN to -0); f32 out."""
     xf = x.to(torch.float32)
     mag = xf.abs()
     mid = _table(_FP4_MIDPOINTS, xf)
@@ -38,7 +41,7 @@ def fp4_round(x: torch.Tensor) -> torch.Tensor:
     idx = torch.where(lo % 2 == 0, lo, hi)           # tie: pick even mantissa code
     mag4 = _table(FP4_VALUES, xf)[idx.clamp(max=7)]
     out = torch.where(torch.signbit(xf), -mag4, mag4)
-    return torch.where(torch.isnan(xf), xf, out)
+    return torch.where(torch.isnan(xf), torch.full_like(xf, -0.0), out)
 
 
 def fp4_encode(x: torch.Tensor) -> torch.Tensor:

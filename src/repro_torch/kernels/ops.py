@@ -12,9 +12,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import cascade_matmul as _cm
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0}
+LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0, "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -59,3 +60,43 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES["decode_attention"] += 1
         return out
     return _da.decode_attention_plain(q, k, v, valid, scale)
+
+
+def _ssd_scan(x, dt, A, B, C, D, initial_state, return_final_state, final_state_out=None):
+    if _route(x) == "cuda":
+        out = _ssd.ssd_scan_cuda(x, dt, A, B, C, D, initial_state, return_final_state,
+                                 final_state_out)
+        LAUNCHES["ssd_scan"] += 1
+        return out
+    return _ssd.ssd_scan_plain(x, dt, A, B, C, D, initial_state, return_final_state,
+                               final_state_out)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, D: torch.Tensor, *, initial_state: torch.Tensor | None = None,
+             return_final_state: bool = False):
+    """Per-head SSD recurrence in the reference's ``ssd_scan_pallas`` layout
+    (inputs broadcast per head): x (BH, S, P); dt (BH, S) f32; A, D (BH,)
+    f32; B, C (BH, S, N); optional initial state (BH, P, N) f32. Returns y
+    (BH, S, P) in x's dtype, and the final state (BH, P, N) f32 with
+    ``return_final_state``. The recurrence runs in order over S, so the TPU
+    kernel's ``chunk`` tiling has no counterpart here."""
+    init = initial_state[:, None] if initial_state is not None else None
+    out = _ssd_scan(x[:, :, None], dt[:, :, None], A[:, None], B[:, :, None], C[:, :, None],
+                    D[:, None], init, return_final_state)
+    if return_final_state:
+        y, fin = out
+        return y[:, :, 0], fin[:, 0]
+    return out[:, :, 0]
+
+
+def ssd_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, D: torch.Tensor, state: torch.Tensor, *,
+               out_state: torch.Tensor | None = None):
+    """One-token SSD recurrence on the stacked decode cache, in the shapes of
+    ``models.ssm.ssd_decode_step``: x (B, 1, H, P); dt (B, 1, H) f32; A, D
+    (H,) f32; B, C (B, 1, G, N); state (B, H, P, N) f32. Returns (y (B, 1,
+    H, P) in x's dtype, new state f32). With ``out_state`` the new state is
+    written there (it may be ``state`` itself: the slot states are updated
+    in place) and that tensor is returned."""
+    return _ssd_scan(x, dt, A, B, C, D, state, True, out_state)

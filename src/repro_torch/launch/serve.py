@@ -8,6 +8,13 @@ CPU smoke (plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
         --smoke --device cpu --fused
 
+Mamba-2 (``--arch mamba2-370m``; ``--fused`` adds the SSD scan kernel for
+the decode recurrence), on the H100 and as a CPU smoke:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --smoke --device cpu --fused
+
 Compute is bf16 on the card and f32 on the CPU. In FP4 mode each matrix is
 quantized as it is drawn, so full width never holds dense f32 weights.
 """

@@ -305,6 +305,16 @@ def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
+def tied_head(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Logits through the embedding table (tied embeddings): x and the table
+    rounded to the compute dtype, products summed in f32, f32 out, as the
+    reference's ``preferred_element_type=float32`` dot. A plain matmul: the
+    reference computes it outside any kernel. It upcasts the whole table on
+    every call."""
+    return torch.matmul(x.to(compute_dtype).to(torch.float32),
+                        params["table"].to(compute_dtype).to(torch.float32).T)
+
+
 def sinusoidal_positions(s: int, d: int, offset=0, device=None) -> torch.Tensor:
     pos = torch.arange(s, dtype=torch.float32, device=device)[:, None] + offset
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]

@@ -29,7 +29,6 @@ FAMILY_SMOKE = {
 
 #: families the port does not build yet, and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "ssm": "ROADMAP Queue 1 item 11 (Mamba-2, models/ssm.py)",
     "hybrid": "ROADMAP Queue 1 item 10 (Griffin, models/griffin.py)",
     "moe": "ROADMAP Queue 1 item 9 (the MoE family, models/moe.py)",
     "audio": "ROADMAP Queue 1 items 4-5 (sinusoidal positions and the "
@@ -52,6 +51,9 @@ def build_model(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
             f"yet; see {_NOT_PORTED[cfg.family]}")
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import Mamba2LM
+        return Mamba2LM(cfg)
     from repro_torch.models.transformer import TransformerLM
     return TransformerLM(cfg)
 

@@ -23,19 +23,6 @@ from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 
 
-def _index(tree, i: int):
-    """The i-th layer's view of a stacked param or cache tree."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 class TransformerLM:
     def __init__(self, cfg: ArchConfig):
         if (cfg.window or cfg.mrope_sections or cfg.n_codebooks or cfg.input_embeds
@@ -74,7 +61,8 @@ class TransformerLM:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         params = {
-            "layers": _stack([self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers)]),
+            "layers": cache_utils.stack_layers(
+                [self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers)]),
             "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
             "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=ccfg.compute_dtype,
                                   device=device),
@@ -92,9 +80,7 @@ class TransformerLM:
         cfg = self.cfg
         x = L.norm_apply(params["final_norm"], x, cfg.norm_type)
         if cfg.tie_embeddings:
-            cd = ccfg.compute_dtype
-            logits = torch.matmul(x.to(cd).to(torch.float32),
-                                  params["embed"]["table"].to(cd).to(torch.float32).T)
+            logits = L.tied_head(params["embed"], x, ccfg.compute_dtype)
         else:
             logits = cascade.linear_apply(params["lm_head"], x, ccfg)
         return logits.to(torch.float32)
@@ -114,7 +100,8 @@ class TransformerLM:
         """Full-sequence forward (no cache): logits (B, S, V) f32."""
         x = self._embed(params, batch)
         for i in range(self.cfg.n_layers):
-            x, _ = self._block(_index(params["layers"], i), x, ccfg, None, "full")
+            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, None,
+                               "full")
         return self._head(params, x, ccfg)
 
     # --------------------------------------------------------------- serving
@@ -132,17 +119,17 @@ class TransformerLM:
         x = self._embed(params, batch)
         caches = []
         for i in range(self.cfg.n_layers):
-            x, c = self._block(_index(params["layers"], i), x, ccfg, None, "prefill",
-                               max_len=max_len)
+            x, c = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, None,
+                               "prefill", max_len=max_len)
             caches.append(c)
-        return self._head(params, x[:, -1:], ccfg), {"layers": _stack(caches)}
+        return self._head(params, x[:, -1:], ccfg), {"layers": cache_utils.stack_layers(caches)}
 
     def decode_step(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig):
         """One token per row against ``cache`` (updated in place)."""
         x = self._embed(params, batch)
         for i in range(self.cfg.n_layers):
-            x, _ = self._block(_index(params["layers"], i), x, ccfg,
-                               _index(cache["layers"], i), "decode")
+            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
+                               cache_utils.layer_view(cache["layers"], i), "decode")
         return self._head(params, x, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
@@ -157,8 +144,9 @@ class TransformerLM:
         s = x.shape[1]
         nv = s if n_valid is None else n_valid
         for i in range(self.cfg.n_layers):
-            x, _ = self._block(_index(params["layers"], i), x, ccfg,
-                               _index(cache["layers"], i), "extend", n_valid=nv)
+            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
+                               cache_utils.layer_view(cache["layers"], i), "extend",
+                               n_valid=nv)
         x = x if all_logits else cache_utils.take_last_valid(x, nv)
         return self._head(params, x, ccfg), cache
 

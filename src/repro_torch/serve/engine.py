@@ -10,18 +10,21 @@ cache. Each step:
 2. **decode** -- ONE batched ``decode_step`` runs over the whole slot grid;
    idle slots compute masked garbage that never escapes;
 3. finished streams retire (eos, ``max_new_tokens`` or the context limit)
-   by freeing their slot.
+   by freeing their slot. A model with ``unbounded_context`` (Mamba-2: O(1)
+   recurrent state) has no context limit: no prompt is too long for it and
+   no stream retires on ``max_len``.
 
 The reference donates its cache to each jitted step; this engine updates
 the stacked cache IN PLACE instead (the model writes K/V rows and advances
 ``pos`` inside the tensors it is given), so the grid is allocated once.
 
-``fused=True`` sends every linear through the FP4 CUDA matmul and
-single-token attention through the CUDA decode-attention kernel
-(``kernels/ops.py``); on CPU tensors those wrappers run their plain
-versions. Not ported yet (the engine raises ``NotImplementedError`` when
-asked): speculative decode, sampling, the paged KV pool and prefix cache,
-CREST probes, the slot-wise loop and mesh serving.
+``fused=True`` sends every linear through the FP4 CUDA matmul, single-token
+attention through the CUDA decode-attention kernel and the Mamba-2 decode
+recurrence through the CUDA SSD scan kernel (``kernels/ops.py``); on CPU
+tensors those wrappers run their plain versions. Not ported yet (the engine
+raises ``NotImplementedError`` when asked): speculative decode, sampling,
+the paged KV pool and prefix cache, CREST probes, the slot-wise loop and
+mesh serving.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ class ServeConfig:
     token_budget: int = 0         # max prompt tokens admitted per step (0 = no cap)
     temperature: float = 0.0      # > 0 (sampling) is not ported: raises
     draft_len: int = 0            # > 0 (speculative decode) is not ported: raises
-    fused: bool = False           # CUDA kernels (FP4 matmul + decode attention)
+    fused: bool = False           # CUDA kernels (FP4 matmul, decode attention, SSD scan)
     paged: bool = False           # not ported: raises
     prefix_cache: bool = False    # not ported: raises
 
@@ -121,6 +124,9 @@ class ServeEngine:
                 self.fused = True
                 ccfg = dataclasses.replace(ccfg, use_kernel=True)
         self.ccfg = ccfg
+        # recurrent archs hold O(1) state: prompt length is not bounded by
+        # the cache, and there is no context-limit retire
+        self.ctx_unbounded = bool(getattr(model, "unbounded_context", False))
         # round the cache length up to a chunk multiple so padded chunk
         # writes never clamp into (and clobber) valid cache entries
         c = scfg.prefill_chunk
@@ -136,10 +142,12 @@ class ServeEngine:
 
     def _pop_admittable(self) -> Optional[Request]:
         """Next queued request; empty prompts and prompts too long for the
-        cache to hold with room for one generated token are rejected."""
+        cache to hold with room for one generated token are rejected (the
+        latter only where the context is bounded)."""
         while self.queue:
             req = self.queue.popleft()
-            if 0 < len(req.prompt) < self.scfg.max_len:
+            if len(req.prompt) > 0 and (self.ctx_unbounded
+                                        or len(req.prompt) < self.scfg.max_len):
                 return req
             req.done = True
             req.finished_at = time.monotonic()
@@ -214,7 +222,8 @@ class ServeEngine:
         if (len(req.tokens_out) >= req.max_new_tokens
                 or nxt == self.scfg.eos_id
                 # context limit: the next write would fall outside the cache
-                or used >= self.scfg.max_len):
+                # (never fires for recurrent archs: their state is O(1))
+                or (not self.ctx_unbounded and used >= self.scfg.max_len)):
             req.done = True
             req.finished_at = time.monotonic()
             self._retired.append(req)

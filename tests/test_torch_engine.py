@@ -1,8 +1,9 @@
-"""The port's greedy batched engine against the JAX ServeEngine(fused=True).
+"""The port's greedy batched engine against the JAX ServeEngine.
 
 Both engines serve the reference's own FP4 weights (carried across through
 ``convert.params_from_numpy``) in f32, so near-tie logits do not flip, and
-must emit the same greedy token streams. The JAX engine runs its Pallas
+must emit the same greedy token streams: codeqwen (dense transformer) with
+``fused=True``, Mamba-2 with and without it. The JAX engine runs its Pallas
 kernels in interpret mode; the port's wrappers run their plain versions on
 the CPU tensors.
 """
@@ -40,6 +41,17 @@ def models():
     return cfg, jm, jp, tm, tp
 
 
+@pytest.fixture(scope="module")
+def mamba_models():
+    cfg, jm = jregistry.load("mamba2-370m", smoke=True)
+    jp = jcascade.tree_to_serve_fp4(
+        jm.init_params(jax.random.PRNGKey(0),
+                       JCascadeConfig(mode="train", compute_dtype=jnp.float32)), J_FP4)
+    _, tm = registry.load("mamba2-370m", smoke=True)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return cfg, jm, jp, tm, tp
+
+
 def _prompts(cfg, lens, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
@@ -56,15 +68,16 @@ def _serve(eng, mod, prompts, max_new, waves=None):
     return reqs
 
 
-def _both(models, prompts, max_new, waves=None, **scfg):
+def _both(models, prompts, max_new, waves=None, fused=True, **scfg):
     cfg, jm, jp, tm, tp = models
-    jeng = jengine.ServeEngine(jm, jp, J_FP4, jengine.ServeConfig(fused=True, **scfg))
-    teng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(fused=True, **scfg),
+    jeng = jengine.ServeEngine(jm, jp, J_FP4, jengine.ServeConfig(fused=fused, **scfg))
+    teng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(fused=fused, **scfg),
                                device="cpu")
     jr = _serve(jeng, jengine, prompts, max_new, waves)
     tr = _serve(teng, tengine, prompts, max_new, waves)
-    assert jeng.fused and teng.fused
-    assert teng.effective_mode == jeng.effective_mode == "batched-greedy-fused"
+    assert jeng.fused == teng.fused == fused
+    assert teng.effective_mode == jeng.effective_mode == \
+        "batched-greedy" + ("-fused" if fused else "")
     return jeng, jr, teng, tr
 
 
@@ -136,6 +149,34 @@ def test_context_limit_retires_before_the_cache_overflows(models):
                                max_batch=2, max_len=16, prefill_chunk=8)
     assert _streams(tr) == _streams(jr)
     assert [len(r.prompt) + len(r.tokens_out) for r in tr] == [16, 16]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_mamba_greedy_streams_equal_jax_engine_over_two_waves(mamba_models, fused):
+    """Mamba-2: chunked admission of ragged prompts (padded chunks), slot
+    reuse by a second wave, the same greedy streams and step counts."""
+    cfg = mamba_models[0]
+    prompts = _prompts(cfg, [9, 14, 5, 11, 7], seed=6)
+    jeng, jr, teng, tr = _both(mamba_models, prompts, 8, waves=[[0, 1, 2], [3, 4]],
+                               fused=fused, max_batch=2, max_len=32, prefill_chunk=8)
+    assert _streams(tr) == _streams(jr)
+    assert all(len(r.tokens_out) == 8 and r.done for r in tr)
+    tm, jm = teng.metrics(), jeng.metrics()
+    for key in ("steps", "decode_tokens", "requests_finished", "requests_rejected"):
+        assert tm[key] == jm[key], key
+    np.testing.assert_array_equal(teng.cache["pos"].numpy(), np.asarray(jeng.cache["pos"]))
+
+
+def test_mamba_has_no_context_limit(mamba_models):
+    """A recurrent model holds O(1) state: a 30-token prompt at max_len 16 is
+    admitted (no rejection) and runs to max_new past the limit, as in the
+    reference."""
+    cfg = mamba_models[0]
+    jeng, jr, teng, tr = _both(mamba_models, _prompts(cfg, [30], seed=7), 5,
+                               max_batch=1, max_len=16, prefill_chunk=8)
+    assert tr[0].done and len(tr[0].tokens_out) == 5
+    assert teng.metrics()["requests_rejected"] == 0
+    assert _streams(tr) == _streams(jr)
 
 
 @pytest.mark.parametrize("opt", [dict(draft_len=2), dict(temperature=0.5), dict(paged=True),

@@ -16,6 +16,7 @@ from repro_torch.core.cascade import CascadeConfig
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import registry
 from repro_torch.serve import engine
 
@@ -96,29 +97,125 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
                              torch.ones((1, 4), device=cuda, dtype=torch.bool))
 
 
+# (Bt, S, H, P, G, N, carry): the serving decode step (8 slots x 32 heads of
+# P=64, N=128, state carried), G > 1, S > 1 with and without an initial
+# state, P off the 8-warp row split and N below a warp's 128 columns
+SCAN_CASES = [(8, 1, 32, 64, 1, 128, True), (4, 1, 8, 64, 2, 128, True),
+              (2, 37, 4, 32, 1, 16, True), (2, 37, 4, 32, 1, 16, False),
+              (3, 5, 6, 48, 3, 64, True)]
+
+
+def _scan_inputs(cuda, bt, s, h, p, g, n, dtype, seed):
+    """x, B and C as strided views of one (Bt, S, H*P + 2*G*N) buffer, as the
+    model hands them over from its conv output."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+    xbc = torch.randn((bt, s, h * p + 2 * g * n), generator=gen, device=cuda).to(dt_)
+    x = xbc[..., :h * p].reshape(bt, s, h, p)
+    B = xbc[..., h * p:h * p + g * n].reshape(bt, s, g, n)
+    C = xbc[..., h * p + g * n:].reshape(bt, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((bt, s, h), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=cuda) * 0.3)
+    D = torch.randn((h,), generator=gen, device=cuda)
+    state = torch.randn((bt, h, p, n), generator=gen, device=cuda)
+    return x, dt, A, B, C, D, state
+
+
+@pytest.mark.parametrize("bt,s,h,p,g,n,carry", SCAN_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_scan_cuda_matches_plain(cuda, bt, s, h, p, g, n, carry, dtype):
+    """The state update is the same elementwise f32 arithmetic (no FMA
+    contraction, expf as torch.exp): state within 1e-5. The readout sums
+    over N in another order: y within 1e-5 in f32, and within one bf16
+    step (2^-7 relative) when y is bf16."""
+    x, dt, A, B, C, D, state = _scan_inputs(cuda, bt, s, h, p, g, n, dtype, bt * 100 + s)
+    init = state if carry else None
+    ops.reset_launch_counts()
+    gy, gs = tssd.ssd_scan_cuda(x, dt, A, B, C, D, init, True)
+    torch.cuda.synchronize()
+    wy, ws = tssd.ssd_scan_plain(x, dt, A, B, C, D, init, True)
+    assert gy.dtype == x.dtype and gy.shape == (bt, s, h, p) and gs.shape == (bt, h, p, n)
+    torch.testing.assert_close(gs, ws, atol=1e-5, rtol=1e-5)
+    ytol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=1e-5, rtol=2 ** -7)
+    torch.testing.assert_close(gy.float(), wy.float(), **ytol)
+    # the state written in place over the initial one equals the out-of-place result
+    if carry:
+        inplace = state.clone()
+        y2, s2 = ops.ssd_decode(x, dt, A, B, C, D, inplace, out_state=inplace) if s == 1 \
+            else tssd.ssd_scan_cuda(x, dt, A, B, C, D, inplace, True, inplace)
+        torch.cuda.synchronize()
+        assert s2 is inplace and torch.equal(inplace, gs) and torch.equal(y2, gy)
+    assert ops.LAUNCHES["ssd_scan"] == (1 if carry and s == 1 else 0)
+
+
+def test_ssd_scan_wrapper_matches_reference_layout(cuda):
+    """ops.ssd_scan takes the reference's (BH, S, P) layout with per-head A,
+    D, B and C and launches the kernel."""
+    x, dt, A, B, C, D, state = _scan_inputs(cuda, 6, 9, 1, 64, 1, 128, "float32", 5)
+    ops.reset_launch_counts()
+    y, fin = ops.ssd_scan(x[:, :, 0], dt[:, :, 0], A.expand(6), B[:, :, 0], C[:, :, 0],
+                          D.expand(6), initial_state=state[:, 0], return_final_state=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    wy, ws = tssd.ssd_scan_plain(x, dt, A, B, C, D, state, True)
+    torch.testing.assert_close(y, wy[:, :, 0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(fin, ws[:, 0], atol=1e-5, rtol=1e-5)
+
+
+def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C, D, state = _scan_inputs(cuda, 2, 1, 4, 64, 1, 128, "bfloat16", 6)
+    with pytest.raises(ValueError, match="unsupported"):           # P > 64
+        big = torch.zeros((2, 1, 4, 65), device=cuda, dtype=torch.bfloat16)
+        ops.ssd_decode(big, dt, A, B, C, D, torch.zeros((2, 4, 65, 128), device=cuda))
+    with pytest.raises(ValueError, match="unsupported"):           # N not a multiple of 4
+        odd = torch.zeros((2, 1, 1, 126), device=cuda, dtype=torch.bfloat16)
+        ops.ssd_decode(x, dt, A, odd, odd, D, torch.zeros((2, 4, 64, 126), device=cuda))
+    with pytest.raises(ValueError, match="share bf16 or f32"):
+        ops.ssd_decode(x.half(), dt, A, B.half(), C.half(), D, state)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        ops.ssd_decode(x, dt, A, B, C, D, state.transpose(2, 3))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(state.numel() + 1, device=cuda)
+        ops.ssd_decode(x, dt, A, B, C, D, flat[1:].view(state.shape))
+    with pytest.raises(ValueError, match="dt must be f32"):
+        ops.ssd_decode(x, dt.bfloat16(), A, B, C, D, state)
+
+
+# the kernels each smoke model's fused path launches
+PATH_KERNELS = {"codeqwen1.5-7b": {"cascade_matmul", "decode_attention"},
+                "mamba2-370m": {"cascade_matmul", "ssd_scan"}}
+
+
 def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
     """At bf16 on the card the fused engine (CUDA kernels) emits the greedy
     streams of the same engine with its wrappers sent to the kernels' plain
-    versions on a smoke config, and really launches both kernels."""
-    cfg, model = registry.load("codeqwen1.5-7b", smoke=True)
-    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
-    params = model.init_params(0, ccfg, device=cuda)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (10, 23, 7)]
-    streams = {}
-    for route in ("kernel", "plain"):
-        if route == "plain":
-            monkeypatch.setattr(tcm, "cascade_matmul_cuda", tcm.cascade_matmul_plain)
-            monkeypatch.setattr(tda, "decode_attention_cuda", tda.decode_attention_plain)
-        eng = engine.ServeEngine(model, params, ccfg,
-                                 engine.ServeConfig(max_batch=2, max_len=40, prefill_chunk=8,
-                                                    fused=True), device=cuda)
-        reqs = [engine.Request(uid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(prompts)]
-        ops.reset_launch_counts()
-        for r in reqs:
-            eng.submit(r)
-        eng.run_until_drained()
-        streams[route] = [r.tokens_out for r in reqs]
-        if route == "kernel":
-            assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
-    assert streams["kernel"] == streams["plain"]
+    versions, on the dense and the Mamba-2 smoke configs, and launches
+    exactly the kernels of each path."""
+    for arch, kernels in PATH_KERNELS.items():
+        cfg, model = registry.load(arch, smoke=True)
+        ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+        params = model.init_params(0, ccfg, device=cuda)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (10, 23, 7)]
+        streams = {}
+        for route in ("kernel", "plain"):
+            if route == "plain":
+                monkeypatch.setattr(tcm, "cascade_matmul_cuda", tcm.cascade_matmul_plain)
+                monkeypatch.setattr(tda, "decode_attention_cuda", tda.decode_attention_plain)
+                monkeypatch.setattr(tssd, "ssd_scan_cuda", tssd.ssd_scan_plain)
+            eng = engine.ServeEngine(model, params, ccfg,
+                                     engine.ServeConfig(max_batch=2, max_len=40,
+                                                        prefill_chunk=8, fused=True),
+                                     device=cuda)
+            reqs = [engine.Request(uid=i, prompt=p, max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+            ops.reset_launch_counts()
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            streams[route] = [r.tokens_out for r in reqs]
+            if route == "kernel":
+                assert {k for k, n in ops.LAUNCHES.items() if n > 0} == kernels, \
+                    (arch, ops.LAUNCHES)
+        monkeypatch.undo()
+        assert streams["kernel"] == streams["plain"], arch

@@ -60,11 +60,12 @@ def test_entry_points_default_to_cuda_and_raise_without_one(monkeypatch):
     from repro_torch.core.cascade import CascadeConfig
     from repro_torch.models import registry
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, model = registry.load("codeqwen1.5-7b", smoke=True)
-    with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        model.init_params(0, CascadeConfig(mode="serve_fp4"))
-    with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        model.init_cache(1, 8)
+    for arch in ("codeqwen1.5-7b", "mamba2-370m"):
+        _, model = registry.load(arch, smoke=True)
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            model.init_params(0, CascadeConfig(mode="serve_fp4"))
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            model.init_cache(1, 8)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         params_from_numpy({"w": [1.0]})
 

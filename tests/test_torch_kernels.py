@@ -2,7 +2,10 @@
 
 On the CPU the plain versions are held to ``repro.kernels.ops`` (Pallas in
 interpret mode) and ``repro.kernels.ref`` at atol/rtol 1e-5 in f32: the
-same products summed in another order. ``test_torch_gpu.py`` holds each
+same products summed in another order. For the SSD scan the state update is
+elementwise (the same f32 operations, exp to within an ulp) and only the
+readout ``state @ C`` sums over N in another order, so it is held at
+atol/rtol 1e-5 too, over up to 128 carried steps. ``test_torch_gpu.py`` holds each
 CUDA kernel to its plain version on the card.
 """
 import pytest
@@ -19,6 +22,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_scan as tssd
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -74,7 +78,7 @@ def test_cascade_matmul_wrapper_flattens_leading_dims_and_counts_no_cpu_launch()
     xp = torch.nn.functional.pad(_t(x), (0, 1))
     want = tcm.cascade_matmul_plain(xp, _t(packed), _t(scales), _t(bias), torch.bfloat16)
     assert torch.equal(got.reshape(6, 20), want)
-    assert tops.LAUNCHES == {"cascade_matmul": 0, "decode_attention": 0}
+    assert tops.LAUNCHES == {"cascade_matmul": 0, "decode_attention": 0, "ssd_scan": 0}
 
 
 def _attn_case(b, hq, hkv, t, d, seed=0):
@@ -123,3 +127,109 @@ def test_wrappers_refuse_devices_without_a_route():
     with pytest.raises(ValueError, match="CUDA"):
         tda.decode_attention_cuda(torch.zeros(1, 2, 4), torch.zeros(1, 3, 2, 4),
                                   torch.zeros(1, 3, 2, 4), torch.ones(1, 3, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan_cuda(torch.zeros(1, 1, 2, 4), torch.zeros(1, 1, 2), torch.zeros(2),
+                           torch.zeros(1, 1, 1, 4), torch.zeros(1, 1, 1, 4), torch.ones(2))
+    with pytest.raises(ValueError, match="no kernel route"):
+        tops.ssd_scan(torch.zeros(2, 3, 4, device="meta"), torch.zeros(2, 3, device="meta"),
+                      torch.zeros(2, device="meta"), torch.zeros(2, 3, 4, device="meta"),
+                      torch.zeros(2, 3, 4, device="meta"), torch.ones(2, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (Mamba-2)
+# ---------------------------------------------------------------------------
+
+def _scan_case(bh, s, p, n, seed):
+    """The reference's ssd_scan test inputs (tests/test_kernels.py), from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bh, s, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((bh, s)))).astype(np.float32)   # softplus
+    A = (-np.exp(rng.standard_normal(bh) * 0.3)).astype(np.float32)
+    B = (rng.standard_normal((bh, s, n)) * 0.3).astype(np.float32)
+    C = (rng.standard_normal((bh, s, n)) * 0.3).astype(np.float32)
+    D = rng.standard_normal(bh).astype(np.float32)
+    s0 = rng.standard_normal((bh, p, n)).astype(np.float32)
+    return x, dt, A, B, C, D, s0
+
+
+SCAN_CASES = [(2, 64, 8, 4, 16), (4, 128, 16, 8, 32), (1, 32, 32, 16, 32)]
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk", SCAN_CASES)
+def test_ssd_scan_plain_matches_jax(bh, s, p, n, chunk):
+    x, dt, A, B, C, D, _ = _scan_case(bh, s, p, n, seed=bh * 31 + s)
+    args = [jnp.asarray(a) for a in (x, dt, A, B, C, D)]
+    want_kernel = np.asarray(jops.ssd_scan(*args, chunk=chunk, interpret=True))
+    want_ref = np.asarray(jax.vmap(lambda xx, dd, aa, bb, cc, ddk: jref.ssd_scan_ref(
+        xx[:, None, :], dd[:, None], aa[None], bb[:, None, :], cc[:, None, :],
+        ddk[None])[:, 0, :])(*args))
+    got = tops.ssd_scan(*[_t(a) for a in (x, dt, A, B, C, D)])
+    assert got.shape == (bh, s, p) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_kernel, **TOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk", SCAN_CASES)
+@pytest.mark.parametrize("with_initial", [False, True])
+def test_ssd_scan_plain_carries_state_like_pallas(bh, s, p, n, chunk, with_initial):
+    """Initial state in and final state out, against ssd_scan_pallas in
+    interpret mode; and the state carried across a split of S gives the
+    unsplit run."""
+    from repro.kernels.ssd_scan import ssd_scan_pallas
+
+    x, dt, A, B, C, D, s0 = _scan_case(bh, s, p, n, seed=bh * 7 + s)
+    init = s0 if with_initial else None
+    wy, ws = ssd_scan_pallas(*[jnp.asarray(a) for a in (x, dt, A, B, C, D)], chunk=chunk,
+                             interpret=True, return_final_state=True,
+                             initial_state=None if init is None else jnp.asarray(init))
+    targs = [_t(a) for a in (x, dt, A, B, C, D)]
+    tinit = None if init is None else _t(init)
+    gy, gs = tops.ssd_scan(*targs, initial_state=tinit, return_final_state=True)
+    assert gs.dtype == torch.float32 and gs.shape == (bh, p, n)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **TOL)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), **TOL)
+    half = s // 2
+    xs, dts, bs, cs = targs[0], targs[1], targs[3], targs[4]
+    y1, s1 = tops.ssd_scan(xs[:, :half], dts[:, :half], targs[2], bs[:, :half], cs[:, :half],
+                           targs[5], initial_state=tinit, return_final_state=True)
+    y2, s2 = tops.ssd_scan(xs[:, half:], dts[:, half:], targs[2], bs[:, half:], cs[:, half:],
+                           targs[5], initial_state=s1, return_final_state=True)
+    assert torch.equal(torch.cat([y1, y2], dim=1), gy) and torch.equal(s2, gs)
+    if init is not None:                 # no final state asked: y alone, input untouched
+        assert torch.equal(tops.ssd_scan(*targs, initial_state=tinit), gy)
+        assert torch.equal(tinit, _t(s0))
+
+
+def _decode_case(b, h, p, g, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 1, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, 1, h)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    B = (rng.standard_normal((b, 1, g, n)) * 0.3).astype(np.float32)
+    C = (rng.standard_normal((b, 1, g, n)) * 0.3).astype(np.float32)
+    D = rng.standard_normal(h).astype(np.float32)
+    state = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return x, dt, A, B, C, D, state
+
+
+@pytest.mark.parametrize("b,h,p,g,n", [(3, 4, 16, 1, 8), (2, 4, 8, 2, 16), (8, 8, 64, 1, 128)])
+def test_ssd_decode_matches_jax_over_carried_steps(b, h, p, g, n):
+    """ops.ssd_decode (the serving decode step: the scan at S = 1 on the slot
+    states) against the JAX ops.ssd_decode, carrying the state four steps;
+    the in-place write equals the returned state."""
+    x, dt, A, B, C, D, state = _decode_case(b, h, p, g, n, seed=b * 10 + g)
+    jstate, tstate = jnp.asarray(state), _t(state)
+    for _ in range(4):
+        wy, ws = jops.ssd_decode(*[jnp.asarray(a) for a in (x, dt, A, B, C, D)], jstate,
+                                 interpret=True)
+        gy, gs = tops.ssd_decode(*[_t(a) for a in (x, dt, A, B, C, D)], tstate)
+        assert gy.shape == (b, 1, h, p) and gs.shape == (b, h, p, n)
+        np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **TOL)
+        np.testing.assert_allclose(gs.numpy(), np.asarray(ws), **TOL)
+        inplace = tstate.clone()
+        gy2, gs2 = tops.ssd_decode(*[_t(a) for a in (x, dt, A, B, C, D)], inplace,
+                                   out_state=inplace)
+        assert gs2 is inplace and torch.equal(inplace, gs) and torch.equal(gy2, gy)
+        jstate, tstate = ws, gs
+    assert tops.LAUNCHES["ssd_scan"] == 0        # CPU tensors never launch

@@ -47,13 +47,36 @@ def test_encode_and_round_match_reference_on_every_midpoint():
 
 
 def test_round_keeps_nan_like_reference_grid_rounding(monkeypatch):
-    """The reference's grid rounding propagates NaN and saturates; its
-    native-dtype path (taken when jax has float4_e2m1fn) maps NaN to -0
-    instead -- the port follows the documented grid rounding."""
+    """The reference's grid-rounding fallback (taken when jax lacks
+    float4_e2m1fn) saturates like the port on +/-inf and large values; on NaN
+    it keeps NaN, where the port follows the native cast the reference takes
+    on current jax (NaN -> -0, see the test below)."""
     monkeypatch.setattr(jq, "HAS_NATIVE_FP4", False)
     x = np.array([np.nan, -np.nan, np.inf, -np.inf, 6.5, -1e9, 0.3], np.float32)
-    np.testing.assert_array_equal(tq.fp4_round(_t(x)).numpy(),
-                                  np.asarray(jq.fp4_round(jnp.asarray(x))))
+    want = np.asarray(jq.fp4_round(jnp.asarray(x)))
+    got = tq.fp4_round(_t(x)).numpy()
+    np.testing.assert_array_equal(got[2:], want[2:])
+    assert np.isnan(want[:2]).all()
+    assert (got[:2] == 0).all() and np.signbit(got[:2]).all()
+
+
+def test_round_and_encode_match_reference_as_installed_on_nan_and_inf():
+    """E2M1 has no NaN: the reference's native ``float4_e2m1fn`` cast rounds
+    a NaN of either sign to -0, and ``fp4_encode`` then takes the sign bit of
+    the input (+NaN -> code 0, -NaN -> code 8). Held against the reference as
+    it runs here, and against the pinned values whatever jax is installed."""
+    x = np.array([np.nan, -np.nan, np.inf, -np.inf, 7.0, -7.0, 0.0, -0.0], np.float32)
+    got_round = tq.fp4_round(_t(x)).numpy()
+    got_code = tq.fp4_encode(_t(x)).numpy()
+    want_round = np.array([-0.0, -0.0, 6.0, -6.0, 6.0, -6.0, 0.0, -0.0], np.float32)
+    np.testing.assert_array_equal(got_round, want_round)
+    np.testing.assert_array_equal(np.signbit(got_round), np.signbit(want_round))
+    np.testing.assert_array_equal(got_code, [0, 8, 7, 15, 7, 15, 0, 8])
+    if jq.HAS_NATIVE_FP4:
+        ref_round = np.asarray(jq.fp4_round(jnp.asarray(x)))
+        np.testing.assert_array_equal(got_round, ref_round)
+        np.testing.assert_array_equal(np.signbit(got_round), np.signbit(ref_round))
+        np.testing.assert_array_equal(got_code, np.asarray(jq.fp4_encode(jnp.asarray(x))))
 
 
 def test_pack_unpack_match_reference():

@@ -1,0 +1,228 @@
+"""The port's Mamba-2 (``repro_torch.models.ssm``) against the JAX package's.
+
+Inputs come from numpy seeds; model weights are the reference's own params,
+carried across leaf by leaf through ``convert.params_from_numpy``. Everything
+runs in f32 at the smoke size (2 layers, d_model 64, 4 heads of 32, N=16,
+vocab 256). Tolerances:
+
+* SSD primitives (``ssd_chunked``, ``ssd_decode_step``) and the conv
+  helpers: atol/rtol 1e-5. The same f32 operations; einsums and the conv's
+  shifted adds sum in another order, and exp may differ by an ulp.
+* Model logits and caches: atol/rtol 1e-4, as the transformer tests hold
+  them: two layers of those differences, through norms and FP4 matmuls.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core import cascade as jcascade
+from repro.core.cascade import CascadeConfig as JCascadeConfig
+from repro.models import registry as jregistry
+from repro.models import ssm as jssm
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.cascade import CascadeConfig
+from repro_torch.models import registry
+from repro_torch.models import ssm as tssm
+from repro_torch.models.ssm import Mamba2LM
+
+jax.config.update("jax_platform_name", "cpu")
+
+PRIM_TOL = dict(atol=1e-5, rtol=1e-5)
+TOL = dict(atol=1e-4, rtol=1e-4)
+J_TRAIN = JCascadeConfig(mode="train", compute_dtype=jnp.float32)
+J_FP4 = JCascadeConfig(mode="serve_fp4", compute_dtype=jnp.float32)
+T_FP4 = CascadeConfig(mode="serve_fp4", compute_dtype=torch.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(t, j, tol=TOL):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **tol)
+
+
+def _close_cache(tc, jc):
+    for name in ("conv", "state"):
+        _close(tc["layers"][name], jc["layers"][name])
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+def _to_torch(tree):
+    return params_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
+
+
+def _pair(groups=1):
+    """(cfg, JAX model, JAX FP4 params, port model, port params) at smoke size."""
+    cfg = dataclasses.replace(jregistry.get_config("mamba2-370m", smoke=True),
+                              ssm_groups=groups)
+    jm = jssm.Mamba2LM(cfg)
+    jp = jcascade.tree_to_serve_fp4(jm.init_params(jax.random.PRNGKey(0), J_TRAIN), J_FP4)
+    tm = Mamba2LM(dataclasses.replace(registry.get_config("mamba2-370m", smoke=True),
+                                      ssm_groups=groups))
+    return cfg, jm, jp, tm, _to_torch(jp)
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["G1", "G2"])
+def mamba(request):
+    return _pair(request.param)
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# SSD primitives and the conv helpers
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(b, s, h, p, g, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    B = (rng.standard_normal((b, s, g, n)) * 0.3).astype(np.float32)
+    C = (rng.standard_normal((b, s, g, n)) * 0.3).astype(np.float32)
+    D = rng.standard_normal(h).astype(np.float32)
+    s0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return x, dt, A, B, C, D, s0
+
+
+@pytest.mark.parametrize("s,chunk,g", [(21, 8, 1), (16, 8, 2), (5, 16, 1)])
+@pytest.mark.parametrize("with_initial", [False, True])
+def test_ssd_chunked_matches_jax(s, chunk, g, with_initial):
+    """The dual form, padded to a chunk multiple (s=21 at chunk 8), with and
+    without an initial state."""
+    x, dt, A, B, C, D, s0 = _ssd_inputs(2, s, 4, 8, g, 16, seed=s + g)
+    init = s0 if with_initial else None
+    wy, ws = jssm.ssd_chunked(*[jnp.asarray(a) for a in (x, dt, A, B, C, D)], chunk,
+                              initial_state=None if init is None else jnp.asarray(init))
+    gy, gs = tssm.ssd_chunked(*[_t(a) for a in (x, dt, A, B, C, D)], chunk,
+                              initial_state=None if init is None else _t(init))
+    assert gy.shape == (2, s, 4, 8) and gs.shape == (2, 4, 8, 16)
+    _close(gy, wy, PRIM_TOL)
+    _close(gs, ws, PRIM_TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_decode_step_matches_jax(g):
+    x, dt, A, B, C, D, s0 = _ssd_inputs(3, 1, 4, 8, g, 16, seed=40 + g)
+    args = (x, dt, A, B, C, D, s0)
+    wy, ws = jssm.ssd_decode_step(*[jnp.asarray(a) for a in args])
+    gy, gs = tssm.ssd_decode_step(*[_t(a) for a in args])
+    _close(gy, wy, PRIM_TOL)
+    _close(gs, ws, PRIM_TOL)
+
+
+def test_conv_helpers_match_jax():
+    rng = np.random.default_rng(5)
+    b, s, dim, width = 2, 7, 12, 4
+    x = rng.standard_normal((b, s, dim)).astype(np.float32)
+    w = (rng.standard_normal((width, dim)) * 0.1).astype(np.float32)
+    bias = rng.standard_normal(dim).astype(np.float32)
+    st = rng.standard_normal((b, width - 1, dim)).astype(np.float32)
+    J, T = (lambda *a: [jnp.asarray(v) for v in a]), (lambda *a: [_t(v) for v in a])
+
+    _close(tssm._causal_conv(*T(x, w, bias)), jssm._causal_conv(*J(x, w, bias)), PRIM_TOL)
+
+    wy, ws = jssm._conv_decode(*J(x[:, :1], st, w, bias))
+    gy, gs = tssm._conv_decode(*T(x[:, :1], st, w, bias))
+    _close(gy, wy, PRIM_TOL)
+    _close(gs, ws, PRIM_TOL)
+
+    for nv in (None, 3, s):
+        wy, ws, wf = jssm._conv_extend(*J(x, st, w, bias), n_valid=nv)
+        gy, gs, gf = tssm._conv_extend(*T(x, st, w, bias), n_valid=nv)
+        _close(gy, wy, PRIM_TOL)
+        _close(gs, ws, PRIM_TOL)
+        _close(gf, wf, PRIM_TOL)
+
+    for n in (2, s):                     # shorter than the receptive field, and longer
+        _close(tssm.conv_prefill_state(_t(x[:, :n]), width),
+               jssm.conv_prefill_state(jnp.asarray(x[:, :n]), width), PRIM_TOL)
+
+
+def test_conv_state_is_stored_in_the_cache_dtype():
+    """A bf16 conv cache: the input is rounded through the cache dtype and
+    the advanced state is stored back in it, as the reference does."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 1, 8)).astype(np.float32)
+    w = rng.standard_normal((4, 8)).astype(np.float32)
+    st = rng.standard_normal((2, 3, 8)).astype(np.float32)
+    wy, ws = jssm._conv_decode(jnp.asarray(x), jnp.asarray(st).astype(jnp.bfloat16),
+                               jnp.asarray(w), jnp.zeros(8))
+    gy, gs = tssm._conv_decode(_t(x), _t(st).to(torch.bfloat16), _t(w), torch.zeros(8))
+    assert gs.dtype == torch.bfloat16
+    np.testing.assert_array_equal(gs.float().numpy(), np.asarray(ws.astype(jnp.float32)))
+    _close(gy, wy, PRIM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2LM
+# ---------------------------------------------------------------------------
+
+def test_forward_matches_jax(mamba):
+    cfg, jm, jp, tm, tp = mamba
+    toks = _tokens(cfg, 2, 13)
+    want = jm.forward(jp, {"tokens": jnp.asarray(toks)}, J_FP4)
+    got = tm.forward(tp, {"tokens": _t(toks)}, T_FP4)
+    assert got.shape == (2, 13, cfg.vocab) and got.dtype == torch.float32
+    _close(got, want)
+
+
+def test_prefill_and_decode_match_jax(mamba):
+    """prefill's logits and cache, then three decode steps (state updated in
+    place) through the plain recurrence and through the kernel wrapper."""
+    cfg, jm, jp, tm, tp = mamba
+    toks = _tokens(cfg, 3, 11, seed=1)
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4)
+    tl, tc = tm.prefill(tp, {"tokens": _t(toks)}, T_FP4)
+    _close(tl, jl)
+    _close_cache(tc, jc)
+    for use_kernel in (False, True):
+        jcc = dataclasses.replace(J_FP4, use_kernel=use_kernel)
+        tcc = dataclasses.replace(T_FP4, use_kernel=use_kernel)
+        jcache, tcache = jc, _to_torch(jc)
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(np.int32)
+        for _ in range(3):
+            jl2, jcache = jm.decode_step(jp, {"tokens": jnp.asarray(nxt)}, jcache, jcc)
+            tl2, tcache2 = tm.decode_step(tp, {"tokens": _t(nxt)}, tcache, tcc)
+            assert tcache2 is tcache                  # updated in place
+            _close(tl2, jl2)
+            _close_cache(tcache, jcache)
+            nxt = np.asarray(jnp.argmax(jl2[:, -1], axis=-1))[:, None].astype(np.int32)
+
+
+def test_prefill_extend_matches_jax(mamba):
+    """Chunked admission: a full chunk, then a right-padded one (n_valid <
+    chunk, whose padded steps leave the state untouched), then a decode."""
+    cfg, jm, jp, tm, tp = mamba
+    toks = _tokens(cfg, 1, 16, seed=2)
+    jc = jm.init_cache(1, 32, dtype=jnp.float32)
+    tc = tm.init_cache(1, 32, dtype=torch.float32, device="cpu")
+    for lo, nv in ((0, 8), (8, 5)):
+        chunk = np.zeros((1, 8), np.int32)
+        chunk[0, :nv] = toks[0, lo:lo + nv]
+        jl, jc = jm.prefill_extend(jp, {"tokens": jnp.asarray(chunk)}, jc, J_FP4, n_valid=nv)
+        tl, tc2 = tm.prefill_extend(tp, {"tokens": _t(chunk)}, tc, T_FP4, n_valid=nv)
+        assert tc2 is tc and tl.shape == (1, 1, cfg.vocab)
+        _close(tl, jl)
+        _close_cache(tc, jc)
+    # the padded chunk left the state where a 13-token prefill leaves it
+    _, pc = tm.prefill(tp, {"tokens": _t(toks[:, :13])}, T_FP4)
+    _close(tc["layers"]["state"], pc["layers"]["state"].detach().numpy())
+    nxt = np.array([[7]], np.int32)
+    jl, jc = jm.decode_step(jp, {"tokens": jnp.asarray(nxt)}, jc, J_FP4)
+    tl, tc = tm.decode_step(tp, {"tokens": _t(nxt)}, tc, T_FP4)
+    _close(tl, jl)
+    _close_cache(tc, jc)
+
+
+def test_unbounded_context_flag():
+    assert Mamba2LM.unbounded_context and jssm.Mamba2LM.unbounded_context

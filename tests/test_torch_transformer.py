@@ -217,11 +217,40 @@ def test_cache_at_and_write_cache_address_the_slot_axis(codeqwen):
         assert not grid["layers"][name][:, 0].any() and not grid["layers"][name][:, 2].any()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b", "deepseek-v2-236b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-v2-236b",
                                   "musicgen-large", "qwen2-vl-2b"])
 def test_registry_names_the_roadmap_item_for_unported_families(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.load(arch, smoke=True)
+
+
+def test_registry_builds_mamba2_whose_cache_has_the_stated_slot_axes():
+    """The ssm family builds a Mamba2LM; every leaf of its cache carries the
+    slot axis ``cache_utils`` states (``LAYER_SLOT_AXIS`` under ``layers``,
+    ``TOP_SLOT_AXIS`` for ``pos`` beside it): the only axis that changes with
+    the batch, and what ``cache_at``/``write_cache`` address."""
+    from repro_torch.models.ssm import Mamba2LM
+    cfg, model = registry.load("mamba2-370m", smoke=True)
+    assert isinstance(model, Mamba2LM) and model.unbounded_context
+    small = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
+    big = model.init_cache(3, 8, dtype=torch.float32, device="cpu")
+    assert set(big) == {"layers", "pos"} and set(big["layers"]) == {"conv", "state"}
+    flat = [(("layers", "conv"), tcache.LAYER_SLOT_AXIS),
+            (("layers", "state"), tcache.LAYER_SLOT_AXIS), (("pos",), tcache.TOP_SLOT_AXIS)]
+    for path, ax in flat:
+        a, b = small, big
+        for key in path:
+            a, b = a[key], b[key]
+        assert [i for i, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n] == [ax], path
+    sub = model.init_cache(1, 8, dtype=torch.float32, device="cpu")
+    for leaf in (*sub["layers"].values(), sub["pos"]):
+        leaf.copy_(torch.arange(leaf.numel()).reshape(leaf.shape).to(leaf.dtype) + 1)
+    model.write_cache(big, sub, 1)
+    view = tcache.cache_at(big, 1)
+    for name in ("conv", "state"):
+        assert torch.equal(view["layers"][name], sub["layers"][name])
+        assert not big["layers"][name][:, 0].any() and not big["layers"][name][:, 2].any()
+    assert big["pos"].tolist() == [0, 1, 0] and torch.equal(view["pos"], sub["pos"])
 
 
 def test_configs_match_reference_field_for_field():
