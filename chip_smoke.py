@@ -15,17 +15,28 @@ printed.
    time, no host launch gaps), beside its plain version, one library call
    computing the same function where there is one, and the least time the
    card could take. The SSD scan is also held to its plain version at a
-   multi-step shape with an initial state and at a grouped (G > 1) shape.
+   multi-step shape with an initial state and at a grouped (G > 1) shape;
+   flash attention at the TPU kernel's own signature (S = T = 128 and 2048,
+   causal and not), at GQA heads, at the admission chunk and the verify
+   pass (per-row offsets into a 192-row cache), and on strided views.
 2. Parity, per path: the model cut to 2 layers at full width, one padded
-   prefill chunk and one decode step through the kernels, and again with the
-   wrappers sent to the kernels' plain versions on the card (the same
-   functions on the same weights); the logits must agree within a stated
-   number of bf16 steps and a relative L2 error.
+   prefill chunk, one decode step and one speculative verify chunk (8 rows
+   of 1 + 4 tokens) through the kernels, and again with the wrappers sent to
+   the kernels' plain versions on the card (the same functions on the same
+   weights); the logits must agree within a stated number of bf16 steps and
+   a relative L2 error.
 3. Serve, per path: the full model (random FP4 weights from a seed) through
    ServeEngine(fused=True): 16 requests, prompt 128, 32 new tokens, 8
    slots, prefill chunk 32. Every request must finish with 32 tokens, every
-   logit must be finite, and every kernel of the path must have launched in
-   that run (launch counts are reset just before it and read just after).
+   logit must be finite, and every kernel of the run must have launched in
+   it (launch counts are reset just before each run and read just after).
+   Runs: plain greedy decode on random prompts; then, on repetitive prompts
+   (a short pattern tiled), plain greedy and speculative greedy decode
+   (draft 4), whose streams are compared (a divergence is reported with the
+   plain run's top-2 logit margin there, and fails the run when that margin
+   exceeds the path's bf16-step limit); on codeqwen also speculative
+   sampling (temperature 0.8, top-k 50), twice with one seed, which must
+   give the same streams.
 
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -60,6 +72,9 @@ BF16_FLOP_PER_S = 989e12
 #     SSD_STATE_TOL (abs and rel); the readout state @ C sums over N in
 #     another order, then y rounds to bf16 -> every y within one bf16 step:
 #     |err| <= 2^-7 * |plain| + SSD_Y_ATOL
+#   flash_attention (bf16 out): online softmax with p carried as two bf16
+#     terms (~2^-18 relative) and f32 sums in another order, then the bf16
+#     rounding of the output -> |err| <= 2^-7 * |plain| + 2^-12 * max|v|
 #   depth-2 parity (bf16 logits, kernels vs their plain versions): the same
 #     functions summed in another order. Once one f32 sum lands on the other
 #     side of a bf16 rounding edge, every later bf16 rounding on that row
@@ -73,6 +88,7 @@ BF16_FLOP_PER_S = 989e12
 MATMUL_RTOL, MATMUL_ATOL = 1e-4, 1e-4
 MATMUL_BF16_RTOL = 2.0 ** -7
 ATTN_ATOL = 1e-4
+FLASH_RTOL, FLASH_VTOL = 2.0 ** -7, 2.0 ** -12
 SSD_STATE_TOL = 1e-5
 SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #: arch -> (rel_l2, max_steps)
@@ -81,10 +97,16 @@ PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1)
 F32_FLOP_PER_S = 67e12
 
 PROMPT_LEN, MAX_NEW, N_REQ, MAX_BATCH, CHUNK = 128, 32, 16, 8, 32
+DRAFT_LEN = 4
 
-#: the kernels each served path launches
-PATH_KERNELS = {"codeqwen1.5-7b": ("cascade_matmul", "decode_attention"),
-                "mamba2-370m": ("cascade_matmul", "ssd_scan")}
+ARCHS = ("codeqwen1.5-7b", "mamba2-370m")
+#: (arch, decode) -> the kernels that run launches; a speculative step's
+#: decode is the verify pass, which never launches decode attention
+RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention",
+                                             "flash_attention"),
+               ("codeqwen1.5-7b", "spec"): ("cascade_matmul", "flash_attention"),
+               ("mamba2-370m", "plain"): ("cascade_matmul", "ssd_scan"),
+               ("mamba2-370m", "spec"): ("cascade_matmul", "ssd_scan")}
 
 
 def fail(msg: str):
@@ -242,6 +264,89 @@ def attention_phase(torch, dev):
     return row
 
 
+def flash_cases():
+    """(name, B, Hq, Hkv, S, T, causal, offsets), D = 128 throughout: the
+    TPU kernel's own signature (T = S, offset 0), not causal, GQA at
+    phi4-mini's 24/8 heads, the admission chunk at each of its offsets into
+    the engine's 192-row cache, and the verify pass (8 rows of 1 + 4 tokens
+    at positions spread over the cache)."""
+    t = -(-(PROMPT_LEN + MAX_NEW + 1 + DRAFT_LEN) // CHUNK) * CHUNK     # the engine's cache
+    n = DRAFT_LEN + 1
+    verify_off = [round(i * (t - n) / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
+    return ([("tpu_causal_128", 1, 32, 32, 128, 128, True, [0]),
+             ("tpu_causal_2048", 1, 32, 32, 2048, 2048, True, [0]),
+             ("tpu_full_128", 1, 32, 32, 128, 128, False, [0]),
+             ("gqa_512", 1, 24, 8, 512, 512, True, [0])]
+            + [(f"admit_off{o}", 1, 32, 32, CHUNK, t, True, [o]) for o in (0, 32, 64, 96)]
+            + [("verify", MAX_BATCH, 32, 32, n, t, True, verify_off)])
+
+
+def flash_phase(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    d = 128
+    rows = []
+    for name, b, hq, hkv, s, t, causal, offsets in flash_cases():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(s * 7 + t)
+        # q as the model's (B, S, H, D) projection transposed, k/v as one
+        # layer's view of a stacked (L, B, T, Hkv, D) cache: read in place
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        kc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        qv, k, v = q.transpose(1, 2), kc[1].transpose(1, 2), vc[1].transpose(1, 2)
+        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        got = ops.flash_attention(qv, k, v, causal=causal, q_offset=off)
+        want = fa.flash_attention_plain(qv, k, v, causal, None, off)
+        contiguous = ops.flash_attention(qv.contiguous(), k.contiguous(), v.contiguous(),
+                                         causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = FLASH_RTOL * want.float().abs() + FLASH_VTOL * float(vc[1].float().abs().max())
+        row = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "T": t, "D": d,
+               "causal": causal, "q_offset": offsets, "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol).max()),
+               "bit_equal_share": float((got == want).float().mean()),
+               "strided_equals_contiguous": bool(torch.equal(got, contiguous))}
+        if not bool((err <= tol).all()) or not row["strided_equals_contiguous"]:
+            fail(f"flash_attention {name}: kernel vs plain out of tolerance: {row}")
+        # keys each row may see (causal: up to its offset + index), and the
+        # K/V rows any of a batch row's queries may see, read once
+        vis = [[min(t, o + i + 1) if causal else t for i in range(s)] for o in offsets]
+        kv_rows = sum(max(r) for r in vis)
+        nbytes = 2 * q.numel() * 2 + 2 * kv_rows * hkv * d * 2
+        flops = 4 * d * hq * sum(sum(r) for r in vis)
+        nc = copies_beyond_l2(nbytes)
+        sets = [(qv, k.clone(), v.clone(), off) for _ in range(nc)]
+        kern = lambda a, kk, vv, o: ops.flash_attention(a, kk, vv, causal=causal, q_offset=o)
+        plain = lambda a, kk, vv, o: fa.flash_attention_plain(a, kk, vv, causal, None, o)
+        if not causal:
+            lib = lambda a, kk, vv, o: F.scaled_dot_product_attention(a, kk, vv,
+                                                                      enable_gqa=hq != hkv)
+        elif s == t and not any(offsets):
+            lib = lambda a, kk, vv, o: F.scaled_dot_product_attention(
+                a, kk, vv, is_causal=True, enable_gqa=hq != hkv)
+        else:
+            mask = (torch.arange(t, device=dev)[None, None, :]
+                    <= off[:, None, None] + torch.arange(s, device=dev)[None, :, None])[:, None]
+            lib = lambda a, kk, vv, o: F.scaled_dot_product_attention(
+                a, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
+        big = s * t > 2 ** 20
+        row.update({"ms": graph_ms(torch, kern, sets, 20 if big else 100),
+                    "plain_ms": graph_ms(torch, plain, sets, 3 if big else 20),
+                    "library_ms": graph_ms(torch, lib, sets, 20 if big else 100),
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                                 else "operations")})
+        rows.append(row)
+        del sets, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_inputs(torch, dev, bt, s, h, p, g, n, seed):
     """SSD scan inputs as the Mamba-2 decode step hands them over: x, B and
     C bf16 strided views of one conv output row (bt, s, h*p + 2*g*n), dt f32
@@ -320,11 +425,13 @@ def plain_versions_on_card():
     parity phase's reference run); the launch counts are put back after."""
     from repro_torch.kernels import cascade_matmul as cm
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
 
     routes = [(cm, "cascade_matmul_cuda", cm.cascade_matmul_plain),
               (da, "decode_attention_cuda", da.decode_attention_plain),
+              (fa, "flash_attention_cuda", fa.flash_attention_plain),
               (ssd, "ssd_scan_cuda", ssd.ssd_scan_plain)]
     saved = [getattr(mod, name) for mod, name, _ in routes], dict(ops.LAUNCHES)
     for mod, name, plain in routes:
@@ -350,8 +457,9 @@ def parity_phase(torch, dev, arch: str):
     model = registry.build_model(cfg)
     ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
     params = model.init_params(3, ccfg, device=dev)
-    toks = torch.randint(0, cfg.vocab, (MAX_BATCH, CHUNK), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(4))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (MAX_BATCH, CHUNK), device=dev, generator=gen)
+    chunk = torch.randint(0, cfg.vocab, (MAX_BATCH, 1 + DRAFT_LEN), device=dev, generator=gen)
     out = {}
     nxt = None
     with torch.no_grad():
@@ -363,28 +471,26 @@ def parity_phase(torch, dev, arch: str):
                 if nxt is None:   # both runs decode the reference run's next token
                     nxt = torch.argmax(l1[:, -1], dim=-1)[:, None].to(torch.int32)
                 l2, cache = model.decode_step(params, {"tokens": nxt}, cache, ccfg)
-            out[name] = (l1, l2)
+                # a speculative verify chunk: the pending token and 4 drafts per row
+                l3, cache, _ = model.spec_verify(params, {"tokens": chunk}, cache, ccfg)
+            out[name] = (l1, l2, l3)
     torch.cuda.synchronize()
     if not all(torch.isfinite(o).all() for o in out["kernel"]):
         fail(f"depth-2 parity ({arch}): kernel logits not finite")
-    pairs = list(zip(out["kernel"], out["plain"]))
-    rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) for a, b in pairs]
-    steps = [float((a - b).abs().max()) / bf16_step(float(b.abs().max())) for a, b in pairs]
-    moved = [float((a != b).float().mean()) for a, b in pairs]
     rel_limit, step_limit = PARITY_LIMITS[arch]
     res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
-           "prefill_max_abs_err": float((pairs[0][0] - pairs[0][1]).abs().max()),
-           "decode_max_abs_err": float((pairs[1][0] - pairs[1][1]).abs().max()),
-           "prefill_rel_l2": rel[0], "decode_rel_l2": rel[1],
-           "prefill_max_bf16_steps": steps[0], "decode_max_bf16_steps": steps[1],
-           "prefill_moved_share": moved[0], "decode_moved_share": moved[1],
            "logit_absmax": float(out["plain"][1].abs().max()),
-           "tol": {"rel_l2": rel_limit, "max_bf16_steps": step_limit},
-           "prefill_argmax_agree": float((pairs[0][0].argmax(-1) == pairs[0][1].argmax(-1))
-                                         .float().mean()),
-           "decode_argmax_agree": float((pairs[1][0].argmax(-1) == pairs[1][1].argmax(-1))
-                                        .float().mean())}
-    if not (max(rel) <= rel_limit and max(steps) <= step_limit):
+           "tol": {"rel_l2": rel_limit, "max_bf16_steps": step_limit}}
+    rels, steps = [], []
+    for stage, a, b in zip(("prefill", "decode", "verify"), out["kernel"], out["plain"]):
+        rels.append(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)))
+        steps.append(float((a - b).abs().max()) / bf16_step(float(b.abs().max())))
+        res.update({f"{stage}_max_abs_err": float((a - b).abs().max()),
+                    f"{stage}_rel_l2": rels[-1], f"{stage}_max_bf16_steps": steps[-1],
+                    f"{stage}_moved_share": float((a != b).float().mean()),
+                    f"{stage}_argmax_agree": float((a.argmax(-1) == b.argmax(-1))
+                                                   .float().mean())})
+    if not (max(rels) <= rel_limit and max(steps) <= step_limit):
         fail(f"depth-2 parity ({arch}): kernels vs plain versions out of tolerance: {res}")
     return res
 
@@ -415,12 +521,142 @@ def profile_step(torch, eng) -> dict:
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
+@contextlib.contextmanager
+def instrumented(torch, eng, margins: bool):
+    """Wrap the engine's model calls for one run: every logit the engine
+    picks from is checked finite (on the device, read once at the end), the
+    launches of each decode step and verify pass are recorded, and with
+    ``margins`` the top-2 logits and max|logit| of the row behind every
+    committed token are kept, by (request, token index): the margins where a
+    speculative stream departs from the plain one, and how far the two
+    runs' margins move before that."""
+    from repro_torch.kernels import ops
+
+    model = eng.model
+    rec = {"finite": [], "decode": [], "verify": [], "top2": {}}
+    last = {}
+
+    def wrap(name, per_step):
+        fn = getattr(model, name)
+
+        def call(*a, **kw):
+            before = dict(ops.LAUNCHES)
+            out = fn(*a, **kw)
+            rec["finite"].append(torch.isfinite(out[0]).all())
+            if per_step is not None:
+                per_step.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+            if margins:
+                # (B, rows, 3): top-1, top-2, max|logit| of every logits row
+                last["top2"] = torch.cat([torch.topk(out[0], 2, dim=-1).values,
+                                          out[0].abs().amax(dim=-1, keepdim=True)], dim=-1)
+                last["used"] = {}
+            return out
+        setattr(model, name, call)
+
+    wrap("prefill_extend", None)
+    wrap("decode_step", rec["decode"])
+    if eng.spec:
+        wrap("spec_verify", rec["verify"])
+    if margins:
+        commit = eng._commit_token
+
+        def record(req, tok):
+            # admission commits before the request takes its slot (row 0 of
+            # its prefill logits); a decode commit reads its slot's row, a
+            # verify pass's commits its slot's rows in order
+            slot = next((i for i, r in enumerate(eng.slots) if r is req), 0)
+            top = last["top2"][slot]
+            j = last["used"].get(slot, 0) if top.shape[0] > 1 else -1
+            last["used"][slot] = j + 1
+            rec["top2"][(req.uid, len(req.tokens_out))] = top[j]
+            commit(req, tok)
+        eng._commit_token = record
+    try:
+        yield rec
+    finally:
+        for name in ("prefill_extend", "decode_step", "spec_verify"):
+            model.__dict__.pop(name, None)
+        eng.__dict__.pop("_commit_token", None)
+
+
+def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=False, **opts):
+    """One serve run: 16 requests through a fresh fused engine. The launch
+    counts are reset just before the run and read just after; every request
+    must finish with MAX_NEW tokens, every logit must be finite and every
+    kernel of the run (``RUN_KERNELS``) must have launched."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    scfg = ServeConfig(max_batch=MAX_BATCH, max_len=PROMPT_LEN + MAX_NEW + 1,
+                       prefill_chunk=CHUNK, fused=True, **opts)
+    eng = ServeEngine(model, params, ccfg, scfg, device=dev)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=MAX_NEW) for i, p in enumerate(prompts)]
+    with instrumented(torch, eng, margins) as rec:
+        gc.collect()               # no earlier run's engine may count in the peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(ops.LAUNCHES)
+    m = eng.metrics()
+    if not all(r.done and len(r.tokens_out) == MAX_NEW for r in reqs):
+        fail(f"serve ({arch}, {kind}): not every request finished with {MAX_NEW} tokens: "
+             f"{[len(r.tokens_out) for r in reqs]}")
+    if not bool(torch.stack(rec["finite"]).all()):
+        fail(f"serve ({arch}, {kind}): non-finite logits")
+    decode = "spec" if eng.spec else "plain"
+    if not all(launches[k] > 0 for k in RUN_KERNELS[(arch, decode)]):
+        fail(f"serve ({arch}, {kind}): a kernel of the run never launched: {launches}")
+    if not all(0 <= t < model.cfg.vocab for r in reqs for t in r.tokens_out):
+        fail(f"serve ({arch}, {kind}): a token outside the vocabulary")
+    ttft = [r.first_token_at - r.created_at for r in reqs]
+    steps = rec["verify"] if eng.spec else rec["decode"]
+    out = {"arch": arch, "run": kind, "effective_mode": m["effective_mode"], "wall_s": wall,
+           "tokens_out": sum(len(r.tokens_out) for r in reqs),
+           "decode_tokens": m["decode_tokens"], "decode_steps": m["steps"],
+           "decode_tokens_per_s": m["tokens_per_s"],
+           "end_to_end_tokens_per_s": sum(len(r.tokens_out) for r in reqs) / wall,
+           "step_ms_p50": m["step_time_p50_s"] * 1e3, "step_ms_p99": m["step_time_p99_s"] * 1e3,
+           "ttft_s_p50": float(np.percentile(ttft, 50)), "ttft_s_max": float(max(ttft)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_decode_step": steps[-1] if steps else {},
+           "first_tokens": reqs[0].tokens_out[:8]}
+    if eng.spec:
+        out.update({"draft_len": m["draft_len"], "accepted_per_step": m["accepted_per_step"],
+                    "draft_tokens_accepted": m["draft_tokens_accepted"]})
+        per_verify = {k: sorted({st[k] for st in steps}) for k in steps[0]}
+        out["launches_per_verify_step_seen"] = per_verify
+        want = {"flash_attention": model.cfg.n_layers if arch == "codeqwen1.5-7b" else 0,
+                "ssd_scan": (model.cfg.n_layers * (1 + DRAFT_LEN)
+                             if arch == "mamba2-370m" else 0),
+                "decode_attention": 0}
+        if any(per_verify[k] != [n] for k, n in want.items()):
+            fail(f"serve ({arch}, {kind}): launches per verify pass {per_verify}, "
+                 f"expected {want}")
+    return out, eng, reqs, rec
+
+
+def repetitive_prompts(vocab: int):
+    """A 4-token pattern tiled to the prompt length, one pattern per
+    request: text a prompt-lookup drafter can predict."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [np.tile(rng.integers(0, vocab, 4).astype(np.int32), PROMPT_LEN // 4)
+            for _ in range(N_REQ)]
+
+
 def serve_phase(torch, dev, arch: str):
     import numpy as np
     from repro_torch.core.cascade import CascadeConfig
-    from repro_torch.kernels import ops
     from repro_torch.models import registry
-    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+    from repro_torch.serve.engine import Request
 
     cfg, model = registry.load(arch)
     ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
@@ -428,41 +664,11 @@ def serve_phase(torch, dev, arch: str):
     params = model.init_params(0, ccfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    scfg = ServeConfig(max_batch=MAX_BATCH, max_len=PROMPT_LEN + MAX_NEW + 1,
-                       prefill_chunk=CHUNK, fused=True)
-    eng = ServeEngine(model, params, ccfg, scfg, device=dev)
 
-    # every logit the engine picks from is checked (on the device; read once)
-    finite, step_launches = [], {}
-
-    def checked(fn, record_step):
-        def call(*a, **kw):
-            before = dict(ops.LAUNCHES)
-            logits, cache = fn(*a, **kw)
-            finite.append(torch.isfinite(logits).all())
-            if record_step:
-                step_launches.update({k: ops.LAUNCHES[k] - before[k] for k in before})
-            return logits, cache
-        return call
-
-    model.decode_step = checked(model.decode_step, True)
-    model.prefill_extend = checked(model.prefill_extend, False)
+    # plain greedy decode on random prompts
     rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32),
-                    max_new_tokens=MAX_NEW) for i in range(N_REQ)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.monotonic()
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(ops.LAUNCHES)
-    launches_per_step = dict(step_launches)     # from the measured run's decode steps
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    m = eng.metrics()
+    prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32) for _ in range(N_REQ)]
+    plain, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts, "plain")
     # after the measured run: 8 more requests fill every slot (the first step
     # admits them all), and the next step, a pure 8-slot decode, is profiled
     for i in range(MAX_BATCH):
@@ -478,29 +684,72 @@ def serve_phase(torch, dev, arch: str):
         xh = torch.randn((MAX_BATCH, 1, cfg.d_model), device=dev).to(torch.bfloat16)
         tied_head_ms = graph_ms(torch, lambda a: L.tied_head(params["embed"], a, torch.bfloat16),
                                 [(xh,)], 20)
-    if not all(r.done and len(r.tokens_out) == MAX_NEW for r in reqs):
-        fail(f"serve ({arch}): not every request finished with {MAX_NEW} tokens: "
-             f"{[len(r.tokens_out) for r in reqs]}")
-    if not bool(torch.stack(finite).all()):
-        fail(f"serve ({arch}): non-finite logits")
-    if not all(launches[k] > 0 for k in PATH_KERNELS[arch]):
-        fail(f"serve ({arch}): a kernel of the path never launched: {launches}")
-    ttft = [r.first_token_at - r.created_at for r in reqs]
-    return {
-        "arch": cfg.name, "layers": cfg.n_layers, "requests": N_REQ, "prompt_len": PROMPT_LEN,
-        "max_new": MAX_NEW, "max_batch": MAX_BATCH, "prefill_chunk": CHUNK,
-        "effective_mode": m["effective_mode"], "init_s": init_s, "wall_s": wall,
-        "tokens_out": sum(len(r.tokens_out) for r in reqs),
-        "decode_tokens": m["decode_tokens"], "decode_steps": m["steps"],
-        "decode_tokens_per_s": m["tokens_per_s"],
-        "end_to_end_tokens_per_s": sum(len(r.tokens_out) for r in reqs) / wall,
-        "step_ms_p50": m["step_time_p50_s"] * 1e3, "step_ms_p99": m["step_time_p99_s"] * 1e3,
-        "ttft_s_p50": float(np.percentile(ttft, 50)), "ttft_s_max": float(max(ttft)),
-        "peak_mem_gb": peak_gb,
-        "launches": launches, "launches_per_decode_step": launches_per_step,
-        "profiled_decode_step": profiled, "tied_head_ms": tied_head_ms,
-        "first_tokens": reqs[0].tokens_out[:8],
-    }
+    plain.update({"layers": cfg.n_layers, "requests": N_REQ, "prompt_len": PROMPT_LEN,
+                  "max_new": MAX_NEW, "max_batch": MAX_BATCH, "prefill_chunk": CHUNK,
+                  "init_s": init_s, "profiled_decode_step": profiled,
+                  "tied_head_ms": tied_head_ms})
+
+    # repetitive prompts: plain greedy, then speculative greedy decode; the
+    # streams are compared token by token
+    rep = repetitive_prompts(cfg.vocab)
+    rep_plain, _, plain_reqs, prec = serve_run(torch, dev, arch, model, params, ccfg, rep,
+                                               "plain_repetitive", margins=True)
+    spec, spec_eng, spec_reqs, srec = serve_run(torch, dev, arch, model, params, ccfg, rep,
+                                                "spec", margins=True, draft_len=DRAFT_LEN)
+    # as after the plain run: fill the slots, then profile one 8-slot verify step
+    for i in range(MAX_BATCH):
+        spec_eng.submit(Request(uid=N_REQ + i, prompt=rep[i], max_new_tokens=8))
+    spec_eng.step()
+    spec["profiled_verify_step"] = profile_step(torch, spec_eng)
+    spec_eng.run_until_drained()
+    del spec_eng
+    # margins in bf16 steps of the row's max|logit| (the unit of the depth-2
+    # parity limit); a margin is the difference of two logits, each within
+    # the path's step limit, so a departure where the plain margin is at most
+    # twice that limit is rounding, and one above it fails the run
+    step_limit = PARITY_LIMITS[arch][1]
+    margin_limit = 2 * step_limit
+
+    def margin(top):
+        top1, top2, absmax = (float(x) for x in top)
+        return top1 - top2, (top1 - top2) / bf16_step(absmax)
+
+    diverged, moved = [], []
+    for pr, sr in zip(plain_reqs, spec_reqs):
+        j = next((i for i, (a, b) in enumerate(zip(pr.tokens_out, sr.tokens_out)) if a != b),
+                 None)
+        # before the streams part, how far the spec run's margins sit from the plain run's
+        for i in range(MAX_NEW if j is None else j):
+            moved.append(abs(margin(prec["top2"][(pr.uid, i)])[1]
+                             - margin(srec["top2"][(sr.uid, i)])[1]))
+        if j is None:
+            continue
+        m, steps = margin(prec["top2"][(pr.uid, j)])
+        d = {"uid": pr.uid, "index": j, "plain": pr.tokens_out[j], "spec": sr.tokens_out[j],
+             "plain_margin": m, "margin_bf16_steps": steps}
+        diverged.append(d)
+        if steps > margin_limit:
+            fail(f"serve ({arch}): the speculative stream departs from plain greedy decode "
+                 f"where the plain margin is {steps:.2f} bf16 steps (limit {margin_limit}): {d}")
+    spec.update({"streams_equal_plain": len(diverged) == 0, "divergences": diverged,
+                 "margin_limit_bf16_steps": margin_limit,
+                 "margin_moved_bf16_steps": {"max": max(moved), "p50": float(np.median(moved)),
+                                             "p99": float(np.percentile(moved, 99)),
+                                             "tokens": len(moved)},
+                 "plain_repetitive": rep_plain})
+    out = {"plain": plain, "spec": spec}
+
+    if arch == "codeqwen1.5-7b":
+        # speculative sampling, twice with one seed
+        opts = dict(draft_len=DRAFT_LEN, temperature=0.8, top_k=50, sample_seed=0)
+        runs = [serve_run(torch, dev, arch, model, params, ccfg, rep, "spec_sampled", **opts)
+                for _ in range(2)]
+        streams = [[r.tokens_out for r in reqs] for _, _, reqs, _ in runs]
+        if streams[0] != streams[1]:
+            fail(f"serve ({arch}): two sampled runs with one seed gave different streams")
+        out["sampled"] = {**runs[0][0], "same_streams_with_same_seed": True,
+                          "temperature": 0.8, "top_k": 50}
+    return out
 
 
 def main() -> int:
@@ -528,6 +777,7 @@ def main() -> int:
         t = time.monotonic()
         out = fn(torch, dev, *args)
         phase_s[name] = time.monotonic() - t
+        gc.collect()
         torch.cuda.empty_cache()
         return out
 
@@ -535,24 +785,33 @@ def main() -> int:
     print(json.dumps({"cascade_matmul_shapes": mm}), flush=True)
     att = timed("decode_attention", attention_phase)
     print(json.dumps({"decode_attention": att}), flush=True)
+    fla = timed("flash_attention", flash_phase)
+    print(json.dumps({"flash_attention": fla}), flush=True)
     ssd = timed("ssd_scan", ssd_phase)
     print(json.dumps({"ssd_scan": ssd}), flush=True)
     par, srv = {}, {}
-    for arch in PATH_KERNELS:
+    for arch in ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
         print(json.dumps({"parity_depth2": par[arch]}), flush=True)
-    for arch in PATH_KERNELS:
+    for arch in ARCHS:
         srv[arch] = timed(f"serve {arch}", serve_phase, arch)
-        print(json.dumps({"serve": srv[arch]}), flush=True)
+        for run in srv[arch].values():
+            print(json.dumps({"serve": run}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
 
     def per_step(arch, key):
         return sum(r[key] * r["launches_per_decode_step"] for r in mm if r["arch"] == arch)
 
     def launches(name):
-        return {arch: srv[arch]["launches"][name] for arch in PATH_KERNELS}
+        return {arch: srv[arch]["plain"]["launches"][name] for arch in ARCHS}
 
-    cq, mb = "codeqwen1.5-7b", "mamba2-370m"
+    def by_run(name):
+        """Launches in every serve run, each counted from zero."""
+        return {f"{arch}/{kind}": rec["launches"][name] for arch in ARCHS
+                for kind, rec in srv[arch].items()}
+
+    cq, mb = ARCHS
+    fv = next(r for r in fla if r["case"] == "verify")
     kernels = [
         {"name": "cascade_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
@@ -562,8 +821,9 @@ def main() -> int:
                   "(mamba2-370m's step: 48 x [(1024,4384), (2048,1024)], under mamba2_370m_step)",
          "launches": sum(launches("cascade_matmul").values()),
          "launches_by_path": launches("cascade_matmul"),
-         "launches_per_decode_step": {a: srv[a]["launches_per_decode_step"]["cascade_matmul"]
-                                      for a in PATH_KERNELS},
+         "launches_by_run": by_run("cascade_matmul"),
+         "launches_per_decode_step": {
+             a: srv[a]["plain"]["launches_per_decode_step"]["cascade_matmul"] for a in ARCHS},
          "max_abs_err": max(r["max_abs_err"] for r in mm),
          "max_err": max(r["max_abs_err"] for r in mm),
          "tol": f"{MATMUL_RTOL} * max|plain| + {MATMUL_ATOL}",
@@ -579,19 +839,43 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:178",
          "shape": f"B={att['B']} Hq={att['Hq']} Hkv={att['Hkv']} T={att['T']} D={att['D']}",
-         "launches": srv[cq]["launches"]["decode_attention"],
-         "launches_per_decode_step": srv[cq]["launches_per_decode_step"]["decode_attention"],
+         "launches": srv[cq]["plain"]["launches"]["decode_attention"],
+         "launches_by_run": by_run("decode_attention"),
+         "launches_per_decode_step":
+             srv[cq]["plain"]["launches_per_decode_step"]["decode_attention"],
          "max_abs_err": att["max_abs_err"], "max_err": att["max_abs_err"], "tol": ATTN_ATOL,
          "ms": att["ms"], "kernel_ms": att["ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
          "library_ms": att["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:72",
+         "shape": f"the codeqwen verify pass: B={fv['B']} Hq={fv['Hq']} Hkv={fv['Hkv']} "
+                  f"S={fv['S']} T={fv['T']} D={fv['D']}, per-row offsets {fv['q_offset']} "
+                  "(every shape under flash_attention_shapes)",
+         "launches": srv[cq]["spec"]["launches"]["flash_attention"],
+         "launches_by_run": by_run("flash_attention"),
+         "launches_per_verify_step": srv[cq]["spec"]["launches_per_decode_step"]
+         ["flash_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in fla),
+         "max_err_over_tol": max(r["max_err_over_tol"] for r in fla),
+         "tol": "2^-7 * |plain| + 2^-12 * max|v| (bf16 out)",
+         "ms": fv["ms"], "kernel_ms": fv["ms"], "plain_ms": fv["plain_ms"],
+         "bound_ms": fv["bound_ms"], "bound_by": fv["bound_by"],
+         "library_ms": fv["library_ms"],
+         "library_note": "scaled_dot_product_attention with a boolean mask (is_causal at "
+                         "offset 0)",
+         "flash_attention_shapes": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                   "bound_by", "library_ms")}
+                                    for r in fla}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:92",
          "shape": f"decode: B={ssd['Bt']} H={ssd['H']} P={ssd['P']} N={ssd['N']} G={ssd['G']} "
                   "S=1, bf16 x, f32 state carried in place",
-         "launches": srv[mb]["launches"]["ssd_scan"],
-         "launches_per_decode_step": srv[mb]["launches_per_decode_step"]["ssd_scan"],
+         "launches": srv[mb]["plain"]["launches"]["ssd_scan"],
+         "launches_by_run": by_run("ssd_scan"),
+         "launches_per_decode_step": srv[mb]["plain"]["launches_per_decode_step"]["ssd_scan"],
          "max_abs_err": max(c["y_max_abs_err"] for c in ssd["checks"].values()),
          "state_max_abs_err": max(c["state_max_abs_err"] for c in ssd["checks"].values()),
          "tol": f"y: 2^-7 * |plain| + {SSD_Y_ATOL}; state: {SSD_STATE_TOL} * |plain| + "
@@ -603,7 +887,8 @@ def main() -> int:
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
-              "decode_attention": att, "ssd_scan": ssd, "parity_depth2": par, "serve": srv,
+              "decode_attention": att, "flash_attention": fla, "ssd_scan": ssd,
+              "parity_depth2": par, "serve": srv,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,10 +12,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import cascade_matmul as _cm
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0, "ssd_scan": 0}
+LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -60,6 +61,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES["decode_attention"] += 1
         return out
     return _da.decode_attention_plain(q, k, v, valid, scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    scale: float | None = None,
+                    q_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """Blocked self-attention, GQA-aware. q: (B, Hq, S, D); k/v: (B, Hkv,
+    T, D). Causal: query i of row b sees key j iff ``j <= q_offset[b] + i``
+    (q_offset: (B,) int32, zeros when absent, so with T == S the plain
+    causal mask). Returns (B, Hq, S, D) in q's dtype. The CUDA kernel takes
+    bf16 only and reads q/k/v through their strides."""
+    if _route(q) == "cuda":
+        out = _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    return _fa.flash_attention_plain(q, k, v, causal, scale, q_offset)
 
 
 def _ssd_scan(x, dt, A, B, C, D, initial_state, return_final_state, final_state_out=None):

@@ -1,4 +1,4 @@
-"""Serving launcher: random FP4 weights, greedy continuous batching.
+"""Serving launcher: random FP4 weights, continuous batching.
 
 On the H100 (the default device; ``--fused`` runs the CUDA kernels):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
@@ -15,8 +15,20 @@ the decode recurrence), on the H100 and as a CPU smoke:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --smoke --device cpu --fused
 
-Compute is bf16 on the card and f32 on the CPU. In FP4 mode each matrix is
-quantized as it is drawn, so full width never holds dense f32 weights.
+Speculative decode and sampling, on the H100 and as a CPU smoke:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
+        --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused \
+        --draft-len 4 --temperature 0.8 --top-k 50 --sample-seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --fused --draft-len 4
+
+``--draft-len K`` drafts K tokens per slot per step by prompt lookup and
+verifies them in one pass (greedy: the stream stays the greedy stream; the
+output adds ``accepted/step``). ``--temperature`` > 0 (with ``--top-k``)
+samples on the device, seeded by ``--sample-seed``; with ``--draft-len`` it
+runs speculative sampling. Compute is bf16 on the card and f32 on the CPU.
+In FP4 mode each matrix is quantized as it is drawn, so full width never
+holds dense f32 weights.
 """
 from __future__ import annotations
 
@@ -46,6 +58,14 @@ def main(argv=None) -> int:
                     help="route every linear through the FP4 CUDA matmul and "
                          "decode attention through the CUDA kernel (needs FP4 "
                          "params; with --no-fp4 it downgrades with a warning)")
+    ap.add_argument("--draft-len", type=int, default=0,
+                    help="speculative decode: K drafted tokens per slot per step (0 = off)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="> 0 samples on the device (default: greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k best logits (0 = all)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="seed of the engine's sampling generator")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
@@ -60,7 +80,9 @@ def main(argv=None) -> int:
     ccfg = CascadeConfig(mode="train" if args.no_fp4 else "serve_fp4", compute_dtype=compute)
     params = model.init_params(0, ccfg, device=device)
     scfg = ServeConfig(max_batch=args.max_batch,
-                       max_len=args.prompt_len + args.max_new + 1, fused=args.fused)
+                       max_len=args.prompt_len + args.max_new + 1, fused=args.fused,
+                       draft_len=args.draft_len, temperature=args.temperature,
+                       top_k=args.top_k, sample_seed=args.sample_seed)
     eng = ServeEngine(model, params, ccfg, scfg, device=device)
 
     rng = np.random.default_rng(0)
@@ -79,6 +101,8 @@ def main(argv=None) -> int:
     print(f"served {args.requests} requests, {total} tokens in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s), p99 step {m['step_time_p99_s'] * 1e3:.1f} ms, "
           f"admission wait {m['admission_wait_s_mean'] * 1e3:.1f} ms")
+    if m["spec"]:
+        print(f"spec draft_len={m['draft_len']} accepted/step={m['accepted_per_step']:.2f}")
     for r in reqs[:3]:
         print(f"  req {r.uid}: {r.tokens_out}")
     return 0

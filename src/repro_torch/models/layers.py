@@ -176,7 +176,10 @@ def attn_apply(
                      valid region (mask-invalid, overwritten later).
 
     In ``decode``/``extend`` the cache dict ``{"k", "v": (B, T, Hkv, D),
-    "pos": (B,)}`` is updated in place and returned.
+    "pos": (B,)}`` is updated in place and returned. With
+    ``ccfg.use_kernel`` decode attention goes through ``ops.decode_attention``
+    and every multi-token attention (extend, full, prefill) through
+    ``ops.flash_attention``.
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -203,27 +206,41 @@ def attn_apply(
         if mode == "decode" and s != 1:
             raise ValueError("decode takes one token per row")
         pos = cache["pos"]                               # (B,) next write index
-        t = cache["k"].shape[1]
-        rows = pos[:, None] + steps[None, :]             # (B, s)
-        valid = torch.arange(t, device=dev)[None, None, :] <= rows[:, :, None]   # (B, s, T)
         update_rows(cache["k"], k, pos)
         update_rows(cache["v"], v, pos)
         att_k, att_v = cache["k"], cache["v"]
-        if ccfg.use_kernel and mode == "decode":
+        if ccfg.use_kernel and mode == "extend":
+            # the chunk's queries sit at each row's position: the causal
+            # mask offset by pos is the ``valid`` mask of the plain path
             from repro_torch.kernels import ops
-            o = ops.decode_attention(q[:, 0], att_k, att_v, valid[:, 0],
-                                     scale=scale).reshape(b, s, h, hd)
+            o = ops.flash_attention(q.transpose(1, 2), att_k.transpose(1, 2),
+                                    att_v.transpose(1, 2), scale=scale,
+                                    q_offset=pos).transpose(1, 2)
         else:
-            qd = q.to(torch.float32).reshape(b, s, hk, h // hk, hd)
-            logits = torch.einsum("bshgd,bthd->bhgst", qd, att_k.to(torch.float32)) * scale
-            logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
-            p = torch.softmax(logits, dim=-1)
-            o = torch.einsum("bhgst,bthd->bshgd", p, att_v.to(torch.float32)).reshape(b, s, h, hd)
+            t = att_k.shape[1]
+            rows = pos[:, None] + steps[None, :]             # (B, s)
+            valid = torch.arange(t, device=dev)[None, None, :] <= rows[:, :, None]  # (B, s, T)
+            if ccfg.use_kernel:
+                from repro_torch.kernels import ops
+                o = ops.decode_attention(q[:, 0], att_k, att_v, valid[:, 0],
+                                         scale=scale).reshape(b, s, h, hd)
+            else:
+                qd = q.to(torch.float32).reshape(b, s, hk, h // hk, hd)
+                logits = torch.einsum("bshgd,bthd->bhgst", qd,
+                                      att_k.to(torch.float32)) * scale
+                logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
+                p = torch.softmax(logits, dim=-1)
+                o = torch.einsum("bhgst,bthd->bshgd", p,
+                                 att_v.to(torch.float32)).reshape(b, s, h, hd)
         nv = s if n_valid is None else n_valid
         cache["pos"].add_(nv if isinstance(nv, torch.Tensor) else int(nv))
         new_cache = cache
     else:
-        if cfg.q_chunk > 0 and s > cfg.q_chunk:
+        if ccfg.use_kernel:
+            from repro_torch.kernels import ops
+            o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    scale=scale).transpose(1, 2)
+        elif cfg.q_chunk > 0 and s > cfg.q_chunk:
             o = _chunked_causal_sdpa(q, k, v, scale, cfg.q_chunk)
         else:
             r = torch.arange(s, device=dev)

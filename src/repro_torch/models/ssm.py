@@ -13,8 +13,11 @@ recurrence; with ``use_kernel`` it goes through the SSD scan kernel
 out. Caches are updated in place: ``{"layers": {"conv": (L, B, w-1,
 conv_dim) in the KV dtype, "state": (L, B, H, P, N) f32}, "pos": (B,)}``.
 
-Not ported yet: speculative verify and rewind (ROADMAP Queue 1 item 7) and
-activation checkpointing of ``forward``.
+Speculative decode checkpoints the state after every token of the verify
+chunk and rewinds by selecting the checkpoint at each slot's accept
+boundary; with ``use_kernel`` the verify pass runs the conv and recurrence
+of plain decode, the recurrence through the kernel, one launch per chunk
+token. Not ported yet: activation checkpointing of ``forward``.
 """
 from __future__ import annotations
 
@@ -35,10 +38,13 @@ def _pad_seq(a: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros((a.shape[0], pad) + tuple(a.shape[2:]))], dim=1)
 
 
-def ssd_chunked(x, dt, A, B, C, D, chunk: int, initial_state=None):
+def ssd_chunked(x, dt, A, B, C, D, chunk: int, initial_state=None,
+                return_chunk_states: bool = False):
     """Chunked SSD. x: (b, s, h, p); dt: (b, s, h) (post-softplus); A: (h,)
     (< 0); B, C: (b, s, g, n); D: (h,) or None. Returns (y: (b, s, h, p) in
-    x's dtype, final_state: (b, h, p, n) f32)."""
+    x's dtype, final_state: (b, h, p, n) f32), and with
+    ``return_chunk_states`` the state BEFORE each chunk (b, nc, h, p, n): at
+    chunk 1, the state before every token."""
     b, s_orig, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     hb = h // g
@@ -80,11 +86,13 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int, initial_state=None):
     for c in range(nc):
         states_prev.append(state)                                    # the state BEFORE chunk c
         state = state * chunk_decay[:, c, :, None, None] + S[:, c]
-    y_inter = torch.einsum("bcqh,bcqhn,bchpn->bcqhp", torch.exp(cum), Ch,
-                           torch.stack(states_prev, dim=1))
+    states_prev = torch.stack(states_prev, dim=1)
+    y_inter = torch.einsum("bcqh,bcqhn,bchpn->bcqhp", torch.exp(cum), Ch, states_prev)
     y = (y_intra + y_inter).reshape(b, s, h, p)
     if D is not None:
         y = y + D[None, None, :, None] * x.to(torch.float32)
+    if return_chunk_states:
+        return y[:, :s_orig].to(x.dtype), state, states_prev
     return y[:, :s_orig].to(x.dtype), state
 
 
@@ -130,6 +138,22 @@ def _conv_extend(x, conv_state, w, b, n_valid=None):
     start = min(max(nv, 0), s)               # clamped, as the reference's dynamic_slice
     new_state = full[:, start:start + width - 1]
     return y, new_state.to(conv_state.dtype), full
+
+
+def _conv_steps(x, conv_state, w, b):
+    """``_conv_extend`` over a whole chunk (no padding), each token computed
+    as ``_conv_decode`` computes it: its window passes through the cache
+    dtype, f32 products are summed over the window, and the output is
+    rounded to x's dtype. A verify chunk's conv outputs are then those plain
+    decode would give, where ``_conv_extend`` keeps them in f32."""
+    width = w.shape[0]
+    bsz, s, dim = x.shape
+    full = torch.cat([conv_state.to(x.dtype), x], dim=1)            # (b, w-1+s, dim)
+    win = full.unfold(1, width, 1).transpose(2, 3)                   # (b, s, w, dim)
+    y, _ = _conv_decode(win[:, :, -1:].reshape(bsz * s, 1, dim),
+                        win[:, :, :-1].reshape(bsz * s, width - 1, dim).to(conv_state.dtype),
+                        w, b)
+    return y.reshape(bsz, s, dim), full[:, s:].to(conv_state.dtype), full
 
 
 def conv_prefill_state(x_raw, width: int):
@@ -190,10 +214,14 @@ class Mamba2LM:
 
     # --------------------------------------------------------------- mixer
     def _mixer(self, lp: dict, u: torch.Tensor, ccfg: CascadeConfig, cache=None,
-               mode: str = "full", n_valid=None):
+               mode: str = "full", n_valid=None, collect: dict | None = None):
         """One Mamba-2 mixer. ``decode``/``extend`` update ``cache`` ({conv,
         state} of this layer) in place and return it; ``prefill`` returns a
-        new one; ``full`` returns None."""
+        new one; ``full`` returns None. ``collect`` (extend of a speculative
+        verify chunk of s tokens): this layer's checkpoint, filled in place
+        with the raw conv input window over the chunk ("conv": (B, w-1+s,
+        conv_dim)) and the SSD state before the chunk and after each of its
+        tokens ("state": (s+1, B, H, P, N) f32)."""
         cfg = self.cfg
         b, s, _ = u.shape
         di, g, n, h = self.d_inner, cfg.ssm_groups, cfg.ssm_state, self.n_heads
@@ -205,9 +233,12 @@ class Mamba2LM:
 
         if mode == "decode":
             xbc_c, new_conv = _conv_decode(xbc, cache["conv"], lp["conv_w"], lp["conv_b"])
+        elif mode == "extend" and collect is not None and ccfg.use_kernel:
+            xbc_c, new_conv, conv_full = _conv_steps(xbc, cache["conv"], lp["conv_w"],
+                                                     lp["conv_b"])
         elif mode == "extend":
-            xbc_c, new_conv, _ = _conv_extend(xbc, cache["conv"], lp["conv_w"], lp["conv_b"],
-                                              n_valid)
+            xbc_c, new_conv, conv_full = _conv_extend(xbc, cache["conv"], lp["conv_w"],
+                                                      lp["conv_b"], n_valid)
         else:
             xbc_c = _causal_conv(xbc, lp["conv_w"], lp["conv_b"])
         xbc_c = F.silu(xbc_c)
@@ -235,6 +266,30 @@ class Mamba2LM:
                 cache["state"].copy_(new_state)
             cache["conv"].copy_(new_conv)
             new_cache = cache
+        elif mode == "extend" and collect is not None:
+            collect["conv"].copy_(conv_full)
+            st = collect["state"]
+            if ccfg.use_kernel:
+                # the conv (above) and the recurrence of plain decode, one
+                # token per kernel launch, each writing its state into that
+                # token's checkpoint: the verify pass computes what plain
+                # decode computes, token by token
+                from repro_torch.kernels import ops
+                st[0].copy_(cache["state"])
+                y = torch.cat([ops.ssd_decode(x[:, j:j + 1], dt[:, j:j + 1], A, B[:, j:j + 1],
+                                              C[:, j:j + 1], lp["D"], st[j],
+                                              out_state=st[j + 1])[0] for j in range(s)], dim=1)
+            else:
+                # the reference's chunk-1 dual form: its chunk states are the
+                # per-token states
+                y, final_state, st_prev = ssd_chunked(x, dt, A, B, C, lp["D"], 1,
+                                                      initial_state=cache["state"],
+                                                      return_chunk_states=True)
+                st[:s].copy_(st_prev.transpose(0, 1))
+                st[s].copy_(final_state)
+            cache["state"].copy_(st[s])
+            cache["conv"].copy_(new_conv)
+            new_cache = cache
         elif mode == "extend":
             y, final_state = ssd_chunked(x, dt, A, B, C, lp["D"], cfg.ssm_chunk,
                                          initial_state=cache["state"])
@@ -251,9 +306,9 @@ class Mamba2LM:
         y = L.norm_apply(lp["gnorm"], (y * F.silu(z.to(torch.float32))).to(y.dtype))
         return cascade.linear_apply(lp["out_proj"], y, ccfg), new_cache
 
-    def _block(self, lp, x, ccfg, cache, mode, n_valid=None):
+    def _block(self, lp, x, ccfg, cache, mode, n_valid=None, collect=None):
         h, nc = self._mixer(lp, L.norm_apply(lp["ln"], x, self.cfg.norm_type), ccfg, cache,
-                            mode, n_valid)
+                            mode, n_valid, collect)
         return x + h, nc
 
     # --------------------------------------------------------------- api
@@ -329,6 +384,52 @@ class Mamba2LM:
                             "extend", cache, nv)
         cache["pos"].add_(nv)
         return self._head(params, cache_utils.take_last_valid(x, nv), ccfg), cache
+
+    # --------------------------------------------------- speculative decode
+    def spec_verify(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
+                    ckpt: dict | None = None):
+        """Score a (B, 1+K) draft chunk in ONE extend pass, checkpointing the
+        recurrent state after EVERY chunk token: a recurrence cannot be
+        rewound in place, so a rejected suffix rolls back by selecting the
+        checkpoint at the accept boundary. Returns per-position logits (B,
+        1+K, V), the cache advanced in place, and the checkpoint
+        ``{"layers": {"conv": (L, B, w-1+s, conv_dim), "state": (L, s+1, B,
+        H, P, N) f32}, "pos": (B,)}``. The state stack puts the token axis
+        before the slots (the reference's is (L, B, s+1, ...)) so that each
+        token's (B, H, P, N) states are contiguous: the kernel writes them in
+        place. The checkpoint is allocated when ``ckpt`` is None and filled
+        again when a checkpoint of the same shapes is passed (at full width
+        it holds gigabytes: an engine allocates it once)."""
+        cfg = self.cfg
+        b, s = batch["tokens"].shape
+        dev = cache["pos"].device
+        if ckpt is None:
+            ckpt = {"layers": {
+                "conv": torch.empty((cfg.n_layers, b, cfg.conv_width - 1 + s, self.conv_dim),
+                                    dtype=ccfg.compute_dtype, device=dev),
+                "state": torch.empty((cfg.n_layers, s + 1, b, self.n_heads, cfg.ssm_head_dim,
+                                      cfg.ssm_state), dtype=torch.float32, device=dev)},
+                "pos": torch.empty((b,), dtype=torch.int32, device=dev)}
+        ckpt["pos"].copy_(cache["pos"])
+        x = L.embed_apply(params["embed"], batch["tokens"])
+        for i in range(cfg.n_layers):
+            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
+                               cache_utils.layer_view(cache["layers"], i), "extend",
+                               collect=cache_utils.layer_view(ckpt["layers"], i))
+        cache["pos"].add_(s)
+        return self._head(params, x, ccfg), cache, ckpt
+
+    def spec_rewind(self, cache: dict, ckpt: dict, keep: torch.Tensor) -> dict:
+        """Per-slot rewind to ``keep[b]`` committed chunk tokens, in place:
+        the checkpointed conv window and SSD state at the accept boundary,
+        and ``pos0 + keep[b]``."""
+        ck = ckpt["layers"]
+        cache["layers"]["conv"].copy_(
+            cache_utils.slice_rows_per_slot(ck["conv"], keep, 1, self.cfg.conv_width - 1))
+        cache["layers"]["state"].copy_(
+            cache_utils.slice_rows_per_slot(ck["state"].transpose(1, 2), keep, 1, 1)[:, :, 0])
+        cache["pos"].copy_(ckpt["pos"] + keep.to(ckpt["pos"].device))
+        return cache
 
     # ----------------------------------------- continuous batching cache API
     def write_cache(self, cache: dict, sub: dict, i: int) -> dict:

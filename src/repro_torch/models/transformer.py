@@ -7,7 +7,7 @@ stacked ``(L, ...)`` under ``layers`` (``layers/attn/wq/{codes,scale,b}``,
 this module runs a Python loop over layer views. Caches are updated in
 place (see ``layers.attn_apply``).
 
-Not ported yet: speculative verify/rewind, the paged cache, M-RoPE and
+Not ported yet: the paged cache (and its speculative rewind), M-RoPE and
 windowed attention, sinusoidal positions, multi-codebook heads and
 stub-embedding inputs.
 """
@@ -149,6 +149,27 @@ class TransformerLM:
                                n_valid=nv)
         x = x if all_logits else cache_utils.take_last_valid(x, nv)
         return self._head(params, x, ccfg), cache
+
+    # --------------------------------------------------- speculative decode
+    def spec_verify(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
+                    ckpt: dict | None = None):
+        """Score a (B, 1+K) draft chunk in ONE extend pass: per-position
+        logits (B, 1+K, V), the cache advanced in place, and a rewind
+        checkpoint (a copy of the K/V rows the chunk overwrites, and
+        ``pos``). A checkpoint from an earlier call of the same shapes may be
+        passed as ``ckpt`` to be filled again."""
+        s = batch["tokens"].shape[1]
+        snap = cache_utils.seq_rows_snapshot(cache["layers"], s,
+                                             out=None if ckpt is None else ckpt["layers"])
+        logits, cache = self.prefill_extend(params, batch, cache, ccfg, all_logits=True)
+        return logits, cache, {"layers": snap}
+
+    def spec_rewind(self, cache: dict, ckpt: dict, keep: torch.Tensor) -> dict:
+        """Per-slot rewind after a verify pass, in place: the first
+        ``keep[b]`` chunk tokens stay committed, the rejected rows are
+        restored and ``pos`` rewinds to ``pos0 + keep[b]``."""
+        cache_utils.seq_rows_restore(cache["layers"], ckpt["layers"], keep)
+        return cache
 
     # ----------------------------------------- continuous batching cache API
     def write_cache(self, cache: dict, sub: dict, i: int) -> dict:

@@ -179,9 +179,8 @@ def test_mamba_has_no_context_limit(mamba_models):
     assert _streams(tr) == _streams(jr)
 
 
-@pytest.mark.parametrize("opt", [dict(draft_len=2), dict(temperature=0.5), dict(paged=True),
-                                 dict(prefix_cache=True), dict(crest_enabled=True),
-                                 dict(batched=False)])
+@pytest.mark.parametrize("opt", [dict(paged=True), dict(prefix_cache=True),
+                                 dict(crest_enabled=True), dict(batched=False)])
 def test_unported_options_raise(models, opt):
     _, _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="not ported"):

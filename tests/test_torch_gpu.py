@@ -15,6 +15,7 @@ from repro_torch.core import quant
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import registry
@@ -182,7 +183,7 @@ def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
 
 
 # the kernels each smoke model's fused path launches
-PATH_KERNELS = {"codeqwen1.5-7b": {"cascade_matmul", "decode_attention"},
+PATH_KERNELS = {"codeqwen1.5-7b": {"cascade_matmul", "decode_attention", "flash_attention"},
                 "mamba2-370m": {"cascade_matmul", "ssd_scan"}}
 
 
@@ -202,6 +203,7 @@ def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
             if route == "plain":
                 monkeypatch.setattr(tcm, "cascade_matmul_cuda", tcm.cascade_matmul_plain)
                 monkeypatch.setattr(tda, "decode_attention_cuda", tda.decode_attention_plain)
+                monkeypatch.setattr(tfa, "flash_attention_cuda", tfa.flash_attention_plain)
                 monkeypatch.setattr(tssd, "ssd_scan_cuda", tssd.ssd_scan_plain)
             eng = engine.ServeEngine(model, params, ccfg,
                                      engine.ServeConfig(max_batch=2, max_len=40,
@@ -219,3 +221,107 @@ def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
                     (arch, ops.LAUNCHES)
         monkeypatch.undo()
         assert streams["kernel"] == streams["plain"], arch
+
+
+# (name, B, Hq, Hkv, S, T, D, causal, offsets): the TPU kernel's own
+# signature (T = S, offset 0) at 128 and 2048, and not causal; GQA at
+# phi4-mini's heads; an admission chunk of 32 at each of its offsets in a
+# 192-row cache; the verify pass (8 rows of 5 at offsets over 0-187)
+FLASH_CASES = [("causal128", 1, 32, 32, 128, 128, 128, True, [0]),
+               ("causal2048", 1, 32, 32, 2048, 2048, 128, True, [0]),
+               ("full128", 1, 32, 32, 128, 128, 128, False, [0]),
+               ("gqa512", 1, 24, 8, 512, 512, 128, True, [0]),
+               ("admit0", 1, 32, 32, 32, 192, 128, True, [0]),
+               ("admit32", 1, 32, 32, 32, 192, 128, True, [32]),
+               ("admit64", 1, 32, 32, 32, 192, 128, True, [64]),
+               ("admit96", 1, 32, 32, 32, 192, 128, True, [96]),
+               ("verify", 8, 32, 32, 5, 192, 128, True, [0, 27, 53, 80, 107, 133, 160, 187]),
+               ("smoke_d16", 2, 4, 2, 9, 24, 16, True, [3, 15])]
+
+
+def flash_tolerance(want, v):
+    """Kernel vs plain, both bf16 out: one bf16 step of the result
+    (2^-7 |plain|), plus 2^-12 max|v| for p carried as two bf16 terms
+    (~2^-18 relative) and f32 sums in another order."""
+    return 2.0 ** -7 * want.float().abs() + 2.0 ** -12 * float(v.float().abs().max())
+
+
+@pytest.mark.parametrize("name,b,hq,hkv,s,t,d,causal,offsets", FLASH_CASES,
+                         ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_cuda_matches_plain(cuda, name, b, hq, hkv, s, t, d, causal, offsets):
+    gen = torch.Generator(device=cuda).manual_seed(s * 7 + t)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    # k/v: a layer view of a stacked (L, B, T, Hkv, D) cache, read in place
+    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    args = (q.transpose(1, 2), kc[1].transpose(1, 2), vc[1].transpose(1, 2))
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*args, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = tfa.flash_attention_plain(*args, causal=causal, q_offset=off)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, s, d)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_tolerance(want, vc[1])).all()), float(err.max())
+    # the same call on contiguous copies gives the same bits
+    same = ops.flash_attention(*(a.contiguous() for a in args), causal=causal, q_offset=off)
+    assert torch.equal(same, got)
+
+
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 4, 8, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="unsupported"):          # D = 48
+        z = torch.zeros((1, 4, 8, 48), device=cuda, dtype=torch.bfloat16)
+        ops.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="unsupported"):          # Hq not a multiple of Hkv
+        ops.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flat = torch.zeros(4 * 8 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+        ops.flash_attention(q, flat[4:].view(1, 4, 8, 64), q)
+    with pytest.raises(ValueError, match="int32"):
+        ops.flash_attention(q, q, q, q_offset=torch.zeros(1, device=cuda, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-370m"])
+def test_spec_engine_at_full_width_launches_the_path_kernels(cuda, arch):
+    """A 2-layer full-width model served speculatively (draft 4, greedy):
+    every request finishes, each verify pass launches flash attention once
+    per layer (codeqwen) or the SSD scan once per layer and chunk token
+    (Mamba-2), and no verify pass launches decode attention."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+    params = model.init_params(0, ccfg, device=cuda)
+    eng = engine.ServeEngine(model, params, ccfg, engine.ServeConfig(
+        max_batch=4, max_len=80, prefill_chunk=32, draft_len=4, fused=True), device=cuda)
+    per_verify = []
+    verify = model.spec_verify
+
+    def counted(*a, **kw):
+        before = dict(ops.LAUNCHES)
+        out = verify(*a, **kw)
+        per_verify.append({k: ops.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    model.spec_verify = counted
+    rng = np.random.default_rng(0)
+    reqs = [engine.Request(uid=i, prompt=np.resize(rng.integers(0, cfg.vocab, 5), 48)
+                           .astype(np.int32), max_new_tokens=12) for i in range(6)]
+    ops.reset_launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    assert eng.effective_mode == "spec-greedy-fused"
+    assert all(r.done and len(r.tokens_out) == 12 for r in reqs)
+    assert per_verify
+    for step in per_verify:
+        assert step["decode_attention"] == 0
+        if arch == "mamba2-370m":
+            assert step["ssd_scan"] == 2 * 5 and step["flash_attention"] == 0
+        else:
+            assert step["flash_attention"] == 2 and step["ssd_scan"] == 0
+        assert step["cascade_matmul"] > 0

@@ -2,7 +2,9 @@
 
 On the CPU the plain versions are held to ``repro.kernels.ops`` (Pallas in
 interpret mode) and ``repro.kernels.ref`` at atol/rtol 1e-5 in f32: the
-same products summed in another order. For the SSD scan the state update is
+same products summed in another order. Flash attention is also held, with a
+per-row ``q_offset``, to the reference's own offset-causal attention
+(``layers._chunked_causal_sdpa``) at the same tolerance. For the SSD scan the state update is
 elementwise (the same f32 operations, exp to within an ulp) and only the
 readout ``state @ C`` sums over N in another order, so it is held at
 atol/rtol 1e-5 too, over up to 128 carried steps. ``test_torch_gpu.py`` holds each
@@ -19,8 +21,10 @@ import numpy as np
 from repro.core import quant as jq
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssd_scan as tssd
 
@@ -78,7 +82,8 @@ def test_cascade_matmul_wrapper_flattens_leading_dims_and_counts_no_cpu_launch()
     xp = torch.nn.functional.pad(_t(x), (0, 1))
     want = tcm.cascade_matmul_plain(xp, _t(packed), _t(scales), _t(bias), torch.bfloat16)
     assert torch.equal(got.reshape(6, 20), want)
-    assert tops.LAUNCHES == {"cascade_matmul": 0, "decode_attention": 0, "ssd_scan": 0}
+    assert tops.LAUNCHES == {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0,
+                             "ssd_scan": 0}
 
 
 def _attn_case(b, hq, hkv, t, d, seed=0):
@@ -116,6 +121,68 @@ def test_decode_attention_fully_masked_row_averages_like_reference():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+# the shapes of the reference's own flash kernel tests (tests/test_kernels.py):
+# MHA, GQA (group 2) and MQA
+FLASH_CASES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 64)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_jax(b, hq, hkv, s, d, causal):
+    rng = np.random.default_rng(b * 7 + s)
+    q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    want_kernel = np.asarray(jops.flash_attention(*args, causal=causal, block_q=64,
+                                                  block_k=64, interpret=True))
+    want_ref = np.asarray(jref.flash_attention_ref(*args, causal=causal))
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.shape == (b, hq, s, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_kernel, **TOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+
+
+def test_flash_attention_returns_the_query_dtype():
+    """bf16 in, bf16 out (the TPU kernel writes q's dtype): the f32 result
+    rounded once, as the reference oracle rounds it."""
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal((1, 4, 16, 32)).astype(np.float32) for _ in range(3))
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = tops.flash_attention(*bf)
+    want = jref.flash_attention_ref(*[jnp.asarray(a.float().numpy()) for a in bf])
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.bfloat16),
+                                                               dtype=np.float32), atol=1e-2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t", [(4, 4, 2, 5, 40), (2, 4, 4, 8, 24), (3, 2, 1, 1, 9)])
+def test_flash_attention_per_row_offset_matches_reference_extend(b, hq, hkv, s, t):
+    """Query i of row b at cache position q_offset[b] + i sees keys <= it:
+    the reference's extend attention, held row by row to its offset-causal
+    ``_chunked_causal_sdpa``. Offsets span 0 to past T - s (rows whose
+    mask is clipped at the cache end)."""
+    rng = np.random.default_rng(b * 10 + s)
+    d = 16
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)      # the model's (B, S, H, D)
+    k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)     # a (B, T, Hkv, D) cache
+    v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    off = np.linspace(0, t - 1, b).astype(np.int32)
+    scale = 1.0 / np.sqrt(d)
+    want = np.concatenate([np.asarray(jlayers._chunked_causal_sdpa(
+        jnp.asarray(q[i:i + 1]), jnp.asarray(k[i:i + 1]), jnp.asarray(v[i:i + 1]), scale, s,
+        0, q_offset=int(off[i]))) for i in range(b)])
+    got = tops.flash_attention(_t(q).transpose(1, 2), _t(k).transpose(1, 2),
+                               _t(v).transpose(1, 2), scale=scale, q_offset=_t(off))
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, **TOL)
+    # q_offset zero is the plain causal mask
+    np.testing.assert_array_equal(
+        tops.flash_attention(_t(q).transpose(1, 2), _t(k).transpose(1, 2), _t(v).transpose(1, 2),
+                             q_offset=torch.zeros(b, dtype=torch.int32)).numpy(),
+        tops.flash_attention(_t(q).transpose(1, 2), _t(k).transpose(1, 2),
+                             _t(v).transpose(1, 2)).numpy())
+
+
 def test_wrappers_refuse_devices_without_a_route():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="no kernel route"):
@@ -130,6 +197,11 @@ def test_wrappers_refuse_devices_without_a_route():
     with pytest.raises(ValueError, match="CUDA"):
         tssd.ssd_scan_cuda(torch.zeros(1, 1, 2, 4), torch.zeros(1, 1, 2), torch.zeros(2),
                            torch.zeros(1, 1, 1, 4), torch.zeros(1, 1, 1, 4), torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(torch.zeros(1, 2, 3, 16), torch.zeros(1, 2, 3, 16),
+                                 torch.zeros(1, 2, 3, 16))
+    with pytest.raises(ValueError, match="no kernel route"):
+        tops.flash_attention(*(torch.zeros(1, 2, 3, 16, device="meta") for _ in range(3)))
     with pytest.raises(ValueError, match="no kernel route"):
         tops.ssd_scan(torch.zeros(2, 3, 4, device="meta"), torch.zeros(2, 3, device="meta"),
                       torch.zeros(2, device="meta"), torch.zeros(2, 3, 4, device="meta"),

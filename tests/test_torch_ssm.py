@@ -226,3 +226,97 @@ def test_prefill_extend_matches_jax(mamba):
 
 def test_unbounded_context_flag():
     assert Mamba2LM.unbounded_context and jssm.Mamba2LM.unbounded_context
+
+
+# ---------------------------------------------------------------------------
+# speculative verify and rewind
+# ---------------------------------------------------------------------------
+
+def _copy(tree):
+    return {k: _copy(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def test_ssd_chunked_chunk_states_match_jax():
+    """At chunk 1 the chunk states are the state before every token: the
+    per-token checkpoints of the verify pass."""
+    x, dt, A, B, C, D, s0 = _ssd_inputs(2, 5, 4, 8, 2, 16, seed=9)
+    wy, ws, wst = jssm.ssd_chunked(*[jnp.asarray(a) for a in (x, dt, A, B, C, D)], 1,
+                                   initial_state=jnp.asarray(s0), return_chunk_states=True)
+    gy, gs, gst = tssm.ssd_chunked(*[_t(a) for a in (x, dt, A, B, C, D)], 1,
+                                   initial_state=_t(s0), return_chunk_states=True)
+    assert gst.shape == (2, 5, 4, 8, 16)
+    for g, w in ((gy, wy), (gs, ws), (gst, wst)):
+        _close(g, w, PRIM_TOL)
+
+
+def _slotted(cfg, jm, jp, tm, tp, lens):
+    jc = jm.init_cache(len(lens), 32, dtype=jnp.float32)
+    tc = tm.init_cache(len(lens), 32, dtype=torch.float32, device="cpu")
+    for i, n in enumerate(lens):
+        toks = _tokens(cfg, 1, n, seed=10 + i)
+        _, jsub = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4)
+        jc = jm.write_cache(jc, jsub, i)
+        _, tsub = tm.prefill(tp, {"tokens": _t(toks)}, T_FP4)
+        tm.write_cache(tc, tsub, i)
+    return jc, tc
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_spec_verify_and_rewind_match_jax(mamba, use_kernel):
+    """The verify pass checkpoints the conv window and the SSD state after
+    every chunk token, through the reference's chunk-1 dual form or, with
+    ``use_kernel``, one ``ops.ssd_decode`` per token (the recurrence of plain
+    decode); logits, advanced cache and checkpoints agree with the
+    reference's, and so does every per-slot rewind (keep = 0 included). The
+    port's state stack is (L, s+1, B, ...), the reference's (L, B, s+1, ...)."""
+    cfg, jm, jp, tm, tp = mamba
+    jc, tc = _slotted(cfg, jm, jp, tm, tp, [5, 8, 3])
+    chunk = _tokens(cfg, 3, 4, seed=7)
+    tcc = dataclasses.replace(T_FP4, use_kernel=use_kernel)
+    jl, jc2, jck = jm.spec_verify(jp, {"tokens": jnp.asarray(chunk)}, jc, J_FP4)
+    with torch.no_grad():
+        tl, tc2, tck = tm.spec_verify(tp, {"tokens": _t(chunk)}, tc, tcc)
+    assert tc2 is tc and tl.shape == (3, 4, cfg.vocab)
+    _close(tl, jl)
+    _close_cache(tc2, jc2)
+    _close(tck["layers"]["conv"], jck["layers"]["conv"])
+    _close(tck["layers"]["state"].transpose(1, 2), jck["layers"]["state"])
+    np.testing.assert_array_equal(tck["pos"].numpy(), np.asarray(jck["pos"]))
+    for keep in ([0, 2, 4], [1, 0, 3]):
+        jr = jm.spec_rewind(jc2, jck, jnp.asarray(keep, jnp.int32))
+        tr = tm.spec_rewind(_copy(tc2), tck, torch.tensor(keep))
+        _close_cache(tr, jr)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_full_rewind_restores_the_cache_bit_exactly(mamba, use_kernel):
+    cfg, jm, jp, tm, tp = mamba
+    _, tc = _slotted(cfg, jm, jp, tm, tp, [5, 8, 3])
+    before = _copy(tc)
+    tcc = dataclasses.replace(T_FP4, use_kernel=use_kernel)
+    with torch.no_grad():
+        _, after, ckpt = tm.spec_verify(tp, {"tokens": _t(_tokens(cfg, 3, 4, seed=8))}, tc, tcc)
+    rewound = tm.spec_rewind(after, ckpt, torch.zeros(3, dtype=torch.int64))
+    for name in ("conv", "state"):
+        assert torch.equal(rewound["layers"][name], before["layers"][name]), name
+    assert torch.equal(rewound["pos"], before["pos"])
+
+
+def test_conv_steps_are_the_decode_conv_token_by_token():
+    """The kernel route's verify conv: each chunk token's output equals a
+    ``_conv_decode`` of that token on the window before it, bit for bit,
+    also with a bf16 cache under an f32 chunk; the carried state and the
+    raw window are ``_conv_extend``'s."""
+    rng = np.random.default_rng(8)
+    x = _t(rng.standard_normal((2, 5, 12)).astype(np.float32))
+    w = _t((rng.standard_normal((4, 12)) * 0.1).astype(np.float32))
+    bias = _t(rng.standard_normal(12).astype(np.float32))
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        st = _t(rng.standard_normal((2, 3, 12)).astype(np.float32)).to(cache_dtype)
+        y, new_state, full = tssm._conv_steps(x, st, w, bias)
+        _, ws, wf = tssm._conv_extend(x, st, w, bias)
+        assert torch.equal(new_state, ws) and torch.equal(full, wf)
+        state = st
+        for j in range(5):
+            yj, state = tssm._conv_decode(x[:, j:j + 1], state, w, bias)
+            assert torch.equal(y[:, j:j + 1], yj), (cache_dtype, j)

@@ -262,3 +262,165 @@ def test_configs_match_reference_field_for_field():
                    {f: getattr(j, f) for f in j.__dataclass_fields__}
     assert registry.FAMILY_SMOKE == jregistry.FAMILY_SMOKE
     assert registry.ALIASES == jregistry.ALIASES
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention route and speculative verify/rewind
+# ---------------------------------------------------------------------------
+
+def _copy(tree):
+    return {k: _copy(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+@pytest.mark.parametrize("mode", ["full", "prefill", "extend", "decode"])
+def test_attn_apply_kernel_route_equals_plain_on_cpu(mode):
+    """``use_kernel`` sends decode attention to ``ops.decode_attention`` and
+    every multi-token attention to ``ops.flash_attention``; on CPU tensors
+    their plain versions give the plain path's result (the same f32 sums
+    grouped otherwise: atol/rtol 1e-5), per-row cache positions included."""
+    cfg = tlayers.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, qkv_bias=True)
+    gen = torch.Generator().manual_seed(0)
+    params = tlayers.attn_init(gen, cfg, T_TRAIN, device="cpu")
+    s = 1 if mode == "decode" else 5
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((3, s, 32)).astype(np.float32))
+    cache = None
+    if mode in ("extend", "decode"):
+        kv = rng.standard_normal((2, 3, 16, 2, 8)).astype(np.float32)
+        cache = {"k": torch.from_numpy(kv[0]), "v": torch.from_numpy(kv[1]),
+                 "pos": torch.tensor([0, 5, 9], dtype=torch.int32)}
+    outs = []
+    for use_kernel in (False, True):
+        ccfg = CascadeConfig(mode="train", compute_dtype=torch.float32, use_kernel=use_kernel)
+        outs.append(tlayers.attn_apply(params, x, cfg, ccfg, None if cache is None else
+                                       _copy(cache), mode=mode, max_len=8))
+    (plain, pc), (kern, kc) = outs
+    torch.testing.assert_close(kern, plain, atol=1e-5, rtol=1e-5)
+    if pc is not None:
+        for name in pc:
+            torch.testing.assert_close(kc[name], pc[name], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 5])
+def test_extend_attention_through_the_kernel_route_matches_jax_extend(s):
+    """One attention layer in mode ``extend`` at per-row cache positions
+    (one past T - s, whose write is clamped): the port's flash route against
+    the reference's jnp extend attention, on the same weights and cache."""
+    jcfg = jlayers.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, qkv_bias=True)
+    jp = jlayers.attn_init(jax.random.PRNGKey(3), jcfg, J_TRAIN)
+    tcfg = tlayers.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, qkv_bias=True)
+    tp = params_from_numpy(_np_tree(jp), device="cpu")
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, s, 32)).astype(np.float32)
+    kv = rng.standard_normal((2, 4, 16, 2, 8)).astype(np.float32)
+    pos = np.array([0, 5, 11, 16 - s + 1], np.int32)
+    jc = {"k": jnp.asarray(kv[0]), "v": jnp.asarray(kv[1]), "pos": jnp.asarray(pos)}
+    tc = {"k": torch.from_numpy(kv[0].copy()), "v": torch.from_numpy(kv[1].copy()),
+          "pos": torch.from_numpy(pos.copy())}
+    want, wc = jlayers.attn_apply(jp, jnp.asarray(x), jcfg, J_TRAIN, cache=jc, mode="extend")
+    kcfg = CascadeConfig(mode="train", compute_dtype=torch.float32, use_kernel=True)
+    got, gc = tlayers.attn_apply(tp, torch.from_numpy(x), tcfg, kcfg, cache=tc, mode="extend")
+    _close(got, want)
+    for name in ("k", "v"):
+        _close(gc[name], wc[name])
+    np.testing.assert_array_equal(gc["pos"].numpy(), np.asarray(wc["pos"]))
+
+
+def test_forward_and_prefill_through_the_kernel_route_match_jax(codeqwen):
+    cfg, jm, jp, tm, tp = codeqwen
+    kcfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.float32, use_kernel=True)
+    toks = _tokens(cfg, 2, 9, seed=5)
+    with torch.no_grad():
+        _close(tm.forward(tp, {"tokens": torch.from_numpy(toks)}, kcfg),
+               jm.forward(jp, {"tokens": jnp.asarray(toks)}, J_FP4))
+        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, kcfg, max_len=16)
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4, max_len=16)
+    _close(tl, jl)
+    _close_cache(tc, jc)
+
+
+def _slotted(cfg, jm, jp, tm, tp, lens, t=32):
+    """JAX and port grids whose slots hold prompts of different lengths
+    (rows at different positions)."""
+    jc = jm.init_cache(len(lens), t, dtype=jnp.float32)
+    tc = tm.init_cache(len(lens), t, dtype=torch.float32, device="cpu")
+    for i, n in enumerate(lens):
+        toks = _tokens(cfg, 1, n, seed=10 + i)
+        _, jsub = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4, max_len=t)
+        jc = jm.write_cache(jc, jsub, i)
+        with torch.no_grad():
+            _, tsub = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, T_FP4, max_len=t)
+        tm.write_cache(tc, tsub, i)
+    return jc, tc
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_spec_verify_and_rewind_match_jax(codeqwen, use_kernel):
+    """The verify pass (an all-logits extend at each slot's position, through
+    the flash route with ``use_kernel``): logits, advanced cache and the row
+    snapshot; then per-slot rewinds, a full one (keep = 0) included."""
+    cfg, jm, jp, tm, tp = codeqwen
+    jc, tc = _slotted(cfg, jm, jp, tm, tp, [5, 8, 3])
+    chunk = _tokens(cfg, 3, 4, seed=7)
+    tcc = CascadeConfig(mode="serve_fp4", compute_dtype=torch.float32, use_kernel=use_kernel)
+    jl, jc2, jck = jm.spec_verify(jp, {"tokens": jnp.asarray(chunk)}, jc, J_FP4)
+    with torch.no_grad():
+        tl, tc2, tck = tm.spec_verify(tp, {"tokens": torch.from_numpy(chunk)}, tc, tcc)
+    assert tc2 is tc and tl.shape == (3, 4, cfg.vocab)
+    _close(tl, jl)
+    _close_cache(tc2, jc2)
+    _close_cache(tck, jck)
+    for keep in ([0, 2, 4], [1, 0, 3]):
+        jr = jm.spec_rewind(jc2, jck, jnp.asarray(keep, jnp.int32))
+        tr = tm.spec_rewind(_copy(tc2), tck, torch.tensor(keep))
+        _close_cache(tr, jr)
+
+
+def test_full_rewind_restores_the_cache_bit_exactly(codeqwen):
+    cfg, jm, jp, tm, tp = codeqwen
+    _, tc = _slotted(cfg, jm, jp, tm, tp, [5, 8, 3])
+    before = _copy(tc)
+    chunk = torch.from_numpy(_tokens(cfg, 3, 4, seed=8))
+    with torch.no_grad():
+        _, after, ckpt = tm.spec_verify(tp, {"tokens": chunk}, tc, T_FP4)
+        # a checkpoint passed back in is refilled, not reallocated
+        _, after, ckpt2 = tm.spec_verify(tp, {"tokens": chunk}, tm.spec_rewind(
+            after, ckpt, torch.zeros(3, dtype=torch.int64)), T_FP4, ckpt=ckpt)
+    assert ckpt2["layers"]["k"] is ckpt["layers"]["k"]
+    rewound = tm.spec_rewind(after, ckpt2, torch.zeros(3, dtype=torch.int64))
+    for name in ("k", "v", "pos"):
+        assert torch.equal(rewound["layers"][name], before["layers"][name]), name
+
+
+def test_seq_rows_primitives_match_jax():
+    """Snapshot (rows clamped at the cache end), in-place restore and the
+    per-slot row slice, on (L, B, T, ...) stacks, equal to the reference's."""
+    rng = np.random.default_rng(4)
+    kv = rng.standard_normal((2, 2, 3, 10, 2, 4)).astype(np.float32)
+    pos = np.array([[1, 6, 9], [0, 4, 7]], np.int32)
+    jc = {"k": jnp.asarray(kv[0]), "v": jnp.asarray(kv[1]), "pos": jnp.asarray(pos)}
+    tc = {"k": torch.from_numpy(kv[0].copy()), "v": torch.from_numpy(kv[1].copy()),
+          "pos": torch.from_numpy(pos.copy())}
+    jsnap = jcache.seq_rows_snapshot(jc, 3)
+    tsnap = tcache.seq_rows_snapshot(tc, 3)
+    for name in ("k", "v", "pos"):
+        np.testing.assert_array_equal(tsnap[name].numpy(), np.asarray(jsnap[name]))
+    # restore after a "verify" rewrote every row, at positions with headroom
+    pos = np.array([[1, 6, 7], [0, 4, 7]], np.int32)
+    jc["pos"], tc["pos"] = jnp.asarray(pos), torch.from_numpy(pos.copy())
+    jsnap, tsnap = jcache.seq_rows_snapshot(jc, 3), tcache.seq_rows_snapshot(tc, 3)
+    new = rng.standard_normal((2,) + kv.shape[1:]).astype(np.float32)
+    jc = {"k": jnp.asarray(new[0]), "v": jnp.asarray(new[1]), "pos": jnp.asarray(pos + 3)}
+    tc = {"k": torch.from_numpy(new[0].copy()), "v": torch.from_numpy(new[1].copy()),
+          "pos": torch.from_numpy(pos + 3)}
+    keep = np.array([0, 2, 3], np.int32)
+    jr = jcache.seq_rows_restore(jc, jsnap, jnp.asarray(keep))
+    tr = tcache.seq_rows_restore(tc, tsnap, torch.from_numpy(keep))
+    assert tr is tc
+    for name in ("k", "v", "pos"):
+        np.testing.assert_array_equal(tr[name].numpy(), np.asarray(jr[name]))
+    ck = rng.standard_normal((2, 3, 6, 5)).astype(np.float32)
+    for n in (1, 3):
+        np.testing.assert_array_equal(
+            tcache.slice_rows_per_slot(torch.from_numpy(ck), torch.from_numpy(keep), 1, n).numpy(),
+            np.asarray(jcache.slice_rows_per_slot(jnp.asarray(ck), jnp.asarray(keep), 1, n)))
