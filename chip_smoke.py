@@ -14,12 +14,16 @@ printed.
    timed with CUDA events over CUDA-graph replays of many launches (device
    time, no host launch gaps), beside its plain version, one library call
    computing the same function where there is one, and the least time the
-   card could take. The SSD scan is also held to its plain version at a
-   multi-step shape with an initial state and at a grouped (G > 1) shape;
+   card could take. Decode attention runs at three shapes: the served
+   codeqwen step, qwen2.5-32b's GQA heads (40 over 8) and a 4096-row
+   cache whose rows are split across blocks. The SSD scan is also held to
+   its plain version at a multi-step shape with an initial state and at a
+   grouped (G > 1) shape;
    flash attention at the TPU kernel's own signature (S = T = 128 and 2048,
    causal and not), at GQA heads, at the admission chunk and the verify
    pass (per-row offsets into a 192-row cache), and on strided views.
-2. Parity, per path: the model cut to 2 layers at full width, one padded
+2. Parity, per path and for qwen2.5-32b (GQA 40/8, QKV bias, decode
+   attention at G = 5): the model cut to 2 layers at full width, one padded
    prefill chunk, one decode step and one speculative verify chunk (8 rows
    of 1 + 4 tokens) through the kernels, and again with the wrappers sent to
    the kernels' plain versions on the card (the same functions on the same
@@ -92,7 +96,10 @@ FLASH_RTOL, FLASH_VTOL = 2.0 ** -7, 2.0 ** -12
 SSD_STATE_TOL = 1e-5
 SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #: arch -> (rel_l2, max_steps)
-PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1)}
+#     qwen2.5-32b (GQA 40/8, decode attention at G = 5) takes codeqwen's
+#     limits: a dense transformer of the same kind
+PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1),
+                 "qwen2.5-32b": (2.0 ** -6, 2)}
 # f32 rate outside the tensor cores (the SSD scan's arithmetic)
 F32_FLOP_PER_S = 67e12
 
@@ -100,6 +107,8 @@ PROMPT_LEN, MAX_NEW, N_REQ, MAX_BATCH, CHUNK = 128, 32, 16, 8, 32
 DRAFT_LEN = 4
 
 ARCHS = ("codeqwen1.5-7b", "mamba2-370m")
+#: the depth-2 parity phase also runs a GQA transformer (not served here)
+PARITY_ARCHS = ARCHS + ("qwen2.5-32b",)
 #: (arch, decode) -> the kernels that run launches; a speculative step's
 #: decode is the verify pass, which never launches decode attention
 RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention",
@@ -222,46 +231,76 @@ def matmul_phase(torch, dev):
     return rows
 
 
+def decode_attention_cases():
+    """(name, B, Hq, Hkv, T, positions), D = 128: the served codeqwen step
+    (8 slots at 128-156 of the engine's 192-row cache), qwen2.5-32b's GQA
+    heads (40 over 8) at the same positions, and a long context (T = 4096,
+    positions spread over 2,047-4,095, so 2,048-4,096 live keys a row)."""
+    t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
+    served = [PROMPT_LEN + 4 * i for i in range(MAX_BATCH)]
+    long_pos = [2047 + round(i * 2048 / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
+    return [("codeqwen_step", MAX_BATCH, 32, 32, t, served),
+            ("qwen2.5-32b_gqa", MAX_BATCH, 40, 8, t, served),
+            ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos)]
+
+
 def attention_phase(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
 
-    b, hq, hkv, d = MAX_BATCH, 32, 32, 128
-    t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
-    # one layer's view of a stacked (L, B, T, Hkv, D) cache, read in place
-    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = kc[1], vc[1]
-    pos = torch.arange(PROMPT_LEN, PROMPT_LEN + b, device=dev) + 3 * torch.arange(b, device=dev)
-    mask = torch.arange(t, device=dev)[None, :] <= pos[:, None]
-    live = int(mask.sum())     # the bound counts live keys only: masked ones add nothing
-    got = ops.decode_attention(q, k, v, mask)
-    want = da.decode_attention_plain(q, k, v, mask)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not err <= ATTN_ATOL:
-        fail(f"decode_attention max|err| {err} > {ATTN_ATOL}")
-    nc = copies_beyond_l2(k.numel() * 4)
-    sets = [(q, k.clone(), v.clone(), mask) for _ in range(nc)]
-    kern = lambda a, kk, vv, mk: ops.decode_attention(a, kk, vv, mk)
-    plain = lambda a, kk, vv, mk: da.decode_attention_plain(a, kk, vv, mk)
-    lib = lambda a, kk, vv, mk: F.scaled_dot_product_attention(
-        a[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mk[:, None, None, :])
-    row = {"B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d, "live_keys": live,
-           "launches_per_decode_step": 32, "max_abs_err": err, "tol": ATTN_ATOL,
-           "ms": graph_ms(torch, kern, sets, 100),
-           "plain_ms": graph_ms(torch, plain, sets, 20),
-           "library_ms": graph_ms(torch, lib, sets, 100)}
-    nbytes = q.numel() * 2 + 2 * live * hkv * d * 2 + mask.numel() + b * hq * d * 4
-    flops = 4 * live * hq * d
-    row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S \
-        else "operations"
-    return row
+    d = 128
+    rows = []
+    for name, b, hq, hkv, t, positions in decode_attention_cases():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        # one layer's view of a stacked (L, B, T, Hkv, D) cache, read in place
+        kc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = kc[1], vc[1]
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        mask = torch.arange(t, device=dev)[None, :] <= pos[:, None]
+        live = int(mask.sum())
+        # as served: live keys up to each row's position, no mask
+        got = ops.decode_attention(q, k, v, q_pos=pos)
+        want = da.decode_attention_plain(q, k, v, q_pos=pos)
+        by_mask = ops.decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        mask_err = float((by_mask - want).abs().max())
+        if not max(err, mask_err) <= ATTN_ATOL:
+            fail(f"decode_attention {name}: max|err| {err} (q_pos), {mask_err} (mask) "
+                 f"> {ATTN_ATOL}")
+        nc = copies_beyond_l2(k.numel() * 4)
+        sets = [(q, k if i == 0 else k.clone(), v if i == 0 else v.clone(), pos)
+                for i in range(nc)]
+        kern = lambda a, kk, vv, p: ops.decode_attention(a, kk, vv, q_pos=p)
+        plain = lambda a, kk, vv, p: da.decode_attention_plain(a, kk, vv, q_pos=p)
+        lib = lambda a, kk, vv, p: F.scaled_dot_product_attention(
+            a[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
+            attn_mask=mask[:, None, None, :], enable_gqa=hq != hkv)
+        big = t > 1024
+        row = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d, "q_pos": positions,
+               "live_keys": live, "splits": da.choose_splits(b, hkv, hq // hkv, t),
+               "heads_per_block": da.heads_per_block(hq // hkv),
+               "max_abs_err": err, "max_abs_err_mask_route": mask_err, "tol": ATTN_ATOL,
+               "ms": graph_ms(torch, kern, sets, 20 if big else 100),
+               "plain_ms": graph_ms(torch, plain, sets, 5 if big else 20),
+               "library_ms": graph_ms(torch, lib, sets, 20 if big else 100)}
+        # every live K/V row read once per kv head, q and q_pos read, out written
+        nbytes = q.numel() * 2 + 2 * live * hkv * d * 2 + b * 4 + b * hq * d * 4
+        flops = 4 * live * hq * d
+        row.update({"bytes": nbytes, "flops": flops,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                                 else "operations")})
+        if name == "codeqwen_step":
+            row["launches_per_decode_step"] = 32
+        rows.append(row)
+        del sets, kc, vc
+        torch.cuda.empty_cache()
+    return rows
 
 
 def flash_cases():
@@ -460,10 +499,12 @@ def parity_phase(torch, dev, arch: str):
     gen = torch.Generator(device=dev).manual_seed(4)
     toks = torch.randint(0, cfg.vocab, (MAX_BATCH, CHUNK), device=dev, generator=gen)
     chunk = torch.randint(0, cfg.vocab, (MAX_BATCH, 1 + DRAFT_LEN), device=dev, generator=gen)
+    from repro_torch.kernels import ops
     out = {}
     nxt = None
     with torch.no_grad():
         for name, route in (("plain", plain_versions_on_card), ("kernel", contextlib.nullcontext)):
+            ops.reset_launch_counts()
             with route():
                 cache = model.init_cache(MAX_BATCH, 2 * CHUNK, dtype=torch.bfloat16, device=dev)
                 l1, cache = model.prefill_extend(params, {"tokens": toks}, cache, ccfg,
@@ -475,10 +516,15 @@ def parity_phase(torch, dev, arch: str):
                 l3, cache, _ = model.spec_verify(params, {"tokens": chunk}, cache, ccfg)
             out[name] = (l1, l2, l3)
     torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)            # the kernel run's: prefill, decode, verify
+    if cfg.family == "dense" and launches["decode_attention"] != cfg.n_layers:
+        fail(f"depth-2 parity ({arch}): the decode step launched decode attention "
+             f"{launches['decode_attention']} times, not once per layer: {launches}")
     if not all(torch.isfinite(o).all() for o in out["kernel"]):
         fail(f"depth-2 parity ({arch}): kernel logits not finite")
     rel_limit, step_limit = PARITY_LIMITS[arch]
     res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "kernel_launches": launches,
            "logit_absmax": float(out["plain"][1].abs().max()),
            "tol": {"rel_l2": rel_limit, "max_bf16_steps": step_limit}}
     rels, steps = [], []
@@ -783,14 +829,17 @@ def main() -> int:
 
     mm = timed("cascade_matmul", matmul_phase)
     print(json.dumps({"cascade_matmul_shapes": mm}), flush=True)
-    att = timed("decode_attention", attention_phase)
-    print(json.dumps({"decode_attention": att}), flush=True)
+    atts = timed("decode_attention", attention_phase)
+    att = atts[0]
+    from repro_torch.kernels import decode_attention as da
+    att_geometry = da.geometry()
+    print(json.dumps({"decode_attention": atts, "geometry": att_geometry}), flush=True)
     fla = timed("flash_attention", flash_phase)
     print(json.dumps({"flash_attention": fla}), flush=True)
     ssd = timed("ssd_scan", ssd_phase)
     print(json.dumps({"ssd_scan": ssd}), flush=True)
     par, srv = {}, {}
-    for arch in ARCHS:
+    for arch in PARITY_ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
         print(json.dumps({"parity_depth2": par[arch]}), flush=True)
     for arch in ARCHS:
@@ -838,15 +887,24 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:178",
-         "shape": f"B={att['B']} Hq={att['Hq']} Hkv={att['Hkv']} T={att['T']} D={att['D']}",
+         "shape": f"B={att['B']} Hq={att['Hq']} Hkv={att['Hkv']} T={att['T']} D={att['D']}, "
+                  f"q_pos {att['q_pos']} ({att['live_keys']} live keys; every shape under "
+                  "decode_attention_shapes)",
          "launches": srv[cq]["plain"]["launches"]["decode_attention"],
          "launches_by_run": by_run("decode_attention"),
          "launches_per_decode_step":
              srv[cq]["plain"]["launches_per_decode_step"]["decode_attention"],
-         "max_abs_err": att["max_abs_err"], "max_err": att["max_abs_err"], "tol": ATTN_ATOL,
+         "max_abs_err": max(r["max_abs_err"] for r in atts),
+         "max_err": max(max(r["max_abs_err"], r["max_abs_err_mask_route"]) for r in atts),
+         "tol": ATTN_ATOL,
          "ms": att["ms"], "kernel_ms": att["ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
-         "library_ms": att["library_ms"]},
+         "library_ms": att["library_ms"],
+         "library_note": "scaled_dot_product_attention with the equivalent boolean mask",
+         "geometry": att_geometry, "splits": att["splits"],
+         "decode_attention_shapes": {r["case"]: {k: r[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits", "max_abs_err")}
+             for r in atts}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:72",
@@ -887,7 +945,7 @@ def main() -> int:
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
-              "decode_attention": att, "flash_attention": fla, "ssd_scan": ssd,
+              "decode_attention": atts, "flash_attention": fla, "ssd_scan": ssd,
               "parity_depth2": par, "serve": srv,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

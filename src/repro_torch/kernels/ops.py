@@ -52,15 +52,18 @@ def cascade_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+                     valid: torch.Tensor | None = None, *, scale: float | None = None,
+                     q_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Decode-step attention on a stacked cache. q: (B, Hq, D), one query
-    token per slot; k/v: (B, T, Hkv, D) cache buffers; valid: (B, T)
-    nonzero where the slot holds a real key. Returns (B, Hq, D) f32."""
+    token per slot; k/v: (B, T, Hkv, D) cache buffers. Key t of row b is
+    live iff ``t <= q_pos[b]`` (q_pos: (B,) int32, the row's position; the
+    kernel then reads no row past it) and ``valid[b, t]`` is nonzero; either
+    may be absent. Returns (B, Hq, D) f32."""
     if _route(q) == "cuda":
-        out = _da.decode_attention_cuda(q.contiguous(), k, v, valid, scale)
+        out = _da.decode_attention_cuda(q.contiguous(), k, v, valid, scale, q_pos)
         LAUNCHES["decode_attention"] += 1
         return out
-    return _da.decode_attention_plain(q, k, v, valid, scale)
+    return _da.decode_attention_plain(q, k, v, valid, scale, q_pos)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

@@ -178,8 +178,8 @@ def attn_apply(
     In ``decode``/``extend`` the cache dict ``{"k", "v": (B, T, Hkv, D),
     "pos": (B,)}`` is updated in place and returned. With
     ``ccfg.use_kernel`` decode attention goes through ``ops.decode_attention``
-    and every multi-token attention (extend, full, prefill) through
-    ``ops.flash_attention``.
+    (given each row's position, not a mask) and every multi-token attention
+    (extend, full, prefill) through ``ops.flash_attention``.
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -216,22 +216,23 @@ def attn_apply(
             o = ops.flash_attention(q.transpose(1, 2), att_k.transpose(1, 2),
                                     att_v.transpose(1, 2), scale=scale,
                                     q_offset=pos).transpose(1, 2)
+        elif ccfg.use_kernel:
+            # key t is live iff t <= pos: the kernel reads no cache row past
+            # the slot's position, and no mask is built
+            from repro_torch.kernels import ops
+            o = ops.decode_attention(q[:, 0], att_k, att_v, q_pos=pos,
+                                     scale=scale).reshape(b, s, h, hd)
         else:
             t = att_k.shape[1]
             rows = pos[:, None] + steps[None, :]             # (B, s)
             valid = torch.arange(t, device=dev)[None, None, :] <= rows[:, :, None]  # (B, s, T)
-            if ccfg.use_kernel:
-                from repro_torch.kernels import ops
-                o = ops.decode_attention(q[:, 0], att_k, att_v, valid[:, 0],
-                                         scale=scale).reshape(b, s, h, hd)
-            else:
-                qd = q.to(torch.float32).reshape(b, s, hk, h // hk, hd)
-                logits = torch.einsum("bshgd,bthd->bhgst", qd,
-                                      att_k.to(torch.float32)) * scale
-                logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
-                p = torch.softmax(logits, dim=-1)
-                o = torch.einsum("bhgst,bthd->bshgd", p,
-                                 att_v.to(torch.float32)).reshape(b, s, h, hd)
+            qd = q.to(torch.float32).reshape(b, s, hk, h // hk, hd)
+            logits = torch.einsum("bshgd,bthd->bhgst", qd,
+                                  att_k.to(torch.float32)) * scale
+            logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
+            p = torch.softmax(logits, dim=-1)
+            o = torch.einsum("bhgst,bthd->bshgd", p,
+                             att_v.to(torch.float32)).reshape(b, s, h, hd)
         nv = s if n_valid is None else n_valid
         cache["pos"].add_(nv if isinstance(nv, torch.Tensor) else int(nv))
         new_cache = cache
@@ -322,14 +323,21 @@ def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
-def tied_head(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+def tied_head(params: dict, x: torch.Tensor, compute_dtype,
+              per_token: bool = False) -> torch.Tensor:
     """Logits through the embedding table (tied embeddings): x and the table
     rounded to the compute dtype, products summed in f32, f32 out, as the
     reference's ``preferred_element_type=float32`` dot. A plain matmul: the
     reference computes it outside any kernel. It upcasts the whole table on
-    every call."""
-    return torch.matmul(x.to(compute_dtype).to(torch.float32),
-                        params["table"].to(compute_dtype).to(torch.float32).T)
+    every call. ``per_token`` (x: (B, S, d)) runs one (B, 1, d) matmul per
+    token, the shape of a decode step: cuBLAS picks its f32 kernel by M,
+    and one matmul over all B * S rows rounds otherwise than decode does."""
+    w = params["table"].to(compute_dtype).to(torch.float32).T
+    xf = x.to(compute_dtype).to(torch.float32)
+    if per_token:
+        return torch.cat([torch.matmul(xf[:, j:j + 1].contiguous(), w)
+                          for j in range(xf.shape[1])], dim=1)
+    return torch.matmul(xf, w)
 
 
 def sinusoidal_positions(s: int, d: int, offset=0, device=None) -> torch.Tensor:

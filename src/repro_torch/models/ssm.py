@@ -312,10 +312,11 @@ class Mamba2LM:
         return x + h, nc
 
     # --------------------------------------------------------------- api
-    def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig) -> torch.Tensor:
+    def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig,
+              per_token: bool = False) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg.norm_type)
         if self.cfg.tie_embeddings:
-            logits = L.tied_head(params["embed"], x, ccfg.compute_dtype)
+            logits = L.tied_head(params["embed"], x, ccfg.compute_dtype, per_token)
         else:
             logits = cascade.linear_apply(params["lm_head"], x, ccfg)
         return logits.to(torch.float32)
@@ -417,7 +418,10 @@ class Mamba2LM:
                                cache_utils.layer_view(cache["layers"], i), "extend",
                                collect=cache_utils.layer_view(ckpt["layers"], i))
         cache["pos"].add_(s)
-        return self._head(params, x, ccfg), cache, ckpt
+        # the tied head token by token, at decode's shape: one f32 GEMM over
+        # all B * s rows rounds otherwise than decode's M = B does. (The
+        # norms still reduce in an order set by their row count.)
+        return self._head(params, x, ccfg, per_token=True), cache, ckpt
 
     def spec_rewind(self, cache: dict, ckpt: dict, keep: torch.Tensor) -> dict:
         """Per-slot rewind to ``keep[b]`` committed chunk tokens, in place:

@@ -121,6 +121,82 @@ def test_decode_attention_fully_masked_row_averages_like_reference():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+def _q_pos_case(b, t, seed):
+    """Per-row positions: past T (the clamped write: every row live), -1
+    (nothing live), 0, and the rest spread over T."""
+    q_pos = np.random.default_rng(seed).integers(0, t, b).astype(np.int32)
+    q_pos[:3] = [t + 3, -1, 0]
+    return q_pos
+
+
+# (B, Hq, Hkv, T, D): MHA, G = 3 (phi4-mini's group), G = 5 (qwen2.5-32b's)
+Q_POS_CASES = [(4, 4, 4, 40, 16), (5, 6, 2, 37, 16), (4, 10, 2, 70, 32)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d", Q_POS_CASES)
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_decode_attention_q_pos_matches_jax(b, hq, hkv, t, d, with_mask):
+    """Key t live iff t <= q_pos[b] (and the mask, when given): the plain
+    version and the wrapper against the reference oracle and the exact
+    Pallas kernel fed the equivalent mask (every row), and against the
+    streaming Pallas kernel on the rows with a live key (its 0/0 on a row
+    with none is NaN; the reference averages v uniformly over T there)."""
+    q, k, v, mask = _attn_case(b, hq, hkv, t, d, seed=hq)
+    q_pos = _q_pos_case(b, t, seed=t)
+    live = np.arange(t)[None, :] <= q_pos[:, None]
+    if with_mask:
+        live &= mask
+        mask[0, 0] = False       # a hole in the row that q_pos leaves whole
+        live[0, 0] = False
+    args = [jnp.asarray(a) for a in (q, k, v, live)]
+    want_ref = np.asarray(jref.decode_attention_ref(*args))
+    want_exact = np.asarray(jops.decode_attention(*args, interpret=True))
+    from repro.kernels.flash_attention import decode_attention_pallas
+    want_stream = np.asarray(decode_attention_pallas(*args, block_t=16, interpret=True))
+    tmask = _t(mask) if with_mask else None
+    got = tda.decode_attention_plain(_t(q), _t(k), _t(v), tmask, q_pos=_t(q_pos))
+    via_ops = tops.decode_attention(_t(q), _t(k), _t(v), tmask, q_pos=_t(q_pos))
+    assert got.dtype == torch.float32 and got.shape == (b, hq, d)
+    assert torch.equal(via_ops, got)
+    np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+    np.testing.assert_allclose(got.numpy(), want_exact, **TOL)
+    some = live.any(axis=1)
+    assert not some[1] and some.sum() >= b - 1
+    np.testing.assert_allclose(got.numpy()[some], want_stream[some], **TOL)
+    # the row with nothing live averages v uniformly over all T
+    g = hq // hkv
+    np.testing.assert_allclose(got.numpy()[1], np.repeat(v[1].mean(0), g, axis=0), **TOL)
+    # q_pos past T is every row: the mask alone (or no mask) gives the same
+    whole = tda.decode_attention_plain(_t(q), _t(k), _t(v), tmask)
+    torch.testing.assert_close(got[0], whole[0], atol=0, rtol=0)
+
+
+def test_decode_attention_refuses_a_bad_q_pos():
+    """q_pos must be a (B,) int32 tensor on q's device, on either route."""
+    q, k, v = (torch.zeros(2, 4, 16), torch.zeros(2, 5, 2, 16), torch.zeros(2, 5, 2, 16))
+    good = torch.tensor([1, 4], dtype=torch.int32)
+    tops.decode_attention(q, k, v, q_pos=good)
+    for bad, what in ((good.long(), "int32"), (good[:1], r"\(2,\)"),
+                      (good[:, None], r"\(2,\)"), (good.to("meta"), "meta")):
+        with pytest.raises(ValueError, match=what):
+            tops.decode_attention(q, k, v, q_pos=bad)
+        with pytest.raises(ValueError, match=what):
+            tda.decode_attention_plain(q, k, v, None, None, bad)
+
+
+def test_decode_attention_splits_and_heads_per_block_follow_the_shapes():
+    """The split count comes from the shapes alone: one split where the
+    (slot, kv head) blocks fill the card or T is short (the served decode
+    step), several for a long cache over few blocks; a group over 8 query
+    heads takes equal chunks of at most 8."""
+    assert [tda.heads_per_block(g) for g in (1, 3, 5, 8, 10, 16, 17)] == [1, 3, 5, 8, 5, 8, 6]
+    assert tda.choose_splits(8, 32, 1, 192) == 1           # codeqwen decode step
+    assert tda.choose_splits(8, 8, 5, 192) == 1            # qwen2.5-32b heads, short T
+    assert tda.choose_splits(8, 32, 1, 4096) == 9          # long context
+    assert tda.choose_splits(2, 8, 5, 4096) == 16          # few blocks, long T
+    assert tda.choose_splits(1, 1, 1, 1 << 20) == 32       # capped
+
+
 # the shapes of the reference's own flash kernel tests (tests/test_kernels.py):
 # MHA, GQA (group 2) and MQA
 FLASH_CASES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 64)]

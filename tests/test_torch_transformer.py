@@ -156,6 +156,44 @@ def test_decode_with_positions_past_the_cache_clamps_like_jax(codeqwen):
     assert tc["layers"]["pos"][0].tolist() == [3, 9, 14]
 
 
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "qwen2.5-32b"])
+def test_decode_kernel_route_gives_the_mask_route_logits_bit_for_bit(arch, monkeypatch):
+    """The decode step's kernel route hands ``ops.decode_attention`` the
+    rows' positions (``q_pos``) and builds no mask; on CPU tensors its logits
+    are bit-equal to the route it replaced, which built the (B, T) mask
+    ``arange(T) <= pos`` for every layer and passed that, at positions
+    inside the cache and past it (MHA and GQA), and within 1e-4 of JAX."""
+    cfg, jm, jp, tm, tp = _pair(arch)
+    jc = jm.init_cache(3, 8, dtype=jnp.float32)
+    rng = np.random.default_rng(4)
+    for name in ("k", "v"):
+        jc["layers"][name] = jnp.asarray(
+            rng.standard_normal(jc["layers"][name].shape).astype(np.float32))
+    jc["layers"]["pos"] = jnp.asarray(np.array([[0, 5, 11]] * cfg.n_layers, np.int32))
+    toks = _tokens(cfg, 3, 1, seed=2)
+    kcfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.float32, use_kernel=True)
+    from repro_torch.kernels import ops as tops
+    routes, seen = {}, []
+    with torch.no_grad():
+        for route in ("q_pos", "mask"):
+            if route == "mask":
+                new_route = tops.decode_attention
+
+                def mask_route(q, k, v, valid=None, *, scale=None, q_pos=None):
+                    assert valid is None and q_pos is not None
+                    rows = q_pos[:, None] + torch.arange(1, dtype=torch.int32)[None, :]
+                    valid = torch.arange(k.shape[1])[None, None, :] <= rows[:, :, None]
+                    seen.append(q_pos.tolist())
+                    return new_route(q, k, v, valid[:, 0], scale=scale)
+                monkeypatch.setattr(tops, "decode_attention", mask_route)
+            tc = params_from_numpy(_np_tree(jc), device="cpu")
+            routes[route], _ = tm.decode_step(tp, {"tokens": torch.from_numpy(toks)}, tc, kcfg)
+    assert seen == [[0, 5, 11]] * cfg.n_layers
+    assert torch.equal(routes["q_pos"], routes["mask"])
+    jl, _ = jm.decode_step(jp, {"tokens": jnp.asarray(toks)}, jc, J_FP4)
+    _close(routes["q_pos"], jl)
+
+
 def test_update_rows_clamps_like_dynamic_update_slice():
     rng = np.random.default_rng(0)
     buf = rng.standard_normal((4, 6, 2)).astype(np.float32)
