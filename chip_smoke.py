@@ -20,8 +20,15 @@ printed.
    its plain version at a multi-step shape with an initial state and at a
    grouped (G > 1) shape;
    flash attention at the TPU kernel's own signature (S = T = 128 and 2048,
-   causal and not), at GQA heads, at the admission chunk and the verify
-   pass (per-row offsets into a 192-row cache), and on strided views.
+   causal and not), at GQA heads, at the admission chunk (over its live
+   cache prefix, early in a 192-row cache and late in a 4,096-row one) and
+   the verify pass (per-row offsets into a 192-row cache), and on strided
+   views, each row with the launch plan (heads per block, splits over the
+   keys; a split call is also timed unsplit); the
+   norm at the served widths and row counts (codeqwen's 4,096, mamba2-370m's
+   1,024 and gated 2,048; a decode step's 8 rows, a verify pass's 40, an
+   admission chunk's 32), where each token's rows must also equal, bit for
+   bit, what a one-token call over the same slots gives.
 2. Parity, per path and for qwen2.5-32b (GQA 40/8, QKV bias, decode
    attention at G = 5): the model cut to 2 layers at full width, one padded
    prefill chunk, one decode step and one speculative verify chunk (8 rows
@@ -40,7 +47,9 @@ printed.
    plain run's top-2 logit margin there, and fails the run when that margin
    exceeds the path's bf16-step limit); on codeqwen also speculative
    sampling (temperature 0.8, top-k 50), twice with one seed, which must
-   give the same streams.
+   give the same streams, and plain greedy at a 4,096-token context (2
+   prompts of 4,064 tokens, 8 new tokens each), whose late admission chunks
+   must split flash attention over the keys and whose early ones must not.
 
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
@@ -79,6 +88,10 @@ BF16_FLOP_PER_S = 989e12
 #   flash_attention (bf16 out): online softmax with p carried as two bf16
 #     terms (~2^-18 relative) and f32 sums in another order, then the bf16
 #     rounding of the output -> |err| <= 2^-7 * |plain| + 2^-12 * max|v|
+#   norm (bf16 out): the same f32 arithmetic with the row's sum in another
+#     order, then one bf16 rounding -> |err| <= 2^-7 * |plain|, plus
+#     2^-20 * max|plain| where LayerNorm's bias add cancels to near 0 (the
+#     last f32 bits of terms as large as the outputs show there)
 #   depth-2 parity (bf16 logits, kernels vs their plain versions): the same
 #     functions summed in another order. Once one f32 sum lands on the other
 #     side of a bf16 rounding edge, every later bf16 rounding on that row
@@ -105,6 +118,9 @@ F32_FLOP_PER_S = 67e12
 
 PROMPT_LEN, MAX_NEW, N_REQ, MAX_BATCH, CHUNK = 128, 32, 16, 8, 32
 DRAFT_LEN = 4
+#: the long-context serve run (codeqwen): a 4,096-token context, prompts
+#: that fill it but for a chunk, admitted in 127 chunks of 32
+LONG_LEN, LONG_REQ, LONG_BATCH, LONG_NEW = 4096, 2, 2, 8
 
 ARCHS = ("codeqwen1.5-7b", "mamba2-370m")
 #: the depth-2 parity phase also runs a GQA transformer (not served here)
@@ -112,10 +128,11 @@ PARITY_ARCHS = ARCHS + ("qwen2.5-32b",)
 #: (arch, decode) -> the kernels that run launches; a speculative step's
 #: decode is the verify pass, which never launches decode attention
 RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention",
-                                             "flash_attention"),
-               ("codeqwen1.5-7b", "spec"): ("cascade_matmul", "flash_attention"),
-               ("mamba2-370m", "plain"): ("cascade_matmul", "ssd_scan"),
-               ("mamba2-370m", "spec"): ("cascade_matmul", "ssd_scan")}
+                                             "flash_attention", "norm"),
+               ("codeqwen1.5-7b", "spec"): ("cascade_matmul", "flash_attention", "norm"),
+               ("mamba2-370m", "plain"): ("cascade_matmul", "norm", "ssd_scan"),
+               ("mamba2-370m", "spec"): ("cascade_matmul", "norm", "ssd_scan")}
+NORM_RTOL, NORM_MTOL = 2.0 ** -7, 2.0 ** -20
 
 
 def fail(msg: str):
@@ -307,8 +324,10 @@ def flash_cases():
     """(name, B, Hq, Hkv, S, T, causal, offsets), D = 128 throughout: the
     TPU kernel's own signature (T = S, offset 0), not causal, GQA at
     phi4-mini's 24/8 heads, the admission chunk at each of its offsets into
-    the engine's 192-row cache, and the verify pass (8 rows of 1 + 4 tokens
-    at positions spread over the cache)."""
+    the engine's 192-row cache and late in a 4,096-row one (T is the live
+    prefix the engine hands in, offset + 32: from 256 live keys on the
+    chunk is split over the keys), and the verify pass (8 rows of 1 + 4
+    tokens at positions spread over the cache)."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1 + DRAFT_LEN) // CHUNK) * CHUNK     # the engine's cache
     n = DRAFT_LEN + 1
     verify_off = [round(i * (t - n) / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
@@ -316,7 +335,10 @@ def flash_cases():
              ("tpu_causal_2048", 1, 32, 32, 2048, 2048, True, [0]),
              ("tpu_full_128", 1, 32, 32, 128, 128, False, [0]),
              ("gqa_512", 1, 24, 8, 512, 512, True, [0])]
-            + [(f"admit_off{o}", 1, 32, 32, CHUNK, t, True, [o]) for o in (0, 32, 64, 96)]
+            + [(f"admit_off{o}", 1, 32, 32, CHUNK, o + CHUNK, True, [o])
+               for o in (0, 32, 64, 96)]
+            + [(f"admit4k_off{o}", 1, 32, 32, CHUNK, o + CHUNK, True, [o])
+               for o in (224, 2016, LONG_LEN - CHUNK)]
             + [("verify", MAX_BATCH, 32, 32, n, t, True, verify_off)])
 
 
@@ -344,8 +366,12 @@ def flash_phase(torch, dev):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         tol = FLASH_RTOL * want.float().abs() + FLASH_VTOL * float(vc[1].float().abs().max())
+        pl = fa.plan(b, hq, hkv, s, t, sms=torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
         row = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "T": t, "D": d,
-               "causal": causal, "q_offset": offsets, "max_abs_err": float(err.max()),
+               "causal": causal, "q_offset": offsets, "splits": pl["splits"],
+               "heads_per_block": pl["heads_per_block"], "blocks": pl["blocks"],
+               "max_abs_err": float(err.max()),
                "max_err_over_tol": float((err / tol).max()),
                "bit_equal_share": float((got == want).float().mean()),
                "strided_equals_contiguous": bool(torch.equal(got, contiguous))}
@@ -373,6 +399,11 @@ def flash_phase(torch, dev):
             lib = lambda a, kk, vv, o: F.scaled_dot_product_attention(
                 a, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
         big = s * t > 2 ** 20
+        if pl["splits"] > 1:
+            # the same call unsplit, beside the planned split
+            one = lambda a, kk, vv, o: fa.flash_attention_cuda(a, kk, vv, causal, None, o,
+                                                                splits=1)
+            row["ms_one_split"] = graph_ms(torch, one, sets, 20 if big else 100)
         row.update({"ms": graph_ms(torch, kern, sets, 20 if big else 100),
                     "plain_ms": graph_ms(torch, plain, sets, 3 if big else 20),
                     "library_ms": graph_ms(torch, lib, sets, 20 if big else 100),
@@ -383,6 +414,71 @@ def flash_phase(torch, dev):
         rows.append(row)
         del sets, kc, vc
         torch.cuda.empty_cache()
+    return rows
+
+
+def norm_cases():
+    """(name, leading shape, d, norm type): the served norms (RMSNorm at
+    codeqwen's 4,096 and mamba2-370m's 1,024 and gated 2,048) at a decode
+    step's 8 rows, a verify pass's (8, 5) and an admission chunk's (1, 32),
+    and a LayerNorm at codeqwen's width."""
+    v = (MAX_BATCH, 1 + DRAFT_LEN)
+    return [("codeqwen_step", (MAX_BATCH, 1), 4096, "rmsnorm"),
+            ("codeqwen_verify", v, 4096, "rmsnorm"),
+            ("codeqwen_admit", (1, CHUNK), 4096, "rmsnorm"),
+            ("mamba_step", (MAX_BATCH, 1), 1024, "rmsnorm"),
+            ("mamba_gated_step", (MAX_BATCH, 1), 2048, "rmsnorm"),
+            ("mamba_gated_verify", v, 2048, "rmsnorm"),
+            ("layernorm_4096", (MAX_BATCH, 1), 4096, "layernorm")]
+
+
+def norm_phase(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import norm as nrm
+    from repro_torch.kernels import ops
+
+    rows = []
+    for name, lead, d, kind in norm_cases():
+        gen = torch.Generator(device=dev).manual_seed(d + len(lead))
+        x = (3 * torch.randn(lead + (d,), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        bias = 0.1 * torch.randn((d,), generator=gen, device=dev) if kind == "layernorm" \
+            else None
+        got = ops.norm(x, scale, bias, norm_type=kind)
+        want = nrm.norm_plain(x, scale, bias, kind)
+        # each token's rows alone (a decode step's shape) give the same bits
+        per_token = torch.cat([ops.norm(x[:, j:j + 1].contiguous(), scale, bias, norm_type=kind)
+                               for j in range(x.shape[1])], dim=1)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = NORM_RTOL * want.float().abs() + NORM_MTOL * float(want.float().abs().max())
+        row = {"case": name, "rows": list(lead), "d": d, "norm_type": kind,
+               "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol).max()),
+               "bit_equal_share": float((got == want).float().mean()),
+               "rows_equal_one_token_calls": bool(torch.equal(got, per_token))}
+        if not bool((err <= tol).all()) \
+                or not row["rows_equal_one_token_calls"]:
+            fail(f"norm {name}: kernel vs plain out of tolerance, or rows round otherwise "
+                 f"than in one-token calls: {row}")
+        w16, b16 = scale.to(x.dtype), None if bias is None else bias.to(x.dtype)
+        if kind == "layernorm":
+            lib = lambda a: F.layer_norm(a, (d,), w16, b16, 1e-6)
+        elif hasattr(F, "rms_norm"):
+            lib = lambda a: F.rms_norm(a, (d,), w16, 1e-6)
+        else:
+            lib = None
+        kern = lambda a: ops.norm(a, scale, bias, norm_type=kind)
+        plain = lambda a: nrm.norm_plain(a, scale, bias, kind)
+        nbytes = 2 * x.numel() * 2 + d * 4 * (2 if bias is not None else 1)
+        row.update({"ms": graph_ms(torch, kern, [(x,)], 200),
+                    "plain_ms": graph_ms(torch, plain, [(x,)], 100),
+                    "library_ms": graph_ms(torch, lib, [(x,)], 200) if lib else None,
+                    "library_note": ("F.layer_norm" if kind == "layernorm" else "F.rms_norm")
+                    + " on bf16 weights, a yardstick only",
+                    "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes"})
+        rows.append(row)
     return rows
 
 
@@ -465,12 +561,14 @@ def plain_versions_on_card():
     from repro_torch.kernels import cascade_matmul as cm
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import norm as nrm
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
 
     routes = [(cm, "cascade_matmul_cuda", cm.cascade_matmul_plain),
               (da, "decode_attention_cuda", da.decode_attention_plain),
               (fa, "flash_attention_cuda", fa.flash_attention_plain),
+              (nrm, "norm_cuda", nrm.norm_plain),
               (ssd, "ssd_scan_cuda", ssd.ssd_scan_plain)]
     saved = [getattr(mod, name) for mod, name, _ in routes], dict(ops.LAUNCHES)
     for mod, name, plain in routes:
@@ -625,19 +723,21 @@ def instrumented(torch, eng, margins: bool):
         eng.__dict__.pop("_commit_token", None)
 
 
-def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=False, **opts):
-    """One serve run: 16 requests through a fresh fused engine. The launch
-    counts are reset just before the run and read just after; every request
-    must finish with MAX_NEW tokens, every logit must be finite and every
-    kernel of the run (``RUN_KERNELS``) must have launched."""
+def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=False,
+              max_new=MAX_NEW, **opts):
+    """One serve run: the prompts (16 unless stated) through a fresh fused
+    engine. The launch counts are reset just before the run and read just
+    after; every request must finish with ``max_new`` tokens, every logit
+    must be finite and every kernel of the run (``RUN_KERNELS``) must have
+    launched."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 
-    scfg = ServeConfig(max_batch=MAX_BATCH, max_len=PROMPT_LEN + MAX_NEW + 1,
-                       prefill_chunk=CHUNK, fused=True, **opts)
+    scfg = ServeConfig(**{"max_batch": MAX_BATCH, "max_len": PROMPT_LEN + MAX_NEW + 1,
+                          "prefill_chunk": CHUNK, "fused": True, **opts})
     eng = ServeEngine(model, params, ccfg, scfg, device=dev)
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=MAX_NEW) for i, p in enumerate(prompts)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
     with instrumented(torch, eng, margins) as rec:
         gc.collect()               # no earlier run's engine may count in the peak
         torch.cuda.synchronize()
@@ -651,8 +751,8 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
         wall = time.monotonic() - t0
         launches = dict(ops.LAUNCHES)
     m = eng.metrics()
-    if not all(r.done and len(r.tokens_out) == MAX_NEW for r in reqs):
-        fail(f"serve ({arch}, {kind}): not every request finished with {MAX_NEW} tokens: "
+    if not all(r.done and len(r.tokens_out) == max_new for r in reqs):
+        fail(f"serve ({arch}, {kind}): not every request finished with {max_new} tokens: "
              f"{[len(r.tokens_out) for r in reqs]}")
     if not bool(torch.stack(rec["finite"]).all()):
         fail(f"serve ({arch}, {kind}): non-finite logits")
@@ -682,7 +782,7 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
         want = {"flash_attention": model.cfg.n_layers if arch == "codeqwen1.5-7b" else 0,
                 "ssd_scan": (model.cfg.n_layers * (1 + DRAFT_LEN)
                              if arch == "mamba2-370m" else 0),
-                "decode_attention": 0}
+                "decode_attention": 0, "norm": 2 * model.cfg.n_layers + 1}
         if any(per_verify[k] != [n] for k, n in want.items()):
             fail(f"serve ({arch}, {kind}): launches per verify pass {per_verify}, "
                  f"expected {want}")
@@ -795,7 +895,54 @@ def serve_phase(torch, dev, arch: str):
             fail(f"serve ({arch}): two sampled runs with one seed gave different streams")
         out["sampled"] = {**runs[0][0], "same_streams_with_same_seed": True,
                           "temperature": 0.8, "top_k": 50}
+        out["long_context"] = long_context_run(torch, dev, arch, model, params, ccfg)
     return out
+
+
+@contextlib.contextmanager
+def recorded_flash_plans():
+    """Record (T, splits) of every flash-attention launch plan made inside."""
+    from repro_torch.kernels import flash_attention as fa
+    seen, plan = [], fa.plan
+
+    def record(*a, **kw):
+        pl = plan(*a, **kw)
+        seen.append((a[4], pl["splits"]))
+        return pl
+    fa.plan = record
+    try:
+        yield seen
+    finally:
+        fa.plan = plan
+
+
+def long_context_run(torch, dev, arch, model, params, ccfg):
+    """Plain greedy serving at a 4,096-token context: LONG_REQ prompts of
+    LONG_LEN - 32 tokens, admitted in chunks of 32, each chunk's flash
+    attention over its live cache prefix. Early chunks must keep one split
+    and late ones split over the keys: the split route runs on a served
+    path."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, model.cfg.vocab, LONG_LEN - CHUNK).astype(np.int32)
+               for _ in range(LONG_REQ)]
+    with recorded_flash_plans() as plans:
+        run, eng, _, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                   "long_context", max_new=LONG_NEW, max_batch=LONG_BATCH,
+                                   max_len=LONG_LEN)
+    del eng
+    split_keys = [t for t, n in plans if n > 1]
+    by_splits = {}
+    for _, n in plans:
+        by_splits[n] = by_splits.get(n, 0) + 1
+    run.update({"requests": LONG_REQ, "prompt_len": LONG_LEN - CHUNK, "max_len": LONG_LEN,
+                "max_batch": LONG_BATCH, "flash_launches_by_splits": by_splits,
+                "fewest_keys_split": min(split_keys) if split_keys else None,
+                "most_keys_one_split": max((t for t, n in plans if n == 1), default=None)})
+    if not split_keys or run["most_keys_one_split"] >= min(split_keys):
+        fail(f"serve ({arch}, long_context): flash attention should split the late chunks "
+             f"only: {run}")
+    return run
 
 
 def main() -> int:
@@ -835,7 +982,11 @@ def main() -> int:
     att_geometry = da.geometry()
     print(json.dumps({"decode_attention": atts, "geometry": att_geometry}), flush=True)
     fla = timed("flash_attention", flash_phase)
-    print(json.dumps({"flash_attention": fla}), flush=True)
+    from repro_torch.kernels import flash_attention as fa
+    fla_geometry = fa.geometry()
+    print(json.dumps({"flash_attention": fla, "geometry": fla_geometry}), flush=True)
+    nrm = timed("norm", norm_phase)
+    print(json.dumps({"norm": nrm}), flush=True)
     ssd = timed("ssd_scan", ssd_phase)
     print(json.dumps({"ssd_scan": ssd}), flush=True)
     par, srv = {}, {}
@@ -861,6 +1012,7 @@ def main() -> int:
 
     cq, mb = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
+    nq = next(r for r in nrm if r["case"] == "codeqwen_step")
     kernels = [
         {"name": "cascade_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
@@ -923,9 +1075,31 @@ def main() -> int:
          "library_ms": fv["library_ms"],
          "library_note": "scaled_dot_product_attention with a boolean mask (is_causal at "
                          "offset 0)",
-         "flash_attention_shapes": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                                   "bound_by", "library_ms")}
-                                    for r in fla}},
+         "geometry": fla_geometry,
+         "flash_attention_shapes": {r["case"]: {k: r[k] for k in (
+             "ms", "ms_one_split", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
+             "heads_per_block") if k in r} for r in fla},
+         "long_context_launches_by_splits": srv[cq]["long_context"]["flash_launches_by_splits"]},
+        {"name": "norm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/norm.cu",
+         "replaces": "no TPU kernel: the reference's plain norm_apply, "
+                     "src/repro/models/layers.py:32",
+         "shape": f"codeqwen decode step: {nq['rows']} x {nq['d']} bf16 RMSNorm (every shape "
+                  "under norm_shapes)",
+         "launches": sum(launches("norm").values()),
+         "launches_by_path": launches("norm"),
+         "launches_by_run": by_run("norm"),
+         "launches_per_decode_step": {
+             a: srv[a]["plain"]["launches_per_decode_step"]["norm"] for a in ARCHS},
+         "max_abs_err": max(r["max_abs_err"] for r in nrm),
+         "max_err_over_tol": max(r["max_err_over_tol"] for r in nrm),
+         "tol": "2^-7 * |plain| + 2^-20 * max|plain| (bf16 out)",
+         "rows_equal_one_token_calls": all(r["rows_equal_one_token_calls"] for r in nrm),
+         "ms": nq["ms"], "kernel_ms": nq["ms"], "plain_ms": nq["plain_ms"],
+         "bound_ms": nq["bound_ms"], "bound_by": nq["bound_by"],
+         "library_ms": nq["library_ms"], "library_note": nq["library_note"],
+         "norm_shapes": {r["case"]: {k: r[k] for k in (
+             "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")} for r in nrm}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:92",
@@ -945,7 +1119,7 @@ def main() -> int:
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
-              "decode_attention": atts, "flash_attention": fla, "ssd_scan": ssd,
+              "decode_attention": atts, "flash_attention": fla, "norm": nrm, "ssd_scan": ssd,
               "parity_depth2": par, "serve": srv,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -15,6 +15,7 @@ speculative. At that step it replays both runs once more, recording each
 norm's and linear's input and output, each block's output and the tied
 head's, and prints the first recorded tensor whose row for that slot
 differs, with its input. Last, it counts rows that ``layers.norm_apply``
+(as eager ops, and through the norm kernel)
 rounds otherwise in one call over R rows than in R one-row calls.
 """
 from __future__ import annotations
@@ -169,14 +170,17 @@ def main() -> int:
             print(f"step {step} slot {slot}: no recorded tensor differs", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = {"scale": 1 + 0.1 * torch.randn((2048,), generator=gen, device=dev)}
-    for rows in (1, 2, 4, 8, 16, 40):
-        n = 0
-        for _ in range(50):
-            x = torch.randn((rows, 2048), generator=gen, device=dev).to(torch.bfloat16)
-            one = torch.cat([L.norm_apply(scale, x[i:i + 1]) for i in range(rows)])
-            n += int((L.norm_apply(scale, x) != one).any(-1).sum())
-        print(f"norm_apply over {rows} rows of 2048: {n} of {50 * rows} rows round otherwise "
-              "than one-row calls", flush=True)
+    for use_kernel in (False, True):
+        route = "the norm kernel" if use_kernel else "eager ops"
+        for rows in (1, 2, 4, 8, 16, 40):
+            n = 0
+            for _ in range(50):
+                x = torch.randn((rows, 2048), generator=gen, device=dev).to(torch.bfloat16)
+                one = torch.cat([L.norm_apply(scale, x[i:i + 1], use_kernel=use_kernel)
+                                 for i in range(rows)])
+                n += int((L.norm_apply(scale, x, use_kernel=use_kernel) != one).any(-1).sum())
+            print(f"norm_apply ({route}) over {rows} rows of 2048: {n} of {50 * rows} rows "
+                  "round otherwise than one-row calls", flush=True)
     return 0
 
 

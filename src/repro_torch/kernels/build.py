@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cascade_matmul", "decode_attention", "flash_attention", "ssd_scan")
+KERNELS = ("cascade_matmul", "decode_attention", "flash_attention", "norm", "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -13,10 +13,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import cascade_matmul as _cm
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import norm as _norm
 from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0, "ssd_scan": 0}
+LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0, "norm": 0,
+            "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -73,12 +75,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     T, D). Causal: query i of row b sees key j iff ``j <= q_offset[b] + i``
     (q_offset: (B,) int32, zeros when absent, so with T == S the plain
     causal mask). Returns (B, Hq, S, D) in q's dtype. The CUDA kernel takes
-    bf16 only and reads q/k/v through their strides."""
+    bf16 only and reads q/k/v through their strides, so k/v may be a
+    cache's live prefix (its launch plan follows T)."""
     if _route(q) == "cuda":
         out = _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset)
         LAUNCHES["flash_attention"] += 1
         return out
     return _fa.flash_attention_plain(q, k, v, causal, scale, q_offset)
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None, *,
+         norm_type: str = "rmsnorm", eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last axis in f32, out in x's dtype. The
+    CUDA kernel sums each row in one order fixed by the width, so a row
+    rounds alike whatever the number of rows in the call."""
+    if _route(x) == "cuda":
+        out = _norm.norm_cuda(x, scale, bias, norm_type, eps)
+        LAUNCHES["norm"] += 1
+        return out
+    return _norm.norm_plain(x, scale, bias, norm_type, eps)
 
 
 def _ssd_scan(x, dt, A, B, C, D, initial_state, return_final_state, final_state_out=None):

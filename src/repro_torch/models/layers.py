@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
+from repro_torch.kernels.norm import norm_plain
 
 #: the masked-logit value of the reference (not -inf: a row with no live
 #: key then averages uniformly instead of producing NaN)
@@ -37,16 +38,19 @@ def norm_init(d: int, norm_type: str = "rmsnorm", device=None) -> dict:
 
 
 def norm_apply(params: dict, x: torch.Tensor, norm_type: str = "rmsnorm",
-               eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    if norm_type == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
-    else:
-        ms = (xf * xf).mean(dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + eps) * params["scale"]
-    return out.to(x.dtype)
+               eps: float = 1e-6, *, use_kernel: bool = False) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last axis, in f32, out in x's dtype.
+
+    ``use_kernel`` sends it to ``ops.norm`` (the CUDA kernel on the card: one
+    launch, one fixed order of each row's sum). Without it (as on the
+    ``fused=False`` serving path) the norm runs as eager PyTorch ops, whose
+    reduction on the card sums a row in an order set by the number of rows,
+    so a row may round otherwise in a call over B * s rows (a verify pass)
+    than over B rows (a decode step)."""
+    if use_kernel:
+        from repro_torch.kernels import ops
+        return ops.norm(x, params["scale"], params.get("bias"), norm_type=norm_type, eps=eps)
+    return norm_plain(x, params["scale"], params.get("bias"), norm_type, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +168,7 @@ def attn_apply(
     mode: str = "full",
     max_len: int | None = None,
     n_valid=None,
+    kv_len: int | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Attention with four modes:
 
@@ -179,7 +184,11 @@ def attn_apply(
     "pos": (B,)}`` is updated in place and returned. With
     ``ccfg.use_kernel`` decode attention goes through ``ops.decode_attention``
     (given each row's position, not a mask) and every multi-token attention
-    (extend, full, prefill) through ``ops.flash_attention``.
+    (extend, full, prefill) through ``ops.flash_attention``. ``kv_len``, a
+    host-side bound on the keys any row of an extend chunk sees (the largest
+    row position plus s), hands the kernel only that prefix of the cache, so
+    its launch plan (the split over the keys) follows the live keys and not
+    the allocated length.
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -213,8 +222,9 @@ def attn_apply(
             # the chunk's queries sit at each row's position: the causal
             # mask offset by pos is the ``valid`` mask of the plain path
             from repro_torch.kernels import ops
-            o = ops.flash_attention(q.transpose(1, 2), att_k.transpose(1, 2),
-                                    att_v.transpose(1, 2), scale=scale,
+            live = att_k.shape[1] if kv_len is None else min(int(kv_len), att_k.shape[1])
+            o = ops.flash_attention(q.transpose(1, 2), att_k[:, :live].transpose(1, 2),
+                                    att_v[:, :live].transpose(1, 2), scale=scale,
                                     q_offset=pos).transpose(1, 2)
         elif ccfg.use_kernel:
             # key t is live iff t <= pos: the kernel reads no cache row past

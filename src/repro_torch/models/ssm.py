@@ -303,18 +303,20 @@ class Mamba2LM:
                              "state": final_state}
 
         y = y.reshape(b, -1, di)
-        y = L.norm_apply(lp["gnorm"], (y * F.silu(z.to(torch.float32))).to(y.dtype))
+        y = L.norm_apply(lp["gnorm"], (y * F.silu(z.to(torch.float32))).to(y.dtype),
+                         use_kernel=ccfg.use_kernel)
         return cascade.linear_apply(lp["out_proj"], y, ccfg), new_cache
 
     def _block(self, lp, x, ccfg, cache, mode, n_valid=None, collect=None):
-        h, nc = self._mixer(lp, L.norm_apply(lp["ln"], x, self.cfg.norm_type), ccfg, cache,
-                            mode, n_valid, collect)
+        h, nc = self._mixer(lp, L.norm_apply(lp["ln"], x, self.cfg.norm_type,
+                                             use_kernel=ccfg.use_kernel),
+                            ccfg, cache, mode, n_valid, collect)
         return x + h, nc
 
     # --------------------------------------------------------------- api
     def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig,
               per_token: bool = False) -> torch.Tensor:
-        x = L.norm_apply(params["final_norm"], x, self.cfg.norm_type)
+        x = L.norm_apply(params["final_norm"], x, self.cfg.norm_type, use_kernel=ccfg.use_kernel)
         if self.cfg.tie_embeddings:
             logits = L.tied_head(params["embed"], x, ccfg.compute_dtype, per_token)
         else:
@@ -375,10 +377,12 @@ class Mamba2LM:
         return self._head(params, x, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
-                       n_valid=None):
+                       n_valid=None, kv_len: int | None = None):
         """Append a (right-padded) token chunk to ``cache`` (in place): the
         conv state carries across chunks and padded steps leave the SSD state
-        untouched (dt=0). Returns logits of the last valid token (B, 1, V)."""
+        untouched (dt=0). Returns logits of the last valid token (B, 1, V).
+        ``kv_len`` (the attention families' live-key bound) is unused: there
+        is no attention."""
         s = batch["tokens"].shape[1]
         nv = s if n_valid is None else int(n_valid)
         x, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]), ccfg,
@@ -388,7 +392,7 @@ class Mamba2LM:
 
     # --------------------------------------------------- speculative decode
     def spec_verify(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
-                    ckpt: dict | None = None):
+                    ckpt: dict | None = None, kv_len: int | None = None):
         """Score a (B, 1+K) draft chunk in ONE extend pass, checkpointing the
         recurrent state after EVERY chunk token: a recurrence cannot be
         rewound in place, so a rejected suffix rolls back by selecting the
@@ -400,7 +404,8 @@ class Mamba2LM:
         token's (B, H, P, N) states are contiguous: the kernel writes them in
         place. The checkpoint is allocated when ``ckpt`` is None and filled
         again when a checkpoint of the same shapes is passed (at full width
-        it holds gigabytes: an engine allocates it once)."""
+        it holds gigabytes: an engine allocates it once). ``kv_len`` is
+        unused, as in :meth:`prefill_extend`."""
         cfg = self.cfg
         b, s = batch["tokens"].shape
         dev = cache["pos"].device

@@ -78,7 +78,7 @@ class TransformerLM:
 
     def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig) -> torch.Tensor:
         cfg = self.cfg
-        x = L.norm_apply(params["final_norm"], x, cfg.norm_type)
+        x = L.norm_apply(params["final_norm"], x, cfg.norm_type, use_kernel=ccfg.use_kernel)
         if cfg.tie_embeddings:
             logits = L.tied_head(params["embed"], x, ccfg.compute_dtype)
         else:
@@ -86,13 +86,15 @@ class TransformerLM:
         return logits.to(torch.float32)
 
     def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
-               max_len: int | None = None, n_valid=None):
+               max_len: int | None = None, n_valid=None, kv_len: int | None = None):
         cfg = self.cfg
         h, new_cache = L.attn_apply(
-            lp["attn"], L.norm_apply(lp["ln1"], x, cfg.norm_type),
-            self.attn_cfg, ccfg, cache=cache, mode=mode, max_len=max_len, n_valid=n_valid)
+            lp["attn"], L.norm_apply(lp["ln1"], x, cfg.norm_type, use_kernel=ccfg.use_kernel),
+            self.attn_cfg, ccfg, cache=cache, mode=mode, max_len=max_len, n_valid=n_valid,
+            kv_len=kv_len)
         x = x + h
-        x = x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], x, cfg.norm_type),
+        x = x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], x, cfg.norm_type,
+                                                    use_kernel=ccfg.use_kernel),
                             cfg.mlp_kind, ccfg)
         return x, new_cache
 
@@ -133,12 +135,14 @@ class TransformerLM:
         return self._head(params, x, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
-                       n_valid=None, all_logits: bool = False):
+                       n_valid=None, all_logits: bool = False, kv_len: int | None = None):
         """Append a (possibly right-padded) token chunk to ``cache`` (in place).
 
         Only the first ``n_valid`` chunk tokens are real. Returns logits of
         the last valid token (B, 1, V), or of every chunk position (B, S, V)
-        with ``all_logits``, and the cache.
+        with ``all_logits``, and the cache. ``kv_len``: a host-side bound on
+        the keys any row sees (its position plus the chunk length; see
+        ``layers.attn_apply``), None for the whole cache.
         """
         x = self._embed(params, batch)
         s = x.shape[1]
@@ -146,22 +150,24 @@ class TransformerLM:
         for i in range(self.cfg.n_layers):
             x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
                                cache_utils.layer_view(cache["layers"], i), "extend",
-                               n_valid=nv)
+                               n_valid=nv, kv_len=kv_len)
         x = x if all_logits else cache_utils.take_last_valid(x, nv)
         return self._head(params, x, ccfg), cache
 
     # --------------------------------------------------- speculative decode
     def spec_verify(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
-                    ckpt: dict | None = None):
+                    ckpt: dict | None = None, kv_len: int | None = None):
         """Score a (B, 1+K) draft chunk in ONE extend pass: per-position
         logits (B, 1+K, V), the cache advanced in place, and a rewind
         checkpoint (a copy of the K/V rows the chunk overwrites, and
         ``pos``). A checkpoint from an earlier call of the same shapes may be
-        passed as ``ckpt`` to be filled again."""
+        passed as ``ckpt`` to be filled again; ``kv_len`` as in
+        :meth:`prefill_extend`."""
         s = batch["tokens"].shape[1]
         snap = cache_utils.seq_rows_snapshot(cache["layers"], s,
                                              out=None if ckpt is None else ckpt["layers"])
-        logits, cache = self.prefill_extend(params, batch, cache, ccfg, all_logits=True)
+        logits, cache = self.prefill_extend(params, batch, cache, ccfg, all_logits=True,
+                                            kv_len=kv_len)
         return logits, cache, {"layers": snap}
 
     def spec_rewind(self, cache: dict, ckpt: dict, keep: torch.Tensor) -> dict:

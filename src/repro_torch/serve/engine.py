@@ -321,9 +321,11 @@ class ServeEngine:
                 n = min(chunk, len(prompt) - st.consumed)
                 toks = np.zeros((1, chunk), np.int32)
                 toks[0, :n] = prompt[st.consumed:st.consumed + n]
+                # the chunk's rows sit at [consumed, consumed + chunk): no
+                # key past that is live
                 logits, st.cache = self.model.prefill_extend(
                     self.params, {"tokens": self._tokens(toks)}, st.cache, self.ccfg,
-                    n_valid=n)
+                    n_valid=n, kv_len=st.consumed + chunk)
                 st.consumed += n
                 spent += n
             if st.consumed < len(prompt):
@@ -411,8 +413,14 @@ class ServeEngine:
             toks[i, 1:], keff[i] = ngram_propose(np.asarray(ctx[-_NGRAM_LOOKBACK:], np.int32),
                                                  k, _NGRAM_MAX)
         toks_dev = self._tokens(toks)
+        # an active slot's cache holds its stream but the pending token, so
+        # its chunk sits at [used - 1, used + k): no active row sees a key
+        # past max(used) + k (inactive rows' outputs are discarded)
+        live = max(len(self.slots[i].prompt) + len(self.slots[i].tokens_out)
+                   for i in active) + k
         logits, self.cache, self._ckpt = self.model.spec_verify(
-            self.params, {"tokens": toks_dev}, self.cache, self.ccfg, ckpt=self._ckpt)
+            self.params, {"tokens": toks_dev}, self.cache, self.ccfg, ckpt=self._ckpt,
+            kv_len=live)
         if self._sampled:
             acc, fin = spec_sample_accept(logits, toks_dev[:, 1:], self._tokens(keff), self._gen,
                                           self.scfg.temperature, self.scfg.top_k)

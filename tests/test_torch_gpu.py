@@ -16,6 +16,7 @@ from repro_torch.core.cascade import CascadeConfig
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import norm as tnorm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import registry
@@ -234,8 +235,9 @@ def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
 
 
 # the kernels each smoke model's fused path launches
-PATH_KERNELS = {"codeqwen1.5-7b": {"cascade_matmul", "decode_attention", "flash_attention"},
-                "mamba2-370m": {"cascade_matmul", "ssd_scan"}}
+PATH_KERNELS = {"codeqwen1.5-7b": {"cascade_matmul", "decode_attention", "flash_attention",
+                                   "norm"},
+                "mamba2-370m": {"cascade_matmul", "norm", "ssd_scan"}}
 
 
 def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
@@ -256,6 +258,7 @@ def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
                 monkeypatch.setattr(tda, "decode_attention_cuda", tda.decode_attention_plain)
                 monkeypatch.setattr(tfa, "flash_attention_cuda", tfa.flash_attention_plain)
                 monkeypatch.setattr(tssd, "ssd_scan_cuda", tssd.ssd_scan_plain)
+                monkeypatch.setattr(tnorm, "norm_cuda", tnorm.norm_plain)
             eng = engine.ServeEngine(model, params, ccfg,
                                      engine.ServeConfig(max_batch=2, max_len=40,
                                                         prefill_chunk=8, fused=True),
@@ -287,7 +290,21 @@ FLASH_CASES = [("causal128", 1, 32, 32, 128, 128, 128, True, [0]),
                ("admit64", 1, 32, 32, 32, 192, 128, True, [64]),
                ("admit96", 1, 32, 32, 32, 192, 128, True, [96]),
                ("verify", 8, 32, 32, 5, 192, 128, True, [0, 27, 53, 80, 107, 133, 160, 187]),
-               ("smoke_d16", 2, 4, 2, 9, 24, 16, True, [3, 15])]
+               ("smoke_d16", 2, 4, 2, 9, 24, 16, True, [3, 15]),
+               # GQA 40/8 (G = 5): qwen2.5-32b's verify pass and admission chunk
+               ("g5_verify", 8, 40, 8, 5, 192, 128, True, [0, 27, 53, 80, 107, 133, 160, 187]),
+               ("g5_admit", 1, 40, 8, 32, 192, 128, True, [96]),
+               # G = 3 at S = 65 (two query tiles of 21 positions and a ragged
+               # one), G = 8 at S = 1 against T = 4096, MQA at S = 64
+               ("g3_s65", 2, 24, 8, 65, 300, 64, True, [0, 200]),
+               ("g8_s1_t4096", 4, 64, 8, 1, 4096, 128, True, [0, 1000, 2500, 4095]),
+               ("mqa_s64", 2, 8, 1, 64, 64, 32, True, [0, 0]),
+               # a long chunk into a long cache; D = 96 and D = 32; G = 20
+               # (two blocks of 10 heads per KV head)
+               ("s2048_t4096", 1, 8, 8, 2048, 4096, 64, True, [2048]),
+               ("d96_full", 2, 6, 2, 65, 65, 96, False, [0, 0]),
+               ("d32_s5", 3, 4, 4, 5, 40, 32, True, [0, 17, 35]),
+               ("g20", 1, 40, 2, 7, 50, 16, True, [30])]
 
 
 def flash_tolerance(want, v):
@@ -318,6 +335,111 @@ def test_flash_attention_cuda_matches_plain(cuda, name, b, hq, hkv, s, t, d, cau
     # the same call on contiguous copies gives the same bits
     same = ops.flash_attention(*(a.contiguous() for a in args), causal=causal, q_offset=off)
     assert torch.equal(same, got)
+
+
+# (name, B, Hq, Hkv, S, T, D, offsets): the admission chunk in a 192-row
+# cache, G = 5 at S = 65 into a 1,024-row cache, and the admission chunk over
+# its live prefix (T = offset + 32) where the plan first splits it and at
+# the end of a 4,096-row cache
+SPLIT_CASES = [("admit96", 1, 32, 32, 32, 192, 128, [96]),
+               ("g5_s65", 2, 40, 8, 65, 1024, 64, [0, 900]),
+               ("admit224_live", 1, 32, 32, 32, 256, 128, [224]),
+               ("admit4064_live", 1, 32, 32, 32, 4096, 128, [4064])]
+
+
+@pytest.mark.parametrize("name,b,hq,hkv,s,t,d,offsets", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 7, 16])
+def test_flash_attention_forced_splits_match_plain(cuda, name, b, hq, hkv, s, t, d, offsets,
+                                                   splits):
+    """Any split count (1-16; splits past a block's tiles are empty and
+    weigh 0 in the merge) stays within the kernel's tolerance of the plain
+    version, on strided views."""
+    gen = torch.Generator(device=cuda).manual_seed(s + t + splits)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    args = (q.transpose(1, 2), kc[1].transpose(1, 2), vc[1].transpose(1, 2))
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = tfa.flash_attention_cuda(*args, True, None, off, splits=splits)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_plain(*args, causal=True, q_offset=off)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_tolerance(want, vc[1])).all()), float(err.max())
+
+
+# (leading shape, d): mamba2-370m's norms (1,024 and the gated 2,048) and
+# codeqwen's (4,096) at a decode step's 8 rows and a verify pass's (8, 5);
+# 8,192; a width off 16 bytes
+NORM_CASES = [((8,), 1024), ((8, 5), 2048), ((8, 1), 4096), ((40,), 4096), ((3, 2), 8192),
+              ((5,), 1000), ((2, 3), 36)]
+
+
+@pytest.mark.parametrize("lead,d", NORM_CASES)
+@pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_cuda_matches_plain(cuda, lead, d, norm_type, dtype):
+    """The kernel against its plain version on the same rows: both in f32,
+    sums in another order and rsqrt to within an ulp, so f32 rows agree at
+    atol/rtol 1e-5 and bf16 rows within one bf16 step (2^-7 |plain|), plus
+    2^-20 max|plain| where LayerNorm's bias add cancels to near 0 and the
+    last f32 bits of terms as large as the row's outputs show."""
+    gen = torch.Generator(device=cuda).manual_seed(d + len(lead))
+    x = (3 * torch.randn(lead + (d,), generator=gen, device=cuda) + 0.5).to(getattr(torch, dtype))
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=cuda)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=cuda) if norm_type == "layernorm" \
+        else None
+    ops.reset_launch_counts()
+    got = ops.norm(x, scale, bias, norm_type=norm_type)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["norm"] == 1 and got.dtype == x.dtype and got.shape == x.shape
+    want = tnorm.norm_plain(x, scale, bias, norm_type)
+    err = (got.float() - want.float()).abs()
+    tol = (1e-5 * (1 + want.float().abs()) if dtype == "float32"
+           else 2.0 ** -7 * want.float().abs() + 2.0 ** -20 * float(want.float().abs().max()))
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("d,norm_type", [(4096, "rmsnorm"), (1024, "rmsnorm"),
+                                         (2048, "layernorm"), (4096, "layernorm")])
+def test_norm_kernel_rows_round_alike_in_any_number_of_rows(cuda, d, norm_type):
+    """The norm kernel over (8, 5, d) bf16 rows (a verify chunk) gives each
+    token's rows what it gives over that token's (8, 1, d) rows (a decode
+    step), bit for bit: codeqwen's width and mamba2-370m's, RMSNorm and
+    LayerNorm, 100 draws of 40 rows."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    params = {"scale": 1 + 0.1 * torch.randn((d,), generator=gen, device=cuda)}
+    if norm_type == "layernorm":
+        params["bias"] = 0.1 * torch.randn((d,), generator=gen, device=cuda)
+    differing = 0
+    ops.reset_launch_counts()
+    for _ in range(100):
+        x = torch.randn((8, 5, d), generator=gen, device=cuda).to(torch.bfloat16)
+        whole = L.norm_apply(params, x, norm_type, use_kernel=True)
+        per_token = torch.cat([L.norm_apply(params, x[:, j:j + 1].contiguous(), norm_type,
+                                            use_kernel=True) for j in range(5)], dim=1)
+        differing += int((whole != per_token).any(dim=-1).sum())
+    assert ops.LAUNCHES["norm"] == 100 * 6
+    assert differing == 0, f"{differing} of {100 * 40} rows round otherwise"
+
+
+def test_norm_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 64), device=cuda, dtype=torch.bfloat16)
+    one = torch.ones((64,), device=cuda)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ops.norm(x.half(), one)
+    with pytest.raises(ValueError, match="width"):
+        ops.norm(torch.zeros((2, 20000), device=cuda, dtype=torch.bfloat16),
+                 torch.ones((20000,), device=cuda))
+    with pytest.raises(ValueError, match="scale"):
+        ops.norm(x, torch.ones((32,), device=cuda))
+    with pytest.raises(ValueError, match="bias"):
+        ops.norm(x, one, None, norm_type="layernorm")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+        ops.norm(flat[1:].view(2, 64), one)
 
 
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
@@ -371,6 +493,7 @@ def test_spec_engine_at_full_width_launches_the_path_kernels(cuda, arch):
     assert per_verify
     for step in per_verify:
         assert step["decode_attention"] == 0
+        assert step["norm"] == 2 * 2 + 1          # two norms a layer, then the final norm
         if arch == "mamba2-370m":
             assert step["ssd_scan"] == 2 * 5 and step["flash_attention"] == 0
         else:
@@ -505,25 +628,24 @@ def test_mamba2_verify_rows_equal_decode_steps_bit_for_bit(cuda, monkeypatch):
         f"(call index, name, token, max|diff|): {first}; all: {differs[:40]}")
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "layers.norm_apply's mean is a PyTorch reduction whose block shape follows the number "
-    "of rows (64 lanes a row at 8 rows, 32 at 40 and more), so a row's f32 sum of squares is "
-    "taken in another order in a Mamba-2 verify pass (B * s = 40 rows) than in decode (B = 8) "
-    "and now and then rounds to another bf16 output: the served speculative greedy stream "
-    "then departs from plain greedy (ROADMAP Queue 3 item 1)"))
 def test_norm_rows_round_alike_at_the_decode_and_verify_shapes(cuda):
-    """norm_apply over a verify chunk's (8, 5, 2048) bf16 rows (the gated norm of
-    mamba2-370m) gives each token's rows what norm_apply over that token's
-    (8, 1, 2048) rows gives, decode's shape, bit for bit."""
+    """norm_apply through the norm kernel (as the fused serving path calls
+    it) over a verify chunk's (8, 5, 2048) bf16 rows (the gated norm of
+    mamba2-370m) gives each token's rows what it gives over that token's
+    (8, 1, 2048) rows, decode's shape, bit for bit. The eager norm (without
+    the kernel) sums a row in an order set by the number of rows, and fails
+    this (ROADMAP Queue 3 item 1)."""
     from repro_torch.models import layers as L
 
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = {"scale": 1 + 0.1 * torch.randn((2048,), generator=gen, device=cuda)}
     differing = 0
+    ops.reset_launch_counts()
     for _ in range(200):
         x = torch.randn((8, 5, 2048), generator=gen, device=cuda).to(torch.bfloat16)
-        whole = L.norm_apply(params, x)
-        per_token = torch.cat([L.norm_apply(params, x[:, j:j + 1].contiguous())
+        whole = L.norm_apply(params, x, use_kernel=True)
+        per_token = torch.cat([L.norm_apply(params, x[:, j:j + 1].contiguous(), use_kernel=True)
                                for j in range(5)], dim=1)
         differing += int((whole != per_token).any(dim=-1).sum())
+    assert ops.LAUNCHES["norm"] == 200 * 6
     assert differing == 0, f"{differing} of {200 * 40} rows round otherwise"

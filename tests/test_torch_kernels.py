@@ -7,8 +7,10 @@ per-row ``q_offset``, to the reference's own offset-causal attention
 (``layers._chunked_causal_sdpa``) at the same tolerance. For the SSD scan the state update is
 elementwise (the same f32 operations, exp to within an ulp) and only the
 readout ``state @ C`` sums over N in another order, so it is held at
-atol/rtol 1e-5 too, over up to 128 carried steps. ``test_torch_gpu.py`` holds each
-CUDA kernel to its plain version on the card.
+atol/rtol 1e-5 too, over up to 128 carried steps. The norm's plain version is
+held to the reference's ``layers.norm_apply``: at 1e-5 in f32 (the mean
+sums in another order), within one bf16 step when the rows are bf16.
+``test_torch_gpu.py`` holds each CUDA kernel to its plain version on the card.
 """
 import pytest
 
@@ -25,6 +27,7 @@ from repro.models import layers as jlayers
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import norm as tnorm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssd_scan as tssd
 
@@ -83,7 +86,7 @@ def test_cascade_matmul_wrapper_flattens_leading_dims_and_counts_no_cpu_launch()
     want = tcm.cascade_matmul_plain(xp, _t(packed), _t(scales), _t(bias), torch.bfloat16)
     assert torch.equal(got.reshape(6, 20), want)
     assert tops.LAUNCHES == {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0,
-                             "ssd_scan": 0}
+                             "norm": 0, "ssd_scan": 0}
 
 
 def _attn_case(b, hq, hkv, t, d, seed=0):
@@ -257,6 +260,131 @@ def test_flash_attention_per_row_offset_matches_reference_extend(b, hq, hkv, s, 
                              q_offset=torch.zeros(b, dtype=torch.int32)).numpy(),
         tops.flash_attention(_t(q).transpose(1, 2), _t(k).transpose(1, 2),
                              _t(v).transpose(1, 2)).numpy())
+
+
+def test_flash_attention_plan_follows_the_shapes():
+    """Heads per block, positions per block, query tiles and splits come from
+    the shapes alone: a block holds 64 (position, head) rows over one KV
+    head's query heads (a group over 16 in equal chunks); a grid under the
+    card's 132 SMs over at least 256 keys splits each block's keys, up to
+    two blocks an SM, each split at least 64 keys and 16 splits at most; a
+    grid that fills the card, or fewer keys, keeps one split. T is the live
+    cache prefix the engine hands in, so an admission chunk splits once its
+    position passes 224."""
+    assert [tfa.heads_per_block(g) for g in (1, 3, 5, 8, 16, 17, 20, 40)] == \
+        [1, 3, 5, 8, 16, 9, 10, 14]
+    cases = {   # (B, Hq, Hkv, S, T) -> (heads, positions, query tiles, splits)
+        (8, 32, 32, 5, 192): (1, 64, 1, 1),       # codeqwen verify: 256 blocks
+        (1, 32, 32, 32, 192): (1, 64, 1, 1),      # admission chunk, 192 live keys
+        (1, 32, 32, 32, 255): (1, 64, 1, 1),
+        (1, 32, 32, 32, 256): (1, 64, 1, 4),      # 4 splits of 64 keys
+        (1, 32, 32, 32, 512): (1, 64, 1, 8),      # 256 blocks: two an SM
+        (1, 32, 32, 32, 4096): (1, 64, 1, 8),
+        (1, 32, 32, 2048, 2048): (1, 64, 32, 1),  # long prompt
+        (1, 32, 32, 128, 128): (1, 64, 2, 1),     # 64 blocks, 128 keys
+        (1, 24, 8, 512, 512): (3, 21, 25, 1),     # GQA 24/8: 200 blocks
+        (8, 40, 8, 5, 192): (5, 12, 1, 1),        # qwen2.5-32b verify: 64 blocks
+        (8, 40, 8, 5, 4096): (5, 12, 1, 4),       # ... late in a long cache
+        (1, 40, 8, 32, 192): (5, 12, 3, 1),       # qwen2.5-32b admission chunk
+        (1, 8, 8, 64, 4096): (1, 64, 1, 16),      # few blocks, long T: capped
+        (2, 8, 2, 64, 2048): (4, 16, 4, 16),      # G = 4 over a 2048-row cache: 16 blocks
+        (1, 1, 1, 1, 1 << 16): (1, 64, 1, 16),    # capped
+        (2, 4, 2, 9, 24): (2, 32, 1, 1),          # T within one tile
+    }
+    for (b, hq, hkv, s, t), want in cases.items():
+        pl = tfa.plan(b, hq, hkv, s, t)
+        got = (pl["heads_per_block"], pl["positions_per_block"], pl["q_tiles"], pl["splits"])
+        assert got == want, ((b, hq, hkv, s, t), pl)
+        assert pl["blocks"] == b * hkv * -(-(hq // hkv) // got[0]) * got[2] * got[3]
+        assert got[1] == 64 // got[0]
+    assert tfa.plan(1, 8, 8, 64, 4096, sms=8)["splits"] == 1
+
+
+# (B, Hq, Hkv, S, T, causal): one split's keys within a tile, G = 3 and 5 with
+# positions off the 64-row block, MQA not causal, and two at the TPU kernel's
+# own signature (T = S, offset 0)
+SPLIT_CASES = [(2, 4, 2, 9, 24, True), (1, 6, 2, 70, 130, True), (3, 10, 2, 5, 200, True),
+               (1, 8, 1, 48, 48, False), (2, 6, 2, 64, 64, True)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,causal", SPLIT_CASES)
+@pytest.mark.parametrize("splits", [1, 2, 3, 16])
+def test_flash_attention_split_and_merge_matches_plain_and_jax(b, hq, hkv, s, t, causal, splits):
+    """The kernel's split route in plain PyTorch (each block's visible keys
+    cut into equal shares of 16-key tiles, partials merged with weights
+    exp2(m_s - m); empty splits weigh 0) equals the unsplit plain version
+    and the TPU kernel in interpret mode at f32, atol/rtol 1e-5: the same
+    products, sums in another order. Per-row offsets where T > S."""
+    rng = np.random.default_rng(b * 31 + s + splits)
+    d = 16
+    q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
+    off = np.linspace(0, t - s, b).astype(np.int32) if causal else np.zeros(b, np.int32)
+    got = tfa.split_plain(_t(q), _t(k), _t(v), splits, causal, None, _t(off), keys_per_tile=16)
+    want = tfa.flash_attention_plain(_t(q), _t(k), _t(v), causal, None, _t(off))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    if t == s:      # the TPU kernel's own signature (offset 0)
+        jk = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             causal=causal, block_q=16, block_k=16,
+                                             interpret=True))
+        np.testing.assert_allclose(got.numpy(), jk, **TOL)
+
+
+def test_flash_attention_merge_weighs_empty_and_masked_splits_zero():
+    """A split with no tile (max -inf, sums 0) and one whose keys the row
+    cannot see (max -1e30, sums 0) add nothing to the merge."""
+    rng = np.random.default_rng(3)
+    acc = _t(rng.standard_normal((2, 1, 4)).astype(np.float32))
+    m = _t(np.array([[1.5], [-2.0]], np.float32))
+    l = _t(np.array([[3.0], [0.5]], np.float32))
+    want = acc[:, 0] / l
+    zeros = torch.zeros((2, 1, 4))
+    for dead in (-float("inf"), -1e30):
+        got = tfa.merge_partials(torch.cat([acc, zeros], 1), torch.cat([m, torch.full_like(m, dead)], 1),
+                                 torch.cat([l, torch.zeros_like(l)], 1))
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# (leading shape, d): decode's B rows, a verify pass's (B, s) rows, a
+# prefill's (B, S) rows, a width off 16 bytes
+NORM_CASES = [((8,), 64), ((2, 5), 48), ((3, 4), 128), ((1, 7), 36)]
+
+
+@pytest.mark.parametrize("lead,d", NORM_CASES)
+@pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_plain_matches_jax(lead, d, norm_type, dtype):
+    """The norm kernel's plain version against the reference's
+    ``layers.norm_apply``: f32 rows at atol/rtol 1e-5 (the mean and variance
+    sum in another order); bf16 rows, both computed in f32 and rounded once,
+    within one bf16 step (rtol 2^-7, atol 1e-6)."""
+    rng = np.random.default_rng(d + len(lead))
+    x = (rng.standard_normal(lead + (d,)) * 3 + 0.5).astype(np.float32)
+    params = {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)}
+    if norm_type == "layernorm":
+        params["bias"] = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    xt = _t(x).to(getattr(torch, dtype))
+    got = tnorm.norm_plain(xt, _t(params["scale"]),
+                           _t(params["bias"]) if "bias" in params else None, norm_type)
+    jx = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    want = jlayers.norm_apply({k: jnp.asarray(v) for k, v in params.items()}, jx, norm_type)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    want = np.asarray(want.astype(jnp.float32))
+    tol = TOL if dtype == "float32" else dict(atol=1e-6, rtol=2.0 ** -7)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    # the wrapper sends a CPU tensor to the plain version and counts no launch
+    tops.reset_launch_counts()
+    routed = tops.norm(xt, _t(params["scale"]),
+                       _t(params["bias"]) if "bias" in params else None, norm_type=norm_type)
+    assert torch.equal(routed, got) and tops.LAUNCHES["norm"] == 0
+
+
+def test_norm_cuda_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tnorm.norm_cuda(torch.zeros(2, 8), torch.ones(8))
+    with pytest.raises(ValueError, match="no kernel route"):
+        tops.norm(torch.zeros(2, 8, device="meta"), torch.ones(8, device="meta"))
 
 
 def test_wrappers_refuse_devices_without_a_route():

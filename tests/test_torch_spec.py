@@ -280,6 +280,35 @@ def test_greedy_spec_streams_equal_jax_spec_and_plain_greedy(models, fused):
         assert tm[key] == jm[key], key
 
 
+def test_fused_engine_hands_flash_attention_the_live_cache_prefix(monkeypatch):
+    """The fused engine gives flash attention only the keys a chunk can see:
+    an admission chunk exactly its position plus its length, a verify pass
+    the longest active stream plus the draft length, which covers every
+    active row's chunk (read from the cache positions the kernel gets)."""
+    from repro_torch.kernels import ops as tops
+    cfg, tm = registry.load("codeqwen1.5-7b", smoke=True)
+    tp = tm.init_params(0, T_FP4, device="cpu")
+    eng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(
+        fused=True, max_batch=2, max_len=48, prefill_chunk=8, draft_len=3), device="cpu")
+    flash, seen = tops.flash_attention, {"admit": 0, "verify": 0}
+
+    def spy(q, k, v, *, q_offset=None, **kw):
+        s, t, off = q.shape[2], k.shape[2], q_offset.tolist()
+        if eng._staging is not None and q.shape[0] == 1:
+            assert t == off[0] + s, (t, off, s)
+            seen["admit"] += 1
+        else:
+            active = eng._active()
+            used = [len(eng.slots[i].prompt) + len(eng.slots[i].tokens_out) for i in active]
+            assert t == max(used) + 3 and all(off[i] + s <= t for i in active), (t, off, used)
+            seen["verify"] += 1
+        return flash(q, k, v, q_offset=q_offset, **kw)
+    monkeypatch.setattr(tops, "flash_attention", spy)
+    streams = _serve(eng, tengine, _prompts(cfg, [12, 20, 7], seed=3), 6)
+    assert all(len(st) == 6 for st in streams)
+    assert seen["admit"] > 0 and seen["verify"] > 0, seen
+
+
 def test_spec_with_budgeted_chunked_prefill_equals_jax(models):
     """Speculation interleaved with admissions of prompts longer than a
     chunk, a few tokens per step."""

@@ -320,3 +320,32 @@ def test_conv_steps_are_the_decode_conv_token_by_token():
         for j in range(5):
             yj, state = tssm._conv_decode(x[:, j:j + 1], state, w, bias)
             assert torch.equal(y[:, j:j + 1], yj), (cache_dtype, j)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_gated_and_layer_norms_take_the_configs_kernel_route(mamba, use_kernel, monkeypatch):
+    """Each norm of a Mamba-2 decode step (every layer's input norm and gated
+    norm, the final norm) is called with ``use_kernel`` as the cascade config
+    sets it; on CPU tensors the kernel route is the norm's plain version, so
+    no norm launch is counted and the logits stay within 1e-4 of JAX's."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.models import layers as tlayers
+    cfg, jm, jp, tm, tp = mamba
+    toks = _tokens(cfg, 2, 9, seed=3)
+    seen = []
+    norm_apply = tlayers.norm_apply
+
+    def spy(*a, **kw):
+        seen.append(kw.get("use_kernel", False))
+        return norm_apply(*a, **kw)
+    ccfg = dataclasses.replace(T_FP4, use_kernel=use_kernel)
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :4])}, J_FP4)
+    _, tc = tm.prefill(tp, {"tokens": _t(toks[:, :4])}, T_FP4)
+    monkeypatch.setattr(tlayers, "norm_apply", spy)
+    tops.reset_launch_counts()
+    with torch.no_grad():
+        tl, _ = tm.decode_step(tp, {"tokens": _t(toks[:, 4:5])}, tc, ccfg)
+    assert seen == [use_kernel] * (2 * cfg.n_layers + 1)
+    assert tops.LAUNCHES["norm"] == 0
+    jl2, _ = jm.decode_step(jp, {"tokens": jnp.asarray(toks[:, 4:5])}, jc, J_FP4)
+    _close(tl, jl2)

@@ -5,6 +5,8 @@ through ``convert.params_from_numpy``. Logits and caches agree at
 atol/rtol 1e-4 in f32: RoPE, softmax and matmul sums run in another order
 on the two sides.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -340,6 +342,29 @@ def test_attn_apply_kernel_route_equals_plain_on_cpu(mode):
 
 
 @pytest.mark.parametrize("s", [1, 5])
+def test_extend_over_the_live_prefix_equals_the_whole_cache(s):
+    """``kv_len`` = the largest row position plus s hands the flash route only
+    the cache's live prefix: the same outputs as over the whole cache (the
+    cut keys are masked; atol/rtol 1e-6, softmax sums over fewer zeros) and
+    the same cache; a bound past T reads the whole cache."""
+    cfg = tlayers.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8, qkv_bias=True)
+    params = tlayers.attn_init(torch.Generator().manual_seed(4), cfg, T_TRAIN, device="cpu")
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((3, s, 32)).astype(np.float32))
+    kv = rng.standard_normal((2, 3, 40, 2, 8)).astype(np.float32)
+    cache = {"k": torch.from_numpy(kv[0]), "v": torch.from_numpy(kv[1]),
+             "pos": torch.tensor([0, 7, 13], dtype=torch.int32)}
+    kcfg = CascadeConfig(mode="train", compute_dtype=torch.float32, use_kernel=True)
+    want, wc = tlayers.attn_apply(params, x, cfg, kcfg, _copy(cache), mode="extend")
+    for live in (13 + s, 64):
+        got, gc = tlayers.attn_apply(params, x, cfg, kcfg, _copy(cache), mode="extend",
+                                     kv_len=live)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+        for name in wc:
+            torch.testing.assert_close(gc[name], wc[name], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 5])
 def test_extend_attention_through_the_kernel_route_matches_jax_extend(s):
     """One attention layer in mode ``extend`` at per-row cache positions
     (one past T - s, whose write is clamped): the port's flash route against
@@ -462,3 +487,50 @@ def test_seq_rows_primitives_match_jax():
         np.testing.assert_array_equal(
             tcache.slice_rows_per_slot(torch.from_numpy(ck), torch.from_numpy(keep), 1, n).numpy(),
             np.asarray(jcache.slice_rows_per_slot(jnp.asarray(ck), jnp.asarray(keep), 1, n)))
+
+
+@pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lead", [(4,), (4, 5), (2, 3, 2)])
+def test_norm_apply_kernel_route_on_cpu_is_the_plain_route(norm_type, dtype, lead):
+    """``norm_apply(..., use_kernel=True)`` sends a CPU tensor to the norm
+    kernel's plain version: bit-equal to the route without the kernel,
+    ``LAUNCHES["norm"]`` unmoved, and within 1e-4 of the reference's
+    ``norm_apply`` (f32; bf16 within one bf16 step)."""
+    from repro_torch.kernels import ops as tops
+    rng = np.random.default_rng(len(lead))
+    d = 24
+    jp = jlayers.norm_init(d, norm_type)
+    jp = {k: jnp.asarray(np.asarray(v) + 0.1 * rng.standard_normal(d).astype(np.float32))
+          for k, v in jp.items()}
+    tp = params_from_numpy(_np_tree(jp), device="cpu")
+    x = torch.from_numpy(rng.standard_normal(lead + (d,)).astype(np.float32))
+    x = x.to(getattr(torch, dtype))
+    tops.reset_launch_counts()
+    kernel = tlayers.norm_apply(tp, x, norm_type, use_kernel=True)
+    assert tops.LAUNCHES["norm"] == 0
+    assert torch.equal(kernel, tlayers.norm_apply(tp, x, norm_type))
+    want = jlayers.norm_apply(jp, jnp.asarray(x.float().numpy()).astype(getattr(jnp, dtype)),
+                              norm_type)
+    tol = TOL if dtype == "float32" else dict(atol=1e-6, rtol=2.0 ** -7)
+    np.testing.assert_allclose(kernel.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               **tol)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_every_norm_of_a_step_takes_the_configs_kernel_route(codeqwen, use_kernel, monkeypatch):
+    """Each norm of a decode step (ln1 and ln2 of every layer, the final
+    norm) is called with ``use_kernel`` as the cascade config sets it."""
+    cfg, jm, jp, tm, tp = codeqwen
+    seen = []
+    norm_apply = tlayers.norm_apply
+
+    def spy(*a, **kw):
+        seen.append(kw.get("use_kernel", False))
+        return norm_apply(*a, **kw)
+    monkeypatch.setattr(tlayers, "norm_apply", spy)
+    tc = tm.init_cache(2, 8, dtype=torch.float32, device="cpu")
+    ccfg = dataclasses.replace(T_FP4, use_kernel=use_kernel)
+    with torch.no_grad():
+        tm.decode_step(tp, {"tokens": torch.from_numpy(_tokens(cfg, 2, 1))}, tc, ccfg)
+    assert seen == [use_kernel] * (2 * cfg.n_layers + 1)
