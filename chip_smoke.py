@@ -14,7 +14,11 @@ printed.
    timed with CUDA events over CUDA-graph replays of many launches (device
    time, no host launch gaps), beside its plain version, one library call
    computing the same function where there is one, and the least time the
-   card could take. Decode attention runs at three shapes: the served
+   card could take. The FP4 matmul runs at a decode step's 8 rows, an
+   admission chunk's 32, a verify pass's 40 and (codeqwen's MLP) 64, each
+   row with its launch plan (m-tiles a block, grid); at each served weight
+   shape its rows over 1-64 leading rows of x must equal, bit for bit, the
+   same rows of a call over 65. Decode attention runs at three shapes: the served
    codeqwen step, qwen2.5-32b's GQA heads (40 over 8) and a 4096-row
    cache whose rows are split across blocks. The SSD scan is also held to
    its plain version at a multi-step shape with an initial state and at a
@@ -62,6 +66,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -179,27 +184,50 @@ def copies_beyond_l2(nbytes: int) -> int:
     return max(1, -(-160 * 2 ** 20 // max(nbytes, 1)))
 
 
+#: (arch, K, N, bias) -> launches per decode step, and per verify pass:
+#: codeqwen's q/k/v/o (QKV bias), gate/up and down, and mamba2-370m's
+#: in_proj and out_proj, in each of 32 and 48 layers
+MATMUL_LAYERS = {("codeqwen1.5-7b", 4096, 4096, True): 4 * 32,
+                 ("codeqwen1.5-7b", 4096, 13440, False): 2 * 32,
+                 ("codeqwen1.5-7b", 13440, 4096, False): 32,
+                 ("mamba2-370m", 1024, 4384, False): 48,
+                 ("mamba2-370m", 2048, 1024, False): 48}
+#: codeqwen's FP4 lm_head, once a step (mamba2-370m's head is tied to the
+#: embedding: no FP4 matmul)
+MATMUL_HEAD = ("codeqwen1.5-7b", 4096, 92416, False)
+#: leading row counts whose rows must equal, bit for bit, the same rows of
+#: a call over ROWS_ACROSS_M rows: 1 to 4 m-tiles a block, two block rows
+ROWS_ACROSS_M = 65
+ROW_COUNTS = (1, 8, 16, 17, 40, 64)
+
+
+def matmul_shapes():
+    """(arch, M, K, N, bias, launches per decode step, launches per verify
+    pass): the layers and the head at a decode step's M = 8 and a verify
+    pass's 40 (8 slots x (draft 4 + 1)), the layers at an admission chunk's
+    32, codeqwen's MLP at 64 (the most rows one block holds) and its head at
+    M = 1."""
+    v = MAX_BATCH * (1 + DRAFT_LEN)
+    layers = list(MATMUL_LAYERS.items()) + [(MATMUL_HEAD, 1)]
+    rows = []
+    for m in (MAX_BATCH, CHUNK, v):
+        for (arch, k, n, bias), count in layers if m != CHUNK else layers[:-1]:
+            rows.append((arch, m, k, n, bias, count if m == MAX_BATCH else 0,
+                         count if m == v else 0))
+    cq = MATMUL_HEAD[0]
+    return rows + [(cq, 64, 4096, 13440, False, 0, 0), (cq, 64, 13440, 4096, False, 0, 0),
+                   (cq, 1, *MATMUL_HEAD[1:], 0, 0)]
+
+
 def matmul_phase(torch, dev):
     from repro_torch.core import quant
     from repro_torch.kernels import cascade_matmul as cm
     from repro_torch.kernels import ops
 
-    d, f, vocab, layers = 4096, 13440, 92416, 32
-    # (arch, M, K, N, bias, launches per decode step); extend rows: M = 32
-    cq = "codeqwen1.5-7b"
-    shapes = [(cq, 8, d, d, True, 4 * layers), (cq, 8, d, f, False, 2 * layers),
-              (cq, 8, f, d, False, layers), (cq, 8, d, vocab, False, 1),
-              (cq, 32, d, d, True, 0), (cq, 32, d, f, False, 0), (cq, 32, f, d, False, 0),
-              (cq, 1, d, vocab, False, 0)]
-    # mamba2-370m: in_proj (1024 -> 4384) and out_proj (2048 -> 1024) in each
-    # of 48 layers; the head is tied to the embedding (no FP4 lm_head)
-    mb, mlayers = "mamba2-370m", 48
-    shapes += [(mb, 8, 1024, 4384, False, mlayers), (mb, 8, 2048, 1024, False, mlayers),
-               (mb, 32, 1024, 4384, False, 0), (mb, 32, 2048, 1024, False, 0)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
-    for arch, m, k, n, with_bias, per_step in shapes:
+    for arch, m, k, n, with_bias, per_step, per_verify in matmul_shapes():
         w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
         packed, scales = quant.quantize_weight(w, 0)
         del w
@@ -229,9 +257,11 @@ def matmul_phase(torch, dev):
                     for i in range(copies_beyond_l2(dense.numel() * 2))]
         lib = ((lambda a, wd, b: torch.addmm(b, a, wd)) if bias is not None
                else (lambda a, wd, b: torch.matmul(a, wd)))
+        pl = cm.plan(m, k, n)
         row = {
             "arch": arch, "M": m, "K": k, "N": n, "bias": with_bias,
-            "launches_per_decode_step": per_step,
+            "m_tiles": pl["m_tiles"], "grid": list(pl["grid"]),
+            "launches_per_decode_step": per_step, "launches_per_verify_step": per_verify,
             "max_abs_err": err, "tol": tol, "max_abs_err_bf16_out": err16, "tol_bf16_out": tol16,
             "ms": graph_ms(torch, kern, sets, 40),
             "plain_ms": graph_ms(torch, plain, sets[:1], 3),
@@ -246,6 +276,39 @@ def matmul_phase(torch, dev):
         del sets, lib_sets, dense
         torch.cuda.empty_cache()
     return rows
+
+
+def matmul_rows_phase(torch, dev):
+    """Each layer's weight shape once, ROWS_ACROSS_M rows of x: the kernel
+    over the leading ROW_COUNTS rows must give every row the bits it gets in
+    the call over all of them (bf16 out as served, and f32), so a verify
+    pass's rows round as a decode step's. Fails on any differing bit."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    out = []
+    for arch, k, n, with_bias in MATMUL_LAYERS:
+        packed, scales = quant.quantize_weight(torch.randn((k, n), generator=gen, device=dev), 0)
+        bias = torch.randn((n,), generator=gen, device=dev) if with_bias else None
+        x = (torch.randn((ROWS_ACROSS_M, k), generator=gen, device=dev) / k ** 0.5) \
+            .to(torch.bfloat16)
+        differ = {}
+        for odt in (torch.bfloat16, torch.float32):
+            whole = ops.cascade_matmul(x, packed, scales, bias, out_dtype=odt)
+            for m in ROW_COUNTS:
+                got = ops.cascade_matmul(x[:m].contiguous(), packed, scales, bias, out_dtype=odt)
+                rows = (got != whole[:m]).any(dim=-1).nonzero().flatten().tolist()
+                if rows:
+                    differ[f"{odt} M={m}"] = rows
+        torch.cuda.synchronize()
+        res = {"arch": arch, "K": k, "N": n, "bias": with_bias, "row_counts": list(ROW_COUNTS),
+               "against_rows": ROWS_ACROSS_M, "rows_equal": not differ}
+        if differ:
+            fail(f"cascade_matmul ({k},{n}): rows round otherwise at another M: {differ}")
+        out.append(res)
+    return out
 
 
 def decode_attention_cases():
@@ -659,9 +722,16 @@ def profile_step(torch, eng) -> dict:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ours = {}                  # the port's kernels, every instantiation (and merge) summed
+    for name, (n, us) in by_name.items():
+        for k in ("cascade_matmul", "decode_attention", "flash_attention", "norm", "ssd_scan"):
+            if re.search(rf"(?<![A-Za-z0-9_]){k}_(kernel|merge)\b", name):
+                c, t = ours.get(k, (0, 0.0))
+                ours[k] = (c + n, t + us)
     return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_kernels": sum(n for n, _ in by_name.values()),
+            "our_kernels": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in ours.items()},
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
@@ -975,7 +1045,11 @@ def main() -> int:
         return out
 
     mm = timed("cascade_matmul", matmul_phase)
-    print(json.dumps({"cascade_matmul_shapes": mm}), flush=True)
+    from repro_torch.kernels import cascade_matmul as cm
+    mm_geometry = cm.geometry()
+    print(json.dumps({"cascade_matmul_shapes": mm, "geometry": mm_geometry}), flush=True)
+    mm_rows = timed("cascade_matmul rows", matmul_rows_phase)
+    print(json.dumps({"cascade_matmul_rows_across_m": mm_rows}), flush=True)
     atts = timed("decode_attention", attention_phase)
     att = atts[0]
     from repro_torch.kernels import decode_attention as da
@@ -999,8 +1073,12 @@ def main() -> int:
             print(json.dumps({"serve": run}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
 
-    def per_step(arch, key):
-        return sum(r[key] * r["launches_per_decode_step"] for r in mm if r["arch"] == arch)
+    def per_step(arch, key, per="launches_per_decode_step"):
+        return sum(r[key] * r[per] for r in mm if r["arch"] == arch)
+
+    def verify_step(arch):
+        return {key: per_step(arch, key, "launches_per_verify_step")
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     def launches(name):
         return {arch: srv[arch]["plain"]["launches"][name] for arch in ARCHS}
@@ -1035,7 +1113,13 @@ def main() -> int:
          "bound_ms": per_step(cq, "bound_ms"), "bound_by": "bytes",
          "library_ms": per_step(cq, "library_ms"),
          "mamba2_370m_step": {key: per_step(mb, key)
-                              for key in ("ms", "plain_ms", "bound_ms", "library_ms")}},
+                              for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "verify_step_m40": {a: verify_step(a) for a in ARCHS},
+         "geometry": mm_geometry,
+         "rows_equal_across_m": all(r["rows_equal"] for r in mm_rows),
+         "cascade_matmul_shapes": {f"{r['arch']} {r['M']}x{r['K']}->{r['N']}": {k: r[k] for k in (
+             "m_tiles", "grid", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "max_abs_err")} for r in mm}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:178",
@@ -1119,6 +1203,7 @@ def main() -> int:
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
+              "cascade_matmul_rows_across_m": mm_rows,
               "decode_attention": atts, "flash_attention": fla, "norm": nrm, "ssd_scan": ssd,
               "parity_depth2": par, "serve": srv,
               "phase_s": phase_s}

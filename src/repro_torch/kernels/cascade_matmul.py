@@ -9,7 +9,7 @@ with the FP4 values exact, products and sums in f32, and one cast to
 ``out_dtype`` at the end. The kernel is ``csrc/cascade_matmul.cu``; it
 replaces the TPU kernel ``cascade_matmul_pallas`` in the JAX package's
 ``kernels/cascade_matmul.py``. ``kernels.ops.cascade_matmul`` is the
-wrapper callers use.
+wrapper callers use; :func:`plan` gives the kernel's grid from the shapes.
 """
 from __future__ import annotations
 
@@ -40,14 +40,46 @@ def cascade_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
     return out.to(out_dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launch function, built and loaded at first use."""
-    fn = build.load("cascade_matmul").cascade_matmul_launch
+#: m-tiles of 16 rows one block holds at most: one group of scales (the
+#: serving path), and more than one, where a row keeps a second set of sums
+MAX_M_TILES, MAX_M_TILES_GROUPED = 4, 2
+_BLOCK_COLS = 32
+
+
+def plan(m: int, k: int, n: int, group: int = 0) -> dict:
+    """The launch's grid, from the shapes alone: a block owns 32 columns and
+    ``m_tiles`` m-tiles of 16 rows, all of M up to 64 rows (32 when the
+    weights have more than one scale group; ``group`` is the group size, 0
+    or K for one group). A call with M up to that reads each packed byte
+    once; a larger M takes one block row per 64 (32) rows."""
+    cap = MAX_M_TILES if group in (0, k) else MAX_M_TILES_GROUPED
+    mt = max(1, min(-(-m // 16), cap))
+    return {"m_tiles": mt, "grid": (-(-n // _BLOCK_COLS), -(-m // (16 * mt)))}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a built cascade-matmul library."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.cascade_matmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.cascade_matmul_launch.restype = ctypes.c_int
+    lib.cascade_matmul_geometry.argtypes = [p]
+    lib.cascade_matmul_geometry.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernel's library, built and loaded at first use."""
+    return bind(build.load("cascade_matmul"))
+
+
+def geometry() -> dict:
+    """The built kernel's m-tiles a block at most (one scale group, more
+    than one) and the k16 steps a warp batches at 1-4 m-tiles."""
+    out = (ctypes.c_int * 6)()
+    _library().cascade_matmul_geometry(ctypes.addressof(out))
+    return {"max_m_tiles": out[0], "max_m_tiles_grouped": out[1],
+            "batch_steps_by_m_tiles": list(out[2:])}
 
 
 def cascade_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -81,11 +113,12 @@ def cascade_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    fn = _launcher()
-    rc = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, k, n, k // scales.shape[0], int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+    group = k // scales.shape[0]
+    rc = _library().cascade_matmul_launch(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        m, k, n, group, int(out_dtype == torch.bfloat16), plan(m, k, n, group)["m_tiles"],
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cascade_matmul kernel launch failed: CUDA error {rc}")
     return out

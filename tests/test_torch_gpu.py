@@ -36,11 +36,17 @@ def cuda():
 
 # (M, K, N, group, bias): odd K, N and K tails off every tile, G > 1 (group
 # sizes on and off the 16-row mma step, down to 1 and 2, so a step holds
-# many group edges), no bias, and full-width codeqwen shapes
+# many group edges), no bias, and full-width codeqwen shapes; M from 1 to
+# 100: 2, 3 and 4 m-tiles a block (a verify pass's 40, 48, 64), a second
+# block row (65, 100), and grouped weights past their 2 m-tiles a block
 MATMUL_CASES = [(3, 64, 48, 0, True), (5, 63, 37, 0, False), (4, 96, 100, 24, True),
                 (1, 130, 70, 65, False), (7, 258, 301, 0, True), (9, 512, 72, 64, False),
                 (17, 160, 45, 32, True), (2, 48, 33, 1, False), (6, 36, 20, 2, True),
-                (8, 4096, 13440, 0, True), (33, 13440, 4096, 0, False)]
+                (8, 4096, 13440, 0, True), (33, 13440, 4096, 0, False),
+                (40, 4096, 4096, 0, True), (40, 2048, 1024, 0, False), (48, 258, 301, 0, True),
+                (64, 1024, 4384, 0, False), (64, 13440, 4096, 0, False),
+                (65, 63, 37, 0, True), (100, 96, 100, 24, True), (40, 512, 72, 64, False),
+                (65, 4096, 13440, 0, False)]
 
 
 @pytest.mark.parametrize("m,k,n,group,with_bias", MATMUL_CASES)
@@ -62,6 +68,58 @@ def test_cascade_matmul_cuda_matches_plain(cuda, m, k, n, group, with_bias, odty
     # rounding of the result when the output is bf16)
     tol = dict(atol=1e-4, rtol=1e-4) if odtype == "float32" else dict(atol=2e-2, rtol=1e-2)
     torch.testing.assert_close(got, want, **tol)
+
+
+# (K, N, group, bias): codeqwen's q/k/v/o (bias) and down shapes, mamba's
+# in_proj, a K tail with N off the 32-column tile, groups of 24 rows
+ROWS_ACROSS_M_CASES = [(4096, 4096, 0, True), (13440, 4096, 0, False), (1024, 4384, 0, False),
+                       (258, 301, 0, True), (1032, 1000, 24, True)]
+
+
+@pytest.mark.parametrize("k,n,group,with_bias", ROWS_ACROSS_M_CASES)
+@pytest.mark.parametrize("odtype", ["float32", "bfloat16"])
+def test_cascade_matmul_rows_equal_bit_for_bit_at_any_m(cuda, k, n, group, with_bias, odtype):
+    """One weight matrix and one set of 65 rows: the kernel over the leading
+    1, 8, 16, 17, 40, 64 and 65 rows (1 to 4 m-tiles a block, one or two
+    block rows) gives each row the same bits as over all 65. A row is summed
+    in one order fixed by K, N and the group size, so a verify pass's rows
+    round as a decode step's."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    packed, scales = quant.quantize_weight(w, group)
+    x = (torch.randn((65, k), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    bias = torch.randn((n,), generator=gen, device=cuda) if with_bias else None
+    out_dtype = getattr(torch, odtype)
+    whole = ops.cascade_matmul(x, packed, scales, bias, out_dtype=out_dtype)
+    differ = {}
+    for m in (1, 8, 16, 17, 40, 64):
+        got = ops.cascade_matmul(x[:m].contiguous(), packed, scales, bias, out_dtype=out_dtype)
+        rows = [i for i in range(m) if not torch.equal(got[i], whole[i])]
+        if rows:
+            differ[m] = rows
+    torch.cuda.synchronize()
+    assert not differ, f"rows that round otherwise than at M = 65, by M: {differ}"
+
+
+def test_cascade_matmul_launcher_refuses_a_plan_that_does_not_fit_m(cuda):
+    """The C side checks the m-tiles it is handed against M and launches
+    nothing on a mismatch."""
+    packed, scales = quant.quantize_weight(torch.randn((64, 32), device=cuda), 0)
+    x = torch.zeros((40, 64), device=cuda, dtype=torch.bfloat16)
+    out = torch.full((40, 32), 7.0, device=cuda)
+    lib = tcm._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for mt in (0, 1, 2, 4, 5):
+        rc = lib.cascade_matmul_launch(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                                       None, out.data_ptr(), 40, 64, 32, 64, 0, mt, stream)
+        assert rc != 0, mt
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert tcm.plan(40, 64, 32)["m_tiles"] == 3
+    assert lib.cascade_matmul_launch(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                                     None, out.data_ptr(), 40, 64, 32, 64, 0, 3, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
 
 
 # (B, Hq, Hkv, T, D): GQA with groups of 4 and 8 at D = 16 and 256, the

@@ -36,13 +36,18 @@ jax.config.update("jax_platform_name", "cpu")
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 # (M, K, N, group, bias): odd K, N and K tails off every tile, G > 1 (with an
-# odd group size), no bias
+# odd group size), no bias; a verify pass's 40 rows, the 64 one block holds
+# and 65, which takes a second block row (with groups of 24 rows, off the
+# 16-row step)
 MATMUL_CASES = [
     (3, 64, 48, 0, True),
     (5, 63, 37, 0, False),
     (4, 96, 100, 24, True),
     (1, 130, 70, 65, False),
     (7, 258, 301, 0, True),
+    (40, 130, 70, 0, True),
+    (64, 63, 37, 0, False),
+    (65, 96, 100, 24, True),
 ]
 
 
@@ -87,6 +92,24 @@ def test_cascade_matmul_wrapper_flattens_leading_dims_and_counts_no_cpu_launch()
     assert torch.equal(got.reshape(6, 20), want)
     assert tops.LAUNCHES == {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0,
                              "norm": 0, "ssd_scan": 0}
+
+
+def test_cascade_matmul_plan_holds_all_of_m_up_to_64_rows_in_one_block():
+    """m-tiles of 16 rows a block and block rows, from the shapes alone: one
+    scale group (the serving path) up to 4 m-tiles, so every call up to 64
+    rows reads the weights once; more than one group up to 2."""
+    ms = (1, 8, 16, 17, 32, 40, 48, 64, 65, 200)
+    want_mt = (1, 1, 1, 2, 2, 3, 3, 4, 4, 4)
+    want_y = (1, 1, 1, 1, 1, 1, 1, 1, 2, 4)
+    for group in (0, 4096):
+        got = [tcm.plan(m, 4096, 13440, group) for m in ms]
+        assert [p["m_tiles"] for p in got] == list(want_mt)
+        assert [p["grid"] for p in got] == [(420, y) for y in want_y]
+    grouped = [tcm.plan(m, 96, 100, 24) for m in ms]
+    assert [p["m_tiles"] for p in grouped] == [1, 1, 1, 2, 2, 2, 2, 2, 2, 2]
+    assert [p["grid"][1] for p in grouped] == [1, 1, 1, 1, 1, 2, 2, 2, 3, 7]
+    assert tcm.plan(8, 4096, 4096)["grid"] == (128, 1)
+    assert tcm.plan(40, 2048, 1030)["grid"] == (33, 1)
 
 
 def _attn_case(b, hq, hkv, t, d, seed=0):
