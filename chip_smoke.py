@@ -32,7 +32,11 @@ printed.
    norm at the served widths and row counts (codeqwen's 4,096, mamba2-370m's
    1,024 and gated 2,048; a decode step's 8 rows, a verify pass's 40, an
    admission chunk's 32), where each token's rows must also equal, bit for
-   bit, what a one-token call over the same slots gives.
+   bit, what a one-token call over the same slots gives; its fused forms
+   (the residual add inside the norm at 4,096 and 1,024, Mamba-2's gate
+   inside the gated norm at 2,048 with z a column slice of in_proj's
+   4,384-wide output) must equal, bit for bit, the route they replaced (the
+   eager add or gate, then the norm kernel), also in one-token calls.
 2. Parity, per path and for qwen2.5-32b (GQA 40/8, QKV bias, decode
    attention at G = 5): the model cut to 2 layers at full width, one padded
    prefill chunk, one decode step and one speculative verify chunk (8 rows
@@ -178,6 +182,21 @@ def graph_ms(torch, fn, argsets, iters: int) -> float:
     del g
     torch.cuda.empty_cache()
     return ms
+
+
+def host_us(torch, fn, args, iters: int = 2000) -> float:
+    """Host µs per call: ``iters`` eager calls enqueued back to back (no
+    synchronisation between them; a call's device time is shorter than its
+    host time, so the queue never fills), on the host clock."""
+    for _ in range(20):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def copies_beyond_l2(nbytes: int) -> int:
@@ -495,6 +514,113 @@ def norm_cases():
             ("layernorm_4096", (MAX_BATCH, 1), 4096, "layernorm")]
 
 
+#: mamba2-370m's in_proj output width (z, x, B, C, dt): z is its first
+#: 2,048 columns, read by the gated norm in place
+MAMBA_IN_PROJ = 4384
+
+
+def fused_norm_cases():
+    """(name, form, leading shape, d): the residual add inside the norm
+    (add-norm) at codeqwen's 4,096 (a decode step's 8 rows, a verify pass's
+    (8, 5), an admission chunk's (1, 32)) and mamba2-370m's 1,024 (step and
+    verify), and Mamba-2's gate inside its gated norm at 2,048 (step and
+    verify, and an admission chunk, whose dual form hands over f32 y beside
+    bf16 z). Rows are bf16 but where stated."""
+    v = (MAX_BATCH, 1 + DRAFT_LEN)
+    return [("codeqwen_step_add", "add", (MAX_BATCH, 1), 4096, "bfloat16"),
+            ("codeqwen_verify_add", "add", v, 4096, "bfloat16"),
+            ("codeqwen_admit_add", "add", (1, CHUNK), 4096, "bfloat16"),
+            ("mamba_step_add", "add", (MAX_BATCH, 1), 1024, "bfloat16"),
+            ("mamba_verify_add", "add", v, 1024, "bfloat16"),
+            ("mamba_gated_step_fused", "gated", (MAX_BATCH, 1), 2048, "bfloat16"),
+            ("mamba_gated_verify_fused", "gated", v, 2048, "bfloat16"),
+            ("mamba_gated_admit_fused_f32_y", "gated", (1, CHUNK), 2048, "float32")]
+
+
+def fused_norm_phase(torch, dev):
+    """Each fused form against the route it replaced on the card (the eager
+    add or gate, then the norm kernel): bit for bit, the normed rows and the
+    written sum, in the whole call and token by token; within the norm's
+    tolerance of its plain version (all eager). Timed beside that old route,
+    the plain version and a library yardstick (torch.add or the eager gate,
+    then F.rms_norm)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import norm as nrm
+    from repro_torch.kernels import ops
+
+    rows = []
+    for name, form, lead, d, xdtype in fused_norm_cases():
+        gen = torch.Generator(device=dev).manual_seed(d + len(lead) + 1)
+        x = (3 * torch.randn(lead + (d,), generator=gen, device=dev) + 0.5) \
+            .to(getattr(torch, xdtype))
+        width = MAMBA_IN_PROJ if form == "gated" else d
+        r = (3 * torch.randn(lead + (width,), generator=gen, device=dev)).to(torch.bfloat16)
+        r = r[..., :d]                       # the gate's z: a column slice, read in place
+        scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        w16 = scale.to(x.dtype)
+        if form == "add":
+            def kern(a, b):
+                return ops.add_norm(a, b, scale)
+
+            def old(a, b):
+                s = a + b
+                return ops.norm(s, scale), s
+
+            def plain(a, b):
+                return nrm.add_norm_plain(a, b, scale)
+
+            def lib(a, b):
+                return F.rms_norm(torch.add(a, b), (d,), w16, 1e-6)
+        else:
+            def kern(a, b):
+                return (ops.gated_norm(a, b, scale),)
+
+            def old(a, b):
+                return (ops.norm((a * F.silu(b.to(torch.float32))).to(a.dtype), scale),)
+
+            def plain(a, b):
+                return (nrm.gated_norm_plain(a, b, scale),)
+
+            def lib(a, b):
+                return F.rms_norm((a * F.silu(b.to(torch.float32))).to(a.dtype), (d,), w16, 1e-6)
+        got, want, ref = kern(x, r), old(x, r), plain(x, r)
+        parts = [kern(x[:, j:j + 1], r[:, j:j + 1]) for j in range(x.shape[1])]
+        per_token = [torch.cat([p[k] for p in parts], dim=1) for k in range(len(got))]
+        torch.cuda.synchronize()
+        err = (got[0].float() - ref[0].float()).abs()
+        tol = NORM_RTOL * ref[0].float().abs() + NORM_MTOL * float(ref[0].float().abs().max())
+        row = {"case": name, "form": form, "rows": list(lead), "d": d, "norm_type": "rmsnorm",
+               "dtype": xdtype, "z_row_stride": width if form == "gated" else None,
+               "equals_old_route": all(torch.equal(a, b) for a, b in zip(got, want)),
+               "rows_equal_one_token_calls": all(torch.equal(a, b)
+                                                 for a, b in zip(got, per_token)),
+               "sum_equals_eager_add": bool(torch.equal(got[1], ref[1])) if form == "add"
+               else None,
+               "max_abs_err": float(err.max()), "max_err_over_tol": float((err / tol).max()),
+               "bit_equal_share": float((got[0] == ref[0]).float().mean())}
+        if not (row["equals_old_route"] and row["rows_equal_one_token_calls"]
+                and bool((err <= tol).all()) and row["sum_equals_eager_add"] is not False):
+            fail(f"norm {name}: the fused form does not give the old route's bits, its rows "
+                 f"round otherwise in one-token calls, or it is out of tolerance: {row}")
+        # read x and r (or y and z) and the scale, write the normed rows (and the sum)
+        nbytes = (x.element_size() * (2 + (1 if form == "add" else 0)) + r.element_size()) \
+            * x.numel() + d * 4
+        row.update({"ms": graph_ms(torch, kern, [(x, r)], 200),
+                    "old_route_ms": graph_ms(torch, old, [(x, r)], 200),
+                    "host_us": host_us(torch, kern, (x, r)),
+                    "old_route_host_us": host_us(torch, old, (x, r)),
+                    "plain_ms": graph_ms(torch, plain, [(x, r)], 100),
+                    "library_ms": graph_ms(torch, lib, [(x, r)], 200),
+                    "library_note": ("torch.add" if form == "add" else
+                                     "F.silu, multiply, cast") + " then F.rms_norm on weights "
+                                                                  "in the rows' dtype, a "
+                                                                  "yardstick only",
+                    "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes"})
+        rows.append(row)
+    return rows
+
+
 def norm_phase(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import norm as nrm
@@ -632,6 +758,8 @@ def plain_versions_on_card():
               (da, "decode_attention_cuda", da.decode_attention_plain),
               (fa, "flash_attention_cuda", fa.flash_attention_plain),
               (nrm, "norm_cuda", nrm.norm_plain),
+              (nrm, "add_norm_cuda", nrm.add_norm_plain),
+              (nrm, "gated_norm_cuda", nrm.gated_norm_plain),
               (ssd, "ssd_scan_cuda", ssd.ssd_scan_plain)]
     saved = [getattr(mod, name) for mod, name, _ in routes], dict(ops.LAUNCHES)
     for mod, name, plain in routes:
@@ -728,10 +856,19 @@ def profile_step(torch, eng) -> dict:
             if re.search(rf"(?<![A-Za-z0-9_]){k}_(kernel|merge)\b", name):
                 c, t = ours.get(k, (0, 0.0))
                 ours[k] = (c + n, t + us)
+    # eager elementwise kernels by ATen functor: the bf16 adds (the residual
+    # adds before the fused add-norm) and silu (Mamba-2's gate, beside the
+    # conv's own silu), to show which the fused norm forms took
+    eager = {}
+    for name, (n, _) in by_name.items():
+        for key, pat in (("add_bf16", r"CUDAFunctor_add<c10::BFloat16>"), ("silu", r"silu")):
+            if re.search(pat, name):
+                eager[key] = eager.get(key, 0) + n
     return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_kernels": sum(n for n, _ in by_name.values()),
             "our_kernels": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in ours.items()},
+            "eager_elementwise": eager,
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
@@ -1060,7 +1197,8 @@ def main() -> int:
     fla_geometry = fa.geometry()
     print(json.dumps({"flash_attention": fla, "geometry": fla_geometry}), flush=True)
     nrm = timed("norm", norm_phase)
-    print(json.dumps({"norm": nrm}), flush=True)
+    nrm_fused = timed("norm fused", fused_norm_phase)
+    print(json.dumps({"norm": nrm, "norm_fused": nrm_fused}), flush=True)
     ssd = timed("ssd_scan", ssd_phase)
     print(json.dumps({"ssd_scan": ssd}), flush=True)
     par, srv = {}, {}
@@ -1090,7 +1228,7 @@ def main() -> int:
 
     cq, mb = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
-    nq = next(r for r in nrm if r["case"] == "codeqwen_step")
+    nq = next(r for r in nrm_fused if r["case"] == "codeqwen_step_add")
     kernels = [
         {"name": "cascade_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
@@ -1167,23 +1305,31 @@ def main() -> int:
         {"name": "norm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/norm.cu",
          "replaces": "no TPU kernel: the reference's plain norm_apply, "
-                     "src/repro/models/layers.py:32",
-         "shape": f"codeqwen decode step: {nq['rows']} x {nq['d']} bf16 RMSNorm (every shape "
-                  "under norm_shapes)",
+                     "src/repro/models/layers.py:32, with the residual add before it "
+                     "(src/repro/models/transformer.py:117-118, ssm.py:299) and Mamba-2's "
+                     "gate (src/repro/models/ssm.py:287)",
+         "shape": f"codeqwen decode step's add-norm: {nq['rows']} x {nq['d']} bf16 RMSNorm of "
+                  "x + r (every shape under norm_shapes; the plain form at the same shape "
+                  "under norm_shapes.codeqwen_step)",
          "launches": sum(launches("norm").values()),
          "launches_by_path": launches("norm"),
          "launches_by_run": by_run("norm"),
          "launches_per_decode_step": {
              a: srv[a]["plain"]["launches_per_decode_step"]["norm"] for a in ARCHS},
-         "max_abs_err": max(r["max_abs_err"] for r in nrm),
-         "max_err_over_tol": max(r["max_err_over_tol"] for r in nrm),
-         "tol": "2^-7 * |plain| + 2^-20 * max|plain| (bf16 out)",
-         "rows_equal_one_token_calls": all(r["rows_equal_one_token_calls"] for r in nrm),
+         "max_abs_err": max(r["max_abs_err"] for r in nrm + nrm_fused),
+         "max_err_over_tol": max(r["max_err_over_tol"] for r in nrm + nrm_fused),
+         "tol": "2^-7 * |plain| + 2^-20 * max|plain| (bf16 out); the fused forms also equal "
+                "the eager add or gate then the norm kernel bit for bit",
+         "rows_equal_one_token_calls": all(r["rows_equal_one_token_calls"]
+                                           for r in nrm + nrm_fused),
+         "fused_equal_old_route": all(r["equals_old_route"] for r in nrm_fused),
          "ms": nq["ms"], "kernel_ms": nq["ms"], "plain_ms": nq["plain_ms"],
+         "old_route_ms": nq["old_route_ms"],
          "bound_ms": nq["bound_ms"], "bound_by": nq["bound_by"],
          "library_ms": nq["library_ms"], "library_note": nq["library_note"],
          "norm_shapes": {r["case"]: {k: r[k] for k in (
-             "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")} for r in nrm}},
+             "ms", "old_route_ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
+             if k in r} for r in nrm + nrm_fused}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:92",
@@ -1204,7 +1350,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
               "cascade_matmul_rows_across_m": mm_rows,
-              "decode_attention": atts, "flash_attention": fla, "norm": nrm, "ssd_scan": ssd,
+              "decode_attention": atts, "flash_attention": fla, "norm": nrm,
+              "norm_fused": nrm_fused, "ssd_scan": ssd,
               "parity_depth2": par, "serve": srv,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

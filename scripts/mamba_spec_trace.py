@@ -14,7 +14,8 @@ plain and speculative vs speculative (determinism), then plain vs
 speculative. At that step it replays both runs once more, recording each
 norm's and linear's input and output, each block's output and the tied
 head's, and prints the first recorded tensor whose row for that slot
-differs, with its input. Last, it counts rows that ``layers.norm_apply``
+differs, with its input (the norms: plain, add-norm and gated). Last, it
+counts rows that ``layers.norm_apply``
 (as eager ops, and through the norm kernel)
 rounds otherwise in one call over R rows than in R one-row calls.
 """
@@ -90,7 +91,9 @@ def trace_step(model, params, ccfg, prompts, draft, dev, target):
     from repro_torch.core import cascade
     from repro_torch.models import layers as L
 
-    orig = {"norm": L.norm_apply, "head": L.tied_head, "linear": cascade.linear_apply}
+    orig = {"norm": L.norm_apply, "add_norm": L.add_norm_apply,
+            "gated_norm": L.gated_norm_apply, "head": L.tied_head,
+            "linear": cascade.linear_apply}
     rec, on, in_pass = [], [False], [False]
 
     def passing(fn):
@@ -111,7 +114,9 @@ def trace_step(model, params, ccfg, prompts, draft, dev, target):
                             .detach().clone()))
             return out
         return call
-    L.norm_apply, L.tied_head = recorded("norm", L.norm_apply), recorded("head", L.tied_head)
+    for name in ("norm", "add_norm", "gated_norm"):
+        setattr(L, f"{name}_apply", recorded(name, orig[name]))
+    L.tied_head = recorded("head", L.tied_head)
     cascade.linear_apply = recorded("linear", cascade.linear_apply)
     model._block = recorded("block", type(model)._block.__get__(model))
     for name in ("decode_step", "spec_verify"):
@@ -122,8 +127,9 @@ def trace_step(model, params, ccfg, prompts, draft, dev, target):
     finally:
         for name in ("_block", "decode_step", "spec_verify"):
             model.__dict__.pop(name, None)
-        L.norm_apply, L.tied_head, cascade.linear_apply = (orig["norm"], orig["head"],
-                                                           orig["linear"])
+        for name in ("norm", "add_norm", "gated_norm"):
+            setattr(L, f"{name}_apply", orig[name])
+        L.tied_head, cascade.linear_apply = orig["head"], orig["linear"]
     return rec
 
 

@@ -96,6 +96,32 @@ def norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None,
     return _norm.norm_plain(x, scale, bias, norm_type, eps)
 
 
+def add_norm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor | None = None, *, norm_type: str = "rmsnorm",
+             eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it: ``(norm(x + r), x + r)``, the
+    sum rounded to x's dtype as eager ``x + r`` rounds it. One launch of the
+    norm kernel on the card (counted under ``LAUNCHES["norm"]``)."""
+    if _route(x) == "cuda":
+        out = _norm.add_norm_cuda(x, r, scale, bias, norm_type, eps)
+        LAUNCHES["norm"] += 1
+        return out
+    return _norm.add_norm_plain(x, r, scale, bias, norm_type, eps)
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2's gate and the RMSNorm after it: ``rmsnorm((y * silu(z.f32))
+    .to(y.dtype))``. z may be a column slice (the kernel reads it through
+    its row stride). One launch of the norm kernel on the card (counted
+    under ``LAUNCHES["norm"]``)."""
+    if _route(y) == "cuda":
+        out = _norm.gated_norm_cuda(y, z, scale, eps)
+        LAUNCHES["norm"] += 1
+        return out
+    return _norm.gated_norm_plain(y, z, scale, eps)
+
+
 def _ssd_scan(x, dt, A, B, C, D, initial_state, return_final_state, final_state_out=None):
     if _route(x) == "cuda":
         out = _ssd.ssd_scan_cuda(x, dt, A, B, C, D, initial_state, return_final_state,

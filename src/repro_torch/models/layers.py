@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
-from repro_torch.kernels.norm import norm_plain
+from repro_torch.kernels.norm import add_norm_plain, gated_norm_plain, norm_plain
 
 #: the masked-logit value of the reference (not -inf: a row with no live
 #: key then averages uniformly instead of producing NaN)
@@ -51,6 +51,31 @@ def norm_apply(params: dict, x: torch.Tensor, norm_type: str = "rmsnorm",
         from repro_torch.kernels import ops
         return ops.norm(x, params["scale"], params.get("bias"), norm_type=norm_type, eps=eps)
     return norm_plain(x, params["scale"], params.get("bias"), norm_type, eps)
+
+
+def add_norm_apply(params: dict, x: torch.Tensor, r: torch.Tensor, norm_type: str = "rmsnorm",
+                   eps: float = 1e-6, *, use_kernel: bool = False):
+    """The residual add and the norm after it: ``(norm_apply(x + r), x + r)``,
+    the second the new residual stream. ``use_kernel`` sends it to
+    ``ops.add_norm`` (one launch of the norm kernel on the card); without
+    it, the eager add and :func:`norm_apply`'s plain route."""
+    if use_kernel:
+        from repro_torch.kernels import ops
+        return ops.add_norm(x, r, params["scale"], params.get("bias"), norm_type=norm_type,
+                            eps=eps)
+    return add_norm_plain(x, r, params["scale"], params.get("bias"), norm_type, eps)
+
+
+def gated_norm_apply(params: dict, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-6, *,
+                     use_kernel: bool = False) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm: ``norm_apply((y * silu(z.f32)).to(y.dtype))``.
+    ``use_kernel`` sends it to ``ops.gated_norm`` (one launch of the norm
+    kernel on the card, z read in place through its row stride); without
+    it, the eager gate and :func:`norm_apply`'s plain route."""
+    if use_kernel:
+        from repro_torch.kernels import ops
+        return ops.gated_norm(y, z, params["scale"], eps=eps)
+    return gated_norm_plain(y, z, params["scale"], eps=eps)
 
 
 # ---------------------------------------------------------------------------

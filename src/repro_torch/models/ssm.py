@@ -302,21 +302,30 @@ class Mamba2LM:
                 new_cache = {"conv": conv_prefill_state(xbc, cfg.conv_width),
                              "state": final_state}
 
-        y = y.reshape(b, -1, di)
-        y = L.norm_apply(lp["gnorm"], (y * F.silu(z.to(torch.float32))).to(y.dtype),
-                         use_kernel=ccfg.use_kernel)
+        # the gate y * silu(z) runs inside the gated norm (z read in place)
+        y = L.gated_norm_apply(lp["gnorm"], y.reshape(b, -1, di), z, use_kernel=ccfg.use_kernel)
         return cascade.linear_apply(lp["out_proj"], y, ccfg), new_cache
 
-    def _block(self, lp, x, ccfg, cache, mode, n_valid=None, collect=None):
-        h, nc = self._mixer(lp, L.norm_apply(lp["ln"], x, self.cfg.norm_type,
-                                             use_kernel=ccfg.use_kernel),
-                            ccfg, cache, mode, n_valid, collect)
-        return x + h, nc
+    def _block(self, lp, x, ccfg, cache, mode, n_valid=None, collect=None, pending=None):
+        """One layer. ``pending``: the previous layer's mixer output, not yet
+        added to the residual stream ``x``; the add runs inside this layer's
+        input norm (one add-norm). Returns (x, this layer's mixer output,
+        still to be added, its cache)."""
+        uk = ccfg.use_kernel
+        if pending is None:
+            u = L.norm_apply(lp["ln"], x, self.cfg.norm_type, use_kernel=uk)
+        else:
+            u, x = L.add_norm_apply(lp["ln"], x, pending, self.cfg.norm_type, use_kernel=uk)
+        h, nc = self._mixer(lp, u, ccfg, cache, mode, n_valid, collect)
+        return x, h, nc
 
     # --------------------------------------------------------------- api
-    def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig,
+    def _head(self, params: dict, x: torch.Tensor, pending: torch.Tensor, ccfg: CascadeConfig,
               per_token: bool = False) -> torch.Tensor:
-        x = L.norm_apply(params["final_norm"], x, self.cfg.norm_type, use_kernel=ccfg.use_kernel)
+        """Logits of the rows of ``x + pending`` (the last layer's mixer
+        output is added inside the final norm)."""
+        x, _ = L.add_norm_apply(params["final_norm"], x, pending, self.cfg.norm_type,
+                                use_kernel=ccfg.use_kernel)
         if self.cfg.tie_embeddings:
             logits = L.tied_head(params["embed"], x, ccfg.compute_dtype, per_token)
         else:
@@ -324,21 +333,24 @@ class Mamba2LM:
         return logits.to(torch.float32)
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
-                cache=None, n_valid=None):
-        """Run every layer; returns x and the per-layer caches."""
-        caches = []
+                cache=None, n_valid=None, collect=None):
+        """Run every layer (``collect``: a verify checkpoint's stacked
+        ``layers``, filled layer by layer); returns x, the last layer's mixer
+        output still to be added, and the per-layer caches."""
+        pending, caches = None, []
         for i in range(self.cfg.n_layers):
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
-            x, nc = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, c,
-                                mode, n_valid)
+            ck = cache_utils.layer_view(collect, i) if collect is not None else None
+            x, pending, nc = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, c,
+                                         mode, n_valid, ck, pending=pending)
             caches.append(nc)
-        return x, caches
+        return x, pending, caches
 
     def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
         """Full-sequence forward (no cache): logits (B, S, V) f32."""
-        x, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]), ccfg,
-                            "full")
-        return self._head(params, x, ccfg)
+        x, pending, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
+                                     ccfg, "full")
+        return self._head(params, x, pending, ccfg)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
         """Zero state for ``batch`` slots; ``max_len`` is unused (the state is
@@ -363,18 +375,18 @@ class Mamba2LM:
         """Prompt forward that also builds the cache: logits of the last
         position (B, 1, V) and the cache."""
         b, s = batch["tokens"].shape
-        x, caches = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
-                                 ccfg, "prefill")
+        x, pending, caches = self._layers(params, L.embed_apply(params["embed"],
+                                                                batch["tokens"]), ccfg, "prefill")
         pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-        return (self._head(params, x[:, -1:], ccfg),
+        return (self._head(params, x[:, -1:], pending[:, -1:], ccfg),
                 {"layers": cache_utils.stack_layers(caches), "pos": pos})
 
     def decode_step(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig):
         """One token per row against ``cache`` (updated in place)."""
-        x, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]), ccfg,
-                            "decode", cache)
+        x, pending, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
+                                     ccfg, "decode", cache)
         cache["pos"].add_(1)
-        return self._head(params, x, ccfg), cache
+        return self._head(params, x, pending, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
                        n_valid=None, kv_len: int | None = None):
@@ -385,10 +397,11 @@ class Mamba2LM:
         is no attention."""
         s = batch["tokens"].shape[1]
         nv = s if n_valid is None else int(n_valid)
-        x, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]), ccfg,
-                            "extend", cache, nv)
+        x, pending, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
+                                     ccfg, "extend", cache, nv)
         cache["pos"].add_(nv)
-        return self._head(params, cache_utils.take_last_valid(x, nv), ccfg), cache
+        x, pending = (cache_utils.take_last_valid(t, nv) for t in (x, pending))
+        return self._head(params, x, pending, ccfg), cache
 
     # --------------------------------------------------- speculative decode
     def spec_verify(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
@@ -417,16 +430,14 @@ class Mamba2LM:
                                       cfg.ssm_state), dtype=torch.float32, device=dev)},
                 "pos": torch.empty((b,), dtype=torch.int32, device=dev)}
         ckpt["pos"].copy_(cache["pos"])
-        x = L.embed_apply(params["embed"], batch["tokens"])
-        for i in range(cfg.n_layers):
-            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
-                               cache_utils.layer_view(cache["layers"], i), "extend",
-                               collect=cache_utils.layer_view(ckpt["layers"], i))
+        x, pending, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
+                                     ccfg, "extend", cache, collect=ckpt["layers"])
         cache["pos"].add_(s)
         # the tied head token by token, at decode's shape: one f32 GEMM over
         # all B * s rows rounds otherwise than decode's M = B does. (The
-        # norms still reduce in an order set by their row count.)
-        return self._head(params, x, ccfg, per_token=True), cache, ckpt
+        # norms' eager route still reduces in an order set by the row count;
+        # the kernel's does not.)
+        return self._head(params, x, pending, ccfg, per_token=True), cache, ckpt
 
     def spec_rewind(self, cache: dict, ckpt: dict, keep: torch.Tensor) -> dict:
         """Per-slot rewind to ``keep[b]`` committed chunk tokens, in place:

@@ -76,9 +76,13 @@ class TransformerLM:
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
         return L.embed_apply(params["embed"], batch["tokens"])
 
-    def _head(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig) -> torch.Tensor:
+    def _head(self, params: dict, x: torch.Tensor, pending: torch.Tensor,
+              ccfg: CascadeConfig) -> torch.Tensor:
+        """Logits of the rows of ``x + pending`` (the last layer's MLP output
+        is added inside the final norm)."""
         cfg = self.cfg
-        x = L.norm_apply(params["final_norm"], x, cfg.norm_type, use_kernel=ccfg.use_kernel)
+        x, _ = L.add_norm_apply(params["final_norm"], x, pending, cfg.norm_type,
+                                use_kernel=ccfg.use_kernel)
         if cfg.tie_embeddings:
             logits = L.tied_head(params["embed"], x, ccfg.compute_dtype)
         else:
@@ -86,25 +90,39 @@ class TransformerLM:
         return logits.to(torch.float32)
 
     def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
-               max_len: int | None = None, n_valid=None, kv_len: int | None = None):
+               max_len: int | None = None, n_valid=None, kv_len: int | None = None,
+               pending: torch.Tensor | None = None):
+        """One layer. ``pending``: the previous layer's MLP output, not yet
+        added to the residual stream ``x``; the add runs inside ln1 (one
+        add-norm), as this layer's attention output's runs inside ln2.
+        Returns (x, this layer's MLP output, still to be added, new cache)."""
         cfg = self.cfg
-        h, new_cache = L.attn_apply(
-            lp["attn"], L.norm_apply(lp["ln1"], x, cfg.norm_type, use_kernel=ccfg.use_kernel),
-            self.attn_cfg, ccfg, cache=cache, mode=mode, max_len=max_len, n_valid=n_valid,
-            kv_len=kv_len)
-        x = x + h
-        x = x + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], x, cfg.norm_type,
-                                                    use_kernel=ccfg.use_kernel),
-                            cfg.mlp_kind, ccfg)
-        return x, new_cache
+        uk = ccfg.use_kernel
+        if pending is None:
+            u = L.norm_apply(lp["ln1"], x, cfg.norm_type, use_kernel=uk)
+        else:
+            u, x = L.add_norm_apply(lp["ln1"], x, pending, cfg.norm_type, use_kernel=uk)
+        h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, cache=cache, mode=mode,
+                                    max_len=max_len, n_valid=n_valid, kv_len=kv_len)
+        u, x = L.add_norm_apply(lp["ln2"], x, h, cfg.norm_type, use_kernel=uk)
+        return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
+
+    def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
+                cache=None, **kw):
+        """Run every layer: (x, the last layer's MLP output still to be added,
+        the per-layer caches)."""
+        pending, caches = None, []
+        for i in range(self.cfg.n_layers):
+            c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
+            x, pending, nc = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, c,
+                                         mode, pending=pending, **kw)
+            caches.append(nc)
+        return x, pending, caches
 
     def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
         """Full-sequence forward (no cache): logits (B, S, V) f32."""
-        x = self._embed(params, batch)
-        for i in range(self.cfg.n_layers):
-            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, None,
-                               "full")
-        return self._head(params, x, ccfg)
+        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "full")
+        return self._head(params, x, pending, ccfg)
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
@@ -118,21 +136,15 @@ class TransformerLM:
                 max_len: int | None = None):
         """Prompt forward that also builds the cache: logits of the last
         position (B, 1, V) and ``{"layers": {k, v, pos}}`` stacked (L, ...)."""
-        x = self._embed(params, batch)
-        caches = []
-        for i in range(self.cfg.n_layers):
-            x, c = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, None,
-                               "prefill", max_len=max_len)
-            caches.append(c)
-        return self._head(params, x[:, -1:], ccfg), {"layers": cache_utils.stack_layers(caches)}
+        x, pending, caches = self._layers(params, self._embed(params, batch), ccfg, "prefill",
+                                          max_len=max_len)
+        return (self._head(params, x[:, -1:], pending[:, -1:], ccfg),
+                {"layers": cache_utils.stack_layers(caches)})
 
     def decode_step(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig):
         """One token per row against ``cache`` (updated in place)."""
-        x = self._embed(params, batch)
-        for i in range(self.cfg.n_layers):
-            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
-                               cache_utils.layer_view(cache["layers"], i), "decode")
-        return self._head(params, x, ccfg), cache
+        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "decode", cache)
+        return self._head(params, x, pending, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
                        n_valid=None, all_logits: bool = False, kv_len: int | None = None):
@@ -144,15 +156,12 @@ class TransformerLM:
         the keys any row sees (its position plus the chunk length; see
         ``layers.attn_apply``), None for the whole cache.
         """
-        x = self._embed(params, batch)
-        s = x.shape[1]
-        nv = s if n_valid is None else n_valid
-        for i in range(self.cfg.n_layers):
-            x, _ = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg,
-                               cache_utils.layer_view(cache["layers"], i), "extend",
-                               n_valid=nv, kv_len=kv_len)
-        x = x if all_logits else cache_utils.take_last_valid(x, nv)
-        return self._head(params, x, ccfg), cache
+        nv = batch["tokens"].shape[1] if n_valid is None else n_valid
+        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "extend", cache,
+                                     n_valid=nv, kv_len=kv_len)
+        if not all_logits:
+            x, pending = (cache_utils.take_last_valid(t, nv) for t in (x, pending))
+        return self._head(params, x, pending, ccfg), cache
 
     # --------------------------------------------------- speculative decode
     def spec_verify(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,

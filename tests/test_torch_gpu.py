@@ -317,6 +317,8 @@ def test_fused_engine_streams_equal_plain_engine_on_the_card(cuda, monkeypatch):
                 monkeypatch.setattr(tfa, "flash_attention_cuda", tfa.flash_attention_plain)
                 monkeypatch.setattr(tssd, "ssd_scan_cuda", tssd.ssd_scan_plain)
                 monkeypatch.setattr(tnorm, "norm_cuda", tnorm.norm_plain)
+                monkeypatch.setattr(tnorm, "add_norm_cuda", tnorm.add_norm_plain)
+                monkeypatch.setattr(tnorm, "gated_norm_cuda", tnorm.gated_norm_plain)
             eng = engine.ServeEngine(model, params, ccfg,
                                      engine.ServeConfig(max_batch=2, max_len=40,
                                                         prefill_chunk=8, fused=True),
@@ -500,6 +502,141 @@ def test_norm_raises_on_what_the_kernel_does_not_take(cuda):
         ops.norm(flat[1:].view(2, 64), one)
 
 
+# (form, leading shape, d, norm type): the fused forms at the served shapes:
+# add-norm at codeqwen's 4,096 (a decode step's 8 rows, a verify pass's
+# (8, 5), an admission chunk's (1, 32)) and mamba2-370m's 1,024, LayerNorm;
+# the gated form at mamba2-370m's 2,048, z a column slice of in_proj's
+# (..., 4384) output; widths off 16 bytes
+FUSED_NORM_CASES = [("add", (8, 1), 4096, "rmsnorm"), ("add", (8, 5), 4096, "rmsnorm"),
+                    ("add", (1, 32), 4096, "rmsnorm"), ("add", (8, 1), 1024, "rmsnorm"),
+                    ("add", (8, 5), 1024, "rmsnorm"), ("add", (8, 1), 4096, "layernorm"),
+                    ("add", (5,), 1000, "layernorm"), ("gated", (8, 1), 2048, "rmsnorm"),
+                    ("gated", (8, 5), 2048, "rmsnorm"), ("gated", (3, 2), 36, "rmsnorm")]
+
+
+def _fused_inputs(cuda, form, lead, d, norm_type, dtype, seed):
+    """x and r (add), or y and z (gated; z a column slice of a wider buffer
+    whose rows are in_proj's 4,384 wide at Mamba-2's width), scale, bias."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (3 * torch.randn(lead + (d,), generator=gen, device=cuda) + 0.5).to(dt)
+    if form == "gated":
+        wide = 4384 if d == 2048 else d + 8
+        r = (3 * torch.randn(lead + (wide,), generator=gen, device=cuda)).to(dt)[..., :d]
+    else:
+        r = (3 * torch.randn(lead + (d,), generator=gen, device=cuda)).to(dt)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=cuda)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=cuda) if norm_type == "layernorm" \
+        else None
+    return x, r, scale, bias
+
+
+def _eager_then_norm(form, x, r, scale, bias, norm_type):
+    """The route the fused forms replaced: the eager add or gate, then the
+    norm kernel."""
+    import torch.nn.functional as F
+    v = x + r if form == "add" else (x * F.silu(r.to(torch.float32))).to(x.dtype)
+    return ops.norm(v, scale, bias, norm_type=norm_type), v
+
+
+@pytest.mark.parametrize("form,lead,d,norm_type", FUSED_NORM_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_norms_equal_the_eager_route_bit_for_bit(cuda, form, lead, d, norm_type, dtype):
+    """add-norm gives the bits of the eager ``x + r`` then the norm kernel
+    (the normed rows and the written sum); the gated norm those of the eager
+    ``(y * silu(z.f32)).to(y.dtype)`` then the norm kernel, z read in place
+    through its row stride. One launch each."""
+    x, r, scale, bias = _fused_inputs(cuda, form, lead, d, norm_type, dtype, d + len(lead))
+    ops.reset_launch_counts()
+    if form == "add":
+        got, s = ops.add_norm(x, r, scale, bias, norm_type=norm_type)
+    else:
+        got = ops.gated_norm(x, r, scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["norm"] == 1 and got.dtype == x.dtype and got.shape == x.shape
+    want, v = _eager_then_norm(form, x, r, scale, bias, norm_type)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    if form == "add":
+        assert s.dtype == x.dtype and torch.equal(s, v)
+
+
+@pytest.mark.parametrize("lead", [(1, 32), (8, 5)])
+def test_gated_norm_takes_f32_rows_beside_a_bf16_gate(cuda, lead):
+    """Mamba-2's dual form (prefill, admission chunks) hands the gated norm
+    f32 y beside bf16 z (a column slice of in_proj's output): the kernel
+    gives the eager route's bits, f32 out, z read 8 bytes at a time."""
+    y, _, scale, _ = _fused_inputs(cuda, "gated", lead, 2048, "rmsnorm", "float32", 9)
+    _, z, _, _ = _fused_inputs(cuda, "gated", lead, 2048, "rmsnorm", "bfloat16", 10)
+    assert z.dtype == torch.bfloat16 and z.stride(-2) == 4384
+    got = ops.gated_norm(y, z, scale)
+    want, _ = _eager_then_norm("gated", y, z, scale, None, "rmsnorm")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("offset,width", [(1, 2048 + 8), (0, 2048 + 1), (3, 2048 + 5)])
+@pytest.mark.parametrize("zdtype", ["bfloat16", "float32"])
+def test_gated_norm_reads_a_misaligned_z_one_element_a_load(cuda, offset, width, zdtype):
+    """A z whose offset or row stride breaks the wide load (an in_proj
+    output width that is not a multiple of 8, as at the smoke configs) is
+    read one element a load, with the bits of the same z copied to aligned
+    rows."""
+    y, _, scale, _ = _fused_inputs(cuda, "gated", (8, 5), 2048, "rmsnorm", "bfloat16", 3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    buf = (3 * torch.randn((8, 5, width + offset), generator=gen, device=cuda)) \
+        .to(getattr(torch, zdtype))
+    z = buf[..., offset:offset + 2048]
+    got = ops.gated_norm(y, z, scale)
+    want = ops.gated_norm(y, z.contiguous(), scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form,d", [("add", 4096), ("add", 1024), ("gated", 2048)])
+def test_fused_norm_rows_round_alike_in_any_number_of_rows(cuda, form, d):
+    """The fused forms over (8, 5, d) bf16 rows (a verify chunk) give each
+    token's rows what they give over that token's (8, 1, d) rows (a decode
+    step), bit for bit: 100 draws of 40 rows."""
+    differing = 0
+    ops.reset_launch_counts()
+    for i in range(100):
+        x, r, scale, _ = _fused_inputs(cuda, form, (8, 5), d, "rmsnorm", "bfloat16", i)
+        fn = (lambda a, b: ops.add_norm(a, b, scale)) if form == "add" \
+            else (lambda a, b: (ops.gated_norm(a, b, scale), a))
+        whole = fn(x, r)
+        parts = [fn(x[:, j:j + 1], r[:, j:j + 1]) for j in range(5)]
+        for k in range(2):
+            per_token = torch.cat([p[k] for p in parts], dim=1)
+            differing += int((whole[k] != per_token).any(dim=-1).sum())
+    assert ops.LAUNCHES["norm"] == 100 * 6
+    assert differing == 0, f"{differing} rows round otherwise"
+
+
+def test_fused_norms_raise_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 64), device=cuda, dtype=torch.bfloat16)
+    one = torch.ones((64,), device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.add_norm(x, x.float(), one)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ops.gated_norm(x, x.half(), one)
+    with pytest.raises(ValueError, match="shape"):
+        ops.add_norm(x, x[:1], one)
+    buf = torch.zeros((2, 4384), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):            # r's offset
+        ops.add_norm(x, buf.view(-1)[1:129].view(2, 64), one)
+    with pytest.raises(ValueError, match="16-byte aligned"):            # r's row stride
+        ops.add_norm(x, torch.zeros((2, 65), device=cuda, dtype=torch.bfloat16)[:, :64], one)
+    with pytest.raises(ValueError, match="16-byte aligned"):            # x's offset
+        ops.add_norm(buf.view(-1)[1:129].view(2, 64), x, one)
+    wide = torch.zeros((2, 20000), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="width"):
+        ops.add_norm(wide, wide, torch.ones((20000,), device=cuda))
+    with pytest.raises(ValueError, match="width"):
+        ops.gated_norm(wide, wide, torch.ones((20000,), device=cuda))
+
+
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((1, 4, 8, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bf16"):
@@ -658,6 +795,8 @@ def test_mamba2_verify_rows_equal_decode_steps_bit_for_bit(cuda, monkeypatch):
         model.prefill_extend(params, {"tokens": prompt}, cache, ccfg)
         copy = _clone_tree(cache)
         monkeypatch.setattr(L, "norm_apply", recorded("norm", L.norm_apply))
+        monkeypatch.setattr(L, "add_norm_apply", recorded("add_norm", L.add_norm_apply))
+        monkeypatch.setattr(L, "gated_norm_apply", recorded("gated_norm", L.gated_norm_apply))
         monkeypatch.setattr(L, "tied_head", recorded("head", L.tied_head))
         monkeypatch.setattr(cascade, "linear_apply", recorded("linear", cascade.linear_apply))
         monkeypatch.setattr(model, "_block", recorded("block", model._block))

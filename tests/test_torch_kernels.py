@@ -403,6 +403,83 @@ def test_norm_plain_matches_jax(lead, d, norm_type, dtype):
     assert torch.equal(routed, got) and tops.LAUNCHES["norm"] == 0
 
 
+def _norm_case(lead, d, norm_type, dtype, seed):
+    """Rows x and r (or y and z), and norm params, from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    x, r = ((rng.standard_normal(lead + (d,)) * 3 + 0.5).astype(np.float32) for _ in range(2))
+    params = {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)}
+    if norm_type == "layernorm":
+        params["bias"] = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    xt, rt = (_t(a).to(getattr(torch, dtype)) for a in (x, r))
+    jx, jr = (jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype)) for t in (xt, rt))
+    tp = (_t(params["scale"]), _t(params["bias"]) if "bias" in params else None)
+    return xt, rt, jx, jr, tp, {k: jnp.asarray(v) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("lead,d", NORM_CASES)
+@pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_norm_plain_matches_jax(lead, d, norm_type, dtype):
+    """The add-norm form's plain version against the reference's residual
+    add ``x + r`` then ``layers.norm_apply``: the sum bit-equal (one
+    correctly rounded add on both sides), the norm at the tolerances of
+    ``test_norm_plain_matches_jax``; ``ops.add_norm`` sends CPU tensors to
+    it and counts no launch."""
+    xt, rt, jx, jr, (scale, bias), jp = _norm_case(lead, d, norm_type, dtype, d + 7)
+    got, s = tnorm.add_norm_plain(xt, rt, scale, bias, norm_type)
+    js = jx + jr
+    want = jlayers.norm_apply(jp, js, norm_type)
+    assert got.dtype == s.dtype == xt.dtype and got.shape == s.shape == xt.shape
+    np.testing.assert_array_equal(s.float().numpy(), np.asarray(js.astype(jnp.float32)))
+    tol = TOL if dtype == "float32" else dict(atol=1e-6, rtol=2.0 ** -7)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol)
+    tops.reset_launch_counts()
+    routed = tops.add_norm(xt, rt, scale, bias, norm_type=norm_type)
+    assert torch.equal(routed[0], got) and torch.equal(routed[1], s)
+    assert tops.LAUNCHES["norm"] == 0
+
+
+@pytest.mark.parametrize("lead,d", NORM_CASES)
+@pytest.mark.parametrize("dtype,zdtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                          ("float32", "bfloat16")])
+def test_gated_norm_plain_matches_jax(lead, d, dtype, zdtype):
+    """The gated form's plain version against the reference's Mamba-2 gate
+    ``(y * jax.nn.silu(z.f32)).astype(y.dtype)`` then ``layers.norm_apply``
+    (RMSNorm), at the tolerances of ``test_norm_plain_matches_jax`` (silu is
+    ``z / (1 + exp(-z))`` here and ``z * sigmoid(z)`` there: an f32 ulp
+    apart), with z contiguous and as a column slice of a wider buffer, as
+    Mamba-2 hands it over, and bf16 beside f32 y (its dual form's output);
+    ``ops.gated_norm`` sends CPU tensors to it and counts no launch."""
+    yt, zt, jy, _, (scale, _), jp = _norm_case(lead, d, "rmsnorm", dtype, d + 11)
+    zt = zt.to(getattr(torch, zdtype))
+    jz = jnp.asarray(zt.float().numpy()).astype(getattr(jnp, zdtype))
+    want = jlayers.norm_apply(jp, (jy * jax.nn.silu(jz.astype(jnp.float32))).astype(jy.dtype))
+    want = np.asarray(want.astype(jnp.float32))
+    tol = TOL if dtype == "float32" else dict(atol=1e-6, rtol=2.0 ** -7)
+    wide = torch.cat([zt, torch.ones_like(zt)[..., :5]], dim=-1)[..., :d]
+    assert wide.reshape(-1, d).stride(0) == d + 5
+    for z in (zt, wide):
+        got = tnorm.gated_norm_plain(yt, z, scale)
+        assert got.dtype == yt.dtype and got.shape == yt.shape
+        np.testing.assert_allclose(got.float().numpy(), want, **tol)
+        tops.reset_launch_counts()
+        assert torch.equal(tops.gated_norm(yt, z, scale), got)
+        assert tops.LAUNCHES["norm"] == 0
+
+
+def test_fused_norm_cuda_refuses_cpu_tensors():
+    x, one = torch.zeros(2, 8), torch.ones(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnorm.add_norm_cuda(x, x, one)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnorm.gated_norm_cuda(x, x, one)
+    meta = torch.zeros(2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel route"):
+        tops.add_norm(meta, meta, torch.ones(8, device="meta"))
+    with pytest.raises(ValueError, match="no kernel route"):
+        tops.gated_norm(meta, meta, torch.ones(8, device="meta"))
+
+
 def test_norm_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tnorm.norm_cuda(torch.zeros(2, 8), torch.ones(8))

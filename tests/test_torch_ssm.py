@@ -324,28 +324,94 @@ def test_conv_steps_are_the_decode_conv_token_by_token():
 
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_gated_and_layer_norms_take_the_configs_kernel_route(mamba, use_kernel, monkeypatch):
-    """Each norm of a Mamba-2 decode step (every layer's input norm and gated
-    norm, the final norm) is called with ``use_kernel`` as the cascade config
-    sets it; on CPU tensors the kernel route is the norm's plain version, so
+    """Each norm of a Mamba-2 decode step is called with ``use_kernel`` as
+    the cascade config sets it: layer 0's input norm as a plain norm, every
+    later input norm as an add-norm (the previous mixer output added inside
+    it), every layer's gated norm (the gate inside it), the final norm as
+    an add-norm. On CPU tensors the kernel route is the plain versions, so
     no norm launch is counted and the logits stay within 1e-4 of JAX's."""
     from repro_torch.kernels import ops as tops
     from repro_torch.models import layers as tlayers
     cfg, jm, jp, tm, tp = mamba
     toks = _tokens(cfg, 2, 9, seed=3)
     seen = []
-    norm_apply = tlayers.norm_apply
 
-    def spy(*a, **kw):
-        seen.append(kw.get("use_kernel", False))
-        return norm_apply(*a, **kw)
+    def spy(name):
+        fn = getattr(tlayers, name)
+
+        def call(*a, **kw):
+            seen.append((name, kw.get("use_kernel", False)))
+            return fn(*a, **kw)
+        monkeypatch.setattr(tlayers, name, call)
     ccfg = dataclasses.replace(T_FP4, use_kernel=use_kernel)
     jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :4])}, J_FP4)
     _, tc = tm.prefill(tp, {"tokens": _t(toks[:, :4])}, T_FP4)
-    monkeypatch.setattr(tlayers, "norm_apply", spy)
+    for name in ("norm_apply", "add_norm_apply", "gated_norm_apply"):
+        spy(name)
     tops.reset_launch_counts()
     with torch.no_grad():
         tl, _ = tm.decode_step(tp, {"tokens": _t(toks[:, 4:5])}, tc, ccfg)
-    assert seen == [use_kernel] * (2 * cfg.n_layers + 1)
+    want = (["norm_apply", "gated_norm_apply"]
+            + ["add_norm_apply", "gated_norm_apply"] * (cfg.n_layers - 1) + ["add_norm_apply"])
+    assert seen == [(name, use_kernel) for name in want]
     assert tops.LAUNCHES["norm"] == 0
     jl2, _ = jm.decode_step(jp, {"tokens": jnp.asarray(toks[:, 4:5])}, jc, J_FP4)
     _close(tl, jl2)
+
+
+def _eager_norm_routes(monkeypatch):
+    """Send ``add_norm_apply`` and ``gated_norm_apply`` back to the route the
+    fused forms replaced: the eager add or gate, then ``norm_apply``."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as tlayers
+    norm_apply = tlayers.norm_apply
+
+    def add_norm(params, x, r, norm_type="rmsnorm", eps=1e-6, *, use_kernel=False):
+        s = x + r
+        return norm_apply(params, s, norm_type, eps, use_kernel=use_kernel), s
+
+    def gated_norm(params, y, z, eps=1e-6, *, use_kernel=False):
+        return norm_apply(params, (y * F.silu(z.to(torch.float32))).to(y.dtype), eps=eps,
+                          use_kernel=use_kernel)
+    monkeypatch.setattr(tlayers, "add_norm_apply", add_norm)
+    monkeypatch.setattr(tlayers, "gated_norm_apply", gated_norm)
+
+
+def _serve_modes(m, p, ccfg, toks, chunk, nxt, draft):
+    """Logits of a prefill, a padded extend chunk (3 of its tokens valid), a
+    decode step and a verify pass, in that order on one cache."""
+    with torch.no_grad():
+        lp, c = m.prefill(p, {"tokens": _t(toks)}, ccfg)
+        le, c = m.prefill_extend(p, {"tokens": _t(chunk)}, c, ccfg, n_valid=3)
+        ld, c = m.decode_step(p, {"tokens": _t(nxt)}, c, ccfg)
+        lv, c, _ = m.spec_verify(p, {"tokens": _t(draft)}, c, ccfg)
+    return {"prefill": lp, "extend": le, "decode": ld, "verify": lv}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_fused_norms_give_the_eager_routes_logits_bit_for_bit(mamba, use_kernel, monkeypatch):
+    """The residual adds folded into the next norm (add-norm) and the gate
+    folded into the gated norm leave a Mamba-2 smoke model's logits
+    bit-equal to the eager route (the add or gate, then the norm) on the
+    CPU, in prefill, extend, decode and verify, f32 and bf16, with and
+    without the kernel route; the f32 logits stay within 1e-4 of JAX's."""
+    cfg, jm, jp, tm, tp = mamba
+    toks, chunk, nxt, draft = (_tokens(cfg, 2, n, seed=20 + n) for n in (5, 4, 1, 3))
+    got = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=dtype, use_kernel=use_kernel)
+        fused = _serve_modes(tm, tp, ccfg, toks, chunk, nxt, draft)
+        with monkeypatch.context() as mp:
+            _eager_norm_routes(mp)
+            eager = _serve_modes(tm, tp, ccfg, toks, chunk, nxt, draft)
+        for mode in fused:
+            assert torch.equal(fused[mode], eager[mode]), (dtype, mode)
+        got[dtype] = fused
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4)
+    want = {"prefill": jl}
+    want["extend"], jc = jm.prefill_extend(jp, {"tokens": jnp.asarray(chunk)}, jc, J_FP4,
+                                           n_valid=3)
+    want["decode"], jc = jm.decode_step(jp, {"tokens": jnp.asarray(nxt)}, jc, J_FP4)
+    want["verify"], _, _ = jm.spec_verify(jp, {"tokens": jnp.asarray(draft)}, jc, J_FP4)
+    for mode, w in want.items():
+        _close(got[torch.float32][mode], w)

@@ -519,18 +519,77 @@ def test_norm_apply_kernel_route_on_cpu_is_the_plain_route(norm_type, dtype, lea
 
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_every_norm_of_a_step_takes_the_configs_kernel_route(codeqwen, use_kernel, monkeypatch):
-    """Each norm of a decode step (ln1 and ln2 of every layer, the final
-    norm) is called with ``use_kernel`` as the cascade config sets it."""
+    """Each norm of a decode step is called with ``use_kernel`` as the
+    cascade config sets it: layer 0's ln1 as a plain norm, every later ln1
+    as an add-norm (the previous layer's MLP output added inside it), every
+    ln2 as an add-norm (the attention output), the final norm as an
+    add-norm (the last MLP output)."""
     cfg, jm, jp, tm, tp = codeqwen
     seen = []
-    norm_apply = tlayers.norm_apply
 
-    def spy(*a, **kw):
-        seen.append(kw.get("use_kernel", False))
-        return norm_apply(*a, **kw)
-    monkeypatch.setattr(tlayers, "norm_apply", spy)
+    def spy(name):
+        fn = getattr(tlayers, name)
+
+        def call(*a, **kw):
+            seen.append((name, kw.get("use_kernel", False)))
+            return fn(*a, **kw)
+        monkeypatch.setattr(tlayers, name, call)
+    for name in ("norm_apply", "add_norm_apply", "gated_norm_apply"):
+        spy(name)
     tc = tm.init_cache(2, 8, dtype=torch.float32, device="cpu")
     ccfg = dataclasses.replace(T_FP4, use_kernel=use_kernel)
     with torch.no_grad():
         tm.decode_step(tp, {"tokens": torch.from_numpy(_tokens(cfg, 2, 1))}, tc, ccfg)
-    assert seen == [use_kernel] * (2 * cfg.n_layers + 1)
+    want = ["norm_apply"] + ["add_norm_apply"] * (2 * cfg.n_layers)
+    assert seen == [(name, use_kernel) for name in want]
+
+
+def _eager_norm_routes(monkeypatch):
+    """Send ``add_norm_apply`` back to the route it replaced: the eager add,
+    then ``norm_apply``."""
+    norm_apply = tlayers.norm_apply
+
+    def add_norm(params, x, r, norm_type="rmsnorm", eps=1e-6, *, use_kernel=False):
+        s = x + r
+        return norm_apply(params, s, norm_type, eps, use_kernel=use_kernel), s
+    monkeypatch.setattr(tlayers, "add_norm_apply", add_norm)
+
+
+def _serve_modes(m, p, ccfg, toks, chunk, nxt, draft):
+    """Logits of a prefill, a padded extend chunk (3 of its tokens valid), a
+    decode step and a verify pass, in that order on one cache."""
+    t = lambda a: torch.from_numpy(a)
+    with torch.no_grad():
+        lp, c = m.prefill(p, {"tokens": t(toks)}, ccfg, max_len=24)
+        le, c = m.prefill_extend(p, {"tokens": t(chunk)}, c, ccfg, n_valid=3)
+        ld, c = m.decode_step(p, {"tokens": t(nxt)}, c, ccfg)
+        lv, c, _ = m.spec_verify(p, {"tokens": t(draft)}, c, ccfg)
+    return {"prefill": lp, "extend": le, "decode": ld, "verify": lv}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_fused_norms_give_the_eager_routes_logits_bit_for_bit(codeqwen, use_kernel, monkeypatch):
+    """The residual adds folded into the next norm (add-norm) leave a
+    codeqwen smoke model's logits bit-equal to the eager add-then-norm route
+    on the CPU, in prefill, extend, decode and verify, f32 and bf16, with and
+    without the kernel route; the f32 logits stay within 1e-4 of JAX's."""
+    cfg, jm, jp, tm, tp = codeqwen
+    toks, chunk, nxt, draft = (_tokens(cfg, 2, n, seed=20 + n) for n in (5, 4, 1, 3))
+    got = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=dtype, use_kernel=use_kernel)
+        fused = _serve_modes(tm, tp, ccfg, toks, chunk, nxt, draft)
+        with monkeypatch.context() as mp:
+            _eager_norm_routes(mp)
+            eager = _serve_modes(tm, tp, ccfg, toks, chunk, nxt, draft)
+        for mode in fused:
+            assert torch.equal(fused[mode], eager[mode]), (dtype, mode)
+        got[dtype] = fused
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4, max_len=24)
+    want = {"prefill": jl}
+    want["extend"], jc = jm.prefill_extend(jp, {"tokens": jnp.asarray(chunk)}, jc, J_FP4,
+                                           n_valid=jnp.int32(3))
+    want["decode"], jc = jm.decode_step(jp, {"tokens": jnp.asarray(nxt)}, jc, J_FP4)
+    want["verify"], _, _ = jm.spec_verify(jp, {"tokens": jnp.asarray(draft)}, jc, J_FP4)
+    for mode, w in want.items():
+        _close(got[torch.float32][mode], w)
