@@ -58,6 +58,16 @@ printed.
    give the same streams, and plain greedy at a 4,096-token context (2
    prompts of 4,064 tokens, 8 new tokens each), whose late admission chunks
    must split flash attention over the keys and whose early ones must not.
+   Then codeqwen's paged runs (pages of 16 rows; none may downgrade), each
+   stream held to a dense run's token for token: (a) ``paged`` on the plain
+   run's random prompts, one 8-slot paged decode step profiled beside the
+   dense one; (b) ``prefix_cache`` on 16 prompts sharing a 96-token prefix,
+   beside the dense engine on them (hit rate >= 0.5; TTFT, admission chunks
+   and prompt tokens spent on both); (c) ``prefix_cache`` on the random
+   prompts, whose default pool must evict; (d) ``paged`` speculative
+   greedy on the repetitive prompts, against the dense speculative run.
+   The paged pool's gather and scatter (PyTorch ops, not kernels of the
+   port) are also timed per call at the served step's shapes.
 
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
@@ -127,6 +137,10 @@ F32_FLOP_PER_S = 67e12
 
 PROMPT_LEN, MAX_NEW, N_REQ, MAX_BATCH, CHUNK = 128, 32, 16, 8, 32
 DRAFT_LEN = 4
+#: the paged runs (codeqwen): page size, and the prefix the shared-prefix
+#: prompts share (a multiple of CHUNK, so admission after a hit keeps the
+#: dense engine's chunk boundaries)
+PAGE_SIZE, PREFIX_LEN = 16, 96
 #: the long-context serve run (codeqwen): a 4,096-token context, prompts
 #: that fill it but for a chunk, admitted in 127 chunks of 32
 LONG_LEN, LONG_REQ, LONG_BATCH, LONG_NEW = 4096, 2, 2, 8
@@ -772,6 +786,67 @@ def plain_versions_on_card():
         ops.LAUNCHES.update(saved[1])
 
 
+def paged_pool_phase(torch, dev):
+    """The paged pool's row traffic at the served codeqwen decode step (one
+    layer: 8 slots at positions 128-156 of 12 blocks of 16 rows, pages
+    scattered over a 97-page pool, 32 KV heads of 128, bf16): the gather of
+    the slots' pages into the dense (8, 192, 32, 128) view, the scatter of
+    the step's new rows and the block-table lookup, each on the card equal
+    to the CPU on every live page, and timed per call beside its byte bound
+    and the dense cache's row write (``layers.update_rows``). These are
+    PyTorch ops (index_select, index_copy_), not kernels of the port: a step
+    runs each twice a layer (K and V), the lookup once."""
+    import numpy as np
+    from repro_torch.models import cache_utils as C
+    from repro_torch.models import layers as L
+
+    b, ps, hkv, d = MAX_BATCH, PAGE_SIZE, 32, 128
+    t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
+    nb = t // ps
+    npages = b * nb + 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bt = torch.from_numpy(1 + np.random.default_rng(5).permutation(b * nb).reshape(b, nb)
+                          .astype(np.int64)).to(dev)            # as the engine pushes it
+    pos = torch.tensor([PROMPT_LEN + 4 * i for i in range(b)], dtype=torch.int32, device=dev)
+    rows = pos.to(torch.int64)[:, None]
+    nc = copies_beyond_l2(npages * ps * hkv * d * 2)
+    pools = [torch.randn((npages, ps, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(nc)]
+    new = torch.randn((b, 1, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    phys = C.paged_phys_rows(bt, rows, ps)
+    ref = pools[0].cpu()
+    C.paged_update_rows(ref, new.cpu(), C.paged_phys_rows(bt.cpu(), rows.cpu(), ps))
+    got = pools[0].clone()
+    C.paged_update_rows(got, new, phys)
+    gathered = C.paged_gather(got, bt, ps)
+    if not (torch.equal(got[1:].cpu(), ref[1:])
+            and torch.equal(gathered.cpu(), C.paged_gather(ref, bt.cpu(), ps))):
+        fail("paged pool: the card's scatter or gather differs from the CPU's on live pages")
+    dense = [torch.randn((b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(nc)]
+    view = b * t * hkv * d * 2
+    rows_bytes = b * hkv * d * 2
+    out = {"B": b, "page_size": ps, "blocks": nb, "pages": npages, "Hkv": hkv, "D": d,
+           "equal_cpu_on_live_pages": True,
+           "gather_ms": graph_ms(torch, lambda p: C.paged_gather(p, bt, ps), [(p,) for p in pools],
+                                 100),
+           "gather_bound_ms": (2 * view + bt.numel() * 8) / HBM_BYTES_PER_S * 1e3,
+           "scatter_ms": graph_ms(torch, lambda p: C.paged_update_rows(p, new, phys),
+                                  [(p,) for p in pools], 200),
+           "scatter_bound_ms": (2 * rows_bytes + phys.numel() * 8) / HBM_BYTES_PER_S * 1e3,
+           "lookup_ms": graph_ms(torch, lambda: C.paged_phys_rows(bt, rows, ps), [()], 200),
+           "dense_row_write_ms": graph_ms(torch, lambda c: L.update_rows(c, new, pos),
+                                          [(c,) for c in dense], 200)}
+    layers = 32
+    out["per_step_ms"] = {
+        "gather": 2 * layers * out["gather_ms"], "scatter": 2 * layers * out["scatter_ms"],
+        "lookup": layers * out["lookup_ms"],
+        "dense_row_write": 2 * layers * out["dense_row_write_ms"]}
+    del pools, dense
+    torch.cuda.empty_cache()
+    return out
+
+
 def bf16_step(x: float) -> float:
     """The bf16 step (unit in the last place) at magnitude |x| > 0."""
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
@@ -864,11 +939,22 @@ def profile_step(torch, eng) -> dict:
         for key, pat in (("add_bf16", r"CUDAFunctor_add<c10::BFloat16>"), ("silu", r"silu")):
             if re.search(pat, name):
                 eager[key] = eager.get(key, 0) + n
+    # the KV rows' reads and writes outside the kernels: the paged pool's
+    # gather (index_select) and scatter (index_copy_), the dense cache's row
+    # write (index_put_)
+    pool = {}
+    for name, (n, us) in by_name.items():
+        for key, pat in (("gather", r"index_select|indexSelect|vectorized_gather_kernel"),
+                         ("scatter", r"index_copy|index_put")):
+            if re.search(pat, name):
+                c, t = pool.get(key, (0, 0.0))
+                pool[key] = (c + n, t + us)
     return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_kernels": sum(n for n, _ in by_name.values()),
             "our_kernels": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in ours.items()},
             "eager_elementwise": eager,
+            "kv_rows": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in pool.items()},
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
@@ -884,7 +970,7 @@ def instrumented(torch, eng, margins: bool):
     from repro_torch.kernels import ops
 
     model = eng.model
-    rec = {"finite": [], "decode": [], "verify": [], "top2": {}}
+    rec = {"finite": [], "decode": [], "verify": [], "top2": {}, "admission_tokens": []}
     last = {}
 
     def wrap(name, per_step):
@@ -892,6 +978,8 @@ def instrumented(torch, eng, margins: bool):
 
         def call(*a, **kw):
             before = dict(ops.LAUNCHES)
+            if name == "prefill_extend" and not kw.get("all_logits"):
+                rec["admission_tokens"].append(int(kw["n_valid"]))   # one admission chunk
             out = fn(*a, **kw)
             rec["finite"].append(torch.isfinite(out[0]).all())
             if per_step is not None:
@@ -958,6 +1046,10 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
         wall = time.monotonic() - t0
         launches = dict(ops.LAUNCHES)
     m = eng.metrics()
+    if (opts.get("paged") or opts.get("prefix_cache")) and not (
+            eng.paged and m["effective_mode"].endswith("-paged") and not m["downgrades"]):
+        fail(f"serve ({arch}, {kind}): the paged run downgraded: {m['effective_mode']}, "
+             f"{m['downgrades']}")
     if not all(r.done and len(r.tokens_out) == max_new for r in reqs):
         fail(f"serve ({arch}, {kind}): not every request finished with {max_new} tokens: "
              f"{[len(r.tokens_out) for r in reqs]}")
@@ -980,7 +1072,13 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "launches_per_decode_step": steps[-1] if steps else {},
+           "admission_chunks": len(rec["admission_tokens"]),
+           "admission_tokens": sum(rec["admission_tokens"]),
            "first_tokens": reqs[0].tokens_out[:8]}
+    if eng.paged:
+        out.update({k: m[k] for k in ("page_size", "prefix_cache", "prefix_hits",
+                                      "prefix_lookups", "prefix_hit_rate", "pages_in_use",
+                                      "pages_total", "evictions")})
     if eng.spec:
         out.update({"draft_len": m["draft_len"], "accepted_per_step": m["accepted_per_step"],
                     "draft_tokens_accepted": m["draft_tokens_accepted"]})
@@ -1021,7 +1119,8 @@ def serve_phase(torch, dev, arch: str):
     # plain greedy decode on random prompts
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32) for _ in range(N_REQ)]
-    plain, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts, "plain")
+    plain, eng, reqs, prec0 = serve_run(torch, dev, arch, model, params, ccfg, prompts, "plain",
+                                        margins=True)
     # after the measured run: 8 more requests fill every slot (the first step
     # admits them all), and the next step, a pure 8-slot decode, is profiled
     for i in range(MAX_BATCH):
@@ -1029,6 +1128,7 @@ def serve_phase(torch, dev, arch: str):
     eng.step()
     profiled = profile_step(torch, eng)
     eng.run_until_drained()
+    del eng                    # no earlier run's engine may count in a later run's peak
     tied_head_ms = None
     if cfg.tie_embeddings:
         # the tied head is a plain matmul over the f32-upcast embedding table,
@@ -1045,8 +1145,9 @@ def serve_phase(torch, dev, arch: str):
     # repetitive prompts: plain greedy, then speculative greedy decode; the
     # streams are compared token by token
     rep = repetitive_prompts(cfg.vocab)
-    rep_plain, _, plain_reqs, prec = serve_run(torch, dev, arch, model, params, ccfg, rep,
-                                               "plain_repetitive", margins=True)
+    rep_plain, eng, plain_reqs, prec = serve_run(torch, dev, arch, model, params, ccfg, rep,
+                                                 "plain_repetitive", margins=True)
+    del eng
     spec, spec_eng, spec_reqs, srec = serve_run(torch, dev, arch, model, params, ccfg, rep,
                                                 "spec", margins=True, draft_len=DRAFT_LEN)
     # as after the plain run: fill the slots, then profile one 8-slot verify step
@@ -1063,21 +1164,16 @@ def serve_phase(torch, dev, arch: str):
     step_limit = PARITY_LIMITS[arch][1]
     margin_limit = 2 * step_limit
 
-    def margin(top):
-        top1, top2, absmax = (float(x) for x in top)
-        return top1 - top2, (top1 - top2) / bf16_step(absmax)
-
     diverged, moved = [], []
     for pr, sr in zip(plain_reqs, spec_reqs):
-        j = next((i for i, (a, b) in enumerate(zip(pr.tokens_out, sr.tokens_out)) if a != b),
-                 None)
+        j = first_departure(pr, sr)
         # before the streams part, how far the spec run's margins sit from the plain run's
         for i in range(MAX_NEW if j is None else j):
-            moved.append(abs(margin(prec["top2"][(pr.uid, i)])[1]
-                             - margin(srec["top2"][(sr.uid, i)])[1]))
+            moved.append(abs(top2_margin(prec["top2"][(pr.uid, i)])[1]
+                             - top2_margin(srec["top2"][(sr.uid, i)])[1]))
         if j is None:
             continue
-        m, steps = margin(prec["top2"][(pr.uid, j)])
+        m, steps = top2_margin(prec["top2"][(pr.uid, j)])
         d = {"uid": pr.uid, "index": j, "plain": pr.tokens_out[j], "spec": sr.tokens_out[j],
              "plain_margin": m, "margin_bf16_steps": steps}
         diverged.append(d)
@@ -1095,14 +1191,105 @@ def serve_phase(torch, dev, arch: str):
     if arch == "codeqwen1.5-7b":
         # speculative sampling, twice with one seed
         opts = dict(draft_len=DRAFT_LEN, temperature=0.8, top_k=50, sample_seed=0)
-        runs = [serve_run(torch, dev, arch, model, params, ccfg, rep, "spec_sampled", **opts)
+        runs = [serve_run(torch, dev, arch, model, params, ccfg, rep, "spec_sampled", **opts)[::2]
                 for _ in range(2)]
-        streams = [[r.tokens_out for r in reqs] for _, _, reqs, _ in runs]
+        streams = [[r.tokens_out for r in reqs] for _, reqs in runs]
         if streams[0] != streams[1]:
             fail(f"serve ({arch}): two sampled runs with one seed gave different streams")
         out["sampled"] = {**runs[0][0], "same_streams_with_same_seed": True,
                           "temperature": 0.8, "top_k": 50}
         out["long_context"] = long_context_run(torch, dev, arch, model, params, ccfg)
+        out.update(paged_runs(torch, dev, arch, model, params, ccfg, prompts, (reqs, prec0), rep,
+                              (spec_reqs, srec)))
+    return out
+
+
+def top2_margin(top):
+    """(top-1 minus top-2 logit, that margin in bf16 steps of max|logit|)."""
+    top1, top2, absmax = (float(x) for x in top)
+    return top1 - top2, (top1 - top2) / bf16_step(absmax)
+
+
+def first_departure(ref, req):
+    """The first token index where ``req``'s stream differs from ``ref``'s."""
+    return next((i for i, (a, b) in enumerate(zip(ref.tokens_out, req.tokens_out)) if a != b),
+                None)
+
+
+def shared_prefix_prompts(vocab: int):
+    """N_REQ prompts of PROMPT_LEN tokens: one shared PREFIX_LEN-token prefix
+    (a system prompt, or a code file's head) and unique tokens after it."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+    return [np.concatenate([shared, rng.integers(0, vocab, PROMPT_LEN - PREFIX_LEN)
+                            .astype(np.int32)]) for _ in range(N_REQ)]
+
+
+def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref, rep, spec_ref):
+    """The paged KV pool and the radix prefix cache on the served model, each
+    run's streams held to a dense run's token for token (a departure fails,
+    reported with its first index and the dense run's top-2 margin):
+    (a) ``paged`` on the plain run's random prompts, with one 8-slot paged
+    decode step profiled; (b) ``prefix_cache`` on shared-prefix prompts,
+    beside the dense engine on them (prefix hit rate >= 0.5; TTFT and the
+    admission chunks and prompt tokens spent on both); (c) ``prefix_cache``
+    on the random prompts, whose default pool (max_batch * blocks + 1 pages)
+    must evict; (d) ``paged`` speculative greedy on the repetitive prompts,
+    against the dense speculative run."""
+    from repro_torch.serve.engine import Request
+
+    def equal_streams(kind, ref, reqs):
+        ref_reqs, ref_rec = ref
+        for a, b in zip(ref_reqs, reqs):
+            j = first_departure(a, b)
+            if j is not None:
+                m, steps = top2_margin(ref_rec["top2"][(a.uid, j)])
+                fail(f"serve ({arch}, {kind}): request {a.uid}'s paged stream departs from the "
+                     f"dense engine's at token {j} ({b.tokens_out[j]} for {a.tokens_out[j]}), "
+                     f"where the dense run's top-2 margin is {steps:.2f} bf16 steps ({m})")
+        return True
+
+    out = {}
+    run, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, random_prompts,
+                                  "paged", paged=True, page_size=PAGE_SIZE)
+    run["streams_equal_dense"] = equal_streams("paged", plain_ref, reqs)
+    # as after the plain run: fill every slot, then profile a pure 8-slot step
+    for i in range(MAX_BATCH):
+        eng.submit(Request(uid=N_REQ + i, prompt=reqs[i].prompt, max_new_tokens=4))
+    eng.step()
+    run["profiled_decode_step"] = profile_step(torch, eng)
+    eng.run_until_drained()
+    del eng
+    out["paged"] = run
+
+    shared = shared_prefix_prompts(model.cfg.vocab)
+    dense, eng, dreqs, drec = serve_run(torch, dev, arch, model, params, ccfg, shared,
+                                        "dense_shared_prefix", margins=True)
+    del eng
+    run, eng, preqs, _ = serve_run(torch, dev, arch, model, params, ccfg, shared,
+                                 "paged_prefix_cache", prefix_cache=True, page_size=PAGE_SIZE)
+    del eng
+    run["streams_equal_dense"] = equal_streams("paged_prefix_cache", (dreqs, drec), preqs)
+    run.update({"prefix_len": PREFIX_LEN, "expected_hit_rate":
+                (N_REQ - 1) * PREFIX_LEN / (N_REQ * PROMPT_LEN)})
+    if not run["prefix_hit_rate"] >= 0.5:
+        fail(f"serve ({arch}, paged_prefix_cache): prefix hit rate {run['prefix_hit_rate']}")
+    out["dense_shared_prefix"], out["paged_prefix_cache"] = dense, run
+
+    run, eng, ereqs, _ = serve_run(torch, dev, arch, model, params, ccfg, random_prompts,
+                                 "paged_prefix_evict", prefix_cache=True, page_size=PAGE_SIZE)
+    del eng
+    run["streams_equal_dense"] = equal_streams("paged_prefix_evict", plain_ref, ereqs)
+    if not run["evictions"] > 0:
+        fail(f"serve ({arch}, paged_prefix_evict): the default pool never evicted: {run}")
+    out["paged_prefix_evict"] = run
+
+    run, eng, sreqs, _ = serve_run(torch, dev, arch, model, params, ccfg, rep, "paged_spec",
+                                 paged=True, page_size=PAGE_SIZE, draft_len=DRAFT_LEN)
+    del eng
+    run["streams_equal_dense"] = equal_streams("paged_spec", spec_ref, sreqs)
+    out["paged_spec"] = run
     return out
 
 
@@ -1201,6 +1388,8 @@ def main() -> int:
     print(json.dumps({"norm": nrm, "norm_fused": nrm_fused}), flush=True)
     ssd = timed("ssd_scan", ssd_phase)
     print(json.dumps({"ssd_scan": ssd}), flush=True)
+    pool = timed("paged pool", paged_pool_phase)
+    print(json.dumps({"paged_pool": pool}), flush=True)
     par, srv = {}, {}
     for arch in PARITY_ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
@@ -1209,6 +1398,14 @@ def main() -> int:
         srv[arch] = timed(f"serve {arch}", serve_phase, arch)
         for run in srv[arch].values():
             print(json.dumps({"serve": run}), flush=True)
+
+    def step_summary(prof):
+        return {"device_busy_ms": prof["device_busy_ms"], "device_kernels": prof["device_kernels"],
+                "kv_rows": prof["kv_rows"]}
+    paged_vs_dense = {"dense": step_summary(srv[ARCHS[0]]["plain"]["profiled_decode_step"]),
+                      "paged": step_summary(srv[ARCHS[0]]["paged"]["profiled_decode_step"]),
+                      "pool_ops_per_step_ms": pool["per_step_ms"]}
+    print(json.dumps({"paged_decode_step_vs_dense": paged_vs_dense}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
 
     def per_step(arch, key, per="launches_per_decode_step"):
@@ -1352,7 +1549,8 @@ def main() -> int:
               "cascade_matmul_rows_across_m": mm_rows,
               "decode_attention": atts, "flash_attention": fla, "norm": nrm,
               "norm_fused": nrm_fused, "ssd_scan": ssd,
-              "parity_depth2": par, "serve": srv,
+              "parity_depth2": par, "serve": srv, "paged_pool": pool,
+              "paged_decode_step_vs_dense": paged_vs_dense,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

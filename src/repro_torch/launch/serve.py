@@ -22,6 +22,15 @@ Speculative decode and sampling, on the H100 and as a CPU smoke:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --fused --draft-len 4
 
+The paged KV pool and the radix prefix cache, on the H100 and as a CPU
+smoke (the demo prompts then share their first half, so every admission
+after the first maps the shared pages instead of prefilling them):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
+        --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused \
+        --prefix-cache --page-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --fused --prefix-cache
+
 ``--draft-len K`` drafts K tokens per slot per step by prompt lookup and
 verifies them in one pass (greedy: the stream stays the greedy stream; the
 output adds ``accepted/step``). ``--temperature`` > 0 (with ``--top-k``)
@@ -66,6 +75,13 @@ def main(argv=None) -> int:
                     help="restrict sampling to the k best logits (0 = all)")
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="seed of the engine's sampling generator")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="serve from the paged KV pool with the radix-tree prefix cache: "
+                         "shared prompt prefixes admit through resident pages instead of "
+                         "being prefilled again (token-exact with the dense cache; Mamba-2 "
+                         "downgrades with a warning)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page under --prefix-cache")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
@@ -82,12 +98,22 @@ def main(argv=None) -> int:
     scfg = ServeConfig(max_batch=args.max_batch,
                        max_len=args.prompt_len + args.max_new + 1, fused=args.fused,
                        draft_len=args.draft_len, temperature=args.temperature,
-                       top_k=args.top_k, sample_seed=args.sample_seed)
+                       top_k=args.top_k, sample_seed=args.sample_seed,
+                       prefix_cache=args.prefix_cache, page_size=args.page_size)
     eng = ServeEngine(model, params, ccfg, scfg, device=device)
 
     rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32),
-                    max_new_tokens=args.max_new) for i in range(args.requests)]
+    # under --prefix-cache the requests share their first half (one system
+    # prompt, different user turns): the radix cache's traffic
+    shared = (rng.integers(0, cfg.vocab, args.prompt_len // 2).astype(np.int32)
+              if args.prefix_cache else np.zeros((0,), np.int32))
+
+    def prompt():
+        tail = rng.integers(0, cfg.vocab, args.prompt_len - len(shared)).astype(np.int32)
+        return np.concatenate([shared, tail])
+
+    reqs = [Request(uid=i, prompt=prompt(), max_new_tokens=args.max_new)
+            for i in range(args.requests)]
     for r in reqs:
         eng.submit(r)
     t0 = time.time()
@@ -103,6 +129,10 @@ def main(argv=None) -> int:
           f"admission wait {m['admission_wait_s_mean'] * 1e3:.1f} ms")
     if m["spec"]:
         print(f"spec draft_len={m['draft_len']} accepted/step={m['accepted_per_step']:.2f}")
+    if m["paged"]:
+        print(f"prefix cache: hit rate {m['prefix_hit_rate']:.2f} ({m['prefix_hits']}/"
+              f"{m['prefix_lookups']} tokens), pages {m['pages_in_use']}/{m['pages_total']} "
+              f"(page_size={m['page_size']}), evictions {m['evictions']}")
     for r in reqs[:3]:
         print(f"  req {r.uid}: {r.tokens_out}")
     return 0

@@ -6,6 +6,8 @@ model's cache is ``{"layers": {...}}`` with each leaf stacked ``(L, B,
 ``(B, ...)``:
 
 * dense transformer: ``{"layers": {"k", "v": (L, B, T, Hkv, D), "pos": (L, B)}}``;
+* dense transformer, paged: ``{"layers": {"k", "v": (L, P, ps, Hkv, D), "pos":
+  (L, B)}}``, a page pool shared by the slots (see the paged primitives below);
 * Mamba-2: ``{"layers": {"conv": (L, B, w-1, conv_dim), "state": (L, B, H,
   P, N)}, "pos": (B,)}``.
 
@@ -25,6 +27,19 @@ each slot keeps only its accepted prefix):
 * **recurrent state** (conv window, SSD state): the verify pass checkpoints
   the state after every chunk token and the rewind selects checkpoint
   ``keep[b]`` per slot (``slice_rows_per_slot``).
+
+Paged pool primitives (``paged_*``): the K/V of every slot live in one pool
+of ``P`` pages of ``ps`` rows, ``(P, ps, rest...)`` per layer, and a
+host-owned ``(B, nb)`` integer block table maps slot b's logical block j (rows
+``j*ps .. j*ps+ps-1``) to a physical page. Page 0 is the TRASH page: never
+allocated, so zeroed table rows (free slots), unbacked blocks and rows past
+capacity land there instead of on a live page. Several writes of one call
+may land on one trash row (CUDA then keeps an arbitrary one); that is
+harmless only because no trash row is ever read as live: reads gather a
+slot's pages back into the dense ``(B, nb*ps, rest...)`` view the dense
+cache holds, and every row backed by the trash page sits above the slot's
+``pos``, where attention gives it weight exactly 0. Writes go in place
+through a flat ``(P*ps, rest...)`` view of each pool; no pool is rebuilt.
 """
 from __future__ import annotations
 
@@ -162,3 +177,111 @@ def slice_rows_per_slot(ck: torch.Tensor, keep: torch.Tensor, b_axis: int, n: in
     rows = keep.to(device=ck.device, dtype=torch.int64)[:, None] + torch.arange(n, device=ck.device)
     slot = torch.arange(b, device=ck.device)[:, None]
     return ck[(slice(None),) * b_axis + (slot, rows)]
+
+
+def paged_phys_rows(bt: torch.Tensor, rows: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Logical rows -> flat physical rows through a block table.
+
+    bt: (lead..., B, nb) page ids; rows: (lead..., B, s) logical positions.
+    Rows past capacity (``>= nb * page_size``) map into the trash page
+    (page 0) rather than clamping onto a live page. Returns int64."""
+    nb = bt.shape[-1]
+    rows = rows.to(torch.int64)
+    blk = torch.clamp(rows // page_size, 0, nb - 1)
+    phys = torch.gather(bt.to(torch.int64), -1, blk) * page_size + rows % page_size
+    return torch.where(rows < nb * page_size, phys, rows % page_size)
+
+
+def _flat(pool: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """(lead..., P, ps, rest...) -> a (lead..., P*ps, rest...) view."""
+    return pool.view(pool.shape[:lead] + (-1,) + pool.shape[lead + 2:])
+
+
+def paged_gather(pool: torch.Tensor, bt: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Dense per-slot copy of a page pool: (P, ps, rest...) -> (B, nb*ps,
+    rest...). Rows a slot has written equal the dense cache's; unbacked rows
+    read the trash page and lie above the slot's ``pos``."""
+    b, nb = bt.shape
+    idx = bt.to(torch.int64)[:, :, None] * page_size + torch.arange(page_size, device=bt.device)
+    out = _flat(pool).index_select(0, idx.reshape(-1))
+    return out.view((b, nb * page_size) + pool.shape[2:])
+
+
+def paged_update_rows(pool: torch.Tensor, new: torch.Tensor, phys: torch.Tensor) -> None:
+    """In place, write ``new`` (B, s, rest...) at the flat physical rows
+    ``phys`` (B, s) of ``pool`` (P, ps, rest...), cast to the pool's dtype.
+
+    ``phys`` is :func:`paged_phys_rows` of the rows ``pos .. pos+s-1``: the
+    reference's ``paged_update_rows(pool, new, bt, pos, ps)`` with the
+    mapping taken out, so K and V share one. Writes whose block is unbacked
+    (page 0 in the table) or past capacity land on the trash page."""
+    b, s = new.shape[:2]
+    _flat(pool).index_copy_(0, phys.reshape(-1), new.reshape((b * s,) + new.shape[2:])
+                            .to(pool.dtype))
+
+
+def _paged_rows(cache: dict, bt: torch.Tensor, s: int, pos: torch.Tensor):
+    """(layer index, flat physical rows) addressing, per layer, the ``s`` rows
+    from ``pos`` (lead..., B) on of every pool leaf (lead..., P, ps, ...)."""
+    rows = pos.to(torch.int64)[..., None] + torch.arange(s, device=pos.device)
+    ps = next(buf for name, buf in cache.items() if name != "pos").shape[pos.dim()]
+    phys = paged_phys_rows(bt.expand(pos.shape[:-1] + bt.shape), rows, ps)   # (lead..., B, s)
+    lead = pos.shape[:-1]
+    idx = [torch.arange(n, device=pos.device).reshape((n,) + (1,) * (len(lead) - i + 1))
+           for i, n in enumerate(lead)]
+    return tuple(idx) + (phys,)
+
+
+def paged_rows_snapshot(cache: dict, bt: torch.Tensor, s: int, out: dict | None = None) -> dict:
+    """Paged :func:`seq_rows_snapshot`: copy the ``s`` physical rows a verify
+    extend will write through the block table ``bt`` (B, nb), and ``pos``.
+
+    ``cache`` holds pool leaves (lead..., P, ps, rest...) and ``pos``
+    (lead..., B). With ``out`` (a snapshot of the same shapes) the copy
+    lands there and ``out`` is returned."""
+    pos = cache["pos"]
+    idx = _paged_rows(cache, bt, s, pos)
+    snap = {}
+    for name, buf in cache.items():
+        if name == "pos":
+            continue
+        rows = _flat(buf, pos.dim() - 1)[idx]
+        snap[name] = rows if out is None else out[name].copy_(rows)
+    snap["pos"] = pos.clone() if out is None else out["pos"].copy_(pos)
+    return snap
+
+
+def paged_rows_restore(cache: dict, snap: dict, bt: torch.Tensor, keep: torch.Tensor) -> dict:
+    """Rewind a paged cache after a verify pass, in place: restore the
+    rejected chunk rows (``keep[b]`` on) from the snapshot through the block
+    table the verify pass wrote through, and rewind ``pos`` to ``pos0 +
+    keep``. Pages the chunk spilled into stay mapped (the engine releases
+    them at retire). Returns ``cache``."""
+    pos0 = snap["pos"]
+    name0 = next(n for n in snap if n != "pos")
+    s = snap[name0].shape[pos0.dim()]
+    keep = keep.to(pos0.device)
+    idx = _paged_rows(cache, bt, s, pos0)
+    rejected = torch.arange(s, device=pos0.device) >= keep.to(torch.int64)[:, None]  # (B, s)
+    for name, buf in cache.items():
+        if name == "pos":
+            continue
+        flat = _flat(buf, pos0.dim() - 1)
+        mask = rejected.reshape(rejected.shape + (1,) * (buf.dim() - pos0.dim() - 1))
+        flat[idx] = torch.where(mask, snap[name], flat[idx])
+    cache["pos"].copy_(pos0 + keep.to(pos0.dtype))
+    return cache
+
+
+def reset_slot_pos(cache: dict, slot: int, value: int) -> dict:
+    """Set every per-slot ``pos`` entry of ``slot`` to ``value``, in place.
+
+    Paged admission prefills straight into the resident grid, so a slot
+    whose first ``value`` prompt tokens matched resident pages starts its
+    suffix at ``pos = value`` (dense admission stages a fresh cache at 0)."""
+    for name, leaf in cache.items():
+        if isinstance(leaf, dict):
+            reset_slot_pos(leaf, slot, value)
+        elif name == "pos":
+            leaf[..., slot] = value
+    return cache

@@ -7,8 +7,10 @@ projection goes through :mod:`repro_torch.core.cascade`.
 Caches are updated IN PLACE: a decode or extend step writes its K/V rows
 into the cache tensors it is given (views of the engine's stacked cache)
 and advances their ``pos`` in place, where the JAX package returns new
-arrays. Not ported yet: the windowed ring buffer, M-RoPE, explicit
-position inputs and the paged pool (ROADMAP Queue 1 items 4 and 8).
+arrays. A paged cache (``attn_cache_init_paged``) is written and read
+through a block table (``cache_utils.paged_*``). Not ported yet: the
+windowed ring buffer, M-RoPE and explicit position inputs (ROADMAP Queue 1
+items 5 and 6).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.kernels.norm import add_norm_plain, gated_norm_plain, norm_plain
+from repro_torch.models import cache_utils
 
 #: the masked-logit value of the reference (not -inf: a row with no live
 #: key then averages uniformly instead of producing NaN)
@@ -206,7 +209,11 @@ def attn_apply(
                      valid region (mask-invalid, overwritten later).
 
     In ``decode``/``extend`` the cache dict ``{"k", "v": (B, T, Hkv, D),
-    "pos": (B,)}`` is updated in place and returned. With
+    "pos": (B,)}`` is updated in place and returned. A paged cache
+    ``{"k", "v": (P, ps, Hkv, D), "pos": (B,), "block_table": (B, nb)}``
+    takes the new K/V through the block table and attends over the dense
+    ``(B, nb*ps, Hkv, D)`` view gathered from the slots' pages, by the same
+    routes, so its output equals the dense branch's bit for bit. With
     ``ccfg.use_kernel`` decode attention goes through ``ops.decode_attention``
     (given each row's position, not a mask) and every multi-token attention
     (extend, full, prefill) through ``ops.flash_attention``. ``kv_len``, a
@@ -240,9 +247,27 @@ def attn_apply(
         if mode == "decode" and s != 1:
             raise ValueError("decode takes one token per row")
         pos = cache["pos"]                               # (B,) next write index
-        update_rows(cache["k"], k, pos)
-        update_rows(cache["v"], v, pos)
-        att_k, att_v = cache["k"], cache["v"]
+        bt = cache.get("block_table")
+        if bt is not None:
+            # scatter through the block table, then gather the slots' pages
+            # back into the dense view: rows backed by the trash page sit
+            # above pos, where every route gives them weight exactly 0. An
+            # extend on the kernel route gathers only the blocks covering
+            # kv_len; decode gathers all nb*ps rows, the dense cache's T, so
+            # decode attention's split (chosen from T) is the dense one's
+            ps = cache["k"].shape[1]
+            phys = cache_utils.paged_phys_rows(bt, pos[:, None] + steps[None, :], ps)
+            cache_utils.paged_update_rows(cache["k"], k, phys)
+            cache_utils.paged_update_rows(cache["v"], v, phys)
+            nb = bt.shape[1]
+            if ccfg.use_kernel and mode == "extend" and kv_len is not None:
+                nb = min(nb, -(-int(kv_len) // ps))
+            att_k = cache_utils.paged_gather(cache["k"], bt[:, :nb], ps)
+            att_v = cache_utils.paged_gather(cache["v"], bt[:, :nb], ps)
+        else:
+            update_rows(cache["k"], k, pos)
+            update_rows(cache["v"], v, pos)
+            att_k, att_v = cache["k"], cache["v"]
         if ccfg.use_kernel and mode == "extend":
             # the chunk's queries sit at each row's position: the causal
             # mask offset by pos is the ``valid`` mask of the plain path
@@ -305,6 +330,20 @@ def _build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, s: int,
 def attn_cache_init(batch: int, max_len: int, cfg: AttnConfig, dtype=torch.bfloat16,
                     device=None) -> dict:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def attn_cache_init_paged(batch: int, num_pages: int, page_size: int, cfg: AttnConfig,
+                          dtype=torch.bfloat16, device=None) -> dict:
+    """A paged attention cache: K/V in a pool of ``num_pages`` pages of
+    ``page_size`` rows shared by the slots, and per-slot ``pos``. The (B, nb)
+    block table is not a leaf: the engine owns it and passes it in with the
+    batch on every step."""
+    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

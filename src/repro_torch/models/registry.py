@@ -29,11 +29,11 @@ FAMILY_SMOKE = {
 
 #: families the port does not build yet, and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "hybrid": "ROADMAP Queue 1 item 10 (Griffin, models/griffin.py)",
-    "moe": "ROADMAP Queue 1 item 9 (the MoE family, models/moe.py)",
-    "audio": "ROADMAP Queue 1 items 4-5 (sinusoidal positions and the "
+    "hybrid": "ROADMAP Queue 1 item 5 (Griffin, models/griffin.py)",
+    "moe": "ROADMAP Queue 1 item 4 (the MoE family, models/moe.py)",
+    "audio": "ROADMAP Queue 1 item 6 (sinusoidal positions and the "
              "multi-codebook head of TransformerLM)",
-    "vlm": "ROADMAP Queue 1 item 4 (M-RoPE in models/layers.py)",
+    "vlm": "ROADMAP Queue 1 item 6 (M-RoPE in models/layers.py)",
 }
 
 

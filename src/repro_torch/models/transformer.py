@@ -5,11 +5,12 @@ stacked ``(L, ...)`` under ``layers`` (``layers/attn/wq/{codes,scale,b}``,
 ``layers/mlp/w_down/...``, ``layers/ln1/scale``, ...), beside ``embed``,
 ``final_norm`` and ``lm_head``. Where the reference scans over the stack,
 this module runs a Python loop over layer views. Caches are updated in
-place (see ``layers.attn_apply``).
+place (see ``layers.attn_apply``). Besides the dense cache, a paged one
+(``init_paged_cache``): a page pool per layer, read and written through a
+block table the caller passes in the batch (``batch["block_table"]``).
 
-Not ported yet: the paged cache (and its speculative rewind), M-RoPE and
-windowed attention, sinusoidal positions, multi-codebook heads and
-stub-embedding inputs.
+Not ported yet: M-RoPE and windowed attention, sinusoidal positions,
+multi-codebook heads and stub-embedding inputs.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class TransformerLM:
             raise NotImplementedError(
                 f"{cfg.name}: windowed attention, M-RoPE, sinusoidal positions, "
                 "multi-codebook heads and stub-embedding inputs are not ported "
-                "yet (ROADMAP Queue 1 items 4-5)")
+                "yet (ROADMAP Queue 1 items 5-6)")
         self.cfg = cfg
         self.attn_cfg = L.AttnConfig(
             d_model=cfg.d_model,
@@ -108,12 +109,15 @@ class TransformerLM:
         return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
-                cache=None, **kw):
+                cache=None, block_table: torch.Tensor | None = None, **kw):
         """Run every layer: (x, the last layer's MLP output still to be added,
-        the per-layer caches)."""
+        the per-layer caches). ``block_table``: a paged cache's (B, nb) page
+        ids, handed to every layer's attention."""
         pending, caches = None, []
         for i in range(self.cfg.n_layers):
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
+            if block_table is not None:
+                c = dict(c, block_table=block_table)
             x, pending, nc = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, c,
                                          mode, pending=pending, **kw)
             caches.append(nc)
@@ -132,6 +136,32 @@ class TransformerLM:
         return {"layers": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
                            for k, v in one.items()}}
 
+    # ------------------------------------------------------- paged cache API
+    @property
+    def paged_attention(self) -> bool:
+        """Every config this class builds pages: all are full attention
+        (windowed and multi-codebook configs raise in ``__init__``)."""
+        return True
+
+    def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                         dtype=torch.bfloat16, device=None) -> dict:
+        """``{"layers": {"k", "v": (L, P, ps, Hkv, D), "pos": (L, B)}}``."""
+        device = resolve_device(device)
+        one = L.attn_cache_init_paged(batch, num_pages, page_size, self.attn_cfg, dtype,
+                                      device=device)
+        return {"layers": {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
+                           for k, v in one.items()}}
+
+    def paged_copy_page(self, cache: dict, src: int, dst: int) -> dict:
+        """Copy physical page ``src`` to ``dst`` in every layer's pools, in
+        place: the device half of the prefix cache's copy-on-write (a
+        partly matched shared page is cloned before a new stream writes
+        into it)."""
+        for name, buf in cache["layers"].items():
+            if name != "pos":
+                buf[:, dst].copy_(buf[:, src])
+        return cache
+
     def prefill(self, params: dict, batch: dict, ccfg: CascadeConfig,
                 max_len: int | None = None):
         """Prompt forward that also builds the cache: logits of the last
@@ -142,8 +172,10 @@ class TransformerLM:
                 {"layers": cache_utils.stack_layers(caches)})
 
     def decode_step(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig):
-        """One token per row against ``cache`` (updated in place)."""
-        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "decode", cache)
+        """One token per row against ``cache`` (updated in place; a paged
+        cache through ``batch["block_table"]``)."""
+        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "decode", cache,
+                                     block_table=batch.get("block_table"))
         return self._head(params, x, pending, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
@@ -154,11 +186,13 @@ class TransformerLM:
         the last valid token (B, 1, V), or of every chunk position (B, S, V)
         with ``all_logits``, and the cache. ``kv_len``: a host-side bound on
         the keys any row sees (its position plus the chunk length; see
-        ``layers.attn_apply``), None for the whole cache.
+        ``layers.attn_apply``), None for the whole cache. A paged cache is
+        written through ``batch["block_table"]``.
         """
         nv = batch["tokens"].shape[1] if n_valid is None else n_valid
         x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "extend", cache,
-                                     n_valid=nv, kv_len=kv_len)
+                                     block_table=batch.get("block_table"), n_valid=nv,
+                                     kv_len=kv_len)
         if not all_logits:
             x, pending = (cache_utils.take_last_valid(t, nv) for t in (x, pending))
         return self._head(params, x, pending, ccfg), cache
@@ -171,19 +205,30 @@ class TransformerLM:
         checkpoint (a copy of the K/V rows the chunk overwrites, and
         ``pos``). A checkpoint from an earlier call of the same shapes may be
         passed as ``ckpt`` to be filled again; ``kv_len`` as in
-        :meth:`prefill_extend`."""
+        :meth:`prefill_extend`. A paged checkpoint copies the rows through
+        ``batch["block_table"]`` and carries that table."""
         s = batch["tokens"].shape[1]
-        snap = cache_utils.seq_rows_snapshot(cache["layers"], s,
-                                             out=None if ckpt is None else ckpt["layers"])
+        out = None if ckpt is None else ckpt["layers"]
+        bt = batch.get("block_table")
+        if bt is None:
+            snap = cache_utils.seq_rows_snapshot(cache["layers"], s, out=out)
+        else:
+            snap = cache_utils.paged_rows_snapshot(cache["layers"], bt, s, out=out)
         logits, cache = self.prefill_extend(params, batch, cache, ccfg, all_logits=True,
                                             kv_len=kv_len)
-        return logits, cache, {"layers": snap}
+        return logits, cache, ({"layers": snap} if bt is None
+                               else {"layers": snap, "block_table": bt})
 
     def spec_rewind(self, cache: dict, ckpt: dict, keep: torch.Tensor) -> dict:
         """Per-slot rewind after a verify pass, in place: the first
         ``keep[b]`` chunk tokens stay committed, the rejected rows are
-        restored and ``pos`` rewinds to ``pos0 + keep[b]``."""
-        cache_utils.seq_rows_restore(cache["layers"], ckpt["layers"], keep)
+        restored (a paged cache's through the table its checkpoint carries)
+        and ``pos`` rewinds to ``pos0 + keep[b]``."""
+        bt = ckpt.get("block_table")
+        if bt is None:
+            cache_utils.seq_rows_restore(cache["layers"], ckpt["layers"], keep)
+        else:
+            cache_utils.paged_rows_restore(cache["layers"], ckpt["layers"], bt, keep)
         return cache
 
     # ----------------------------------------- continuous batching cache API

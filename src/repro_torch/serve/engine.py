@@ -36,14 +36,36 @@ The reference donates its cache to each jitted step; this engine updates
 the stacked cache IN PLACE instead (the model writes K/V rows and advances
 ``pos`` inside the tensors it is given), so the grid is allocated once.
 
+``paged=True`` keeps the K/V in a page pool shared by the slots (pages of
+``page_size`` rows, ``num_pages`` of them) with a host-owned (B, nb) block
+table; ``prefix_cache=True`` adds a radix tree over prompt pages
+(``serve/prefix.py``), so a prompt whose leading pages are resident maps
+them into its block table and prefills only the rest. Both are token-exact
+with the dense cache: each step gathers the slots' pages back into the
+dense view and runs the same kernels at the same plans. A model whose cache
+has no page layout (Mamba-2's recurrent state) warns and runs the dense
+cache. Paged admission prefills straight into the resident grid, and runs
+each chunk over the admitting slot ALONE (B = 1: its row of the block table
+and a view of its ``pos``), where the reference runs it over the whole grid
+with a per-slot ``n_valid`` to keep one compiled shape. The tokens and the
+live pages come out the same (the other rows' writes in the reference are
+never read), and the slot-alone chunk is what dense admission runs: the
+flash-attention plan depends on B (at B = 8 a chunk never splits over the
+keys, at B = 1 it does from 256 live keys), and each matmul keeps a chunk's
+M rows instead of max_batch times as many. Under a prefix hit admission
+starts at the matched length, a multiple of ``page_size``; where that is
+not a multiple of ``prefill_chunk``, the chunk boundaries (and each chunk's
+live keys) differ from the dense engine's, so past 256 live keys a chunk's
+flash plan, and its rounding on the card, may differ too.
+
 ``fused=True`` sends every linear through the FP4 CUDA matmul, single-token
 attention through the CUDA decode-attention kernel, every multi-token
 attention (admission chunks, the verify pass) through the CUDA flash
 attention kernel and the Mamba-2 decode recurrence (and the verify pass's
 per-token recurrence) through the CUDA SSD scan kernel (``kernels/ops.py``);
 on CPU tensors those wrappers run their plain versions. Not ported yet (the
-engine raises ``NotImplementedError`` when asked): the paged KV pool and
-prefix cache, CREST probes, the slot-wise loop and mesh serving.
+engine raises ``NotImplementedError`` when asked): CREST probes, the
+slot-wise loop and mesh serving.
 """
 from __future__ import annotations
 
@@ -58,6 +80,8 @@ import torch
 
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import cache_utils
+from repro_torch.serve.prefix import PagePool, RadixPrefixCache
 from repro_torch.serve.spec import ngram_propose
 
 #: methods a model needs for speculative decode
@@ -175,8 +199,15 @@ class ServeConfig:
     draft_len: int = 0            # speculative decode: K drafted tokens per slot per step
     fused: bool = False           # CUDA kernels (FP4 matmul, decode and flash attention,
                                   # SSD scan)
-    paged: bool = False           # not ported: raises
-    prefix_cache: bool = False    # not ported: raises
+    paged: bool = False           # page-granular KV pool with host-owned block tables;
+                                  # token-exact with the dense cache (full-attention
+                                  # models; others downgrade with a warning)
+    page_size: int = 16           # tokens per physical page
+    num_pages: int = 0            # pool size (0: max_batch * blocks_per_slot + 1, so
+                                  # every slot can fill, plus the trash page)
+    prefix_cache: bool = False    # radix-tree prefix cache over prompt pages (implies paged)
+    evict_watermark: float = 0.9  # pool fraction in use above which LRU tree-only pages
+                                  # are evicted at allocation
 
 
 @dataclasses.dataclass
@@ -190,10 +221,9 @@ class _Staging:
 
 def _check_ported(scfg: ServeConfig, mesh) -> None:
     missing = [name for name, on in (
-        ("paged / prefix_cache (ROADMAP Queue 1 item 8)", scfg.paged or scfg.prefix_cache),
-        ("crest_enabled (ROADMAP Queue 1 item 13)", scfg.crest_enabled),
+        ("crest_enabled (ROADMAP Queue 1 item 8)", scfg.crest_enabled),
         ("batched=False (the slot-wise loop)", not scfg.batched),
-        ("a device mesh (ROADMAP Queue 1 item 15)", mesh is not None),
+        ("a device mesh (ROADMAP Queue 1 item 10)", mesh is not None),
     ) if on]
     if missing:
         raise NotImplementedError("not ported to PyTorch yet: " + "; ".join(missing))
@@ -260,8 +290,39 @@ class ServeEngine:
         c = scfg.prefill_chunk
         need = scfg.max_len + self._draft_len
         self._cache_len = (-(-need // c) * c) if c > 0 else need
-        self.cache = model.init_cache(scfg.max_batch, self._cache_len,
-                                      dtype=ccfg.resolved_kv_dtype, device=self.device)
+        self.paged = False
+        self.prefix: Optional[RadixPrefixCache] = None
+        self.pool: Optional[PagePool] = None
+        self._prefix_hits = 0
+        self._prefix_lookups = 0
+        if scfg.paged or scfg.prefix_cache:
+            if getattr(model, "paged_attention", False):
+                self.paged = True
+            else:
+                _downgrade("paged KV requested but this model's cache state has no "
+                           "page-granular layout (recurrent state) -- running the dense cache")
+        if self.paged:
+            ps = max(1, scfg.page_size)
+            self._page_size = ps
+            nb = -(-self._cache_len // ps)
+            self._blocks_per_slot = nb
+            # nb * ps rows a slot: the gathered decode view then has the dense
+            # cache's length, so decode attention splits as the dense step does
+            self._cache_len = nb * ps
+            # default pool: every slot can fill all its blocks, plus the trash
+            # page, so admission never deadlocks (tree-only pages are evictable)
+            npages = scfg.num_pages or scfg.max_batch * nb + 1
+            self.cache = model.init_paged_cache(scfg.max_batch, npages, ps,
+                                                dtype=ccfg.resolved_kv_dtype, device=self.device)
+            self.pool = PagePool(npages)
+            self._bt = np.zeros((scfg.max_batch, nb), np.int32)
+            self._slot_pages: List[List[int]] = [[] for _ in range(scfg.max_batch)]
+            self._watermark_pages = max(1, int(scfg.evict_watermark * (npages - 1)))
+            if scfg.prefix_cache:
+                self.prefix = RadixPrefixCache(self.pool, ps, copy_page=self._cow_page)
+        else:
+            self.cache = model.init_cache(scfg.max_batch, self._cache_len,
+                                          dtype=ccfg.resolved_kv_dtype, device=self.device)
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request):
@@ -294,9 +355,82 @@ class ServeEngine:
     def _tokens(self, rows: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(rows).to(self.device)
 
+    # ------------------------------------------------------ page management
+    def _bt_dev(self) -> torch.Tensor:
+        """A device copy of the host block table, taken now, in int64 (the
+        index type, so no layer casts it): through a pinned buffer as one
+        non-blocking copy on the card (the pinned block is not reused before
+        the copy has run). Later host edits of the table do not reach it."""
+        host = torch.from_numpy(self._bt.astype(np.int64))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _alloc_page(self) -> int:
+        """One page off the pool. Under the prefix cache, pool use above the
+        watermark first evicts LRU tree-only pages, and a full pool one more.
+        With the default pool size this never raises."""
+        if self.prefix is not None:
+            self.prefix.maybe_evict(self._watermark_pages)
+            if self.pool.free_pages == 0:
+                self.prefix.evict(1)
+        return self.pool.alloc()
+
+    def _cow_page(self, src: int) -> Optional[int]:
+        """The radix tree's copy-on-write hook: clone page ``src`` for a
+        stream that departs from it mid-page. No eviction here (the tree is
+        mid-walk and the LRU victim could be ``src``): a full pool skips the
+        partial-page match."""
+        if self.pool.free_pages == 0:
+            return None
+        dst = self.pool.alloc()
+        self.model.paged_copy_page(self.cache, src, dst)
+        return dst
+
+    def _ensure_pages(self, slot: int, n_tokens: int):
+        """Back the slot's first ``n_tokens`` rows with pages."""
+        needed = min(-(-n_tokens // self._page_size), self._blocks_per_slot)
+        pages = self._slot_pages[slot]
+        while len(pages) < needed:
+            pg = self._alloc_page()
+            self._bt[slot, len(pages)] = pg
+            pages.append(pg)
+
+    def _release_slot_pages(self, slot: int):
+        """Drop the slot's page refs and point its table row at the trash
+        page. Pages the radix tree holds stay resident for later hits."""
+        for pg in self._slot_pages[slot]:
+            self.pool.release(pg)
+        self._slot_pages[slot] = []
+        self._bt[slot, :] = 0
+
+    def _slot_cache(self, slot: int) -> dict:
+        """The paged cache as the admitting slot alone sees it: the shared
+        pools beside a view of the slot's ``pos``, advanced in place."""
+        lay = self.cache["layers"]
+        return {"layers": {**lay, "pos": lay["pos"][:, slot:slot + 1]}}
+
+    def _start_paged(self, req: Request, slot: int) -> int:
+        """Map the prompt's resident prefix pages into the slot's block table
+        (under the prefix cache) and set the slot's ``pos`` to the matched
+        length, where its prefill starts."""
+        matched = 0
+        if self.prefix is not None:
+            m = self.prefix.match(req.prompt)
+            self._slot_pages[slot] = list(m.pages)
+            self._bt[slot, :len(m.pages)] = m.pages
+            matched = m.matched
+            self._prefix_hits += m.hit_full
+            self._prefix_lookups += len(req.prompt)
+        cache_utils.reset_slot_pos(self.cache, slot, matched)
+        return matched
+
     @torch.no_grad()
     def _admit(self):
-        """Spend up to ``token_budget`` prompt tokens on (chunked) prefill."""
+        """Spend up to ``token_budget`` prompt tokens on (chunked) prefill:
+        into a batch-1 staging cache, or (paged) straight into the slot's
+        pages. Under the prefix cache only the unmatched suffix is prefilled
+        and counted against the budget."""
         budget = self.scfg.token_budget or 1 << 30
         spent = 0
         while spent < budget:
@@ -309,10 +443,14 @@ class ServeEngine:
                     return
                 req.admitted_at = time.monotonic()
                 self._admission_waits.append(req.admitted_at - req.created_at)
-                sub = self.model.init_cache(1, self._cache_len,
-                                            dtype=self.ccfg.resolved_kv_dtype,
-                                            device=self.device)
-                self._staging = _Staging(req, sub, 0, slot)
+                if self.paged:
+                    self._staging = _Staging(req, self._slot_cache(slot),
+                                             self._start_paged(req, slot), slot)
+                else:
+                    sub = self.model.init_cache(1, self._cache_len,
+                                                dtype=self.ccfg.resolved_kv_dtype,
+                                                device=self.device)
+                    self._staging = _Staging(req, sub, 0, slot)
             st = self._staging
             prompt = st.req.prompt
             chunk = self.scfg.prefill_chunk or len(prompt)
@@ -321,18 +459,27 @@ class ServeEngine:
                 n = min(chunk, len(prompt) - st.consumed)
                 toks = np.zeros((1, chunk), np.int32)
                 toks[0, :n] = prompt[st.consumed:st.consumed + n]
+                batch = {"tokens": self._tokens(toks)}
+                if self.paged:
+                    self._ensure_pages(st.slot, st.consumed + n)
+                    batch["block_table"] = self._bt_dev()[st.slot:st.slot + 1]
                 # the chunk's rows sit at [consumed, consumed + chunk): no
                 # key past that is live
                 logits, st.cache = self.model.prefill_extend(
-                    self.params, {"tokens": self._tokens(toks)}, st.cache, self.ccfg,
-                    n_valid=n, kv_len=st.consumed + chunk)
+                    self.params, batch, st.cache, self.ccfg, n_valid=n,
+                    kv_len=st.consumed + chunk)
                 st.consumed += n
                 spent += n
             if st.consumed < len(prompt):
                 return                      # budget exhausted mid-prompt
             nxt = self._pick(logits[0, -1])
             self._commit_token(st.req, nxt)
-            self.model.write_cache(self.cache, st.cache, st.slot)
+            if self.paged:
+                if self.prefix is not None:
+                    # publish the prompt's full pages for later hits
+                    self.prefix.insert(prompt, self._slot_pages[st.slot])
+            else:
+                self.model.write_cache(self.cache, st.cache, st.slot)
             self.slots[st.slot] = st.req
             if self.spec:
                 self._spec_ctx[st.slot] = st.req.prompt.tolist() + st.req.tokens_out
@@ -369,6 +516,20 @@ class ServeEngine:
             req.finished_at = time.monotonic()
             self._retired.append(req)
             self.slots[i] = None
+            if self.paged:
+                self._release_slot_pages(i)
+
+    def _batch(self, toks: np.ndarray, active: List[int], rows_ahead: int) -> dict:
+        """A step's batch dict: the tokens and, paged, the block table, after
+        backing each active slot's rows up to ``rows_ahead`` past its pending
+        token's row (``used - 1``) with pages."""
+        batch = {"tokens": self._tokens(toks)}
+        if self.paged:
+            for i in active:
+                req = self.slots[i]
+                self._ensure_pages(i, len(req.prompt) + len(req.tokens_out) + rows_ahead)
+            batch["block_table"] = self._bt_dev()
+        return batch
 
     @torch.no_grad()
     def _decode_batched(self, active: List[int]) -> int:
@@ -376,7 +537,7 @@ class ServeEngine:
         for i in active:
             toks[i, 0] = self.slots[i].tokens_out[-1]
         logits, self.cache = self.model.decode_step(
-            self.params, {"tokens": self._tokens(toks)}, self.cache, self.ccfg)
+            self.params, self._batch(toks, active, 0), self.cache, self.ccfg)
         if self._sampled:
             nxt = _sample_tokens(logits[:, -1], self._gen, self.scfg.temperature,
                                  self.scfg.top_k)
@@ -412,15 +573,17 @@ class ServeEngine:
             toks[i, 0] = ctx[-1]               # the pending token
             toks[i, 1:], keff[i] = ngram_propose(np.asarray(ctx[-_NGRAM_LOOKBACK:], np.int32),
                                                  k, _NGRAM_MAX)
-        toks_dev = self._tokens(toks)
         # an active slot's cache holds its stream but the pending token, so
         # its chunk sits at [used - 1, used + k): no active row sees a key
-        # past max(used) + k (inactive rows' outputs are discarded)
+        # past max(used) + k (inactive rows' outputs are discarded); rows past
+        # a slot's capacity land in the trash page, as the dense cache's
+        # headroom leaves them unread
+        batch = self._batch(toks, active, k)
+        toks_dev = batch["tokens"]
         live = max(len(self.slots[i].prompt) + len(self.slots[i].tokens_out)
                    for i in active) + k
         logits, self.cache, self._ckpt = self.model.spec_verify(
-            self.params, {"tokens": toks_dev}, self.cache, self.ccfg, ckpt=self._ckpt,
-            kv_len=live)
+            self.params, batch, self.cache, self.ccfg, ckpt=self._ckpt, kv_len=live)
         if self._sampled:
             acc, fin = spec_sample_accept(logits, toks_dev[:, 1:], self._tokens(keff), self._gen,
                                           self.scfg.temperature, self.scfg.top_k)
@@ -487,9 +650,9 @@ class ServeEngine:
     @property
     def effective_mode(self) -> str:
         """The decode path this engine actually runs, downgrades included:
-        '{spec|batched}-{greedy|sampled}[-fused]'."""
+        '{spec|batched}-{greedy|sampled}[-fused][-paged]'."""
         mode = f"{'spec' if self.spec else 'batched'}-{'sampled' if self._sampled else 'greedy'}"
-        return mode + ("-fused" if self.fused else "")
+        return mode + ("-fused" if self.fused else "") + ("-paged" if self.paged else "")
 
     def metrics(self) -> dict:
         """Throughput/latency counters."""
@@ -500,6 +663,17 @@ class ServeEngine:
             "downgrades": list(self.downgrades),
             "fused": self.fused,
             "device": str(self.device),
+            "paged": self.paged,
+            "page_size": self._page_size if self.paged else 0,
+            "prefix_cache": self.prefix is not None,
+            "prefix_hits": self._prefix_hits,
+            "prefix_lookups": self._prefix_lookups,
+            # the share of submitted prompt tokens served from resident pages
+            "prefix_hit_rate": (self._prefix_hits / self._prefix_lookups
+                                if self._prefix_lookups else 0.0),
+            "pages_in_use": self.pool.pages_in_use if self.paged else 0,
+            "pages_total": self.pool.num_pages - 1 if self.paged else 0,
+            "evictions": self.prefix.evictions if self.prefix is not None else 0,
             "spec": self.spec,
             "draft_len": self._draft_len,
             "draft_tokens_accepted": self._accepted_drafts,

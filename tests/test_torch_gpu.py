@@ -846,3 +846,86 @@ def test_norm_rows_round_alike_at_the_decode_and_verify_shapes(cuda):
         differing += int((whole != per_token).any(dim=-1).sum())
     assert ops.LAUNCHES["norm"] == 200 * 6
     assert differing == 0, f"{differing} of {200 * 40} rows round otherwise"
+
+
+def test_paged_scatter_and_gather_on_the_card_equal_the_cpu(cuda):
+    """``paged_update_rows`` and ``paged_gather`` at codeqwen's KV width
+    (bf16, 32 heads of 128) on the card equal the CPU on every page but the
+    trash page: rows past capacity, unbacked blocks and a free slot's zeroed
+    table row all land on the trash page, several on one row, and never on a
+    live page."""
+    from repro_torch.models import cache_utils as C
+
+    ps, nb, npages = 16, 4, 12
+    gen = torch.Generator().manual_seed(0)
+    pool = torch.randn((npages, ps, 32, 128), generator=gen).to(torch.bfloat16)
+    bt = torch.tensor([[3, 7, 1, 9], [5, 2, 0, 0], [0, 0, 0, 0]], dtype=torch.int32)
+    pos = torch.tensor([50, 30, 4], dtype=torch.int32)
+    new = torch.randn((3, 17, 32, 128), generator=gen).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = pool.to(dev)
+        rows = pos.to(dev).to(torch.int64)[:, None] + torch.arange(17, device=dev)
+        C.paged_update_rows(p, new.to(dev), C.paged_phys_rows(bt.to(dev), rows, ps))
+        out[str(dev)] = (p.cpu(), C.paged_gather(p, bt.to(dev), ps).cpu())
+    (pc, gc), (pg, gg) = out["cpu"], out[str(cuda)]
+    assert torch.equal(pg[1:], pc[1:])
+    assert torch.equal(pg[10:], pool[10:])                  # pages no slot maps
+    for b, backed in enumerate((nb, 2, 0)):
+        assert torch.equal(gg[b, :backed * ps], gc[b, :backed * ps])
+
+
+def test_paged_decode_step_and_admission_give_the_dense_logits_bit_for_bit(cuda):
+    """codeqwen1.5-7b at full width and depth 2, bf16, through the kernels:
+    eight prompts (40-150 tokens) admitted chunk by chunk into a 97-page
+    pool (each slot alone, its pages scattered over the pool) give every
+    chunk's logits of a dense batch-1 staging cache bit for bit, and the
+    8-slot decode step over the gathered pages the dense 192-row cache's."""
+    import dataclasses
+    from repro_torch.models import cache_utils as C
+
+    cfg = dataclasses.replace(registry.get_config("codeqwen1.5-7b"), n_layers=2)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(0, ccfg, device=cuda)
+    b, ps, t, chunk = 8, 16, 192, 32
+    nb = t // ps
+    dense = model.init_cache(b, t, dtype=torch.bfloat16, device=cuda)
+    paged = model.init_paged_cache(b, b * nb + 1, ps, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(0)
+    lens = [40, 150, 64, 97, 33, 128, 71, 111]
+    free = list(1 + rng.permutation(b * nb))
+    bt = np.zeros((b, nb), np.int32)
+    nxt = []
+    with torch.no_grad():
+        for slot, n in enumerate(lens):
+            bt[slot, :-(-(n + 1) // ps)] = [free.pop() for _ in range(-(-(n + 1) // ps))]
+            prompt = rng.integers(0, cfg.vocab, n).astype(np.int32)
+            sub = model.init_cache(1, t, dtype=torch.bfloat16, device=cuda)
+            lay = paged["layers"]
+            view = {"layers": {**lay, "pos": lay["pos"][:, slot:slot + 1]}}
+            row = torch.from_numpy(bt[slot:slot + 1]).to(cuda)
+            for c0 in range(0, n, chunk):
+                toks = np.zeros((1, chunk), np.int32)
+                toks[0, :min(chunk, n - c0)] = prompt[c0:c0 + chunk]
+                toks = torch.from_numpy(toks).to(cuda)
+                kw = dict(n_valid=min(chunk, n - c0), kv_len=c0 + chunk)
+                want, sub = model.prefill_extend(params, {"tokens": toks}, sub, ccfg, **kw)
+                got, _ = model.prefill_extend(params, {"tokens": toks, "block_table": row},
+                                              view, ccfg, **kw)
+                assert torch.equal(got, want), (slot, c0)
+            model.write_cache(dense, sub, slot)
+            nxt.append(int(torch.argmax(want[0, -1])))
+        toks = torch.tensor(nxt, dtype=torch.int32, device=cuda)[:, None]
+        ops.reset_launch_counts()
+        want, _ = model.decode_step(params, {"tokens": toks}, dense, ccfg)
+        got, _ = model.decode_step(params, {"tokens": toks,
+                                            "block_table": torch.from_numpy(bt).to(cuda)},
+                                   paged, ccfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 2 * cfg.n_layers
+    assert torch.equal(got, want)
+    assert torch.equal(paged["layers"]["pos"], dense["layers"]["pos"])
+    view = C.paged_gather(paged["layers"]["k"][1], torch.from_numpy(bt).to(cuda), ps)
+    for slot, n in enumerate(lens):
+        assert torch.equal(view[slot, :n + 1], dense["layers"]["k"][1, slot, :n + 1])
