@@ -120,7 +120,14 @@ BF16_FLOP_PER_S = 989e12
 #     two runs end about one step apart (relative L2 0.0064, max one step,
 #     73% of logits not bit-equal). mamba2-370m: relative L2 0.00060 /
 #     0.00096 and at most 0.44 of a step (prefill / decode; its logits leave
-#     the tied head in f32, and 25% of them moved)
+#     the tied head in f32, and 25% of them moved). The MoE models add a
+#     discontinuity: a token whose router inputs differ in a last bit may
+#     swap its k-th expert for the (k+1)-th (random routers are near
+#     uniform: top-8 of 64 at ~1/64 each), moving that token's logits by
+#     more. olmoe-1b-7b: relative L2 0.0053 / 0.0056 / 0.0095 and at most
+#     1.06 / 1.5 / 4.69 steps (prefill / decode / verify; 52 token-layer
+#     routings flipped); deepseek-v2-236b: 0.0070 / 0.0073 / 0.0155 and 1.07
+#     / 1.25 / 12.6 steps (15 flipped)
 MATMUL_RTOL, MATMUL_ATOL = 1e-4, 1e-4
 MATMUL_BF16_RTOL = 2.0 ** -7
 ATTN_ATOL = 1e-4
@@ -131,7 +138,8 @@ SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #     qwen2.5-32b (GQA 40/8, decode attention at G = 5) takes codeqwen's
 #     limits: a dense transformer of the same kind
 PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1),
-                 "qwen2.5-32b": (2.0 ** -6, 2)}
+                 "qwen2.5-32b": (2.0 ** -6, 2), "olmoe-1b-7b": (2.0 ** -5.5, 10),
+                 "deepseek-v2-236b": (2.0 ** -5, 25)}
 # f32 rate outside the tensor cores (the SSD scan's arithmetic)
 F32_FLOP_PER_S = 67e12
 
@@ -141,20 +149,29 @@ DRAFT_LEN = 4
 #: prompts share (a multiple of CHUNK, so admission after a hit keeps the
 #: dense engine's chunk boundaries)
 PAGE_SIZE, PREFIX_LEN = 16, 96
+#: paged run (e): prompts of PROMPT_E tokens sharing PREFIX_E = 7 pages, not
+#: a multiple of CHUNK, so admission after a hit runs other chunk
+#: boundaries than the dense engine's, past 256 live keys (flash splits)
+PREFIX_E, PROMPT_E = 112, 320
 #: the long-context serve run (codeqwen): a 4,096-token context, prompts
 #: that fill it but for a chunk, admitted in 127 chunks of 32
 LONG_LEN, LONG_REQ, LONG_BATCH, LONG_NEW = 4096, 2, 2, 8
 
-ARCHS = ("codeqwen1.5-7b", "mamba2-370m")
-#: the depth-2 parity phase also runs a GQA transformer (not served here)
-PARITY_ARCHS = ARCHS + ("qwen2.5-32b",)
+ARCHS = ("codeqwen1.5-7b", "mamba2-370m", "olmoe-1b-7b")
+#: the depth-2 parity phase also runs a GQA transformer and DeepSeek-V2's
+#: MLA (layer 0 dense, layer 1 160 routed experts); neither is served here
+PARITY_ARCHS = ARCHS + ("qwen2.5-32b", "deepseek-v2-236b")
 #: (arch, decode) -> the kernels that run launches; a speculative step's
 #: decode is the verify pass, which never launches decode attention
 RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention",
                                              "flash_attention", "norm"),
                ("codeqwen1.5-7b", "spec"): ("cascade_matmul", "flash_attention", "norm"),
                ("mamba2-370m", "plain"): ("cascade_matmul", "norm", "ssd_scan"),
-               ("mamba2-370m", "spec"): ("cascade_matmul", "norm", "ssd_scan")}
+               ("mamba2-370m", "spec"): ("cascade_matmul", "norm", "ssd_scan"),
+               ("olmoe-1b-7b", "plain"): ("cascade_matmul", "cascade_matmul_grouped",
+                                          "decode_attention", "flash_attention", "norm"),
+               ("olmoe-1b-7b", "spec"): ("cascade_matmul", "cascade_matmul_grouped",
+                                         "flash_attention", "norm")}
 NORM_RTOL, NORM_MTOL = 2.0 ** -7, 2.0 ** -20
 
 
@@ -219,12 +236,15 @@ def copies_beyond_l2(nbytes: int) -> int:
 
 #: (arch, K, N, bias) -> launches per decode step, and per verify pass:
 #: codeqwen's q/k/v/o (QKV bias), gate/up and down, and mamba2-370m's
-#: in_proj and out_proj, in each of 32 and 48 layers
+#: in_proj and out_proj, in each of 32 and 48 layers; olmoe-1b-7b's q/k/v/o
+#: in each of 16 layers and its lm_head (its experts take the grouped entry)
 MATMUL_LAYERS = {("codeqwen1.5-7b", 4096, 4096, True): 4 * 32,
                  ("codeqwen1.5-7b", 4096, 13440, False): 2 * 32,
                  ("codeqwen1.5-7b", 13440, 4096, False): 32,
                  ("mamba2-370m", 1024, 4384, False): 48,
-                 ("mamba2-370m", 2048, 1024, False): 48}
+                 ("mamba2-370m", 2048, 1024, False): 48,
+                 ("olmoe-1b-7b", 2048, 2048, False): 4 * 16,
+                 ("olmoe-1b-7b", 2048, 50304, False): 1}
 #: codeqwen's FP4 lm_head, once a step (mamba2-370m's head is tied to the
 #: embedding: no FP4 matmul)
 MATMUL_HEAD = ("codeqwen1.5-7b", 4096, 92416, False)
@@ -344,6 +364,93 @@ def matmul_rows_phase(torch, dev):
     return out
 
 
+#: (arch, experts, top-k, K, N, C, launches per decode step): the grouped
+#: expert matmul at olmoe's gate/up (2048 -> 1024, two a layer) and down
+#: (1024 -> 2048) at a decode step's C = 8, an admission chunk's 32 and a
+#: verify pass's 40, and deepseek-v2's (5120 -> 1536, 1536 -> 5120) at C = 8
+GROUPED_SHAPES = ([("olmoe-1b-7b", 64, 8, 2048, 1024, c, 2 * 16 if c == MAX_BATCH else 0)
+                   for c in (MAX_BATCH, CHUNK, MAX_BATCH * (1 + DRAFT_LEN))]
+                  + [("olmoe-1b-7b", 64, 8, 1024, 2048, c, 16 if c == MAX_BATCH else 0)
+                     for c in (MAX_BATCH, CHUNK, MAX_BATCH * (1 + DRAFT_LEN))]
+                  + [("deepseek-v2-236b", 160, 6, 5120, 1536, MAX_BATCH, 0),
+                     ("deepseek-v2-236b", 160, 6, 1536, 5120, MAX_BATCH, 0)])
+
+
+def grouped_matmul_phase(torch, dev):
+    """The grouped expert matmul at the served shapes, its rows routed as a
+    step routes its tokens (C tokens, each to top-k distinct experts drawn
+    at random; x zero past each expert's rows, as the dispatch builds it):
+    held to its plain version (bf16 out, as served) and, bit for bit, to a
+    loop of per-expert ``ops.cascade_matmul`` calls over each expert's C
+    rows (the route it replaces); timed cold beside the plain version,
+    ``torch.bmm`` on the dense bf16 experts and that loop, and its bound
+    from the bytes of the experts with rows."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import cascade_matmul as cm
+    from repro_torch.kernels import ops
+
+    rows_out = []
+    for arch, e, top, k, n, c, per_step in GROUPED_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(e + k + c)
+        parts = [quant.quantize_weight(torch.randn((k, n), generator=gen, device=dev), 0)
+                 for _ in range(e)]
+        packed = torch.stack([p[0] for p in parts])
+        scales = torch.stack([p[1] for p in parts])
+        del parts
+        picks = torch.argsort(torch.rand((c, e), generator=gen, device=dev), dim=-1)[:, :top]
+        rows = torch.bincount(picks.flatten(), minlength=e).to(torch.int32)
+        live = torch.arange(c, device=dev)[None, :] < rows[:, None]
+        x = torch.randn((e, c, k), generator=gen, device=dev) / k ** 0.5
+        x = torch.where(live[..., None], x, 0.0).to(torch.bfloat16)
+        got = ops.cascade_matmul_grouped(x, packed, scales, rows, out_dtype=torch.bfloat16)
+        want = cm.cascade_matmul_grouped_plain(x, packed, scales, rows, torch.bfloat16)
+        loop = torch.stack([ops.cascade_matmul(x[i], packed[i], scales[i],
+                                               out_dtype=torch.bfloat16) for i in range(e)])
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = MATMUL_BF16_RTOL * float(want.float().abs().max()) + MATMUL_ATOL
+        row = {"arch": arch, "E": e, "top_k": top, "C": c, "K": k, "N": n,
+               "experts_with_rows": int((rows > 0).sum()), "routed_rows": int(rows.sum()),
+               "plan": {kk: list(v) if isinstance(v, tuple) else v
+                        for kk, v in cm.plan_grouped(e, c, n).items()},
+               "launches_per_decode_step": per_step, "max_abs_err": err, "tol": tol,
+               "equals_per_expert_calls": bool(torch.equal(got, loop)),
+               "zeros_past_rows": not bool(got[~live].any())}
+        if not (err <= tol and row["equals_per_expert_calls"] and row["zeros_past_rows"]):
+            fail(f"cascade_matmul_grouped {arch} ({e}x{c}, {k}->{n}): {row}")
+        wbytes = (packed.numel() // e + scales.numel() // e * 4) * row["experts_with_rows"]
+        nc = copies_beyond_l2(packed.numel() + scales.numel() * 4)
+        sets = [(x, packed if i == 0 else packed.clone(), scales if i == 0 else scales.clone(),
+                 rows) for i in range(nc)]
+        kern = lambda a, p, sc, r: ops.cascade_matmul_grouped(a, p, sc, r,
+                                                              out_dtype=torch.bfloat16)
+        plain = lambda a, p, sc, r: cm.cascade_matmul_grouped_plain(a, p, sc, r, torch.bfloat16)
+        per_expert = lambda a, p, sc, r: [ops.cascade_matmul(a[i], p[i], sc[i],
+                                                             out_dtype=torch.bfloat16)
+                                          for i in range(e)]
+        dense = torch.stack([quant.dequantize_weight(packed[i], scales[i], torch.bfloat16)
+                             for i in range(e)])
+        lib_sets = [(x, dense if i == 0 else dense.clone())
+                    for i in range(copies_beyond_l2(dense.numel() * 2))]
+        row.update({"ms": graph_ms(torch, kern, sets, 40),
+                    "per_expert_loop_ms": graph_ms(torch, per_expert, sets, 3),
+                    "plain_ms": graph_ms(torch, plain, sets[:1], 2),
+                    "library_ms": graph_ms(torch, lambda a, wd: torch.bmm(a, wd), lib_sets, 10),
+                    "library_note": "torch.bmm of bf16 (E, C, K) x dense bf16 (E, K, N) experts"})
+        # the weights of the experts with rows, their live rows of x, every
+        # output row written (zeros past the rows included)
+        nbytes = wbytes + int(rows.sum()) * k * 2 + e * c * n * 2
+        flops = 2 * int(rows.sum()) * k * n
+        row.update({"bytes": nbytes, "flops": flops,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                                 else "operations")})
+        rows_out.append(row)
+        del sets, lib_sets, dense, packed, scales
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def decode_attention_cases():
     """(name, B, Hq, Hkv, T, positions), D = 128: the served codeqwen step
     (8 slots at 128-156 of the engine's 192-row cache), qwen2.5-32b's GQA
@@ -353,6 +460,7 @@ def decode_attention_cases():
     served = [PROMPT_LEN + 4 * i for i in range(MAX_BATCH)]
     long_pos = [2047 + round(i * 2048 / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
     return [("codeqwen_step", MAX_BATCH, 32, 32, t, served),
+            ("olmoe_step", MAX_BATCH, 16, 16, t, served),
             ("qwen2.5-32b_gqa", MAX_BATCH, 40, 8, t, served),
             ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos)]
 
@@ -545,6 +653,7 @@ def fused_norm_cases():
             ("codeqwen_verify_add", "add", v, 4096, "bfloat16"),
             ("codeqwen_admit_add", "add", (1, CHUNK), 4096, "bfloat16"),
             ("mamba_step_add", "add", (MAX_BATCH, 1), 1024, "bfloat16"),
+            ("olmoe_step_add", "add", (MAX_BATCH, 1), 2048, "bfloat16"),
             ("mamba_verify_add", "add", v, 1024, "bfloat16"),
             ("mamba_gated_step_fused", "gated", (MAX_BATCH, 1), 2048, "bfloat16"),
             ("mamba_gated_verify_fused", "gated", v, 2048, "bfloat16"),
@@ -769,6 +878,7 @@ def plain_versions_on_card():
     from repro_torch.kernels import ssd_scan as ssd
 
     routes = [(cm, "cascade_matmul_cuda", cm.cascade_matmul_plain),
+              (cm, "cascade_matmul_grouped_cuda", cm.cascade_matmul_grouped_plain),
               (da, "decode_attention_cuda", da.decode_attention_plain),
               (fa, "flash_attention_cuda", fa.flash_attention_plain),
               (nrm, "norm_cuda", nrm.norm_plain),
@@ -852,7 +962,43 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
+@contextlib.contextmanager
+def recorded_routes(torch):
+    """Record every MoE routing made inside: the experts of each token (T,
+    k) and, per token, the router's k-th minus (k+1)-th probability."""
+    from repro_torch.models import moe
+    seen, route = [], moe.route
+
+    def record(params, xf, cfg):
+        gates, idx = route(params, xf, cfg)
+        probs = torch.softmax(moe.router_logits(xf, params["router"]), dim=-1)
+        top = torch.topk(probs, cfg.moe_top_k + 1, dim=-1).values
+        seen.append((idx, top[:, -2] - top[:, -1]))
+        return gates, idx
+    moe.route = record
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def route_flips(torch, plain, kernel):
+    """Tokens whose expert list differs between two runs' routings, with the
+    plain run's k-th vs (k+1)-th router probability margin there."""
+    flips, margins = 0, []
+    for (ip, mp), (ik, _) in zip(plain, kernel):
+        rows = (ip != ik).any(dim=-1)
+        flips += int(rows.sum())
+        margins += mp[rows].tolist()
+    return {"routings": len(plain), "tokens_routed": sum(int(i.shape[0]) for i, _ in plain),
+            "tokens_flipped": flips, "flip_prob_margins": margins,
+            "min_prob_margin": min((float(m.min()) for _, m in plain), default=None)}
+
+
 def parity_phase(torch, dev, arch: str):
+    """Depth-2 parity, kernels vs plain versions on the card; returns the
+    readings with ``within_limits`` (the caller fails after every phase has
+    run, so one run reads all of them)."""
     from repro_torch.core.cascade import CascadeConfig
     from repro_torch.models import registry
 
@@ -864,12 +1010,12 @@ def parity_phase(torch, dev, arch: str):
     toks = torch.randint(0, cfg.vocab, (MAX_BATCH, CHUNK), device=dev, generator=gen)
     chunk = torch.randint(0, cfg.vocab, (MAX_BATCH, 1 + DRAFT_LEN), device=dev, generator=gen)
     from repro_torch.kernels import ops
-    out = {}
+    out, routes = {}, {}
     nxt = None
     with torch.no_grad():
         for name, route in (("plain", plain_versions_on_card), ("kernel", contextlib.nullcontext)):
             ops.reset_launch_counts()
-            with route():
+            with route(), recorded_routes(torch) as routes[name]:
                 cache = model.init_cache(MAX_BATCH, 2 * CHUNK, dtype=torch.bfloat16, device=dev)
                 l1, cache = model.prefill_extend(params, {"tokens": toks}, cache, ccfg,
                                                  n_valid=CHUNK - 5)
@@ -881,7 +1027,8 @@ def parity_phase(torch, dev, arch: str):
             out[name] = (l1, l2, l3)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)            # the kernel run's: prefill, decode, verify
-    if cfg.family == "dense" and launches["decode_attention"] != cfg.n_layers:
+    if cfg.family in ("dense", "moe") and not cfg.kv_lora \
+            and launches["decode_attention"] != cfg.n_layers:
         fail(f"depth-2 parity ({arch}): the decode step launched decode attention "
              f"{launches['decode_attention']} times, not once per layer: {launches}")
     if not all(torch.isfinite(o).all() for o in out["kernel"]):
@@ -900,8 +1047,25 @@ def parity_phase(torch, dev, arch: str):
                     f"{stage}_moved_share": float((a != b).float().mean()),
                     f"{stage}_argmax_agree": float((a.argmax(-1) == b.argmax(-1))
                                                    .float().mean())})
-    if not (max(rels) <= rel_limit and max(steps) <= step_limit):
-        fail(f"depth-2 parity ({arch}): kernels vs plain versions out of tolerance: {res}")
+    if cfg.family == "moe":
+        res["routing"] = route_flips(torch, routes["plain"], routes["kernel"])
+    if cfg.kv_lora:
+        # MLA's absorbed decode dequantizes wkv_b (kv_lora x H*(nope+v)) in
+        # every layer of every step (plain work, as in the reference): its
+        # time a call, and one depth-2 decode step profiled on the kernels
+        from repro_torch.core import cascade
+        wkv_b = params["dense_layers"][0]["attn"]["wkv_b"]
+        with torch.no_grad():
+            step = profile_call(torch, lambda: model.decode_step(
+                params, {"tokens": nxt}, cache, ccfg)[0].shape[0])
+        res["mla"] = {"wkv_b_shape": [cfg.kv_lora, cfg.n_heads * (cfg.qk_nope_dim
+                                                                   + cfg.v_head_dim)],
+                      "wkv_b_dequant_ms": graph_ms(
+                          torch, lambda: cascade.linear_weight(wkv_b, ccfg), [()], 20),
+                      "dequants_per_decode_step": cfg.n_layers,
+                      "decode_step": {k: step[k] for k in ("device_busy_ms", "device_kernels",
+                                                           "our_kernels", "top_kernels")}}
+    res["within_limits"] = max(rels) <= rel_limit and max(steps) <= step_limit
     return res
 
 
@@ -909,13 +1073,19 @@ def profile_step(torch, eng) -> dict:
     """One engine step under torch.profiler: the device's busy time (sum of
     kernel durations) and the kernels that take most of it. The profiler
     slows the host, so this step's wall time is not a step time."""
+    return profile_call(torch, eng.step)
+
+
+def profile_call(torch, fn) -> dict:
+    """``fn()`` under torch.profiler, as :func:`profile_step` reads a step
+    (``tokens`` is what ``fn`` returns)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        produced = eng.step()
+        produced = fn()
         torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
     by_name = {}
@@ -927,7 +1097,8 @@ def profile_step(torch, eng) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     ours = {}                  # the port's kernels, every instantiation (and merge) summed
     for name, (n, us) in by_name.items():
-        for k in ("cascade_matmul", "decode_attention", "flash_attention", "norm", "ssd_scan"):
+        for k in ("cascade_matmul", "cascade_matmul_grouped", "decode_attention",
+                  "flash_attention", "norm", "ssd_scan"):
             if re.search(rf"(?<![A-Za-z0-9_]){k}_(kernel|merge)\b", name):
                 c, t = ours.get(k, (0, 0.0))
                 ours[k] = (c + n, t + us)
@@ -949,12 +1120,27 @@ def profile_step(torch, eng) -> dict:
             if re.search(pat, name):
                 c, t = pool.get(key, (0, 0.0))
                 pool[key] = (c + n, t + us)
+    # the MoE routing around the expert matmuls, by the ATen op that
+    # launched it (device ms of its kernels): the router's f32 product, the
+    # softmax, the top-k sort, the dispatch's cumsum and scatter-add, the
+    # combine's gather (``aten::index``; the KV row writes are index_put_)
+    routing = {}
+    for ev in prof.key_averages():
+        key = {"aten::mm": "router_mm", "aten::_softmax": "softmax", "aten::sort": "topk_sort",
+               "aten::cumsum": "dispatch_cumsum", "aten::index_add_": "dispatch_scatter",
+               "aten::index": "combine_gather"}.get(ev.key)
+        if key:
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            routing[key] = {"count": ev.count, "ms": dev_us / 1e3}
     return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_kernels": sum(n for n, _ in by_name.values()),
             "our_kernels": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in ours.items()},
             "eager_elementwise": eager,
             "kv_rows": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in pool.items()},
+            "routing_ops": routing,
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
@@ -1084,10 +1270,11 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
                     "draft_tokens_accepted": m["draft_tokens_accepted"]})
         per_verify = {k: sorted({st[k] for st in steps}) for k in steps[0]}
         out["launches_per_verify_step_seen"] = per_verify
-        want = {"flash_attention": model.cfg.n_layers if arch == "codeqwen1.5-7b" else 0,
-                "ssd_scan": (model.cfg.n_layers * (1 + DRAFT_LEN)
-                             if arch == "mamba2-370m" else 0),
-                "decode_attention": 0, "norm": 2 * model.cfg.n_layers + 1}
+        n_layers = model.cfg.n_layers
+        want = {"flash_attention": n_layers if arch != "mamba2-370m" else 0,
+                "ssd_scan": n_layers * (1 + DRAFT_LEN) if arch == "mamba2-370m" else 0,
+                "cascade_matmul_grouped": 3 * n_layers if arch == "olmoe-1b-7b" else 0,
+                "decode_attention": 0, "norm": 2 * n_layers + 1}
         if any(per_verify[k] != [n] for k, n in want.items()):
             fail(f"serve ({arch}, {kind}): launches per verify pass {per_verify}, "
                  f"expected {want}")
@@ -1201,6 +1388,10 @@ def serve_phase(torch, dev, arch: str):
         out["long_context"] = long_context_run(torch, dev, arch, model, params, ccfg)
         out.update(paged_runs(torch, dev, arch, model, params, ccfg, prompts, (reqs, prec0), rep,
                               (spec_reqs, srec)))
+    elif arch == "olmoe-1b-7b":
+        out["dense_shared_prefix"], out["paged_prefix_cache"] = prefix_pair(
+            torch, dev, arch, model, params, ccfg, shared_prefix_prompts(cfg.vocab),
+            "shared_prefix", PREFIX_LEN)
     return out
 
 
@@ -1216,14 +1407,57 @@ def first_departure(ref, req):
                 None)
 
 
-def shared_prefix_prompts(vocab: int):
-    """N_REQ prompts of PROMPT_LEN tokens: one shared PREFIX_LEN-token prefix
-    (a system prompt, or a code file's head) and unique tokens after it."""
+def shared_prefix_prompts(vocab: int, prefix_len: int = PREFIX_LEN,
+                          prompt_len: int = PROMPT_LEN):
+    """N_REQ prompts of ``prompt_len`` tokens: one shared ``prefix_len``-token
+    prefix (a system prompt, or a code file's head) and unique tokens after
+    it."""
     import numpy as np
     rng = np.random.default_rng(3)
-    shared = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
-    return [np.concatenate([shared, rng.integers(0, vocab, PROMPT_LEN - PREFIX_LEN)
+    shared = rng.integers(0, vocab, prefix_len).astype(np.int32)
+    return [np.concatenate([shared, rng.integers(0, vocab, prompt_len - prefix_len)
                             .astype(np.int32)]) for _ in range(N_REQ)]
+
+
+def equal_streams(arch, kind, ref, reqs):
+    """Every stream of ``reqs`` equals the dense run's (``ref``: its requests
+    and instrumented record), or the smoke fails with the first departing
+    token and the dense run's top-2 margin there."""
+    ref_reqs, ref_rec = ref
+    for a, b in zip(ref_reqs, reqs):
+        j = first_departure(a, b)
+        if j is not None:
+            m, steps = top2_margin(ref_rec["top2"][(a.uid, j)])
+            fail(f"serve ({arch}, {kind}): request {a.uid}'s paged stream departs from the "
+                 f"dense engine's at token {j} ({b.tokens_out[j]} for {a.tokens_out[j]}), "
+                 f"where the dense run's top-2 margin is {steps:.2f} bf16 steps ({m})")
+    return True
+
+
+def prefix_pair(torch, dev, arch, model, params, ccfg, prompts, kind, prefix_len, **opts):
+    """The dense engine and the prefix-cached paged engine on one set of
+    shared-prefix prompts: streams equal token for token, and the hit rate
+    of every later prompt mapping the prefix's full pages; each run's
+    flash-attention launches that split over the keys."""
+    with recorded_flash_plans() as dplans:
+        dense, eng, dreqs, drec = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                            f"dense_{kind}", margins=True, **opts)
+    del eng
+    with recorded_flash_plans() as pplans:
+        run, eng, preqs, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                       f"paged_{kind}", prefix_cache=True, page_size=PAGE_SIZE,
+                                       **opts)
+    del eng
+    run["streams_equal_dense"] = equal_streams(arch, f"paged_{kind}", (dreqs, drec), preqs)
+    hit = (N_REQ - 1) * (prefix_len // PAGE_SIZE * PAGE_SIZE) / sum(len(p) for p in prompts)
+    run.update({"prefix_len": prefix_len, "prompt_len": len(prompts[0]),
+                "expected_hit_rate": hit})
+    for rec, plans in ((dense, dplans), (run, pplans)):
+        rec["flash_split_launches"] = sum(1 for _, n in plans if n > 1)
+    if not run["prefix_hit_rate"] >= hit - 1e-12:
+        fail(f"serve ({arch}, paged_{kind}): prefix hit rate {run['prefix_hit_rate']}, "
+             f"expected {hit}")
+    return dense, run
 
 
 def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref, rep, spec_ref):
@@ -1236,24 +1470,15 @@ def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref,
     admission chunks and prompt tokens spent on both); (c) ``prefix_cache``
     on the random prompts, whose default pool (max_batch * blocks + 1 pages)
     must evict; (d) ``paged`` speculative greedy on the repetitive prompts,
-    against the dense speculative run."""
+    against the dense speculative run; (e) as (b) on prompts of PROMPT_E
+    tokens sharing PREFIX_E (not a multiple of the chunk), whose admission
+    after a hit runs chunks past 256 live keys, where flash attention splits."""
     from repro_torch.serve.engine import Request
-
-    def equal_streams(kind, ref, reqs):
-        ref_reqs, ref_rec = ref
-        for a, b in zip(ref_reqs, reqs):
-            j = first_departure(a, b)
-            if j is not None:
-                m, steps = top2_margin(ref_rec["top2"][(a.uid, j)])
-                fail(f"serve ({arch}, {kind}): request {a.uid}'s paged stream departs from the "
-                     f"dense engine's at token {j} ({b.tokens_out[j]} for {a.tokens_out[j]}), "
-                     f"where the dense run's top-2 margin is {steps:.2f} bf16 steps ({m})")
-        return True
 
     out = {}
     run, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, random_prompts,
                                   "paged", paged=True, page_size=PAGE_SIZE)
-    run["streams_equal_dense"] = equal_streams("paged", plain_ref, reqs)
+    run["streams_equal_dense"] = equal_streams(arch, "paged", plain_ref, reqs)
     # as after the plain run: fill every slot, then profile a pure 8-slot step
     for i in range(MAX_BATCH):
         eng.submit(Request(uid=N_REQ + i, prompt=reqs[i].prompt, max_new_tokens=4))
@@ -1263,24 +1488,14 @@ def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref,
     del eng
     out["paged"] = run
 
-    shared = shared_prefix_prompts(model.cfg.vocab)
-    dense, eng, dreqs, drec = serve_run(torch, dev, arch, model, params, ccfg, shared,
-                                        "dense_shared_prefix", margins=True)
-    del eng
-    run, eng, preqs, _ = serve_run(torch, dev, arch, model, params, ccfg, shared,
-                                 "paged_prefix_cache", prefix_cache=True, page_size=PAGE_SIZE)
-    del eng
-    run["streams_equal_dense"] = equal_streams("paged_prefix_cache", (dreqs, drec), preqs)
-    run.update({"prefix_len": PREFIX_LEN, "expected_hit_rate":
-                (N_REQ - 1) * PREFIX_LEN / (N_REQ * PROMPT_LEN)})
-    if not run["prefix_hit_rate"] >= 0.5:
-        fail(f"serve ({arch}, paged_prefix_cache): prefix hit rate {run['prefix_hit_rate']}")
-    out["dense_shared_prefix"], out["paged_prefix_cache"] = dense, run
+    out["dense_shared_prefix"], out["paged_prefix_cache"] = prefix_pair(
+        torch, dev, arch, model, params, ccfg, shared_prefix_prompts(model.cfg.vocab),
+        "shared_prefix", PREFIX_LEN)
 
     run, eng, ereqs, _ = serve_run(torch, dev, arch, model, params, ccfg, random_prompts,
                                  "paged_prefix_evict", prefix_cache=True, page_size=PAGE_SIZE)
     del eng
-    run["streams_equal_dense"] = equal_streams("paged_prefix_evict", plain_ref, ereqs)
+    run["streams_equal_dense"] = equal_streams(arch, "paged_prefix_evict", plain_ref, ereqs)
     if not run["evictions"] > 0:
         fail(f"serve ({arch}, paged_prefix_evict): the default pool never evicted: {run}")
     out["paged_prefix_evict"] = run
@@ -1288,8 +1503,16 @@ def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref,
     run, eng, sreqs, _ = serve_run(torch, dev, arch, model, params, ccfg, rep, "paged_spec",
                                  paged=True, page_size=PAGE_SIZE, draft_len=DRAFT_LEN)
     del eng
-    run["streams_equal_dense"] = equal_streams("paged_spec", spec_ref, sreqs)
+    run["streams_equal_dense"] = equal_streams(arch, "paged_spec", spec_ref, sreqs)
     out["paged_spec"] = run
+
+    out["dense_prefix_off_chunk"], out["paged_prefix_off_chunk"] = prefix_pair(
+        torch, dev, arch, model, params, ccfg,
+        shared_prefix_prompts(model.cfg.vocab, PREFIX_E, PROMPT_E), "prefix_off_chunk",
+        PREFIX_E, max_len=PROMPT_E + MAX_NEW + 1)
+    if not out["paged_prefix_off_chunk"]["flash_split_launches"] > 0:
+        fail(f"serve ({arch}, paged_prefix_off_chunk): no admission chunk split flash "
+             f"attention: {out['paged_prefix_off_chunk']}")
     return out
 
 
@@ -1374,6 +1597,8 @@ def main() -> int:
     print(json.dumps({"cascade_matmul_shapes": mm, "geometry": mm_geometry}), flush=True)
     mm_rows = timed("cascade_matmul rows", matmul_rows_phase)
     print(json.dumps({"cascade_matmul_rows_across_m": mm_rows}), flush=True)
+    grp = timed("cascade_matmul_grouped", grouped_matmul_phase)
+    print(json.dumps({"cascade_matmul_grouped": grp}), flush=True)
     atts = timed("decode_attention", attention_phase)
     att = atts[0]
     from repro_torch.kernels import decode_attention as da
@@ -1394,6 +1619,7 @@ def main() -> int:
     for arch in PARITY_ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
         print(json.dumps({"parity_depth2": par[arch]}), flush=True)
+    par_failed = [a for a, r in par.items() if not r["within_limits"]]
     for arch in ARCHS:
         srv[arch] = timed(f"serve {arch}", serve_phase, arch)
         for run in srv[arch].values():
@@ -1423,8 +1649,29 @@ def main() -> int:
         return {f"{arch}/{kind}": rec["launches"][name] for arch in ARCHS
                 for kind, rec in srv[arch].items()}
 
-    cq, mb = ARCHS
+    cq, mb, om = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
+
+    def grouped_step(key):
+        return sum(r[key] * r["launches_per_decode_step"] for r in grp)
+
+    # olmoe's decode and verify steps profiled, and each kernel of its decode
+    # step against its bound (per-call times at the step's shapes, summed)
+    oa = next(r for r in atts if r["case"] == "olmoe_step")
+    on = next(r for r in nrm_fused if r["case"] == "olmoe_step_add")
+    moe_step = {kind: {k: srv[om][run][prof][k] for k in ("device_busy_ms", "device_kernels",
+                                                          "our_kernels", "routing_ops")}
+                for kind, run, prof in (("decode", "plain", "profiled_decode_step"),
+                                        ("verify", "spec", "profiled_verify_step"))}
+    moe_step["decode_kernels_vs_bound"] = {
+        "cascade_matmul_grouped": {"launches": 48, "ms": grouped_step("ms"),
+                                   "bound_ms": grouped_step("bound_ms")},
+        "cascade_matmul": {"launches": sum(n for (a, *_), n in MATMUL_LAYERS.items() if a == om),
+                           "ms": per_step(om, "ms"), "bound_ms": per_step(om, "bound_ms")},
+        "decode_attention": {"launches": 16, "ms": 16 * oa["ms"], "bound_ms": 16 * oa["bound_ms"]},
+        "norm": {"launches": 33, "ms": 33 * on["ms"], "bound_ms": 33 * on["bound_ms"],
+                 "note": "32 add-norms at 8 x 2048 and the final norm, timed as add-norms"}}
+    print(json.dumps({"olmoe_profiled_steps": moe_step}), flush=True)
     nq = next(r for r in nrm_fused if r["case"] == "codeqwen_step_add")
     kernels = [
         {"name": "cascade_matmul", "route": "cuda",
@@ -1432,7 +1679,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/cascade_matmul.py:98",
          "shape": "one codeqwen decode step at M=8: 32 x [(4096,4096)x4, (4096,13440)x2, "
                   "(13440,4096)] + lm_head (4096,92416); times are summed over its launches "
-                  "(mamba2-370m's step: 48 x [(1024,4384), (2048,1024)], under mamba2_370m_step)",
+                  "(mamba2-370m's step: 48 x [(1024,4384), (2048,1024)], under mamba2_370m_step; "
+                  "olmoe-1b-7b's: 64 x (2048,2048) + lm_head (2048,50304), under "
+                  "olmoe_1b_7b_step)",
          "launches": sum(launches("cascade_matmul").values()),
          "launches_by_path": launches("cascade_matmul"),
          "launches_by_run": by_run("cascade_matmul"),
@@ -1449,12 +1698,39 @@ def main() -> int:
          "library_ms": per_step(cq, "library_ms"),
          "mamba2_370m_step": {key: per_step(mb, key)
                               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-         "verify_step_m40": {a: verify_step(a) for a in ARCHS},
+         "olmoe_1b_7b_step": {key: per_step(om, key)
+                              for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "verify_step_m40": {a: verify_step(a) for a in (cq, mb)},
          "geometry": mm_geometry,
          "rows_equal_across_m": all(r["rows_equal"] for r in mm_rows),
          "cascade_matmul_shapes": {f"{r['arch']} {r['M']}x{r['K']}->{r['N']}": {k: r[k] for k in (
              "m_tiles", "grid", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "max_abs_err")} for r in mm}},
+        {"name": "cascade_matmul_grouped", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
+         "replaces": "no TPU kernel: the reference's expert_linear_apply, "
+                     "src/repro/core/cascade.py:154 (an XLA einsum after dequantizing every "
+                     "expert)",
+         "shape": "one olmoe-1b-7b decode step: 16 x [(64 experts x C=8, 2048->1024) x 2, "
+                  "(64 x 8, 1024->2048)], rows routed top-8; times are summed over its 48 "
+                  "launches (every shape under grouped_shapes)",
+         "launches": srv[om]["plain"]["launches"]["cascade_matmul_grouped"],
+         "launches_by_run": by_run("cascade_matmul_grouped"),
+         "launches_per_decode_step":
+             srv[om]["plain"]["launches_per_decode_step"]["cascade_matmul_grouped"],
+         "max_abs_err": max(r["max_abs_err"] for r in grp),
+         "tol": "2^-7 * max|plain| + 1e-4 (bf16 out); and bit-equal to per-expert "
+                "cascade_matmul calls",
+         "equals_per_expert_calls": all(r["equals_per_expert_calls"] for r in grp),
+         "ms": grouped_step("ms"), "kernel_ms": grouped_step("ms"),
+         "plain_ms": grouped_step("plain_ms"),
+         "per_expert_loop_ms": grouped_step("per_expert_loop_ms"),
+         "bound_ms": grouped_step("bound_ms"), "bound_by": "bytes",
+         "library_ms": grouped_step("library_ms"),
+         "library_note": "torch.bmm of bf16 (E, C, K) x dense bf16 (E, K, N) experts",
+         "grouped_shapes": {f"{r['arch']} {r['E']}x{r['C']} {r['K']}->{r['N']}": {k: r[k] for k in (
+             "experts_with_rows", "ms", "per_expert_loop_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "max_abs_err")} for r in grp}},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:178",
@@ -1546,13 +1822,17 @@ def main() -> int:
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
-              "cascade_matmul_rows_across_m": mm_rows,
+              "cascade_matmul_rows_across_m": mm_rows, "cascade_matmul_grouped": grp,
+              "olmoe_profiled_steps": moe_step,
               "decode_attention": atts, "flash_attention": fla, "norm": nrm,
               "norm_fused": nrm_fused, "ssd_scan": ssd,
               "parity_depth2": par, "serve": srv, "paged_pool": pool,
               "paged_decode_step_vs_dense": paged_vs_dense,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    if par_failed:
+        fail(f"depth-2 parity: kernels vs plain versions out of tolerance on {par_failed} "
+             f"(the readings are in the parity_depth2 lines above)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

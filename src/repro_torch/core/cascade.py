@@ -10,8 +10,12 @@ A linear layer's params are a dict in one of these formats:
   CUDA kernel (``kernels.ops.cascade_matmul``); otherwise the weight is
   dequantized and multiplied in plain PyTorch.
 
+Expert linears (the MoE family) carry a leading expert axis on every leaf,
+``(E, ...)``; with ``use_kernel`` all E matmuls go through one grouped
+launch of the same kernel (``kernels.ops.cascade_matmul_grouped``).
+
 Not ported yet: QAT fake-quant, the bit-accurate FP8 ``precision_sim``
-path, expert (MoE) linears and the mesh sharding hooks.
+path and the mesh sharding hooks.
 """
 from __future__ import annotations
 
@@ -84,11 +88,47 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Ten
     return out.to(cd)
 
 
+def expert_linear_init(gen: torch.Generator, n_experts: int, d_in: int, d_out: int,
+                       cfg: CascadeConfig, device=None) -> dict:
+    """Params of E expert linears, every leaf stacked (E, ...). Each expert
+    is quantized as soon as it is drawn (``serve_fp4``), so a full-width
+    model never holds its f32 experts."""
+    experts = [linear_init(gen, d_in, d_out, cfg, device=device) for _ in range(n_experts)]
+    return {k: torch.stack([p[k] for p in experts]) for k in experts[0]}
+
+
+def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
+                        rows: torch.Tensor | None = None) -> torch.Tensor:
+    """x (E, C, d_in) -> (E, C, d_out), expert e with its own weight; f32
+    accumulation, output in the compute dtype. ``rows`` (E,) int32, the
+    routed rows of each expert (the rest of its C rows are zero inputs),
+    lets the grouped kernel skip what is not routed; None means all C."""
+    cd = cfg.compute_dtype
+    if cfg.mode == "serve_fp4":
+        if cfg.use_kernel:
+            from repro_torch.kernels import ops
+            return ops.cascade_matmul_grouped(x.to(cd), params["codes"], params["scale"], rows,
+                                              out_dtype=cd)
+        w = torch.stack([quant.dequantize_weight(c, s, cd)
+                         for c, s in zip(params["codes"], params["scale"])])
+    else:
+        w = params["w"].to(cd)
+    return torch.matmul(x.to(cd).to(torch.float32), w.to(torch.float32)).to(cd)
+
+
+def linear_weight(params: dict, cfg: CascadeConfig) -> torch.Tensor:
+    """Dense (d_in, d_out) weight of a linear in the compute dtype (MLA's
+    absorbed decode reads the raw matrix)."""
+    if cfg.mode == "serve_fp4":
+        return quant.dequantize_weight(params["codes"], params["scale"], cfg.compute_dtype)
+    return params["w"].to(cfg.compute_dtype)
+
+
 def tree_to_serve_fp4(params, cfg: CascadeConfig):
     """Convert a dense param tree into the FP4 serving format: every
     ``{"w"[, "b"]}`` linear dict becomes ``{"codes", "scale"[, "b"]}``.
-    Stacked layers (L, K, N) are quantized matrix by matrix. Embeddings and
-    norms stay dense."""
+    Stacked layers (L, K, N) and stacked experts (L, E, K, N) are quantized
+    matrix by matrix. Embeddings, norms and routers stay dense."""
     def quantize(w: torch.Tensor):
         if w.dim() == 2:
             return quant.quantize_weight(w.to(torch.float32), cfg.group_size)
@@ -104,6 +144,8 @@ def tree_to_serve_fp4(params, cfg: CascadeConfig):
             return out
         if isinstance(d, dict):
             return {k: conv(v) for k, v in d.items()}
+        if isinstance(d, list):
+            return [conv(v) for v in d]
         return d
 
     return conv(params)
@@ -115,4 +157,5 @@ def num_weight_bytes(params) -> int:
     scales)."""
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size()
-    return sum(num_weight_bytes(v) for v in params.values())
+    return sum(num_weight_bytes(v)
+               for v in (params.values() if isinstance(params, dict) else params))

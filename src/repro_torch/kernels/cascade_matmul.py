@@ -10,6 +10,12 @@ with the FP4 values exact, products and sums in f32, and one cast to
 replaces the TPU kernel ``cascade_matmul_pallas`` in the JAX package's
 ``kernels/cascade_matmul.py``. ``kernels.ops.cascade_matmul`` is the
 wrapper callers use; :func:`plan` gives the kernel's grid from the shapes.
+
+The grouped form runs the same kernel over E experts in one launch (the
+MoE family's expert matmuls, ``kernels.ops.cascade_matmul_grouped``): x (E,
+C, K), codes (E, K/2, N), scales (E, G, N), no bias, and ``rows`` (E,)
+int32, expert e's live rows; rows at or past ``rows[e]`` come out as exact
+zeros, and an expert with no live row reads none of its weights.
 """
 from __future__ import annotations
 
@@ -40,6 +46,19 @@ def cascade_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
     return out.to(out_dtype)
 
 
+def cascade_matmul_grouped_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                                 rows: torch.Tensor | None = None,
+                                 out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the grouped kernel: :func:`cascade_matmul_plain` per
+    expert, then rows at or past ``rows[e]`` set to exact zeros."""
+    out = torch.stack([cascade_matmul_plain(x[e], packed[e], scales[e], None, out_dtype)
+                       for e in range(x.shape[0])])
+    if rows is None:
+        return out
+    live = torch.arange(x.shape[1], device=x.device) < rows.to(x.device)[:, None]   # (E, C)
+    return torch.where(live[..., None], out, torch.zeros((), dtype=out.dtype, device=x.device))
+
+
 #: m-tiles of 16 rows one block holds at most: one group of scales (the
 #: serving path), and more than one, where a row keeps a second set of sums
 MAX_M_TILES, MAX_M_TILES_GROUPED = 4, 2
@@ -57,11 +76,22 @@ def plan(m: int, k: int, n: int, group: int = 0) -> dict:
     return {"m_tiles": mt, "grid": (-(-n // _BLOCK_COLS), -(-m // (16 * mt)))}
 
 
+def plan_grouped(e: int, c: int, n: int) -> dict:
+    """The grouped launch's grid for E experts of C rows and N columns: one
+    m-tile (16 rows) a block, a block row per 16 of the C rows, one grid
+    layer per expert. An expert's routed rows are few, so more m-tiles a
+    block would mostly be dead; a block past its expert's rows exits at
+    once."""
+    return {"m_tiles": 1, "grid": (-(-n // _BLOCK_COLS), -(-c // 16), e)}
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a built cascade-matmul library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cascade_matmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.cascade_matmul_launch.restype = ctypes.c_int
+    lib.cascade_matmul_grouped_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.cascade_matmul_grouped_launch.restype = ctypes.c_int
     lib.cascade_matmul_geometry.argtypes = [p]
     lib.cascade_matmul_geometry.restype = None
     return lib
@@ -121,4 +151,44 @@ def cascade_matmul_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cascade_matmul kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def cascade_matmul_grouped_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                                rows: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the grouped kernel on CUDA tensors: x (E, C, K) bf16, packed
+    (E, K/2, N) uint8, scales (E, G, N) f32, rows (E,) int32 on the card
+    (read there: no host sync). Returns (E, C, N); raises on anything the
+    kernel does not take."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"cascade_matmul_grouped_cuda needs CUDA tensors, got {dev}")
+    for name, t in (("packed", packed), ("scales", scales), ("rows", rows)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if x.dim() != 3 or packed.dim() != 3 or scales.dim() != 3 or rows.dim() != 1:
+        raise ValueError("x, packed and scales must be 3-D and rows 1-D")
+    e, c, k = x.shape
+    n = packed.shape[2]
+    if (packed.shape[0] != e or scales.shape[0] != e or rows.shape[0] != e
+            or k != 2 * packed.shape[1] or scales.shape[2] != n or k % scales.shape[1]):
+        raise ValueError(f"shapes x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}, rows {tuple(rows.shape)} do not agree")
+    if x.dtype != torch.bfloat16 or out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"x dtype {x.dtype} / out dtype {out_dtype} not supported")
+    if packed.dtype != torch.uint8 or scales.dtype != torch.float32 or rows.dtype != torch.int32:
+        raise ValueError("packed must be uint8, scales f32 and rows int32")
+    if not (x.is_contiguous() and packed.is_contiguous() and scales.is_contiguous()
+            and rows.is_contiguous()):
+        raise ValueError("cascade_matmul_grouped_cuda needs contiguous operands")
+    out = torch.empty((e, c, n), dtype=out_dtype, device=dev)
+    if e == 0 or c == 0 or n == 0:
+        return out
+    group = k // scales.shape[1]
+    rc = _library().cascade_matmul_grouped_launch(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows.data_ptr(), out.data_ptr(),
+        e, c, k, n, group, int(out_dtype == torch.bfloat16),
+        plan_grouped(e, c, n)["m_tiles"], torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cascade_matmul_grouped kernel launch failed: CUDA error {rc}")
     return out

@@ -52,6 +52,23 @@
 // loads), then the 8 warps are added in order. So a row's bits do not depend
 // on M, on its place in the block or on MT: a verify pass's rows round as a
 // decode step's.
+// The grouped entry (cascade_matmul_grouped_launch) runs the same body, as
+// its own kernel (cascade_matmul_grouped_kernel), over E experts at once:
+// the MoE family's expert matmuls, which have no TPU kernel (the reference
+// dequantizes all E experts and runs one einsum). The grid gets a third
+// axis over experts; block z offsets x (E, C, K), codes (E, K/2, N), scales
+// (E, G, N) and out (E, C, N) by expert z, and takes rows[z] (a device int,
+// the expert's routed rows) where the plain entry takes M for its rows: an
+// expert with no routed row reads none of its weights, and every row at or
+// past rows[z] is stored as an exact zero. The tiling, the table decode,
+// the mma path and the sum order are the plain entry's, so each live row
+// has the bits a per-expert call gives it. One launch takes the place of E
+// launches of mostly idle grids (32-64 column blocks each on 132 SMs). Its
+// blocks hold one m-tile (16 rows): an expert's routed rows are few (a
+// decode step routes 64 rows over olmoe's 64 experts, a verify pass 320),
+// so more m-tiles a block would be dead weight (at C = 32, two m-tiles a
+// block ran at 2.9x the C = 8 time); C > 16 takes more block rows, and a
+// block past its expert's rows exits at once.
 // Past the weight stream, each block re-reads its rows of x from L2 for every
 // 32 columns (x is M*K*2 bytes, read N/32 times), and each k16 step's MT
 // products and loads lengthen the block, so a call at M = 40 takes well
@@ -150,16 +167,44 @@ __device__ __forceinline__ uint32_t pair_mask(int k, int lo, int hi) {
 // weight column n0 + 4 gid + j. A byte maps to its two bf16 values (even
 // row low) through a 256-entry table in shared memory. The lane's A rows in
 // m-tile t (as ldmatrix hands them over) are m0 + 16 t + gid and that + 8.
-template <typename TO, int kMode, int MT>
-__global__ void __launch_bounds__(kThreads)
-cascade_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                      const float* __restrict__ scales, const float* __restrict__ bias,
-                      TO* __restrict__ out, int M, int K, int N, int group, int vec) {
+// The body of both kernels below; kGrouped: one grid layer per expert.
+template <typename TO, int kMode, int MT, bool kGrouped>
+__device__ __forceinline__ void matmul_block(const __nv_bfloat16* __restrict__ x,
+                                             const uint8_t* __restrict__ packed,
+                                             const float* __restrict__ scales,
+                                             const float* __restrict__ bias,
+                                             TO* __restrict__ out, int M, int K, int N,
+                                             int group, int vec,
+                                             const int* __restrict__ rows) {
   constexpr int kBatch = batch_steps<MT>();
+  // the grouped entry: expert blockIdx.z's operands, and its live rows
+  const int M_all = M;                              // the rows of x and out
+  if constexpr (kGrouped) {
+    const size_t e = blockIdx.z;
+    x += e * M_all * K;
+    packed += e * (K / 2) * N;
+    scales += e * (K / group) * N;
+    out += e * M_all * N;
+    M = min(max(rows[e], 0), M_all);
+  }
   constexpr bool kMulti = kMode != kOneGroup;
   __shared__ uint32_t lut[256];
   __shared__ float red[kWarps][kBM * kBN];   // 16 KB: one m-tile's sums at a time
   __shared__ __align__(16) uint32_t xs[kWarps][MT][kBM * 8];   // a warp's x of one k16 step
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * (kBM * MT);
+  // rows [lo, hi) of this block's columns as exact zeros (rows past the
+  // expert's live rows; never reached from the plain entry)
+  auto zero_rows = [&](int lo, int hi) {
+    for (int i = threadIdx.x; i < (hi - lo) * kBN; i += kThreads) {
+      const int n = n0 + i % kBN;
+      if (n < N) out[(size_t)(lo + i / kBN) * N + n] = from_f32<TO>(0.f);
+    }
+  };
+  if (m0 >= M) {                                   // no live row: no weight is read
+    zero_rows(m0, min(m0 + kBM * MT, M_all));
+    return;
+  }
   for (int i = threadIdx.x; i < 256; i += kThreads)
     lut[i] = fp4_bf16_bits(i & 0xFu) | (fp4_bf16_bits(i >> 4) << 16);
   __syncthreads();
@@ -168,8 +213,6 @@ cascade_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __rest
   const int warp = threadIdx.x / 32;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * (kBM * MT);
   const int live_mt = min(MT, (M - m0 + kBM - 1) / kBM);   // m-tiles with a row below M
   const int kp_total = K / 2;
   const int steps = (K + 15) / 16;
@@ -341,7 +384,11 @@ cascade_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __rest
     for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
       const int m = m0 + kBM * t + i / kBN;
       const int n = n0 + i % kBN;
-      if (m >= M || n >= N) continue;
+      if (m >= M_all || n >= N) continue;
+      if (m >= M) {
+        out[(size_t)m * N + n] = from_f32<TO>(0.f);
+        continue;
+      }
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s += red[w][i];
@@ -349,42 +396,73 @@ cascade_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __rest
       out[(size_t)m * N + n] = from_f32<TO>(s);
     }
   }
+  zero_rows(m0 + kBM * live_mt, min(m0 + kBM * MT, M_all));   // m-tiles wholly past M
+}
+
+template <typename TO, int kMode, int MT>
+__global__ void __launch_bounds__(kThreads)
+cascade_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                      const float* __restrict__ scales, const float* __restrict__ bias,
+                      TO* __restrict__ out, int M, int K, int N, int group, int vec) {
+  matmul_block<TO, kMode, MT, false>(x, packed, scales, bias, out, M, K, N, group, vec,
+                                     nullptr);
+}
+
+// The grouped entry's kernel: expert blockIdx.z, its live rows rows[z].
+template <typename TO, int kMode, int MT>
+__global__ void __launch_bounds__(kThreads)
+cascade_matmul_grouped_kernel(const __nv_bfloat16* __restrict__ x,
+                              const uint8_t* __restrict__ packed,
+                              const float* __restrict__ scales, TO* __restrict__ out, int M,
+                              int K, int N, int group, int vec, const int* __restrict__ rows) {
+  matmul_block<TO, kMode, MT, true>(x, packed, scales, nullptr, out, M, K, N, group, vec, rows);
 }
 
 template <typename TO, int kMode, int MT>
 void launch(const void* x, const void* packed, const void* scales, const void* bias,
-            void* out, int M, int K, int N, int group, int vec, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM * MT - 1) / (kBM * MT));
-  cascade_matmul_kernel<TO, kMode, MT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<const float*>(bias),
-      static_cast<TO*>(out), M, K, N, group, vec);
+            void* out, int M, int K, int N, int group, int vec, const int* rows, int E,
+            cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM * MT - 1) / (kBM * MT), E);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* pk = static_cast<const uint8_t*>(packed);
+  const auto* sc = static_cast<const float*>(scales);
+  if (rows != nullptr)
+    cascade_matmul_grouped_kernel<TO, kMode, MT><<<grid, kThreads, 0, stream>>>(
+        xb, pk, sc, static_cast<TO*>(out), M, K, N, group, vec, rows);
+  else
+    cascade_matmul_kernel<TO, kMode, MT><<<grid, kThreads, 0, stream>>>(
+        xb, pk, sc, static_cast<const float*>(bias), static_cast<TO*>(out), M, K, N, group,
+        vec);
 }
 
 template <typename TO, int kMode>
 void launch_mt(int mt, const void* x, const void* packed, const void* scales,
                const void* bias, void* out, int M, int K, int N, int group, int vec,
-               cudaStream_t s) {
+               const int* rows, int E, cudaStream_t s) {
   constexpr int cap = kMode == kOneGroup ? kMaxMT : kMaxMTGroups;
-  if (mt == 1) launch<TO, kMode, 1>(x, packed, scales, bias, out, M, K, N, group, vec, s);
+  if (mt == 1)
+    launch<TO, kMode, 1>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
   if constexpr (cap >= 2)
-    if (mt == 2) launch<TO, kMode, 2>(x, packed, scales, bias, out, M, K, N, group, vec, s);
+    if (mt == 2)
+      launch<TO, kMode, 2>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
   if constexpr (cap >= 3)
-    if (mt == 3) launch<TO, kMode, 3>(x, packed, scales, bias, out, M, K, N, group, vec, s);
+    if (mt == 3)
+      launch<TO, kMode, 3>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
   if constexpr (cap >= 4)
-    if (mt == 4) launch<TO, kMode, 4>(x, packed, scales, bias, out, M, K, N, group, vec, s);
+    if (mt == 4)
+      launch<TO, kMode, 4>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
 }
 
 template <typename TO>
 void launch_mode(int mode, int mt, const void* x, const void* packed, const void* scales,
                  const void* bias, void* out, int M, int K, int N, int group, int vec,
-                 cudaStream_t s) {
+                 const int* rows, int E, cudaStream_t s) {
   if (mode == kOneGroup)
-    launch_mt<TO, kOneGroup>(mt, x, packed, scales, bias, out, M, K, N, group, vec, s);
+    launch_mt<TO, kOneGroup>(mt, x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
   else if (mode == kGroups)
-    launch_mt<TO, kGroups>(mt, x, packed, scales, bias, out, M, K, N, group, vec, s);
+    launch_mt<TO, kGroups>(mt, x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
   else
-    launch_mt<TO, kEdges>(mt, x, packed, scales, bias, out, M, K, N, group, vec, s);
+    launch_mt<TO, kEdges>(mt, x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
 }
 
 }  // namespace
@@ -403,19 +481,41 @@ static int m_tiles_for(int M, int K, int group) {
 // block; one that is not m_tiles_for(M, K, group) is refused with
 // cudaErrorInvalidValue before anything is launched. Returns
 // cudaGetLastError() otherwise.
-extern "C" int cascade_matmul_launch(const void* x, const void* packed, const void* scales,
-                                     const void* bias, void* out, int M, int K, int N,
-                                     int group, int out_bf16, int m_tiles, void* stream) {
-  if (m_tiles != m_tiles_for(M, K, group)) return static_cast<int>(cudaErrorInvalidValue);
+static int launch_any(const void* x, const void* packed, const void* scales,
+                      const void* bias, const int* rows, void* out, int E, int M, int K, int N,
+                      int group, int out_bf16, int m_tiles, int want_m_tiles, void* stream) {
+  if (m_tiles != want_m_tiles) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(packed) & 3u) == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = group == K ? kOneGroup : group % 16 == 0 ? kGroups : kEdges;
   if (out_bf16)
     launch_mode<__nv_bfloat16>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group,
-                               vec, s);
+                               vec, rows, E, s);
   else
-    launch_mode<float>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group, vec, s);
+    launch_mode<float>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group, vec, rows,
+                       E, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cascade_matmul_launch(const void* x, const void* packed, const void* scales,
+                                     const void* bias, void* out, int M, int K, int N,
+                                     int group, int out_bf16, int m_tiles, void* stream) {
+  return launch_any(x, packed, scales, bias, nullptr, out, 1, M, K, N, group, out_bf16,
+                    m_tiles, m_tiles_for(M, K, group), stream);
+}
+
+// The grouped entry: x (E, C, K) row-major bf16; packed (E, K/2, N) uint8;
+// scales (E, K/group, N) f32; rows (E,) int32 on the device, expert e's
+// live rows (clamped into [0, C]); out (E, C, N), bf16 or f32. No bias
+// (experts have none). Rows at or past rows[e] come out as exact zeros;
+// m_tiles must be 1 (one m-tile a block; C > 16 takes more block rows).
+extern "C" int cascade_matmul_grouped_launch(const void* x, const void* packed,
+                                             const void* scales, const void* rows, void* out,
+                                             int E, int C, int K, int N, int group,
+                                             int out_bf16, int m_tiles, void* stream) {
+  if (rows == nullptr || E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(x, packed, scales, nullptr, static_cast<const int*>(rows), out, E, C, K,
+                    N, group, out_bf16, m_tiles, 1, stream);
 }
 
 // The build's geometry: m-tiles a block at most (one group, more than one),

@@ -17,8 +17,8 @@ from repro_torch.kernels import norm as _norm
 from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES = {"cascade_matmul": 0, "decode_attention": 0, "flash_attention": 0, "norm": 0,
-            "ssd_scan": 0}
+LAUNCHES = {"cascade_matmul": 0, "cascade_matmul_grouped": 0, "decode_attention": 0,
+            "flash_attention": 0, "norm": 0, "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,6 +51,25 @@ def cascade_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     else:
         out = _cm.cascade_matmul_plain(x2, packed, scales, bias, out_dtype)
     return out.reshape(*lead, n)
+
+
+def cascade_matmul_grouped(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                           rows: torch.Tensor | None = None, *,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """E FP4-packed weight matmuls in one launch (the MoE experts): x (E, C,
+    K) @ Wq[e] (K, N) -> (E, C, N). ``rows`` (E,) int32: expert e's live
+    rows, from the dispatch; rows at or past ``rows[e]`` come out as exact
+    zeros (None: all C rows live). No bias. Odd-K weights take a zero
+    activation column, as in :func:`cascade_matmul`."""
+    if packed.shape[1] * 2 == x.shape[-1] + 1:
+        x = F.pad(x, (0, 1))
+    if _route(x) == "cuda":
+        if rows is None:
+            rows = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+        out = _cm.cascade_matmul_grouped_cuda(x.contiguous(), packed, scales, rows, out_dtype)
+        LAUNCHES["cascade_matmul_grouped"] += 1
+        return out
+    return _cm.cascade_matmul_grouped_plain(x, packed, scales, rows, out_dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,6 +15,14 @@ the decode recurrence), on the H100 and as a CPU smoke:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --smoke --device cpu --fused
 
+The MoE family: olmoe-1b-7b at full width on the H100 (its expert matmuls
+one grouped FP4 launch each with ``--fused``), and DeepSeek-V2 (MLA) as a
+CPU smoke (at full width it does not fit one card):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
+        --smoke --device cpu --fused
+
 Speculative decode and sampling, on the H100 and as a CPU smoke:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
         --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused \
@@ -69,6 +77,8 @@ def main(argv=None) -> int:
                          "params; with --no-fp4 it downgrades with a warning)")
     ap.add_argument("--draft-len", type=int, default=0,
                     help="speculative decode: K drafted tokens per slot per step (0 = off)")
+    ap.add_argument("--ngram-max", type=int, default=3,
+                    help="longest suffix n-gram the prompt-lookup drafter matches")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="> 0 samples on the device (default: greedy argmax)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -97,7 +107,8 @@ def main(argv=None) -> int:
     params = model.init_params(0, ccfg, device=device)
     scfg = ServeConfig(max_batch=args.max_batch,
                        max_len=args.prompt_len + args.max_new + 1, fused=args.fused,
-                       draft_len=args.draft_len, temperature=args.temperature,
+                       draft_len=args.draft_len, ngram_max=args.ngram_max,
+                       temperature=args.temperature,
                        top_k=args.top_k, sample_seed=args.sample_seed,
                        prefix_cache=args.prefix_cache, page_size=args.page_size)
     eng = ServeEngine(model, params, ccfg, scfg, device=device)

@@ -9,7 +9,10 @@ model's cache is ``{"layers": {...}}`` with each leaf stacked ``(L, B,
 * dense transformer, paged: ``{"layers": {"k", "v": (L, P, ps, Hkv, D), "pos":
   (L, B)}}``, a page pool shared by the slots (see the paged primitives below);
 * Mamba-2: ``{"layers": {"conv": (L, B, w-1, conv_dim), "state": (L, B, H,
-  P, N)}, "pos": (B,)}``.
+  P, N)}, "pos": (B,)}``;
+* MoE: the dense transformer's (olmoe) or MLA's ``{"layers": {"c_kv": (L,
+  B, T, kv_lora), "k_rope": (L, B, T, rope), "pos": (L, B)}}`` (deepseek-v2),
+  one stack of every layer, and their paged pools ``(L, P, ps, ...)``.
 
 The slot axis is stated, not probed: axis 1 under ``layers``, axis 0
 beside it. Admission writes a batch-1 cache into a slot in place; nothing

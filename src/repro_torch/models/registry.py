@@ -30,7 +30,6 @@ FAMILY_SMOKE = {
 #: families the port does not build yet, and the ROADMAP item that ports each
 _NOT_PORTED = {
     "hybrid": "ROADMAP Queue 1 item 5 (Griffin, models/griffin.py)",
-    "moe": "ROADMAP Queue 1 item 4 (the MoE family, models/moe.py)",
     "audio": "ROADMAP Queue 1 item 6 (sinusoidal positions and the "
              "multi-codebook head of TransformerLM)",
     "vlm": "ROADMAP Queue 1 item 6 (M-RoPE in models/layers.py)",
@@ -54,6 +53,9 @@ def build_model(cfg: ArchConfig):
     if cfg.family == "ssm":
         from repro_torch.models.ssm import Mamba2LM
         return Mamba2LM(cfg)
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoELM
+        return MoELM(cfg)
     from repro_torch.models.transformer import TransformerLM
     return TransformerLM(cfg)
 

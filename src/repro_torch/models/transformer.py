@@ -118,10 +118,13 @@ class TransformerLM:
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
             if block_table is not None:
                 c = dict(c, block_table=block_table)
-            x, pending, nc = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, c,
-                                         mode, pending=pending, **kw)
+            x, pending, nc = self._block(self._layer_params(params, i), x, ccfg, c, mode,
+                                         pending=pending, **kw)
             caches.append(nc)
         return x, pending, caches
+
+    def _layer_params(self, params: dict, i: int) -> dict:
+        return cache_utils.layer_view(params["layers"], i)
 
     def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
         """Full-sequence forward (no cache): logits (B, S, V) f32."""
@@ -130,11 +133,12 @@ class TransformerLM:
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
-        cfg = self.cfg
-        device = resolve_device(device)
-        one = L.attn_cache_init(batch, max_len, self.attn_cfg, dtype, device=device)
-        return {"layers": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+        one = self._attn_cache(batch, max_len, dtype, resolve_device(device))
+        return {"layers": {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
                            for k, v in one.items()}}
+
+    def _attn_cache(self, batch: int, max_len: int, dtype, device) -> dict:
+        return L.attn_cache_init(batch, max_len, self.attn_cfg, dtype, device=device)
 
     # ------------------------------------------------------- paged cache API
     @property
@@ -146,11 +150,14 @@ class TransformerLM:
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
                          dtype=torch.bfloat16, device=None) -> dict:
         """``{"layers": {"k", "v": (L, P, ps, Hkv, D), "pos": (L, B)}}``."""
-        device = resolve_device(device)
-        one = L.attn_cache_init_paged(batch, num_pages, page_size, self.attn_cfg, dtype,
-                                      device=device)
+        one = self._attn_cache_paged(batch, num_pages, page_size, dtype, resolve_device(device))
         return {"layers": {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
                            for k, v in one.items()}}
+
+    def _attn_cache_paged(self, batch: int, num_pages: int, page_size: int, dtype,
+                          device) -> dict:
+        return L.attn_cache_init_paged(batch, num_pages, page_size, self.attn_cfg, dtype,
+                                       device=device)
 
     def paged_copy_page(self, cache: dict, src: int, dst: int) -> dict:
         """Copy physical page ``src`` to ``dst`` in every layer's pools, in

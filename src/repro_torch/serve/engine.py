@@ -54,15 +54,19 @@ flash-attention plan depends on B (at B = 8 a chunk never splits over the
 keys, at B = 1 it does from 256 live keys), and each matmul keeps a chunk's
 M rows instead of max_batch times as many. Under a prefix hit admission
 starts at the matched length, a multiple of ``page_size``; where that is
-not a multiple of ``prefill_chunk``, the chunk boundaries (and each chunk's
-live keys) differ from the dense engine's, so past 256 live keys a chunk's
-flash plan, and its rounding on the card, may differ too.
+not a multiple of ``prefill_chunk``, the first chunk ends at the next
+multiple and attends over the keys the dense engine's chunk of those rows
+sees, so every chunk keeps the dense engine's boundaries, live keys and
+flash plans (with the chunk boundaries shifted, past 256 live keys a
+chunk split otherwise and a stream departed on the card).
 
-``fused=True`` sends every linear through the FP4 CUDA matmul, single-token
-attention through the CUDA decode-attention kernel, every multi-token
-attention (admission chunks, the verify pass) through the CUDA flash
-attention kernel and the Mamba-2 decode recurrence (and the verify pass's
-per-token recurrence) through the CUDA SSD scan kernel (``kernels/ops.py``);
+``fused=True`` sends every linear through the FP4 CUDA matmul (the MoE
+experts through its grouped launch, one a matmul over all experts),
+single-token attention through the CUDA decode-attention kernel, every
+multi-token attention (admission chunks, the verify pass) through the CUDA
+flash attention kernel and the Mamba-2 decode recurrence (and the verify
+pass's per-token recurrence) through the CUDA SSD scan kernel
+(``kernels/ops.py``);
 on CPU tensors those wrappers run their plain versions. Not ported yet (the
 engine raises ``NotImplementedError`` when asked): CREST probes, the
 slot-wise loop and mesh serving.
@@ -86,9 +90,6 @@ from repro_torch.serve.spec import ngram_propose
 
 #: methods a model needs for speculative decode
 _SPEC_API = ("spec_verify", "spec_rewind")
-#: the drafter matches suffix n-grams up to this long, over at most this
-#: many trailing tokens of a slot's stream (the reference's defaults)
-_NGRAM_MAX, _NGRAM_LOOKBACK = 3, 512
 
 
 def _truncate_logits(logits: torch.Tensor, temperature: float, top_k: int) -> torch.Tensor:
@@ -197,6 +198,8 @@ class ServeConfig:
     top_k: int = 0                # restrict sampling to the k best logits (0 = all)
     sample_seed: int = 0          # sampling is deterministic given seed + order of draws
     draft_len: int = 0            # speculative decode: K drafted tokens per slot per step
+    ngram_max: int = 3            # longest suffix n-gram the prompt-lookup drafter matches
+    ngram_lookback: int = 512     # drafter scans at most this many trailing stream tokens
     fused: bool = False           # CUDA kernels (FP4 matmul, decode and flash attention,
                                   # SSD scan)
     paged: bool = False           # page-granular KV pool with host-owned block tables;
@@ -456,18 +459,20 @@ class ServeEngine:
             chunk = self.scfg.prefill_chunk or len(prompt)
             logits = None
             while st.consumed < len(prompt) and spent < budget:
-                n = min(chunk, len(prompt) - st.consumed)
+                # the dense engine's chunk holding row ``consumed`` starts
+                # at ``c0`` (after a prefix hit, admission may start mid-chunk)
+                c0 = st.consumed - st.consumed % chunk
+                n = min(c0 + chunk - st.consumed, len(prompt) - st.consumed)
                 toks = np.zeros((1, chunk), np.int32)
                 toks[0, :n] = prompt[st.consumed:st.consumed + n]
                 batch = {"tokens": self._tokens(toks)}
                 if self.paged:
                     self._ensure_pages(st.slot, st.consumed + n)
                     batch["block_table"] = self._bt_dev()[st.slot:st.slot + 1]
-                # the chunk's rows sit at [consumed, consumed + chunk): no
-                # key past that is live
+                # the chunk's valid rows end by c0 + chunk: no key past that
+                # is live for them (pad rows past it attend to garbage)
                 logits, st.cache = self.model.prefill_extend(
-                    self.params, batch, st.cache, self.ccfg, n_valid=n,
-                    kv_len=st.consumed + chunk)
+                    self.params, batch, st.cache, self.ccfg, n_valid=n, kv_len=c0 + chunk)
                 st.consumed += n
                 spent += n
             if st.consumed < len(prompt):
@@ -571,8 +576,8 @@ class ServeEngine:
         for i in active:
             ctx = self._spec_ctx[i]
             toks[i, 0] = ctx[-1]               # the pending token
-            toks[i, 1:], keff[i] = ngram_propose(np.asarray(ctx[-_NGRAM_LOOKBACK:], np.int32),
-                                                 k, _NGRAM_MAX)
+            toks[i, 1:], keff[i] = ngram_propose(
+                np.asarray(ctx[-self.scfg.ngram_lookback:], np.int32), k, self.scfg.ngram_max)
         # an active slot's cache holds its stream but the pending token, so
         # its chunk sits at [used - 1, used + k): no active row sees a key
         # past max(used) + k (inactive rows' outputs are discarded); rows past
@@ -618,8 +623,9 @@ class ServeEngine:
             # only delivered drafts count: tokens/step/slot = accepted_per_step + 1
             self._accepted_drafts += delivered - 1
             produced += delivered
-            if len(ctx) > 2 * _NGRAM_LOOKBACK:  # the drafter reads only the tail
-                del ctx[:len(ctx) - _NGRAM_LOOKBACK]
+            lb = self.scfg.ngram_lookback
+            if len(ctx) > 2 * lb:               # the drafter reads only the tail
+                del ctx[:len(ctx) - lb]
         self.cache = self.model.spec_rewind(self.cache, self._ckpt, self._tokens(keep))
         return produced
 

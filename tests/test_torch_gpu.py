@@ -653,12 +653,13 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
         ops.flash_attention(q, q, q, q_offset=torch.zeros(1, device=cuda, dtype=torch.int64))
 
 
-@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "mamba2-370m", "olmoe-1b-7b"])
 def test_spec_engine_at_full_width_launches_the_path_kernels(cuda, arch):
     """A 2-layer full-width model served speculatively (draft 4, greedy):
     every request finishes, each verify pass launches flash attention once
-    per layer (codeqwen) or the SSD scan once per layer and chunk token
-    (Mamba-2), and no verify pass launches decode attention."""
+    per layer (codeqwen, olmoe) or the SSD scan once per layer and chunk
+    token (Mamba-2), olmoe's experts three grouped matmuls a layer, and no
+    verify pass launches decode attention."""
     import dataclasses
     cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
     model = registry.build_model(cfg)
@@ -693,6 +694,7 @@ def test_spec_engine_at_full_width_launches_the_path_kernels(cuda, arch):
             assert step["ssd_scan"] == 2 * 5 and step["flash_attention"] == 0
         else:
             assert step["flash_attention"] == 2 and step["ssd_scan"] == 0
+        assert step["cascade_matmul_grouped"] == (3 * 2 if arch == "olmoe-1b-7b" else 0)
         assert step["cascade_matmul"] > 0
 
 
@@ -929,3 +931,148 @@ def test_paged_decode_step_and_admission_give_the_dense_logits_bit_for_bit(cuda)
     view = C.paged_gather(paged["layers"]["k"][1], torch.from_numpy(bt).to(cuda), ps)
     for slot, n in enumerate(lens):
         assert torch.equal(view[slot, :n + 1], dense["layers"]["k"][1, slot, :n + 1])
+
+
+# (E, C, K, N, rows): olmoe's experts (64 of 2048 -> 1024 and 1024 -> 2048)
+# at a decode step's, an admission chunk's and a verify pass's C, and
+# deepseek-v2's (160 of 5120 -> 1536 and 1536 -> 5120) at a decode step's;
+# rows from a top-k draw, with experts at 0 rows and at all C forced; K and
+# N off the tiles, and C past one block row (65)
+GROUPED_CASES = [(64, 8, 2048, 1024), (64, 8, 1024, 2048), (64, 32, 2048, 1024),
+                 (64, 40, 1024, 2048), (160, 8, 5120, 1536), (160, 8, 1536, 5120),
+                 (5, 65, 258, 301), (3, 17, 96, 40)]
+
+
+def _grouped_inputs(cuda, e, c, k, n, seed, group=0):
+    """Weights of e experts, routed rows from a top-k draw (expert 0 gets no
+    row, expert 1 all C) and x with zero rows past each expert's, as the
+    dispatch builds it."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ws = [quant.quantize_weight(torch.randn((k, n), generator=gen, device=cuda), group)
+          for _ in range(e)]
+    packed, scales = torch.stack([w[0] for w in ws]), torch.stack([w[1] for w in ws])
+    top = min(8, e - 1)
+    picks = torch.argsort(torch.rand((c, e), generator=gen, device=cuda), dim=-1)[:, :top]
+    rows = torch.bincount(picks.flatten(), minlength=e).clamp(max=c)
+    rows[0], rows[1] = 0, c
+    rows = rows.to(torch.int32)
+    x = torch.randn((e, c, k), generator=gen, device=cuda) / k ** 0.5
+    x = torch.where(torch.arange(c, device=cuda)[None, :, None] < rows[:, None, None], x, 0.0)
+    return x.to(torch.bfloat16), packed, scales, rows
+
+
+@pytest.mark.parametrize("e,c,k,n", GROUPED_CASES)
+@pytest.mark.parametrize("odtype", ["bfloat16", "float32"])
+def test_grouped_matmul_equals_per_expert_calls_bit_for_bit(cuda, e, c, k, n, odtype):
+    """One grouped launch gives every expert the bits of a per-expert
+    ``ops.cascade_matmul`` over its C rows (zeros past its routed rows,
+    none routed included), and agrees with the plain version."""
+    x, packed, scales, rows = _grouped_inputs(cuda, e, c, k, n, seed=e + c + k)
+    out_dtype = getattr(torch, odtype)
+    ops.reset_launch_counts()
+    got = ops.cascade_matmul_grouped(x, packed, scales, rows, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cascade_matmul_grouped"] == 1 and got.dtype == out_dtype
+    loop = torch.stack([ops.cascade_matmul(x[i], packed[i], scales[i], out_dtype=out_dtype)
+                        for i in range(e)])
+    assert torch.equal(got, loop)
+    assert not got[0].any() and not (got[2:] * (torch.arange(c, device=cuda)[None, :, None]
+                                                >= rows[2:, None, None])).any()
+    want = tcm.cascade_matmul_grouped_plain(x, packed, scales, rows, out_dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if odtype == "float32" else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_grouped_matmul_zeros_past_the_rows_whatever_x_holds_there(cuda):
+    """Rows at or past ``rows[e]`` are stored as exact zeros even where x is
+    not zero, and an output full of another value is overwritten."""
+    x, packed, scales, rows = _grouped_inputs(cuda, 6, 40, 1024, 2048, seed=9)
+    x = x + 1.0
+    got = tcm.cascade_matmul_grouped_cuda(x, packed, scales, rows, torch.float32)
+    want = tcm.cascade_matmul_grouped_plain(x, packed, scales, rows, torch.float32)
+    live = torch.arange(40, device=cuda)[None, :] < rows[:, None]
+    torch.cuda.synchronize()
+    assert not got[~live].any()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+def test_grouped_matmul_raises_on_what_it_does_not_take(cuda):
+    x, packed, scales, rows = _grouped_inputs(cuda, 3, 8, 64, 32, seed=1)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.cascade_matmul_grouped(x.float(), packed, scales, rows)
+    with pytest.raises(ValueError, match="int32"):
+        tcm.cascade_matmul_grouped_cuda(x, packed, scales, rows.long())
+    with pytest.raises(ValueError, match="do not agree"):
+        tcm.cascade_matmul_grouped_cuda(x[:2], packed, scales, rows)
+    out = torch.full((3, 8, 32), 7.0, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            3, 8, 64, 32, 64, 0)
+    assert tcm._library().cascade_matmul_grouped_launch(*args, 2, stream) != 0   # one m-tile
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert tcm._library().cascade_matmul_grouped_launch(*args, 1, stream) == 0
+
+
+def test_router_logit_rows_are_bit_equal_at_decode_admission_and_verify_row_counts(cuda):
+    """olmoe's router (2048 -> 64, f32): a token's logits are the same bits
+    in a decode step's 8 rows, an admission chunk's 32 and a verify pass's
+    40, so the three route it alike."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((40, 2048), generator=gen, device=cuda).to(torch.bfloat16)
+    router = torch.randn((2048, 64), generator=gen, device=cuda) * 0.02
+    whole = moe.router_logits(x, router)
+    for m in (1, 8, 32):
+        assert torch.equal(moe.router_logits(x[:m], router), whole[:m]), m
+
+
+def test_olmoe_paged_decode_step_and_admission_give_the_dense_logits_bit_for_bit(cuda):
+    """olmoe-1b-7b at full width and depth 2, bf16, through the kernels (the
+    grouped expert matmul among them): prompts admitted chunk by chunk into
+    a page pool give every chunk's logits of a dense batch-1 staging cache
+    bit for bit, and the 8-slot decode step over the gathered pages the
+    dense cache's."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get_config("olmoe-1b-7b"), n_layers=2)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(0, ccfg, device=cuda)
+    b, ps, t, chunk = 8, 16, 192, 32
+    nb = t // ps
+    dense = model.init_cache(b, t, dtype=torch.bfloat16, device=cuda)
+    paged = model.init_paged_cache(b, b * nb + 1, ps, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(1)
+    lens = [40, 150, 64, 97, 33, 128, 71, 111]
+    free = list(1 + rng.permutation(b * nb))
+    bt = np.zeros((b, nb), np.int32)
+    nxt = []
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for slot, n in enumerate(lens):
+            bt[slot, :-(-(n + 1) // ps)] = [free.pop() for _ in range(-(-(n + 1) // ps))]
+            prompt = rng.integers(0, cfg.vocab, n).astype(np.int32)
+            sub = model.init_cache(1, t, dtype=torch.bfloat16, device=cuda)
+            lay = paged["layers"]
+            view = {"layers": {**lay, "pos": lay["pos"][:, slot:slot + 1]}}
+            row = torch.from_numpy(bt[slot:slot + 1]).to(cuda)
+            for c0 in range(0, n, chunk):
+                toks = np.zeros((1, chunk), np.int32)
+                toks[0, :min(chunk, n - c0)] = prompt[c0:c0 + chunk]
+                toks = torch.from_numpy(toks).to(cuda)
+                kw = dict(n_valid=min(chunk, n - c0), kv_len=c0 + chunk)
+                want, sub = model.prefill_extend(params, {"tokens": toks}, sub, ccfg, **kw)
+                got, _ = model.prefill_extend(params, {"tokens": toks, "block_table": row},
+                                              view, ccfg, **kw)
+                assert torch.equal(got, want), (slot, c0)
+            model.write_cache(dense, sub, slot)
+            nxt.append(int(torch.argmax(want[0, -1])))
+        toks = torch.tensor(nxt, dtype=torch.int32, device=cuda)[:, None]
+        want, _ = model.decode_step(params, {"tokens": toks}, dense, ccfg)
+        got, _ = model.decode_step(params, {"tokens": toks,
+                                            "block_table": torch.from_numpy(bt).to(cuda)},
+                                   paged, ccfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cascade_matmul_grouped"] > 0 and ops.LAUNCHES["decode_attention"] > 0
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    assert torch.equal(paged["layers"]["pos"], dense["layers"]["pos"])

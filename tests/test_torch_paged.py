@@ -411,6 +411,38 @@ def test_paged_engine_equals_jax_paged_engine(codeqwen, name):
         assert tm_["prefix_hit_rate"] >= 0.5 and tm_["pages_in_use"] > 0
 
 
+def test_admission_after_a_hit_off_the_chunk_keeps_the_dense_chunk_boundaries(codeqwen,
+                                                                              monkeypatch):
+    """A 12-token hit (3 pages of 4) with chunks of 8: the first chunk after
+    it ends at row 16, and every chunk hands attention its dense chunk's
+    live keys (a multiple of the chunk, holding its valid rows), so each
+    chunk's rows, live keys and flash plan are the dense engine's; the
+    streams equal the dense engine's and the JAX paged engine's."""
+    cfg, jm, jp, tm, tp = codeqwen
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab, 12).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 13).astype(np.int32)])
+               for _ in range(3)]
+    scfg = dict(max_batch=1, max_len=48, prefill_chunk=8, fused=True)
+    paged = dict(scfg, prefix_cache=True, page_size=4)
+    teng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**paged), device="cpu")
+    chunks, extend = [], tm.prefill_extend
+
+    def spy(params, batch, cache, ccfg, n_valid=None, kv_len=None, **kw):
+        chunks.append((teng._staging.consumed, int(n_valid), kv_len))
+        return extend(params, batch, cache, ccfg, n_valid=n_valid, kv_len=kv_len, **kw)
+    monkeypatch.setattr(tm, "prefill_extend", spy)
+    got = _serve(tengine, teng, prompts, 4)
+    monkeypatch.undo()
+    assert teng.metrics()["prefix_hits"] == 2 * 12
+    assert any(start % 8 for start, _, _ in chunks)          # admission began mid-chunk
+    for start, n, kv_len in chunks:
+        assert kv_len % 8 == 0 and kv_len - 8 <= start and start + n <= kv_len, chunks
+    deng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**scfg), device="cpu")
+    jeng = jengine.ServeEngine(jm, jp, J_FP4, jengine.ServeConfig(**paged))
+    assert got == _serve(tengine, deng, prompts, 4) == _serve(jengine, jeng, prompts, 4)
+
+
 @pytest.mark.parametrize("draft_len", [0, 3])
 def test_paged_sampled_streams_equal_the_dense_engines(codeqwen, draft_len):
     """Seeded sampling, plain and speculative: the paged engine's logits are

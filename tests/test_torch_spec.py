@@ -280,6 +280,29 @@ def test_greedy_spec_streams_equal_jax_spec_and_plain_greedy(models, fused):
         assert tm[key] == jm[key], key
 
 
+@pytest.mark.parametrize("ngram_max,ngram_lookback", [(1, 512), (2, 512), (3, 5)])
+def test_drafter_settings_reach_the_drafter_as_in_jax(models, ngram_max, ngram_lookback):
+    """``ServeConfig.ngram_max`` and ``ngram_lookback`` (here shorter than
+    every prompt) shape the drafts as in the reference: the same streams
+    (also plain greedy's), steps and accepted drafts as the JAX engine."""
+    cfg = models[0]
+    (js, ts, ps), jeng, teng = _three_ways(
+        models, _prompts(cfg, [12, 9, 15, 6], seed=4), 10, max_batch=2, max_len=40,
+        prefill_chunk=8, draft_len=3, ngram_max=ngram_max, ngram_lookback=ngram_lookback)
+    assert ts == js == ps
+    assert (teng.scfg.ngram_max, teng.scfg.ngram_lookback) == (ngram_max, ngram_lookback)
+    tm, jm = teng.metrics(), jeng.metrics()
+    for key in ("steps", "draft_tokens_accepted", "accepted_per_step"):
+        assert tm[key] == jm[key], key
+
+
+def test_serve_cli_takes_ngram_max(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--smoke", "--device", "cpu", "--requests", "2", "--max-new", "4",
+                       "--prompt-len", "8", "--draft-len", "2", "--ngram-max", "1"]) == 0
+    assert "spec draft_len=2" in capsys.readouterr().out
+
+
 def test_fused_engine_hands_flash_attention_the_live_cache_prefix(monkeypatch):
     """The fused engine gives flash attention only the keys a chunk can see:
     an admission chunk exactly its position plus its length, a verify pass

@@ -257,8 +257,7 @@ def test_cache_at_and_write_cache_address_the_slot_axis(codeqwen):
         assert not grid["layers"][name][:, 0].any() and not grid["layers"][name][:, 2].any()
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "deepseek-v2-236b",
-                                  "musicgen-large", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "musicgen-large", "qwen2-vl-2b"])
 def test_registry_names_the_roadmap_item_for_unported_families(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.load(arch, smoke=True)
