@@ -5,9 +5,23 @@
 
 from the root of a checkout. It builds the CUDA kernels from ``src/repro_torch/
 kernels/csrc`` with nvcc (sm_90a), all at once, and runs the phases below on
-the two served paths, the dense transformer (codeqwen1.5-7b) and Mamba-2
-(mamba2-370m); any failure exits non-zero before the final ``ok`` line is
-printed.
+the four served paths, the dense transformer (codeqwen1.5-7b), Mamba-2
+(mamba2-370m), the MoE family (olmoe-1b-7b) and Griffin (recurrentgemma-2b);
+any failure exits non-zero before the final ``ok`` line is printed.
+
+Griffin and CREST (the paper's fault tolerance) add: flash attention at
+head dim 256 with the local-window mask (``k_pos``, ``window``) at Griffin's
+admission and verify shapes over its 2,048-row ring and on a windowed
+2,048-token prompt (window 2,048 and 512), and decode attention on the ring
+(10 heads over one KV head), each held, timed and bounded as below; Griffin's
+FP4 matmul shapes in the matmul phase; recurrentgemma-2b's parity at depth 3
+(one (R, R, A) group); its serve runs (plain, speculative, and 4 prompts of
+2,040 tokens whose streams cross the window, held to an unfused run on the
+same weights); on codeqwen a healthy serve run with CREST probe waves every
+4 steps (streams equal the CREST-off run's, no fault confirmed, the probe's
+device time), and CREST on its dense lm_head through ``crest_matmul`` (3
+injected columns over 3 cursor cycles: all detected and repaired, none
+falsely, the repaired output within ``tol`` of the clean product).
 
 1. Kernels: each CUDA kernel at the shapes the serving paths give it, held
    to its plain PyTorch version on the same inputs (tolerances below), and
@@ -137,9 +151,14 @@ SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #: arch -> (rel_l2, max_steps)
 #     qwen2.5-32b (GQA 40/8, decode attention at G = 5) takes codeqwen's
 #     limits: a dense transformer of the same kind
+#     recurrentgemma-2b (depth 3: one (R, R, A) group): relative L2 0.0072 /
+#     0.0069 / 0.0072 and at most 1.5 / 1.25 / 1.625 steps on an H100
 PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1),
                  "qwen2.5-32b": (2.0 ** -6, 2), "olmoe-1b-7b": (2.0 ** -5.5, 10),
-                 "deepseek-v2-236b": (2.0 ** -5, 25)}
+                 "deepseek-v2-236b": (2.0 ** -5, 25), "recurrentgemma-2b": (2.0 ** -6, 3)}
+#: depth of the parity phase's model, where it is not 2: Griffin's first
+#: (R, R, A) group, so an attention block is held too
+PARITY_DEPTH = {"recurrentgemma-2b": 3}
 # f32 rate outside the tensor cores (the SSD scan's arithmetic)
 F32_FLOP_PER_S = 67e12
 
@@ -153,11 +172,14 @@ PAGE_SIZE, PREFIX_LEN = 16, 96
 #: a multiple of CHUNK, so admission after a hit runs other chunk
 #: boundaries than the dense engine's, past 256 live keys (flash splits)
 PREFIX_E, PROMPT_E = 112, 320
-#: the long-context serve run (codeqwen): a 4,096-token context, prompts
-#: that fill it but for a chunk, admitted in 127 chunks of 32
-LONG_LEN, LONG_REQ, LONG_BATCH, LONG_NEW = 4096, 2, 2, 8
+#: the long-context serve run (codeqwen): a 4,096-token context, one prompt
+#: that fills it but for a chunk, admitted in 127 chunks of 32
+LONG_LEN, LONG_REQ, LONG_BATCH, LONG_NEW = 4096, 1, 2, 8
+#: requests in the paged run (e) and its dense pair, and in the sampled pair:
+#: one wave of MAX_BATCH (the other runs take N_REQ, two waves)
+SHORT_REQ = MAX_BATCH
 
-ARCHS = ("codeqwen1.5-7b", "mamba2-370m", "olmoe-1b-7b")
+ARCHS = ("codeqwen1.5-7b", "mamba2-370m", "olmoe-1b-7b", "recurrentgemma-2b")
 #: the depth-2 parity phase also runs a GQA transformer and DeepSeek-V2's
 #: MLA (layer 0 dense, layer 1 160 routed experts); neither is served here
 PARITY_ARCHS = ARCHS + ("qwen2.5-32b", "deepseek-v2-236b")
@@ -171,7 +193,20 @@ RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention
                ("olmoe-1b-7b", "plain"): ("cascade_matmul", "cascade_matmul_grouped",
                                           "decode_attention", "flash_attention", "norm"),
                ("olmoe-1b-7b", "spec"): ("cascade_matmul", "cascade_matmul_grouped",
-                                         "flash_attention", "norm")}
+                                         "flash_attention", "norm"),
+               ("recurrentgemma-2b", "plain"): ("cascade_matmul", "decode_attention",
+                                                "flash_attention", "norm"),
+               ("recurrentgemma-2b", "spec"): ("cascade_matmul", "flash_attention", "norm")}
+#: the Griffin run whose streams cross the window: CROSS_REQ prompts of
+#: CROSS_LEN tokens, MAX_NEW new tokens each (positions past 2,048); its
+#: unfused reference admits them in chunks of CROSS_REF_CHUNK (8 calls a
+#: prompt, not 64: each unfused call dequantizes every weight)
+CROSS_REQ, CROSS_LEN, CROSS_REF_CHUNK = 4, 2040, 256
+#: CREST on codeqwen's dense lm_head: injected columns, the cursor cycles the
+#: detection run takes (n_spares 16, threshold 3: the defaults), and the
+#: leading columns it protects: three cycles over all 92,416 took 28.6 s on
+#: an H100 (17,328 probes at 1.65 ms), so the run takes the first 16,384
+CREST_FAULTS, CREST_CYCLES, CREST_COLUMNS = 3, 3, 16384
 NORM_RTOL, NORM_MTOL = 2.0 ** -7, 2.0 ** -20
 
 
@@ -238,13 +273,22 @@ def copies_beyond_l2(nbytes: int) -> int:
 #: codeqwen's q/k/v/o (QKV bias), gate/up and down, and mamba2-370m's
 #: in_proj and out_proj, in each of 32 and 48 layers; olmoe-1b-7b's q/k/v/o
 #: in each of 16 layers and its lm_head (its experts take the grouped entry)
+#: recurrentgemma-2b's 18 RG-LRU blocks (w_in, w_gate, w_out; wa and wx with
+#: bias), 8 attention blocks (q, o; k and v of one KV head: N = 256), the
+#: GeGLU MLP of all 26 layers and its untied head
 MATMUL_LAYERS = {("codeqwen1.5-7b", 4096, 4096, True): 4 * 32,
                  ("codeqwen1.5-7b", 4096, 13440, False): 2 * 32,
                  ("codeqwen1.5-7b", 13440, 4096, False): 32,
                  ("mamba2-370m", 1024, 4384, False): 48,
                  ("mamba2-370m", 2048, 1024, False): 48,
                  ("olmoe-1b-7b", 2048, 2048, False): 4 * 16,
-                 ("olmoe-1b-7b", 2048, 50304, False): 1}
+                 ("olmoe-1b-7b", 2048, 50304, False): 1,
+                 ("recurrentgemma-2b", 2560, 2560, False): 3 * 18 + 2 * 8,
+                 ("recurrentgemma-2b", 2560, 2560, True): 2 * 18,
+                 ("recurrentgemma-2b", 2560, 256, False): 2 * 8,
+                 ("recurrentgemma-2b", 2560, 7680, False): 2 * 26,
+                 ("recurrentgemma-2b", 7680, 2560, False): 26,
+                 ("recurrentgemma-2b", 2560, 256000, False): 1}
 #: codeqwen's FP4 lm_head, once a step (mamba2-370m's head is tied to the
 #: embedding: no FP4 matmul)
 MATMUL_HEAD = ("codeqwen1.5-7b", 4096, 92416, False)
@@ -621,11 +665,165 @@ def flash_phase(torch, dev):
     return rows
 
 
+def ring_slot_pos(torch, b, t, positions, dev):
+    """(B, T) int32 ``slot_pos`` of a ring of T rows whose row b next writes
+    position ``positions[b]`` (-1 where never written)."""
+    pos = torch.tensor(positions, dtype=torch.int64, device=dev)[:, None]
+    last = pos - 1 - ((pos - 1 - torch.arange(t, device=dev)[None, :]) % t)
+    return torch.where(last >= 0, last, -1).to(torch.int32)
+
+
+GRIFFIN_WINDOW, GRIFFIN_HEADS, GRIFFIN_D = 2048, 10, 256
+
+
+def local_flash_cases():
+    """(name, B, S, ring rows or 0, window, offsets), Griffin's heads (10
+    over 1 KV head of 256): the admission chunk over [ring, chunk] before
+    and after the ring wraps, the verify pass (8 rows of 1 + 4 over [ring,
+    chunk]), and a windowed S = T = 2048 prompt at window 2048 and 512."""
+    n = DRAFT_LEN + 1
+    return [("griffin_admit_off96", 1, CHUNK, GRIFFIN_WINDOW, GRIFFIN_WINDOW, [96]),
+            ("griffin_admit_off2016", 1, CHUNK, GRIFFIN_WINDOW, GRIFFIN_WINDOW, [2016]),
+            ("griffin_verify", MAX_BATCH, n, GRIFFIN_WINDOW, GRIFFIN_WINDOW,
+             [PROMPT_LEN + 4 * i for i in range(MAX_BATCH // 2)]
+             + [2040, 2047, 2100, 4000]),
+            ("prefill_2048_w2048", 1, 2048, 0, 2048, [0]),
+            ("prefill_2048_w512", 1, 2048, 0, 512, [0])]
+
+
+def local_flash_phase(torch, dev):
+    """Flash attention at head dim 256 with the window mask: ``k_pos`` (a
+    ring's rows at their positions, then the chunk's) and ``window``, and a
+    windowed prompt without ``k_pos``; held to the plain version at the
+    flash tolerance, timed beside it and SDPA with the same boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    hq, hkv, d = GRIFFIN_HEADS, 1, GRIFFIN_D
+    rows = []
+    for name, b, s, ring, window, offsets in local_flash_cases():
+        t = ring + s if ring else s
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(s * 7 + t)
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        kc = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        qv, k, v = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        k_pos = None
+        qrows = off[:, None] + torch.arange(s, device=dev, dtype=torch.int32)      # (B, S)
+        if ring:
+            k_pos = torch.cat([ring_slot_pos(torch, b, ring, offsets, dev), qrows], dim=1)
+        kp = (torch.arange(t, device=dev)[None, :].expand(b, t) if k_pos is None else k_pos)
+        vis = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qrows[:, :, None])
+               & (qrows[:, :, None] - kp[:, None, :] < window))                     # (B, S, T)
+        got = ops.flash_attention(qv, k, v, q_offset=off, k_pos=k_pos, window=window)
+        want = fa.flash_attention_plain(qv, k, v, True, None, off, k_pos, window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = FLASH_RTOL * want.float().abs() + FLASH_VTOL * float(vc.float().abs().max())
+        pl = fa.plan(b, hq, hkv, s, t, sms=torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
+        row = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "T": t, "D": d,
+               "ring_rows": ring, "window": window, "q_offset": offsets, "k_pos": ring > 0,
+               "splits": pl["splits"], "blocks": pl["blocks"],
+               "max_abs_err": float(err.max()), "max_err_over_tol": float((err / tol).max()),
+               "visible_pairs": int(vis.sum())}
+        if not bool((err <= tol).all()):
+            fail(f"flash_attention (local) {name}: kernel vs plain out of tolerance: {row}")
+        # every input read once: q, the K/V rows some query sees, the
+        # offsets and k_pos; the output written once; the products of the
+        # visible (query, key) pairs
+        kv_rows = int(vis.any(dim=1).sum())
+        nbytes = 2 * q.numel() * 2 + 2 * kv_rows * hkv * d * 2 + b * 4 \
+            + (k_pos.numel() * 4 if ring else 0)
+        flops = 4 * d * hq * row["visible_pairs"]
+        nc = copies_beyond_l2(nbytes)
+        sets = [(qv, k.clone(), v.clone(), off) for _ in range(nc)]
+        kern = lambda a, kk, vv, o: ops.flash_attention(a, kk, vv, q_offset=o, k_pos=k_pos,
+                                                        window=window)
+        plain = lambda a, kk, vv, o: fa.flash_attention_plain(a, kk, vv, True, None, o, k_pos,
+                                                              window)
+        lib = lambda a, kk, vv, o: F.scaled_dot_product_attention(
+            a, kk, vv, attn_mask=vis[:, None], enable_gqa=True)
+        big = s * t > 2 ** 20
+        row.update({"ms": graph_ms(torch, kern, sets, 20 if big else 100),
+                    "plain_ms": graph_ms(torch, plain, sets, 3 if big else 20),
+                    "library_ms": graph_ms(torch, lib, sets, 20 if big else 100),
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                                 else "operations")})
+        rows.append(row)
+        del sets, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ring_decode_phase(torch, dev):
+    """Decode attention at Griffin's ring: 8 slots, a 2,048-row ring, 10
+    query heads over one KV head of 256 (two blocks of 5 heads), the (B, T)
+    mask built from ``slot_pos`` as the served step builds it, before and
+    after the ring wraps; held to the plain version, timed beside it and
+    SDPA with the same mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    b, t, hq, hkv, d = MAX_BATCH, GRIFFIN_WINDOW, GRIFFIN_HEADS, 1, GRIFFIN_D
+    rows = []
+    for name, positions in (("griffin_ring_early", [PROMPT_LEN + 4 * i for i in range(b)]),
+                            ("griffin_ring_wrapped", [2040 + 300 * i for i in range(b)])):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(sum(positions))
+        q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        kc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = kc[1], vc[1]
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        sp = ring_slot_pos(torch, b, t, [p + 1 for p in positions], dev)
+        mask = (sp >= 0) & (sp <= pos[:, None]) & (pos[:, None] - sp < GRIFFIN_WINDOW)
+        live = int(mask.sum())
+        got = ops.decode_attention(q, k, v, mask)
+        want = da.decode_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= ATTN_ATOL:
+            fail(f"decode_attention {name}: max|err| {err} > {ATTN_ATOL}")
+        nc = copies_beyond_l2(k.numel() * 4)
+        sets = [(q, k if i == 0 else k.clone(), v if i == 0 else v.clone(), mask)
+                for i in range(nc)]
+        kern = lambda a, kk, vv, m: ops.decode_attention(a, kk, vv, m)
+        plain = lambda a, kk, vv, m: da.decode_attention_plain(a, kk, vv, m)
+        lib = lambda a, kk, vv, m: F.scaled_dot_product_attention(
+            a[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=m[:, None, None, :],
+            enable_gqa=True)
+        row = {"case": name, "B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d, "positions": positions,
+               "live_keys": live, "splits": da.choose_splits(b, hkv, hq // hkv, t),
+               "heads_per_block": da.heads_per_block(hq // hkv), "max_abs_err": err,
+               "tol": ATTN_ATOL, "ms": graph_ms(torch, kern, sets, 100),
+               "plain_ms": graph_ms(torch, plain, sets, 20),
+               "library_ms": graph_ms(torch, lib, sets, 100)}
+        # the live K/V rows, q, the mask read once; the f32 output written once
+        nbytes = q.numel() * 2 + 2 * live * hkv * d * 2 + b * t + b * hq * d * 4
+        flops = 4 * live * hq * d
+        row.update({"bytes": nbytes, "flops": flops,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                                 else "operations")})
+        rows.append(row)
+        del sets, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def norm_cases():
     """(name, leading shape, d, norm type): the served norms (RMSNorm at
     codeqwen's 4,096 and mamba2-370m's 1,024 and gated 2,048) at a decode
     step's 8 rows, a verify pass's (8, 5) and an admission chunk's (1, 32),
-    and a LayerNorm at codeqwen's width."""
+    recurrentgemma-2b's first block's norm at 2,560 in the same three
+    shapes, and a LayerNorm at codeqwen's width."""
     v = (MAX_BATCH, 1 + DRAFT_LEN)
     return [("codeqwen_step", (MAX_BATCH, 1), 4096, "rmsnorm"),
             ("codeqwen_verify", v, 4096, "rmsnorm"),
@@ -633,6 +831,9 @@ def norm_cases():
             ("mamba_step", (MAX_BATCH, 1), 1024, "rmsnorm"),
             ("mamba_gated_step", (MAX_BATCH, 1), 2048, "rmsnorm"),
             ("mamba_gated_verify", v, 2048, "rmsnorm"),
+            ("griffin_step", (MAX_BATCH, 1), 2560, "rmsnorm"),
+            ("griffin_verify", v, 2560, "rmsnorm"),
+            ("griffin_admit", (1, CHUNK), 2560, "rmsnorm"),
             ("layernorm_4096", (MAX_BATCH, 1), 4096, "layernorm")]
 
 
@@ -644,14 +845,18 @@ MAMBA_IN_PROJ = 4384
 def fused_norm_cases():
     """(name, form, leading shape, d): the residual add inside the norm
     (add-norm) at codeqwen's 4,096 (a decode step's 8 rows, a verify pass's
-    (8, 5), an admission chunk's (1, 32)) and mamba2-370m's 1,024 (step and
-    verify), and Mamba-2's gate inside its gated norm at 2,048 (step and
-    verify, and an admission chunk, whose dual form hands over f32 y beside
-    bf16 z). Rows are bf16 but where stated."""
+    (8, 5), an admission chunk's (1, 32)), recurrentgemma-2b's 2,560 in the
+    same three shapes, mamba2-370m's 1,024 (step and verify), and Mamba-2's
+    gate inside its gated norm at 2,048 (step and verify, and an admission
+    chunk, whose dual form hands over f32 y beside bf16 z). Rows are bf16
+    but where stated."""
     v = (MAX_BATCH, 1 + DRAFT_LEN)
     return [("codeqwen_step_add", "add", (MAX_BATCH, 1), 4096, "bfloat16"),
             ("codeqwen_verify_add", "add", v, 4096, "bfloat16"),
             ("codeqwen_admit_add", "add", (1, CHUNK), 4096, "bfloat16"),
+            ("griffin_step_add", "add", (MAX_BATCH, 1), 2560, "bfloat16"),
+            ("griffin_verify_add", "add", v, 2560, "bfloat16"),
+            ("griffin_admit_add", "add", (1, CHUNK), 2560, "bfloat16"),
             ("mamba_step_add", "add", (MAX_BATCH, 1), 1024, "bfloat16"),
             ("olmoe_step_add", "add", (MAX_BATCH, 1), 2048, "bfloat16"),
             ("mamba_verify_add", "add", v, 1024, "bfloat16"),
@@ -1002,7 +1207,7 @@ def parity_phase(torch, dev, arch: str):
     from repro_torch.core.cascade import CascadeConfig
     from repro_torch.models import registry
 
-    cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=PARITY_DEPTH.get(arch, 2))
     model = registry.build_model(cfg)
     ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
     params = model.init_params(3, ccfg, device=dev)
@@ -1027,10 +1232,11 @@ def parity_phase(torch, dev, arch: str):
             out[name] = (l1, l2, l3)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)            # the kernel run's: prefill, decode, verify
-    if cfg.family in ("dense", "moe") and not cfg.kv_lora \
-            and launches["decode_attention"] != cfg.n_layers:
+    attn_layers = getattr(model, "n_attn", cfg.n_layers)
+    if cfg.family in ("dense", "moe", "hybrid") and not cfg.kv_lora \
+            and launches["decode_attention"] != attn_layers:
         fail(f"depth-2 parity ({arch}): the decode step launched decode attention "
-             f"{launches['decode_attention']} times, not once per layer: {launches}")
+             f"{launches['decode_attention']} times, not once per attention layer: {launches}")
     if not all(torch.isfinite(o).all() for o in out["kernel"]):
         fail(f"depth-2 parity ({arch}): kernel logits not finite")
     rel_limit, step_limit = PARITY_LIMITS[arch]
@@ -1112,11 +1318,12 @@ def profile_call(torch, fn) -> dict:
                 eager[key] = eager.get(key, 0) + n
     # the KV rows' reads and writes outside the kernels: the paged pool's
     # gather (index_select) and scatter (index_copy_), the dense cache's row
-    # write (index_put_)
+    # write (index_put_), and Griffin's [ring, chunk] keys and values
+    # (torch.cat: every concatenation of the step counts here)
     pool = {}
     for name, (n, us) in by_name.items():
         for key, pat in (("gather", r"index_select|indexSelect|vectorized_gather_kernel"),
-                         ("scatter", r"index_copy|index_put")):
+                         ("scatter", r"index_copy|index_put"), ("concat", r"CatArrayBatchedCopy")):
             if re.search(pat, name):
                 c, t = pool.get(key, (0, 0.0))
                 pool[key] = (c + n, t + us)
@@ -1242,8 +1449,10 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
     if not bool(torch.stack(rec["finite"]).all()):
         fail(f"serve ({arch}, {kind}): non-finite logits")
     decode = "spec" if eng.spec else "plain"
-    if not all(launches[k] > 0 for k in RUN_KERNELS[(arch, decode)]):
+    if eng.fused and not all(launches[k] > 0 for k in RUN_KERNELS[(arch, decode)]):
         fail(f"serve ({arch}, {kind}): a kernel of the run never launched: {launches}")
+    if not eng.fused and any(launches.values()):
+        fail(f"serve ({arch}, {kind}): the unfused run launched a kernel: {launches}")
     if not all(0 <= t < model.cfg.vocab for r in reqs for t in r.tokens_out):
         fail(f"serve ({arch}, {kind}): a token outside the vocabulary")
     ttft = [r.first_token_at - r.created_at for r in reqs]
@@ -1271,7 +1480,8 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
         per_verify = {k: sorted({st[k] for st in steps}) for k in steps[0]}
         out["launches_per_verify_step_seen"] = per_verify
         n_layers = model.cfg.n_layers
-        want = {"flash_attention": n_layers if arch != "mamba2-370m" else 0,
+        want = {"flash_attention": (0 if arch == "mamba2-370m"
+                                    else getattr(model, "n_attn", n_layers)),
                 "ssd_scan": n_layers * (1 + DRAFT_LEN) if arch == "mamba2-370m" else 0,
                 "cascade_matmul_grouped": 3 * n_layers if arch == "olmoe-1b-7b" else 0,
                 "decode_attention": 0, "norm": 2 * n_layers + 1}
@@ -1376,10 +1586,10 @@ def serve_phase(torch, dev, arch: str):
     out = {"plain": plain, "spec": spec}
 
     if arch == "codeqwen1.5-7b":
-        # speculative sampling, twice with one seed
+        # speculative sampling, twice with one seed, on one wave of requests
         opts = dict(draft_len=DRAFT_LEN, temperature=0.8, top_k=50, sample_seed=0)
-        runs = [serve_run(torch, dev, arch, model, params, ccfg, rep, "spec_sampled", **opts)[::2]
-                for _ in range(2)]
+        runs = [serve_run(torch, dev, arch, model, params, ccfg, rep[:SHORT_REQ], "spec_sampled",
+                          **opts)[::2] for _ in range(2)]
         streams = [[r.tokens_out for r in reqs] for _, reqs in runs]
         if streams[0] != streams[1]:
             fail(f"serve ({arch}): two sampled runs with one seed gave different streams")
@@ -1388,10 +1598,136 @@ def serve_phase(torch, dev, arch: str):
         out["long_context"] = long_context_run(torch, dev, arch, model, params, ccfg)
         out.update(paged_runs(torch, dev, arch, model, params, ccfg, prompts, (reqs, prec0), rep,
                               (spec_reqs, srec)))
+        out["crest_healthy"] = crest_serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                               reqs)
+        out["crest_detection"] = crest_detection(torch, dev, params, ccfg)
+    elif arch == "recurrentgemma-2b":
+        out.update(window_crossing_runs(torch, dev, arch, model, params, ccfg))
     elif arch == "olmoe-1b-7b":
         out["dense_shared_prefix"], out["paged_prefix_cache"] = prefix_pair(
             torch, dev, arch, model, params, ccfg, shared_prefix_prompts(cfg.vocab),
             "shared_prefix", PREFIX_LEN)
+    return out
+
+
+def window_crossing_runs(torch, dev, arch, model, params, ccfg):
+    """Griffin's streams across the window: CROSS_REQ prompts of CROSS_LEN
+    tokens (64 admission chunks of 32 through the 2,048-row ring, which
+    wraps), MAX_NEW new tokens each at positions past 2,048, served fused
+    and, on the same weights, unfused (every wrapper's plain version: the
+    reference's arithmetic on the card; admitted in chunks of
+    CROSS_REF_CHUNK, other chunk boundaries). The fused streams must equal the
+    unfused ones but where the unfused run's top-2 margin is within twice
+    the path's bf16-step limit; each departure is reported with its index
+    and margin."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab, CROSS_LEN).astype(np.int32)
+               for _ in range(CROSS_REQ)]
+    ref, eng, ref_reqs, ref_rec = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                            "cross_window_unfused", margins=True, fused=False,
+                                            prefill_chunk=CROSS_REF_CHUNK)
+    del eng
+    run, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                  "cross_window")
+    del eng
+    margin_limit = 2 * PARITY_LIMITS[arch][1]
+    departures = []
+    for a, b in zip(ref_reqs, reqs):
+        j = first_departure(a, b)
+        if j is None:
+            continue
+        m, steps = top2_margin(ref_rec["top2"][(a.uid, j)])
+        d = {"uid": a.uid, "index": j, "unfused": a.tokens_out[j], "fused": b.tokens_out[j],
+             "unfused_margin": m, "margin_bf16_steps": steps}
+        departures.append(d)
+        if steps > margin_limit:
+            fail(f"serve ({arch}, cross_window): the fused stream departs from the unfused one "
+                 f"where its margin is {steps:.2f} bf16 steps (limit {margin_limit}): {d}")
+    run.update({"requests": CROSS_REQ, "prompt_len": CROSS_LEN,
+                "last_position": CROSS_LEN + MAX_NEW - 1, "window": model.cfg.window,
+                "streams_equal_unfused": not departures, "departures": departures,
+                "margin_limit_bf16_steps": margin_limit})
+    return {"cross_window_unfused": ref, "cross_window": run}
+
+
+def crest_serve_run(torch, dev, arch, model, params, ccfg, prompts, plain_reqs):
+    """A healthy serve run with CREST probe waves every 4 steps on the dense
+    f32 lm_head: its streams must equal the CREST-off run's token for token
+    and it must confirm no fault. A probe's cost: its device time (CUDA-graph
+    replays of ``crest_matmul`` on the engine's weight and state: no host
+    gaps) per probe and amortised per step, and its wall time (CUDA events
+    over eager probes back to back, which the host's launches bound)."""
+    from repro_torch.core import crest
+    run, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                  "crest_healthy", crest_enabled=True, crest_every=4)
+    rep = eng.crest_report()
+    if [r.tokens_out for r in reqs] != [r.tokens_out for r in plain_reqs]:
+        fail(f"serve ({arch}, crest_healthy): the streams differ from the CREST-off run's")
+    if rep["confirmed_faults"] != 0:
+        fail(f"serve ({arch}, crest_healthy): false positives on healthy weights: {rep}")
+    probes = int(eng.crest_state.cursor) // eng.scfg.crest_cfg.n_spares
+    n = 20
+    for _ in range(3):
+        eng._crest_probe()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        eng._crest_probe()
+    t1.record()
+    t1.synchronize()
+    probe_wall_ms = t0.elapsed_time(t1) / n
+    x = torch.randn((4, eng._probe_w.shape[0]), device=dev)
+    probe_ms = graph_ms(torch, lambda: crest.crest_matmul(x, eng._probe_w, eng.crest_state,
+                                                           eng.scfg.crest_cfg), [()], 20)
+    run.update({"crest_report": rep, "probes_in_run": probes,
+                "probe_weight_gb": eng._probe_w.numel() * 4 / 1e9,
+                "probe_device_ms": probe_ms,
+                "probe_device_ms_per_step": probe_ms / eng.scfg.crest_every,
+                "probe_wall_ms": probe_wall_ms, "streams_equal_crest_off": True})
+    del eng
+    return run
+
+
+def crest_detection(torch, dev, params, ccfg):
+    """CREST on codeqwen's dense f32 lm_head (its first CREST_COLUMNS
+    columns) through ``crest_matmul`` calls: CREST_FAULTS injected columns,
+    the reference's defaults (16 spares, threshold 3), CREST_CYCLES full
+    cursor cycles on random (4, K) inputs.
+    Detected must equal injected, with no false positive and every fault
+    repaired, and the repaired output must lie within ``tol`` of the clean
+    product (relative, as the compare: |y - y_clean| <= tol (1 + |y_clean|))."""
+    from repro_torch.core import cascade, crest
+
+    w = cascade.linear_weight(params["lm_head"], ccfg)[:, :CREST_COLUMNS].to(torch.float32)
+    k, n = w.shape
+    cfg = crest.CrestConfig()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fault = crest.inject_column_faults(gen, n, CREST_FAULTS)
+    state = crest.crest_init(n, cfg, device=dev)
+    probes = CREST_CYCLES * -(-n // cfg.n_spares)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(probes):
+        x = torch.randn((4, k), generator=gen, device=dev)
+        _, state = crest.crest_matmul(x, w, state, cfg, fault)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    stats = crest.coverage_stats(state, fault)
+    x = torch.randn((4, k), generator=gen, device=dev)
+    y, _ = crest.crest_matmul(x, w, state, cfg, fault)
+    with crest.full_f32_matmul():
+        clean = torch.matmul(x, w)
+    rel = float(((y - clean).abs() / (1.0 + clean.abs())).max())
+    out = {"columns": n, "lm_head_columns": int(params["lm_head"]["codes"].shape[1]), "K": k, "n_spares": cfg.n_spares, "threshold": cfg.threshold,
+           "tol": cfg.tol, "cycles": CREST_CYCLES, "probes": probes, "wall_s": wall,
+           "faulty_columns": fault.nonzero().flatten().tolist(), **stats,
+           "repaired_output_max_rel_err": rel}
+    if not (stats["detected"] == CREST_FAULTS and stats["false_positives"] == 0
+            and stats["repaired"] == CREST_FAULTS and rel <= cfg.tol):
+        fail(f"CREST detection on the lm_head: {out}")
+    del w
     return out
 
 
@@ -1408,15 +1744,15 @@ def first_departure(ref, req):
 
 
 def shared_prefix_prompts(vocab: int, prefix_len: int = PREFIX_LEN,
-                          prompt_len: int = PROMPT_LEN):
-    """N_REQ prompts of ``prompt_len`` tokens: one shared ``prefix_len``-token
+                          prompt_len: int = PROMPT_LEN, n: int = N_REQ):
+    """``n`` prompts of ``prompt_len`` tokens: one shared ``prefix_len``-token
     prefix (a system prompt, or a code file's head) and unique tokens after
     it."""
     import numpy as np
     rng = np.random.default_rng(3)
     shared = rng.integers(0, vocab, prefix_len).astype(np.int32)
     return [np.concatenate([shared, rng.integers(0, vocab, prompt_len - prefix_len)
-                            .astype(np.int32)]) for _ in range(N_REQ)]
+                            .astype(np.int32)]) for _ in range(n)]
 
 
 def equal_streams(arch, kind, ref, reqs):
@@ -1449,7 +1785,8 @@ def prefix_pair(torch, dev, arch, model, params, ccfg, prompts, kind, prefix_len
                                        **opts)
     del eng
     run["streams_equal_dense"] = equal_streams(arch, f"paged_{kind}", (dreqs, drec), preqs)
-    hit = (N_REQ - 1) * (prefix_len // PAGE_SIZE * PAGE_SIZE) / sum(len(p) for p in prompts)
+    hit = (len(prompts) - 1) * (prefix_len // PAGE_SIZE * PAGE_SIZE) \
+        / sum(len(p) for p in prompts)
     run.update({"prefix_len": prefix_len, "prompt_len": len(prompts[0]),
                 "expected_hit_rate": hit})
     for rec, plans in ((dense, dplans), (run, pplans)):
@@ -1470,7 +1807,7 @@ def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref,
     admission chunks and prompt tokens spent on both); (c) ``prefix_cache``
     on the random prompts, whose default pool (max_batch * blocks + 1 pages)
     must evict; (d) ``paged`` speculative greedy on the repetitive prompts,
-    against the dense speculative run; (e) as (b) on prompts of PROMPT_E
+    against the dense speculative run; (e) as (b) on SHORT_REQ prompts of PROMPT_E
     tokens sharing PREFIX_E (not a multiple of the chunk), whose admission
     after a hit runs chunks past 256 live keys, where flash attention splits."""
     from repro_torch.serve.engine import Request
@@ -1508,7 +1845,8 @@ def paged_runs(torch, dev, arch, model, params, ccfg, random_prompts, plain_ref,
 
     out["dense_prefix_off_chunk"], out["paged_prefix_off_chunk"] = prefix_pair(
         torch, dev, arch, model, params, ccfg,
-        shared_prefix_prompts(model.cfg.vocab, PREFIX_E, PROMPT_E), "prefix_off_chunk",
+        shared_prefix_prompts(model.cfg.vocab, PREFIX_E, PROMPT_E, SHORT_REQ),
+        "prefix_off_chunk",
         PREFIX_E, max_len=PROMPT_E + MAX_NEW + 1)
     if not out["paged_prefix_off_chunk"]["flash_split_launches"] > 0:
         fail(f"serve ({arch}, paged_prefix_off_chunk): no admission chunk split flash "
@@ -1608,6 +1946,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     fla_geometry = fa.geometry()
     print(json.dumps({"flash_attention": fla, "geometry": fla_geometry}), flush=True)
+    fla_local = timed("flash_attention local", local_flash_phase)
+    print(json.dumps({"flash_attention_local": fla_local}), flush=True)
+    ring = timed("decode_attention ring", ring_decode_phase)
+    print(json.dumps({"decode_attention_ring": ring}), flush=True)
     nrm = timed("norm", norm_phase)
     nrm_fused = timed("norm fused", fused_norm_phase)
     print(json.dumps({"norm": nrm, "norm_fused": nrm_fused}), flush=True)
@@ -1620,10 +1962,13 @@ def main() -> int:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
         print(json.dumps({"parity_depth2": par[arch]}), flush=True)
     par_failed = [a for a, r in par.items() if not r["within_limits"]]
+    crest_det = None
     for arch in ARCHS:
         srv[arch] = timed(f"serve {arch}", serve_phase, arch)
+        crest_det = srv[arch].pop("crest_detection", crest_det)
         for run in srv[arch].values():
             print(json.dumps({"serve": run}), flush=True)
+    print(json.dumps({"crest_detection": crest_det}), flush=True)
 
     def step_summary(prof):
         return {"device_busy_ms": prof["device_busy_ms"], "device_kernels": prof["device_kernels"],
@@ -1647,9 +1992,9 @@ def main() -> int:
     def by_run(name):
         """Launches in every serve run, each counted from zero."""
         return {f"{arch}/{kind}": rec["launches"][name] for arch in ARCHS
-                for kind, rec in srv[arch].items()}
+                for kind, rec in srv[arch].items() if "launches" in rec}
 
-    cq, mb, om = ARCHS
+    cq, mb, om, rg = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
 
     def grouped_step(key):
@@ -1672,7 +2017,33 @@ def main() -> int:
         "norm": {"launches": 33, "ms": 33 * on["ms"], "bound_ms": 33 * on["bound_ms"],
                  "note": "32 add-norms at 8 x 2048 and the final norm, timed as add-norms"}}
     print(json.dumps({"olmoe_profiled_steps": moe_step}), flush=True)
+    # recurrentgemma-2b's served steps: device busy against the host step,
+    # launches a step per kernel, TTFT and peak memory per run; CREST's cost
+    griffin = {run: {k: srv[rg][run].get(k) for k in (
+        "step_ms_p50", "step_ms_p99", "decode_tokens_per_s", "ttft_s_p50", "ttft_s_max",
+        "peak_mem_gb", "launches_per_decode_step", "accepted_per_step", "streams_equal_plain",
+        "streams_equal_unfused", "departures", "divergences")}
+        for run in ("plain", "spec", "cross_window")}
+    griffin["profiled_decode_step"] = {k: srv[rg]["plain"]["profiled_decode_step"][k] for k in (
+        "device_busy_ms", "device_kernels", "our_kernels")}
+    griffin["profiled_verify_step"] = {k: srv[rg]["spec"]["profiled_verify_step"][k] for k in (
+        "device_busy_ms", "device_kernels", "our_kernels", "kv_rows")}
+    griffin["crest"] = {"healthy": {k: srv[cq]["crest_healthy"][k] for k in (
+        "crest_report", "probes_in_run", "probe_weight_gb", "probe_device_ms",
+        "probe_device_ms_per_step", "probe_wall_ms", "streams_equal_crest_off",
+        "step_ms_p50")}, "detection": crest_det}
+    print(json.dumps({"griffin_and_crest": griffin}), flush=True)
     nq = next(r for r in nrm_fused if r["case"] == "codeqwen_step_add")
+    gn = {r["case"]: r for r in nrm + nrm_fused if r["case"].startswith("griffin_")}
+
+    def griffin_norms(shape, run):
+        """recurrentgemma-2b's norms in one served step: its first block's
+        plain norm and an add-norm for every other (and the final norm),
+        each timed at the step's shape, summed over the step's launches."""
+        n = srv[rg][run]["launches_per_decode_step"]["norm"]
+        one, add = gn[f"griffin_{shape}"], gn[f"griffin_{shape}_add"]
+        return {"launches": n, **{k: one[k] + (n - 1) * add[k]
+                                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     kernels = [
         {"name": "cascade_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
@@ -1700,7 +2071,9 @@ def main() -> int:
                               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
          "olmoe_1b_7b_step": {key: per_step(om, key)
                               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-         "verify_step_m40": {a: verify_step(a) for a in (cq, mb)},
+         "recurrentgemma_2b_step": {key: per_step(rg, key)
+                                    for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "verify_step_m40": {a: verify_step(a) for a in (cq, mb, rg)},
          "geometry": mm_geometry,
          "rows_equal_across_m": all(r["rows_equal"] for r in mm_rows),
          "cascade_matmul_shapes": {f"{r['arch']} {r['M']}x{r['K']}->{r['N']}": {k: r[k] for k in (
@@ -1741,17 +2114,20 @@ def main() -> int:
          "launches_by_run": by_run("decode_attention"),
          "launches_per_decode_step":
              srv[cq]["plain"]["launches_per_decode_step"]["decode_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in atts),
-         "max_err": max(max(r["max_abs_err"], r["max_abs_err_mask_route"]) for r in atts),
+         "max_abs_err": max(r["max_abs_err"] for r in atts + ring),
+         "max_err": max([max(r["max_abs_err"], r["max_abs_err_mask_route"]) for r in atts]
+                        + [r["max_abs_err"] for r in ring]),
          "tol": ATTN_ATOL,
          "ms": att["ms"], "kernel_ms": att["ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
          "library_ms": att["library_ms"],
          "library_note": "scaled_dot_product_attention with the equivalent boolean mask",
          "geometry": att_geometry, "splits": att["splits"],
+         "launches_per_griffin_decode_step":
+             srv[rg]["plain"]["launches_per_decode_step"]["decode_attention"],
          "decode_attention_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits", "max_abs_err")}
-             for r in atts}},
+             for r in atts + ring}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:72",
@@ -1762,8 +2138,8 @@ def main() -> int:
          "launches_by_run": by_run("flash_attention"),
          "launches_per_verify_step": srv[cq]["spec"]["launches_per_decode_step"]
          ["flash_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in fla),
-         "max_err_over_tol": max(r["max_err_over_tol"] for r in fla),
+         "max_abs_err": max(r["max_abs_err"] for r in fla + fla_local),
+         "max_err_over_tol": max(r["max_err_over_tol"] for r in fla + fla_local),
          "tol": "2^-7 * |plain| + 2^-12 * max|v| (bf16 out)",
          "ms": fv["ms"], "kernel_ms": fv["ms"], "plain_ms": fv["plain_ms"],
          "bound_ms": fv["bound_ms"], "bound_by": fv["bound_by"],
@@ -1771,9 +2147,11 @@ def main() -> int:
          "library_note": "scaled_dot_product_attention with a boolean mask (is_causal at "
                          "offset 0)",
          "geometry": fla_geometry,
+         "launches_per_griffin_verify_step":
+             srv[rg]["spec"]["launches_per_decode_step"]["flash_attention"],
          "flash_attention_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "ms_one_split", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
-             "heads_per_block") if k in r} for r in fla},
+             "heads_per_block") if k in r} for r in fla + fla_local},
          "long_context_launches_by_splits": srv[cq]["long_context"]["flash_launches_by_splits"]},
         {"name": "norm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/norm.cu",
@@ -1800,6 +2178,8 @@ def main() -> int:
          "old_route_ms": nq["old_route_ms"],
          "bound_ms": nq["bound_ms"], "bound_by": nq["bound_by"],
          "library_ms": nq["library_ms"], "library_note": nq["library_note"],
+         "recurrentgemma_2b_steps": {"decode": griffin_norms("step", "plain"),
+                                     "verify": griffin_norms("verify", "spec")},
          "norm_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "old_route_ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
              if k in r} for r in nrm + nrm_fused}},
@@ -1824,7 +2204,8 @@ def main() -> int:
     record = {"gpu": gpu_name_and_power(), "kernels": kernels, "cascade_matmul_shapes": mm,
               "cascade_matmul_rows_across_m": mm_rows, "cascade_matmul_grouped": grp,
               "olmoe_profiled_steps": moe_step,
-              "decode_attention": atts, "flash_attention": fla, "norm": nrm,
+              "decode_attention": atts, "decode_attention_ring": ring, "flash_attention": fla,
+              "flash_attention_local": fla_local, "griffin_and_crest": griffin, "norm": nrm,
               "norm_fused": nrm_fused, "ssd_scan": ssd,
               "parity_depth2": par, "serve": srv, "paged_pool": pool,
               "paged_decode_step_vs_dense": paged_vs_dense,

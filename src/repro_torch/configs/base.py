@@ -74,3 +74,18 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                    # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic attention."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False
+    return True

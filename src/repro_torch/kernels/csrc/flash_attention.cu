@@ -1,14 +1,19 @@
 // Blocked (flash) self-attention for Hopper (sm_90a), bf16 in and out:
 //   out[b, h, i] = softmax_j(where(visible(i, j), scale * q[b, h, i] . k[b, kvh, j], -1e30))
 //                  @ v[b, kvh, :]
-// with GQA (kv head = q head / G, G = Hq / Hkv); causal: key j is visible to
-// query i iff j <= q_offset[b] + i (a chunk appended at each row's cache
-// position); not causal: every key is visible.
+// with GQA (kv head = q head / G, G = Hq / Hkv); causal: key j, at position
+// kp = k_pos[b, j] (j itself when k_pos is absent), is visible to query i
+// (at position qp = q_offset[b] + i) iff kp >= 0, kp <= qp and, with a
+// window, qp - kp < window (a chunk appended at each row's cache position;
+// a ring buffer's rows carry their positions in k_pos); not causal: every
+// key is visible.
 //
 // Replaces the TPU kernel flash_attention_pallas (src/repro/kernels/
 // flash_attention.py, body _kernel); with q_offset = 0 and T = S it computes
-// exactly that function, and with a per-row q_offset the reference's extend
-// attention (models/layers.py, mode "extend").
+// exactly that function, with a per-row q_offset the reference's extend
+// attention (models/layers.py, mode "extend"), with a window its local
+// attention (prefill), and with k_pos its ring-buffer extend over [ring,
+// chunk] (keys at concat(slot_pos, chunk rows)).
 //
 // What bounds it on an H100, by shape:
 //   * a long causal prompt (S = T = 2048): the two products on the tensor
@@ -61,7 +66,23 @@
 //     writes the output. Below 256 live keys the merge launch costs more
 //     than the extra blocks win, so such chunks keep one split;
 //   * causal query tiles are launched last-first, so the heavy tiles start
-//     early.
+//     early;
+//   * a window without k_pos also skips the tiles before the block's first
+//     visible key (a long windowed prompt reads window + 64 keys a block, not
+//     all of them); with k_pos any key may be visible (a ring's rows are in
+//     no order), so every tile is read and masked. A tile none of whose keys
+//     a row sees leaves that row's sums exactly as they were: its p are 0
+//     and its max -1e30 does not raise the running max. Every row must see
+//     at least one key (a row sees its own key in every caller);
+//   * the local mask is a template flag: a call without k_pos or window runs
+//     the plain causal body (one compare a key), with the registers and bits
+//     it had before local attention;
+//   * head dim 256 (Griffin): Q as register fragments would take 64 of a
+//     thread's registers beside the 128 of its output row, so Q is staged
+//     once in shared memory (64 rows, padded) and its A fragments are read by
+//     ldmatrix.x4 at each k-step; the K/V ring keeps 2 stages of kKTWide =
+//     16 keys (shared memory 33 KB of Q and 33 KB of ring). At 32 keys the
+//     local body spills at 255 registers (ptxas); at 16 nothing spills.
 // wgmma, TMA, warp specialisation and a bf16 P are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +103,8 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;        // (position, head) rows per block
 constexpr int kKT = FA_KT;                // keys per tile
 constexpr int kStages = FA_STAGES;        // tiles in the shared-memory ring
+constexpr int kKTWide = 16;               // keys per tile past D = 128 (the output
+                                          // row takes 128 registers at D = 256)
 constexpr int kMaxHeads = 16;             // query heads per block at most
 constexpr int kMaxSplits = 16;
 constexpr float kMasked = -1e30f;
@@ -94,10 +117,11 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const int* q_offset;
+  const int* k_pos;                       // (B, T) key positions, or null (key j at j)
   __nv_bfloat16* out;
   float* ws_acc;                          // splits > 1: (B, Hq, S, splits, D) partial sums
   float* ws_ml;                           //             (B, Hq, S, splits, 2) max, denominator
-  int S, T, Hq, Hkv, G, hpb, n_hchunks, qpos, n_qtiles, splits, causal;
+  int S, T, Hq, Hkv, G, hpb, n_hchunks, qpos, n_qtiles, splits, causal, window;
   float scale_log2;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_ss;
 };
@@ -152,20 +176,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Q is staged in shared memory past this head dim (its register fragments
+// would not fit beside the output row's)
 template <int D>
-constexpr int smem_bytes() {
-  return kStages * 2 * kKT * (D + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+__host__ __device__ constexpr bool q_in_smem() {
+  return D > 128;
+}
+
+// keys per tile at head dim D
+template <int D>
+__host__ __device__ constexpr int keys_per_tile() {
+  return D > 128 ? kKTWide : kKT;
 }
 
 template <int D>
+constexpr int smem_bytes() {
+  return (kStages * 2 * keys_per_tile<D>() + (q_in_smem<D>() ? kRows : 0)) * (D + 8) *
+         static_cast<int>(sizeof(__nv_bfloat16));
+}
+
+// kLocal: the call has k_pos or a window. Without them the body is the plain
+// causal one (visible iff key <= the row's last key), which keeps the
+// registers, and the bits, of the kernel before local attention
+template <int D, bool kLocal>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params p) {
+  constexpr int kKT = keys_per_tile<D>();  // keys per tile (shadows the default's)
   constexpr int kPitch = D + 8;           // bf16 per shared row: 16-byte rows, no bank conflicts
   constexpr int kKSteps = D / 16;         // k-steps of Q K^T
   constexpr int kNT = D / 8;              // n-tiles of the output row
   constexpr int kVec = D / 8;             // 16-byte vectors per K/V row
   constexpr int kTile = kKT * kPitch;     // bf16 per K (or V) tile
+  constexpr bool kQSmem = q_in_smem<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [stage][K, V][kKT][kPitch]
+  // [stage][K, V][kKT][kPitch], then (kQSmem) Q's [kRows][kPitch]
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* smem_q = smem + kStages * 2 * kTile;
 
   const int qt = p.n_qtiles - 1 - static_cast<int>(blockIdx.x) / p.splits;
   const int split = static_cast<int>(blockIdx.x) % p.splits;
@@ -183,15 +228,22 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
   const int tig = lane & 3;
   const int off = p.causal ? p.q_offset[b] : 0;
 
-  // keys [0, kv_end) are visible to some row of the block, keys [0,
-  // mask_from) to every row; the block's tiles cover [0, kv_end), and this
-  // split takes an equal share of them
-  const int kv_end = p.causal ? min(p.T, off + pos0 + npos) : p.T;
-  const int mask_from = p.causal ? min(off + pos0 + 1, kv_end) : kv_end;
-  const int n_all = (kv_end + kKT - 1) / kKT;
+  // keys [kv_begin, kv_end) hold every key visible to a row of the block,
+  // keys [mask_below, mask_from) are visible to every row; the block's tiles
+  // cover [kv_begin, kv_end), and this split takes an equal share of them.
+  // With k_pos any key may be visible: every tile is read and masked
+  const bool by_kpos = kLocal && p.k_pos != nullptr;
+  const bool windowed = kLocal && p.causal && p.window > 0;
+  const int kv_end = (p.causal && !by_kpos) ? min(p.T, off + pos0 + npos) : p.T;
+  const int kv_begin = (windowed && !by_kpos) ? max(0, off + pos0 - p.window + 1) : 0;
+  const int mask_from = by_kpos ? 0 : p.causal ? min(off + pos0 + 1, kv_end) : kv_end;
+  const int mask_below = (windowed && !by_kpos) ? off + pos0 + npos - p.window : 0;
+  const int t_lo = kv_begin / kKT;
+  const int n_all = max(0, (kv_end + kKT - 1) / kKT - t_lo);
   const int per = (n_all + p.splits - 1) / p.splits;
-  const int t_first = split * per;
-  const int n_tiles = max(0, min(n_all - t_first, per));
+  const int t_first = t_lo + split * per;
+  const int n_tiles = max(0, min(n_all - split * per, per));
+  const int* kpos = by_kpos ? p.k_pos + static_cast<long long>(b) * p.T : nullptr;
 
   const __nv_bfloat16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
@@ -215,6 +267,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
         copy_row(ks, vs, k0, i / kVec, (i % kVec) * 8);
     }
   };
+  if constexpr (kQSmem) {
+    // Q's rows into shared memory (dead rows zero-filled), in the first
+    // commit group, beside the first K/V tile
+    for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
+      const int r = i / kVec;
+      const int c = (i % kVec) * 8;
+      const bool live = r < live_rows;
+      const __nv_bfloat16* src =
+          live ? p.q + b * p.q_sb + (h0 + r % nh) * p.q_sh + (pos0 + r / nh) * p.q_ss + c : p.q;
+      cp_async16(smem_q + r * kPitch + c, src, live);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) fetch(s);
@@ -231,22 +295,29 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
   const int pos_1 = pos0 + r1 / nh;
   const int head0 = h0 + r0 % nh;
   const int head1 = h0 + r1 % nh;
-  // the last key each of the two rows sees
+  // plain: the last key each of the two rows sees; local: the query
+  // position of each, and key j visible to a row at qp iff its position
+  // kp (-1 past T: no key) is >= 0, <= qp and, with a window, within it
   const int lim0 = p.causal ? min(off + pos_0, p.T - 1) : p.T - 1;
   const int lim1 = p.causal ? min(off + pos_1, p.T - 1) : p.T - 1;
+  const int qp0 = off + pos_0;
+  const int qp1 = off + pos_1;
 
   // Q as mma A fragments, loaded while the first tiles land, kept in
-  // registers for the whole key loop
+  // registers for the whole key loop (from shared memory at each k-step
+  // when kQSmem)
   const __nv_bfloat16* q0 = p.q + b * p.q_sb + head0 * p.q_sh + pos_0 * p.q_ss;
   const __nv_bfloat16* q1 = p.q + b * p.q_sb + head1 * p.q_sh + pos_1 * p.q_ss;
-  uint32_t qa[kKSteps][4];
+  uint32_t qa[kQSmem ? 1 : kKSteps][4];
+  if constexpr (!kQSmem) {
 #pragma unroll
-  for (int s = 0; s < kKSteps; ++s) {
-    const int d = s * 16 + tig * 2;
-    qa[s][0] = live0 ? ld_u32(q0 + d) : 0u;
-    qa[s][1] = live1 ? ld_u32(q1 + d) : 0u;
-    qa[s][2] = live0 ? ld_u32(q0 + d + 8) : 0u;
-    qa[s][3] = live1 ? ld_u32(q1 + d + 8) : 0u;
+    for (int s = 0; s < kKSteps; ++s) {
+      const int d = s * 16 + tig * 2;
+      qa[s][0] = live0 ? ld_u32(q0 + d) : 0u;
+      qa[s][1] = live1 ? ld_u32(q1 + d) : 0u;
+      qa[s][2] = live0 ? ld_u32(q0 + d + 8) : 0u;
+      qa[s][3] = live1 ? ld_u32(q1 + d + 8) : 0u;
+    }
   }
 
   float o[kNT][4];
@@ -274,16 +345,26 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
     for (int n = 0; n < kKT / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
+      uint32_t qs_frag[4];
+      const uint32_t* a = qa[kQSmem ? 0 : s];
+      if constexpr (kQSmem) {
+        // rows 0-15 of the warp's m-tile, k-steps' halves by lane / 16
+        ldmatrix_x4(qs_frag, smem_q + (warp * 16 + (lane & 15)) * kPitch + s * 16 +
+                                 (lane >> 4) * 8);
+        a = qs_frag;
+      }
 #pragma unroll
       for (int n = 0; n < kKT / 8; n += 2) {
         uint32_t bf[4];
         ldmatrix_x4(bf, ks + ((n + (mat >> 1)) * 8 + (lane & 7)) * kPitch + s * 16 +
                             (mat & 1) * 8);
-        mma_bf16(sc[n], qa[s], bf[0], bf[1]);
-        mma_bf16(sc[n + 1], qa[s], bf[2], bf[3]);
+        mma_bf16(sc[n], a, bf[0], bf[1]);
+        mma_bf16(sc[n + 1], a, bf[2], bf[3]);
       }
     }
-    const bool masked = k0 + kKT > mask_from;
+    const bool masked = k0 + kKT > mask_from || (kLocal && k0 < mask_below);
+    // bit 2n + e: this thread's key k0 + 8n + 2 tig + e is visible to row r0 / r1
+    uint32_t vis0 = 0u, vis1 = 0u;
     float mx0 = m0, mx1 = m1;
     if (masked) {
 #pragma unroll
@@ -291,8 +372,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + n * 8 + tig * 2 + e;
-          sc[n][e] = key <= lim0 ? sc[n][e] * p.scale_log2 : kMasked;
-          sc[n][2 + e] = key <= lim1 ? sc[n][2 + e] * p.scale_log2 : kMasked;
+          bool v0 = key <= lim0, v1 = key <= lim1;
+          if constexpr (kLocal) {
+            const int kp = key >= p.T ? -1 : by_kpos ? __ldg(kpos + key) : key;
+            const bool all = !p.causal;
+            v0 = kp >= 0 && (all || (kp <= qp0 && (p.window <= 0 || qp0 - kp < p.window)));
+            v1 = kp >= 0 && (all || (kp <= qp1 && (p.window <= 0 || qp1 - kp < p.window)));
+            vis0 |= static_cast<uint32_t>(v0) << (2 * n + e);
+            vis1 |= static_cast<uint32_t>(v1) << (2 * n + e);
+          }
+          sc[n][e] = v0 ? sc[n][e] * p.scale_log2 : kMasked;
+          sc[n][2 + e] = v1 ? sc[n][2 + e] * p.scale_log2 : kMasked;
         }
       }
     } else {
@@ -321,8 +411,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + n * 8 + tig * 2 + e;
-          sc[n][e] = key <= lim0 ? exp2f(sc[n][e] - mx0) : 0.f;
-          sc[n][2 + e] = key <= lim1 ? exp2f(sc[n][2 + e] - mx1) : 0.f;
+          const bool v0 = kLocal ? (vis0 >> (2 * n + e)) & 1u : key <= lim0;
+          const bool v1 = kLocal ? (vis1 >> (2 * n + e)) & 1u : key <= lim1;
+          sc[n][e] = v0 ? exp2f(sc[n][e] - mx0) : 0.f;
+          sc[n][2 + e] = v1 ? exp2f(sc[n][2 + e] - mx1) : 0.f;
         }
       }
     } else {
@@ -419,8 +511,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
 }
 
 // merges the splits' partials: one thread per (b, head, position, d),
-// weights exp2(m_s - m) with m the largest max (split 0 always holds key 0,
-// which every row sees)
+// weights exp2(m_s - m) with m the largest max (a split in which a row saw
+// no key has max -1e30 or -inf and weighs 0; some split holds a key the row
+// sees)
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_attention_merge(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
@@ -446,18 +539,18 @@ flash_attention_merge(const float* __restrict__ ws_acc, const float* __restrict_
   out[b * o_sb + h * o_sh + pos * o_ss + d] = __float2bfloat16_rn(num / den);
 }
 
-template <int D>
+template <int D, bool kLocal>
 int launch(Params p, int B, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   static int smem_set = 48 * 1024;       // the default limit of dynamic shared memory
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D, kLocal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
   const dim3 grid(p.n_qtiles * p.splits, p.Hkv * p.n_hchunks, B);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<D, kLocal><<<grid, kThreads, smem, stream>>>(p);
   if (p.splits > 1) {
     const long long total = static_cast<long long>(B) * p.Hq * p.S * D;
     flash_attention_merge<D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
@@ -482,27 +575,33 @@ extern "C" void flash_attention_geometry(int* out5) {
 // q (B, Hq, S, D), k/v (B, Hkv, T, D), out (B, Hq, S, D): bf16, unit stride
 // on D, the element strides (batch, head, row) of q, k, v and out in
 // strides[0..11] (each a multiple of 8, every base 16-byte aligned);
-// q_offset: (B,) int32 >= 0 on the device (read only when causal). D is one
-// of 16, 32, 64, 96, 128; Hq % Hkv == 0; S, T >= 1. scale is the softmax
+// q_offset: (B,) int32 >= 0 on the device (read only when causal); k_pos:
+// null, or (B, T) int32 contiguous on the device, key j of row b at position
+// k_pos[b, j] (< 0: no key); window: 0, or (causal) the local window. Every
+// query row must see at least one key. D is one
+// of 16, 32, 64, 96, 128, 256; Hq % Hkv == 0; S, T >= 1. scale is the softmax
 // scale. heads_per_block (1-16) query heads of a group per block, dividing
 // the group into equal chunks; splits (1-16) blocks along the keys, and with
 // splits > 1 the f32 workspaces ws_acc (B * Hq * S * splits * D) and ws_ml
 // (B * Hq * S * splits * 2). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* q_offset, void* out, void* ws_acc,
-                                      void* ws_ml, int B, int Hq, int Hkv, int S, int T, int D,
-                                      int causal, float scale, int heads_per_block, int splits,
+                                      const void* q_offset, const void* k_pos, void* out,
+                                      void* ws_acc, void* ws_ml, int B, int Hq, int Hkv, int S,
+                                      int T, int D, int causal, int window, float scale,
+                                      int heads_per_block, int splits,
                                       const long long* strides, void* stream) {
   const int G = Hq / Hkv;
   if (heads_per_block < 1 || heads_per_block > kMaxHeads || splits < 1 || splits > kMaxSplits ||
-      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
+      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)) || window < 0 ||
+      (!causal && (window > 0 || k_pos != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.q_offset = static_cast<const int*>(q_offset);
+  p.k_pos = static_cast<const int*>(k_pos);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws_acc = static_cast<float*>(ws_acc);
   p.ws_ml = static_cast<float*>(ws_ml);
@@ -517,6 +616,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.n_qtiles = (S + p.qpos - 1) / p.qpos;
   p.splits = splits;
   p.causal = causal;
+  p.window = window;
   p.scale_log2 = scale * kLog2e;
   p.q_sb = strides[0];
   p.q_sh = strides[1];
@@ -531,12 +631,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.o_sh = strides[10];
   p.o_ss = strides[11];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool local = k_pos != nullptr || window > 0;
   switch (D) {
-    case 16: return launch<16>(p, B, s);
-    case 32: return launch<32>(p, B, s);
-    case 64: return launch<64>(p, B, s);
-    case 96: return launch<96>(p, B, s);
-    case 128: return launch<128>(p, B, s);
+    case 16: return local ? launch<16, true>(p, B, s) : launch<16, false>(p, B, s);
+    case 32: return local ? launch<32, true>(p, B, s) : launch<32, false>(p, B, s);
+    case 64: return local ? launch<64, true>(p, B, s) : launch<64, false>(p, B, s);
+    case 96: return local ? launch<96, true>(p, B, s) : launch<96, false>(p, B, s);
+    case 128: return local ? launch<128, true>(p, B, s) : launch<128, false>(p, B, s);
+    case 256: return local ? launch<256, true>(p, B, s) : launch<256, false>(p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,7 +5,14 @@ k/v (B, Hkv, T, D); GQA maps q head h to kv head h // (Hq / Hkv). Under
 ``causal`` query i of row b sees key j iff ``j <= q_offset[b] + i``: with
 ``q_offset`` zero and T == S that is the TPU kernel's causal mask, and with
 ``q_offset`` the rows' cache positions it is the reference's extend
-attention (a chunk appended to each row's cache). Scores are scaled,
+attention (a chunk appended to each row's cache). Two optional arguments
+make it local attention: ``k_pos`` (B, T) int32 gives key j's position
+(``j`` when absent; < 0 marks no key), and ``window`` > 0 hides keys
+``window`` or more positions behind the query. Key j is then visible iff
+``0 <= k_pos[b, j] <= q_offset[b] + i`` and, with a window, ``q_offset[b] +
+i - k_pos[b, j] < window``: a windowed prompt (no ``k_pos``), and the
+reference's ring-buffer extend, whose keys are the ring's rows at their
+``slot_pos`` followed by the chunk's own. Scores are scaled,
 masked to -1e30, soft-maxed over T and contracted with v in f32; the result
 is (B, Hq, S, D) in q's dtype, as the TPU kernel writes it.
 
@@ -29,23 +36,43 @@ import torch
 from repro_torch.kernels import build
 
 #: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 96, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+
+
+def check_local(causal: bool, k_pos: torch.Tensor | None, window: int, b: int, t: int,
+                device) -> None:
+    """Raise unless ``k_pos`` is absent or a (b, t) int32 tensor on ``device``
+    and ``window`` >= 0; both apply to causal attention only."""
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not causal and (k_pos is not None or window):
+        raise ValueError("k_pos and window apply to causal attention only")
+    if k_pos is not None and (k_pos.dtype != torch.int32 or tuple(k_pos.shape) != (b, t)
+                              or k_pos.device != device):
+        raise ValueError(f"k_pos must be ({b}, {t}) int32 on {device}, got "
+                         f"{tuple(k_pos.shape)} {k_pos.dtype} on {k_pos.device}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, scale: float | None = None,
-                          q_offset: torch.Tensor | None = None) -> torch.Tensor:
+                          q_offset: torch.Tensor | None = None,
+                          k_pos: torch.Tensor | None = None, window: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the reference's masked softmax)."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    check_local(causal, k_pos, window, b, t, q.device)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, s, d)
     logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.to(torch.float32)) * scale
     if causal:
         off = (torch.zeros((b,), dtype=torch.int64, device=q.device) if q_offset is None
                else q_offset.to(torch.int64))
-        rows = off[:, None] + torch.arange(s, device=q.device)            # (B, S)
-        visible = torch.arange(t, device=q.device)[None, None, :] <= rows[:, :, None]
+        rows = off[:, None, None] + torch.arange(s, device=q.device)[:, None]   # (B, S, 1)
+        kp = (torch.arange(t, device=q.device)[None, None, :] if k_pos is None
+              else k_pos.to(torch.int64)[:, None, :])                            # (B|1, 1, T)
+        visible = (kp >= 0) & (kp <= rows)
+        if window > 0:
+            visible &= rows - kp < window
         logits = logits.masked_fill(~visible[:, None, None], -1e30)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgst,bhtd->bhgsd", p, v.to(torch.float32))
@@ -159,7 +186,7 @@ def split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int,
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a built flash-attention library."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+    lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                            ctypes.c_float, i, i, p, p]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_geometry.argtypes = [p]
@@ -196,17 +223,20 @@ def _check_strided(name: str, t: torch.Tensor):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, scale: float | None = None,
-                         q_offset: torch.Tensor | None = None, *,
+                         q_offset: torch.Tensor | None = None,
+                         k_pos: torch.Tensor | None = None, window: int = 0, *,
                          splits: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on bf16 CUDA tensors; raises on anything it
     does not take. q, k and v are read in place through their strides; the
     result is a (B, Hq, S, D) view of a (B, S, Hq, D) buffer, so a caller
     in the model's (B, S, H, D) layout transposes it back without a copy.
+    Every query row must see at least one key (the kernel does not give the
+    plain version's uniform average to a row that sees none).
     ``splits`` overrides :func:`plan`'s split count (for measurement)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    for name, t in (("k", k), ("v", v), ("q_offset", q_offset)):
+    for name, t in (("k", k), ("v", v), ("q_offset", q_offset), ("k_pos", k_pos)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -221,6 +251,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the kernel takes bf16 q/k/v only, got {q.dtype}/{k.dtype}/{v.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_strided(name, x)
+    check_local(causal, k_pos, window, b, t, dev)
+    if k_pos is not None:
+        k_pos = k_pos.contiguous()
     if q_offset is None:
         q_offset = torch.zeros((b,), dtype=torch.int32, device=dev)
     if q_offset.dtype != torch.int32 or tuple(q_offset.shape) != (b,) \
@@ -242,8 +275,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        *out.stride()[:3])
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = _library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(), out.data_ptr(),
-        ptr(ws_acc), ptr(ws_ml), b, hq, hkv, s, t, d, int(causal), float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(), ptr(k_pos),
+        out.data_ptr(), ptr(ws_acc), ptr(ws_ml), b, hq, hkv, s, t, d, int(causal), int(window),
+        float(scale),
         pl["heads_per_block"], splits, ctypes.addressof(strides),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -88,19 +88,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    scale: float | None = None,
-                    q_offset: torch.Tensor | None = None) -> torch.Tensor:
+                    scale: float | None = None, q_offset: torch.Tensor | None = None,
+                    k_pos: torch.Tensor | None = None, window: int = 0) -> torch.Tensor:
     """Blocked self-attention, GQA-aware. q: (B, Hq, S, D); k/v: (B, Hkv,
     T, D). Causal: query i of row b sees key j iff ``j <= q_offset[b] + i``
     (q_offset: (B,) int32, zeros when absent, so with T == S the plain
-    causal mask). Returns (B, Hq, S, D) in q's dtype. The CUDA kernel takes
-    bf16 only and reads q/k/v through their strides, so k/v may be a
-    cache's live prefix (its launch plan follows T)."""
+    causal mask). Local attention: key j sits at position ``k_pos[b, j]``
+    ((B, T) int32, ``j`` when absent, < 0 for no key) and is visible iff
+    that position is >= 0, <= the query's and, with ``window`` > 0, less
+    than ``window`` behind it. Returns (B, Hq, S, D) in q's dtype. The CUDA
+    kernel takes bf16 only and reads q/k/v through their strides, so k/v
+    may be a cache's live prefix (its launch plan follows T)."""
     if _route(q) == "cuda":
-        out = _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset)
+        out = _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset, k_pos, window)
         LAUNCHES["flash_attention"] += 1
         return out
-    return _fa.flash_attention_plain(q, k, v, causal, scale, q_offset)
+    return _fa.flash_attention_plain(q, k, v, causal, scale, q_offset, k_pos, window)
 
 
 def norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None, *,

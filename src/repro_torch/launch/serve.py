@@ -23,6 +23,14 @@ CPU smoke (at full width it does not fit one card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \
         --smoke --device cpu --fused
 
+Griffin (recurrentgemma-2b: RG-LRU blocks and local attention over a
+2,048-row ring; prompts are not bounded by --max-len, admission chunks and
+drafts are clamped to the ring), on the H100 and as a CPU smoke:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --smoke --device cpu --fused
+
 Speculative decode and sampling, on the H100 and as a CPU smoke:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
         --requests 16 --prompt-len 128 --max-new 32 --max-batch 8 --fused \

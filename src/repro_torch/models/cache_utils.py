@@ -12,11 +12,17 @@ model's cache is ``{"layers": {...}}`` with each leaf stacked ``(L, B,
   P, N)}, "pos": (B,)}``;
 * MoE: the dense transformer's (olmoe) or MLA's ``{"layers": {"c_kv": (L,
   B, T, kv_lora), "k_rope": (L, B, T, rope), "pos": (L, B)}}`` (deepseek-v2),
-  one stack of every layer, and their paged pools ``(L, P, ps, ...)``.
+  one stack of every layer, and their paged pools ``(L, P, ps, ...)``;
+* Griffin: its recurrent blocks' ``{"layers": {"conv": (Lr, B, w-1, lru),
+  "h": (Lr, B, lru) f32}}`` beside its attention blocks' ring buffers
+  ``{"attn": {"k", "v": (La, B, window, Hkv, D), "slot_pos": (La, B,
+  window), "pos": (La, B)}}``.
 
-The slot axis is stated, not probed: axis 1 under ``layers``, axis 0
-beside it. Admission writes a batch-1 cache into a slot in place; nothing
-is reallocated.
+The slot axis is stated, not probed: axis 1 in ``layers`` and in every
+other dict of stacked leaves, axis 0 in a per-slot leaf beside them.
+Admission writes a batch-1 cache into a slot in place (a ring's
+``slot_pos`` with it, so a reused slot keeps nothing of its last stream);
+nothing is reallocated.
 
 Speculative rewind primitives (the verify pass appends a draft chunk, then
 each slot keeps only its accepted prefix):
@@ -25,8 +31,9 @@ each slot keeps only its accepted prefix):
   overwrite BEFORE the verify pass, then restore the rejected rows in place
   and rewind the per-slot position. A dense cache strictly needs only the
   position rewind (stale rows above ``pos`` are masked), but the rows are
-  restored as in the reference. The ring-buffer branch waits for windowed
-  attention.
+  restored as in the reference. A ring buffer (a cache with ``slot_pos``)
+  writes rows ``(pos + j) % T`` and loses clobbered in-window entries
+  without the restore; its ``slot_pos`` rows are restored with them.
 * **recurrent state** (conv window, SSD state): the verify pass checkpoints
   the state after every chunk token and the rewind selects checkpoint
   ``keep[b]`` per slot (``slice_rows_per_slot``).
@@ -48,7 +55,8 @@ from __future__ import annotations
 
 import torch
 
-#: the slot (batch) axis of every leaf stacked under ``layers``
+#: the slot (batch) axis of every leaf stacked under ``layers`` (or another
+#: dict of stacked leaves: Griffin's ``attn``)
 LAYER_SLOT_AXIS = 1
 #: the slot axis of a per-slot leaf beside ``layers`` (Mamba-2's ``pos``)
 TOP_SLOT_AXIS = 0
@@ -56,11 +64,12 @@ TOP_SLOT_AXIS = 0
 
 def _leaves(cache: dict):
     """(path, leaf, slot axis) for every leaf of a stacked cache."""
-    for name, buf in cache["layers"].items():
-        yield ("layers", name), buf, LAYER_SLOT_AXIS
-    for name, buf in cache.items():
-        if name != "layers":
-            yield (name,), buf, TOP_SLOT_AXIS
+    for group, node in cache.items():
+        if isinstance(node, dict):
+            for name, buf in node.items():
+                yield (group, name), buf, LAYER_SLOT_AXIS
+        else:
+            yield (group,), node, TOP_SLOT_AXIS
 
 
 def _get(tree: dict, path: tuple):
@@ -71,9 +80,9 @@ def _get(tree: dict, path: tuple):
 
 def cache_at(cache: dict, i: int) -> dict:
     """Batch-1 view of slot ``i`` (shares storage with the grid)."""
-    out: dict = {"layers": {}}
+    out: dict = {}
     for path, buf, ax in _leaves(cache):
-        parent = out["layers"] if path[0] == "layers" else out
+        parent = out.setdefault(path[0], {}) if len(path) == 2 else out
         parent[path[-1]] = buf.narrow(ax, i, 1)
     return out
 
@@ -116,11 +125,13 @@ def take_last_valid(x: torch.Tensor, n_valid) -> torch.Tensor:
     return x[torch.arange(b, device=x.device), last][:, None]
 
 
-def _rows(pos: torch.Tensor, s: int, t: int) -> tuple:
-    """Index tuple selecting rows ``min(pos + j, t - 1)``, j < s, of every
-    (lead..., B, T, ...) buffer whose position table is ``pos`` (lead..., B)."""
+def _rows(pos: torch.Tensor, s: int, t: int, ring: bool = False) -> tuple:
+    """Index tuple selecting rows ``min(pos + j, t - 1)`` (a ring buffer's
+    ``(pos + j) % t``), j < s, of every (lead..., B, T, ...) buffer whose
+    position table is ``pos`` (lead..., B)."""
     lead = pos.shape
-    rows = (pos.to(torch.int64)[..., None] + torch.arange(s, device=pos.device)).clamp_(max=t - 1)
+    rows = pos.to(torch.int64)[..., None] + torch.arange(s, device=pos.device)
+    rows = rows % t if ring else rows.clamp_(max=t - 1)
     idx = [torch.arange(n, device=pos.device).reshape((n,) + (1,) * (len(lead) - i))
            for i, n in enumerate(lead)]
     return tuple(idx) + (rows,)
@@ -133,16 +144,18 @@ def seq_rows_snapshot(cache: dict, s: int, out: dict | None = None) -> dict:
     (lead..., B) beside seq-indexed buffers (lead..., B, T, ...). Rows
     ``pos + j`` are copied (clamped to the last row, as the reference's
     ``take_along_axis`` clamps; the engine keeps ``pos + s <= T`` for live
-    slots), as is ``pos``. The rows are COPIED: the verify pass then
+    slots; a ring buffer's rows ``(pos + j) % T``, its ``slot_pos`` too), as
+    is ``pos``. The rows are COPIED: the verify pass then
     overwrites the cache in place. With ``out`` (a snapshot of the same
     shapes) the copy lands there and ``out`` is returned.
     """
     pos = cache["pos"]
+    ring = "slot_pos" in cache
     snap = {}
     for name, buf in cache.items():
         if name == "pos":
             continue
-        rows = buf[_rows(pos, s, buf.shape[pos.dim()])]
+        rows = buf[_rows(pos, s, buf.shape[pos.dim()], ring)]
         snap[name] = rows if out is None else out[name].copy_(rows)
     snap["pos"] = pos.clone() if out is None else out["pos"].copy_(pos)
     return snap
@@ -161,10 +174,11 @@ def seq_rows_restore(cache: dict, snap: dict, keep: torch.Tensor) -> dict:
     s = snap[name0].shape[pos0.dim()]
     keep = keep.to(pos0.device)
     rejected = torch.arange(s, device=pos0.device) >= keep.to(torch.int64)[:, None]  # (B, s)
+    ring = "slot_pos" in cache
     for name, buf in cache.items():
         if name == "pos":
             continue
-        idx = _rows(pos0, s, buf.shape[pos0.dim()])
+        idx = _rows(pos0, s, buf.shape[pos0.dim()], ring)
         mask = rejected.reshape(rejected.shape + (1,) * (buf.dim() - pos0.dim() - 1))
         buf[idx] = torch.where(mask, snap[name], buf[idx])
     cache["pos"].copy_(pos0 + keep.to(pos0.dtype))

@@ -8,9 +8,11 @@ Caches are updated IN PLACE: a decode or extend step writes its K/V rows
 into the cache tensors it is given (views of the engine's stacked cache)
 and advances their ``pos`` in place, where the JAX package returns new
 arrays. A paged cache (``attn_cache_init_paged``) is written and read
-through a block table (``cache_utils.paged_*``). Not ported yet: the
-windowed ring buffer, M-RoPE and explicit position inputs (ROADMAP Queue 1
-items 5 and 6).
+through a block table (``cache_utils.paged_*``). A windowed config
+(``AttnConfig.window`` > 0, Griffin's local attention) keeps a ring buffer
+of ``window`` rows: position p lives in row p % window and ``slot_pos``
+records the position each row holds (-1: empty). Not ported yet: M-RoPE
+and explicit position inputs (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -109,6 +111,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor)
 # per-slot cache primitives (continuous batching)
 # ---------------------------------------------------------------------------
 
+def pos_slots(slot_pos: torch.Tensor, b: int, t: int) -> torch.Tensor:
+    """Normalize a ring-buffer slot-position table to per-row shape (B, T)."""
+    slot_pos = slot_pos.to(torch.int32)
+    if slot_pos.dim() == 1:
+        slot_pos = slot_pos.expand(b, t)
+    return slot_pos
+
+
 def update_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None:
     """In place, write ``new[i]`` into ``buf[i]`` from row ``idx[i]`` on.
 
@@ -137,6 +147,7 @@ class AttnConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0
+    window: int = 0              # 0 = full causal; > 0 = local attention window
     q_chunk: int = 0             # chunked attention for long prefill (0 = off)
 
 
@@ -166,9 +177,10 @@ def _sdpa(q, k, v, mask, scale):
     return o.reshape(b, s, h, dv)
 
 
-def _chunked_causal_sdpa(q, k, v, scale, q_chunk):
-    """Causal attention over query chunks of ``q_chunk`` rows: memory
-    O(q_chunk * T) instead of O(S * T), for long prefill."""
+def _chunked_causal_sdpa(q, k, v, scale, q_chunk, window: int = 0):
+    """Causal (with ``window`` > 0 also windowed) attention over query
+    chunks of ``q_chunk`` rows: memory O(q_chunk * T) instead of O(S * T),
+    for long prefill."""
     b, s, h, d = q.shape
     t = k.shape[1]
     hkv = k.shape[2]
@@ -181,6 +193,8 @@ def _chunked_causal_sdpa(q, k, v, scale, q_chunk):
         logits = torch.einsum("bshgd,bthd->bhgst", qi, kf) * scale
         rows = i * q_chunk + torch.arange(q_chunk, device=q.device)
         m = rows[:, None] >= cols[None, :]
+        if window > 0:
+            m &= (rows[:, None] - cols[None, :]) < window
         logits = logits.masked_fill(~m, NEG_INF)
         p = torch.softmax(logits, dim=-1)
         outs.append(torch.einsum("bhgst,bthd->bshgd", p, vf).reshape(b, q_chunk, h, vf.shape[-1]))
@@ -207,6 +221,12 @@ def attn_apply(
                      into an existing cache). Only the first ``n_valid``
                      chunk tokens are real; the pad K/V lands above the
                      valid region (mask-invalid, overwritten later).
+
+    With ``cfg.window`` > 0 attention is local (key j visible to query i iff
+    ``i - window < j <= i``) and the cache a ring buffer (``_ring_attend``):
+    decode writes row ``pos % T`` and masks by ``slot_pos``; extend attends
+    over [ring, chunk] first, then writes only the valid chunk rows, so a
+    pad row never clobbers an in-window entry.
 
     In ``decode``/``extend`` the cache dict ``{"k", "v": (B, T, Hkv, D),
     "pos": (B,)}`` is updated in place and returned. A paged cache
@@ -248,51 +268,50 @@ def attn_apply(
             raise ValueError("decode takes one token per row")
         pos = cache["pos"]                               # (B,) next write index
         bt = cache.get("block_table")
-        if bt is not None:
-            # scatter through the block table, then gather the slots' pages
-            # back into the dense view: rows backed by the trash page sit
-            # above pos, where every route gives them weight exactly 0. An
-            # extend on the kernel route gathers only the blocks covering
-            # kv_len; decode gathers all nb*ps rows, the dense cache's T, so
-            # decode attention's split (chosen from T) is the dense one's
-            ps = cache["k"].shape[1]
-            phys = cache_utils.paged_phys_rows(bt, pos[:, None] + steps[None, :], ps)
-            cache_utils.paged_update_rows(cache["k"], k, phys)
-            cache_utils.paged_update_rows(cache["v"], v, phys)
-            nb = bt.shape[1]
-            if ccfg.use_kernel and mode == "extend" and kv_len is not None:
-                nb = min(nb, -(-int(kv_len) // ps))
-            att_k = cache_utils.paged_gather(cache["k"], bt[:, :nb], ps)
-            att_v = cache_utils.paged_gather(cache["v"], bt[:, :nb], ps)
+        if cfg.window > 0:
+            if bt is not None:
+                raise ValueError("paged attention requires full attention")
+            o = _ring_attend(q, k, v, cache, cfg, ccfg, mode, scale, n_valid)
         else:
-            update_rows(cache["k"], k, pos)
-            update_rows(cache["v"], v, pos)
-            att_k, att_v = cache["k"], cache["v"]
-        if ccfg.use_kernel and mode == "extend":
-            # the chunk's queries sit at each row's position: the causal
-            # mask offset by pos is the ``valid`` mask of the plain path
-            from repro_torch.kernels import ops
-            live = att_k.shape[1] if kv_len is None else min(int(kv_len), att_k.shape[1])
-            o = ops.flash_attention(q.transpose(1, 2), att_k[:, :live].transpose(1, 2),
-                                    att_v[:, :live].transpose(1, 2), scale=scale,
-                                    q_offset=pos).transpose(1, 2)
-        elif ccfg.use_kernel:
-            # key t is live iff t <= pos: the kernel reads no cache row past
-            # the slot's position, and no mask is built
-            from repro_torch.kernels import ops
-            o = ops.decode_attention(q[:, 0], att_k, att_v, q_pos=pos,
-                                     scale=scale).reshape(b, s, h, hd)
-        else:
-            t = att_k.shape[1]
-            rows = pos[:, None] + steps[None, :]             # (B, s)
-            valid = torch.arange(t, device=dev)[None, None, :] <= rows[:, :, None]  # (B, s, T)
-            qd = q.to(torch.float32).reshape(b, s, hk, h // hk, hd)
-            logits = torch.einsum("bshgd,bthd->bhgst", qd,
-                                  att_k.to(torch.float32)) * scale
-            logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
-            p = torch.softmax(logits, dim=-1)
-            o = torch.einsum("bhgst,bthd->bshgd", p,
-                             att_v.to(torch.float32)).reshape(b, s, h, hd)
+            if bt is not None:
+                # scatter through the block table, then gather the slots' pages
+                # back into the dense view: rows backed by the trash page sit
+                # above pos, where every route gives them weight exactly 0. An
+                # extend on the kernel route gathers only the blocks covering
+                # kv_len; decode gathers all nb*ps rows, the dense cache's T, so
+                # decode attention's split (chosen from T) is the dense one's
+                ps = cache["k"].shape[1]
+                phys = cache_utils.paged_phys_rows(bt, pos[:, None] + steps[None, :], ps)
+                cache_utils.paged_update_rows(cache["k"], k, phys)
+                cache_utils.paged_update_rows(cache["v"], v, phys)
+                nb = bt.shape[1]
+                if ccfg.use_kernel and mode == "extend" and kv_len is not None:
+                    nb = min(nb, -(-int(kv_len) // ps))
+                att_k = cache_utils.paged_gather(cache["k"], bt[:, :nb], ps)
+                att_v = cache_utils.paged_gather(cache["v"], bt[:, :nb], ps)
+            else:
+                update_rows(cache["k"], k, pos)
+                update_rows(cache["v"], v, pos)
+                att_k, att_v = cache["k"], cache["v"]
+            if ccfg.use_kernel and mode == "extend":
+                # the chunk's queries sit at each row's position: the causal
+                # mask offset by pos is the ``valid`` mask of the plain path
+                from repro_torch.kernels import ops
+                live = att_k.shape[1] if kv_len is None else min(int(kv_len), att_k.shape[1])
+                o = ops.flash_attention(q.transpose(1, 2), att_k[:, :live].transpose(1, 2),
+                                        att_v[:, :live].transpose(1, 2), scale=scale,
+                                        q_offset=pos).transpose(1, 2)
+            elif ccfg.use_kernel:
+                # key t is live iff t <= pos: the kernel reads no cache row past
+                # the slot's position, and no mask is built
+                from repro_torch.kernels import ops
+                o = ops.decode_attention(q[:, 0], att_k, att_v, q_pos=pos,
+                                         scale=scale).reshape(b, s, h, hd)
+            else:
+                t = att_k.shape[1]
+                rows = pos[:, None] + steps[None, :]             # (B, s)
+                valid = torch.arange(t, device=dev)[None, None, :] <= rows[:, :, None]  # (B, s, T)
+                o = _masked_attention(q, att_k, att_v, valid, scale)
         nv = s if n_valid is None else n_valid
         cache["pos"].add_(nv if isinstance(nv, torch.Tensor) else int(nv))
         new_cache = cache
@@ -300,35 +319,137 @@ def attn_apply(
         if ccfg.use_kernel:
             from repro_torch.kernels import ops
             o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                    scale=scale).transpose(1, 2)
+                                    scale=scale, window=cfg.window).transpose(1, 2)
         elif cfg.q_chunk > 0 and s > cfg.q_chunk:
-            o = _chunked_causal_sdpa(q, k, v, scale, cfg.q_chunk)
+            o = _chunked_causal_sdpa(q, k, v, scale, cfg.q_chunk, cfg.window)
         else:
             r = torch.arange(s, device=dev)
-            o = _sdpa(q, k, v, r[:, None] >= r[None, :], scale)
+            m = r[:, None] >= r[None, :]
+            if cfg.window > 0:
+                m &= (r[:, None] - r[None, :]) < cfg.window
+            o = _sdpa(q, k, v, m, scale)
         new_cache = None
         if mode == "prefill":
             new_cache = _build_cache_from_prefill(k, v, s, max_len=max_len,
-                                                  dtype=ccfg.resolved_kv_dtype)
+                                                  dtype=ccfg.resolved_kv_dtype,
+                                                  window=cfg.window)
 
     out = cascade.linear_apply(params["wo"], o.to(x.dtype).reshape(b, s, h * hd), ccfg)
     return out, new_cache
 
 
+def _masked_attention(q, k, v, valid, scale):
+    """Plain attention of q (B, s, H, D) over k/v (B, T, Hkv, D) under a
+    (B, s, T) validity mask, in f32 (the reference's extend/decode einsums)."""
+    b, s, h, hd = q.shape
+    hk = k.shape[2]
+    qd = q.to(torch.float32).reshape(b, s, hk, h // hk, hd)
+    logits = torch.einsum("bshgd,bthd->bhgst", qd, k.to(torch.float32)) * scale
+    logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", p, v.to(torch.float32)).reshape(b, s, h, hd)
+
+
+def _ring_attend(q, k, v, cache: dict, cfg: AttnConfig, ccfg: CascadeConfig, mode: str,
+                 scale: float, n_valid) -> torch.Tensor:
+    """Local attention on a ring-buffer cache ``{"k", "v": (B, T, Hkv, D),
+    "slot_pos": (B, T), "pos": (B,)}``, updated in place but ``pos`` (the
+    caller advances it). Returns the (B, s, H, D) output.
+
+    Decode writes the token at row ``pos % T`` and records its position in
+    ``slot_pos``; key t is live iff ``0 <= slot_pos[t] <= pos`` and within
+    the window (decode attention takes that (B, T) mask). Extend attends over
+    [ring, chunk] FIRST, keys at positions ``concat(slot_pos, rows)`` (flash
+    attention takes them as ``k_pos`` with the window), and only then writes
+    the valid chunk rows at ``rows % T``: a chunk may overwrite ring entries
+    that its earlier tokens still attend to, and s <= T keeps the chunk's
+    own writes apart. The reference drops pad writes with an out-of-bounds
+    index; here only the first ``n_valid`` rows are written.
+    """
+    b, s, h, hd = q.shape
+    dev = q.device
+    t = cache["k"].shape[1]
+    w = cfg.window
+    pos = cache["pos"]
+    slot_pos = cache["slot_pos"]
+    bi = torch.arange(b, device=dev)
+    if mode == "decode":
+        idx = pos.to(torch.int64) % t
+        update_rows(cache["k"], k, idx)
+        update_rows(cache["v"], v, idx)
+        slot_pos[bi, idx] = pos.to(slot_pos.dtype)
+        p = pos[:, None]
+        valid = (slot_pos >= 0) & (slot_pos <= p) & (p - slot_pos < w)          # (B, T)
+        if ccfg.use_kernel:
+            from repro_torch.kernels import ops
+            return ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                                        scale=scale).reshape(b, 1, h, hd)
+        return _masked_attention(q, cache["k"], cache["v"], valid[:, None], scale)
+    if s > t:
+        raise ValueError(f"a {s}-token chunk does not fit inside the {t}-row ring buffer")
+    rows = pos.to(torch.int64)[:, None] + torch.arange(s, device=dev)              # (B, s)
+    key_pos = torch.cat([slot_pos.to(torch.int32), rows.to(torch.int32)], dim=1)   # (B, T+s)
+    if ccfg.use_kernel:
+        from repro_torch.kernels import ops
+        att_k = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+        att_v = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+        o = ops.flash_attention(q.transpose(1, 2), att_k.transpose(1, 2), att_v.transpose(1, 2),
+                                scale=scale, q_offset=pos, k_pos=key_pos,
+                                window=w).transpose(1, 2)
+    else:
+        att_k = torch.cat([cache["k"].to(torch.float32), k.to(torch.float32)], dim=1)
+        att_v = torch.cat([cache["v"].to(torch.float32), v.to(torch.float32)], dim=1)
+        kp, r = key_pos[:, None, :], rows[:, :, None]
+        o = _masked_attention(q, att_k, att_v, (kp >= 0) & (kp <= r) & (r - kp < w), scale)
+    n = s if n_valid is None else max(0, min(int(n_valid), s))
+    widx = rows[:, :n] % t                                                         # (B, n)
+    for name, new in (("k", k), ("v", v), ("slot_pos", rows)):
+        cache[name][bi[:, None], widx] = new[:, :n].to(cache[name].dtype)
+    return o
+
+
 def _build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, s: int,
-                              max_len: int | None = None, dtype=None) -> dict:
-    """Decode-ready cache from prefill K/V (positions 0..s-1, every row at s)."""
+                              max_len: int | None = None, dtype=None, window: int = 0) -> dict:
+    """Decode-ready cache from prefill K/V (positions 0..s-1, every row at
+    s). With a window the cache is the ring: it holds the full window
+    whatever ``max_len`` is (the last ``window`` positions, or the prompt
+    padded with empty rows), rolled so position p sits at row p % window."""
     b = k.shape[0]
     if dtype is not None:
         k, v = k.to(dtype), v.to(dtype)
+    pos = torch.full((b,), s, dtype=torch.int32, device=k.device)
+    if window > 0:
+        t = window
+        if s >= t:
+            k_last, v_last = k[:, s - t:], v[:, s - t:]
+            pos_last = torch.arange(s - t, s, dtype=torch.int32, device=k.device)
+        else:
+            pad = (0, 0, 0, 0, 0, t - s)
+            k_last, v_last = F.pad(k, pad), F.pad(v, pad)
+            pos_last = torch.cat([torch.arange(s, dtype=torch.int32, device=k.device),
+                                  torch.full((t - s,), -1, dtype=torch.int32, device=k.device)])
+        shift = s % t if s >= t else 0
+        return {"k": torch.roll(k_last, shift, dims=1), "v": torch.roll(v_last, shift, dims=1),
+                "slot_pos": torch.roll(pos_last, shift).expand(b, t).contiguous(), "pos": pos}
     t = max_len if max_len is not None else s
     pad = (0, 0, 0, 0, 0, t - s)
-    return {"k": F.pad(k, pad), "v": F.pad(v, pad),
-            "pos": torch.full((b,), s, dtype=torch.int32, device=k.device)}
+    return {"k": F.pad(k, pad), "v": F.pad(v, pad), "pos": pos}
 
 
 def attn_cache_init(batch: int, max_len: int, cfg: AttnConfig, dtype=torch.bfloat16,
                     device=None) -> dict:
+    """Zero K/V of ``max_len`` rows and ``pos`` 0; a windowed config's ring
+    holds the full window whatever ``max_len`` is (a shorter ring would cut
+    attention short for prompts past ``max_len``), every row empty
+    (``slot_pos`` -1)."""
+    if cfg.window > 0:
+        shape = (batch, cfg.window, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "slot_pos": torch.full((batch, cfg.window), -1, dtype=torch.int32, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -366,6 +366,11 @@ class MoELM(TransformerLM):
         return x, out, new_cache
 
     # --------------------------------------------------------------- caches
+    @property
+    def paged_attention(self) -> bool:
+        """MLA's latent cache pages as MHA's does: no MoE config is windowed."""
+        return True
+
     def _attn_cache(self, batch: int, max_len: int, dtype, device) -> dict:
         if self.use_mla:
             return mla_cache_init(batch, max_len, self.cfg, dtype, device=device)

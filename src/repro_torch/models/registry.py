@@ -29,7 +29,6 @@ FAMILY_SMOKE = {
 
 #: families the port does not build yet, and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "hybrid": "ROADMAP Queue 1 item 5 (Griffin, models/griffin.py)",
     "audio": "ROADMAP Queue 1 item 6 (sinusoidal positions and the "
              "multi-codebook head of TransformerLM)",
     "vlm": "ROADMAP Queue 1 item 6 (M-RoPE in models/layers.py)",
@@ -56,6 +55,9 @@ def build_model(cfg: ArchConfig):
     if cfg.family == "moe":
         from repro_torch.models.moe import MoELM
         return MoELM(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.griffin import GriffinLM
+        return GriffinLM(cfg)
     from repro_torch.models.transformer import TransformerLM
     return TransformerLM(cfg)
 

@@ -9,7 +9,9 @@ place (see ``layers.attn_apply``). Besides the dense cache, a paged one
 (``init_paged_cache``): a page pool per layer, read and written through a
 block table the caller passes in the batch (``batch["block_table"]``).
 
-Not ported yet: M-RoPE and windowed attention, sinusoidal positions,
+A windowed config (local attention) keeps ring-buffer caches
+(``layers.attn_apply``); its context is then not bounded by the cache, and
+it has no page layout. Not ported yet: M-RoPE, sinusoidal positions,
 multi-codebook heads and stub-embedding inputs.
 """
 from __future__ import annotations
@@ -26,12 +28,11 @@ from repro_torch.models import layers as L
 
 class TransformerLM:
     def __init__(self, cfg: ArchConfig):
-        if (cfg.window or cfg.mrope_sections or cfg.n_codebooks or cfg.input_embeds
+        if (cfg.mrope_sections or cfg.n_codebooks or cfg.input_embeds
                 or cfg.rope_fraction == 0.0):
             raise NotImplementedError(
-                f"{cfg.name}: windowed attention, M-RoPE, sinusoidal positions, "
-                "multi-codebook heads and stub-embedding inputs are not ported "
-                "yet (ROADMAP Queue 1 items 5-6)")
+                f"{cfg.name}: M-RoPE, sinusoidal positions, multi-codebook heads and "
+                "stub-embedding inputs are not ported yet (ROADMAP Queue 1 item 6)")
         self.cfg = cfg
         self.attn_cfg = L.AttnConfig(
             d_model=cfg.d_model,
@@ -41,8 +42,12 @@ class TransformerLM:
             qkv_bias=cfg.qkv_bias,
             rope_theta=cfg.rope_theta,
             rope_fraction=cfg.rope_fraction,
+            window=cfg.window,
             q_chunk=cfg.q_chunk,
         )
+        # a windowed config holds O(window) ring state: the serving context
+        # is not bounded by the cache
+        self.unbounded_context = self.attn_cfg.window > 0
 
     # ------------------------------------------------------------------ init
     def _layer_init(self, gen: torch.Generator, ccfg: CascadeConfig, device) -> dict:
@@ -143,9 +148,9 @@ class TransformerLM:
     # ------------------------------------------------------- paged cache API
     @property
     def paged_attention(self) -> bool:
-        """Every config this class builds pages: all are full attention
-        (windowed and multi-codebook configs raise in ``__init__``)."""
-        return True
+        """Full attention pages; a ring buffer does not (its cache runs
+        dense, as in the reference)."""
+        return self.attn_cfg.window == 0
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
                          dtype=torch.bfloat16, device=None) -> dict:

@@ -19,6 +19,10 @@ cache. Each step:
    stream exactly where plain decode would. A model with
    ``unbounded_context`` (Mamba-2: O(1) recurrent state) has no context
    limit: no prompt is too long for it and no stream retires on ``max_len``.
+   Griffin's local attention keeps a ring of ``window`` rows, so it is
+   unbounded too; its admission chunks are clamped to the ring (a chunk
+   must fit inside it, so its writes never collide) and its drafts to
+   ``window - 1`` (the verify chunk is a chunk too).
 
 Decoding is greedy argmax by default (speculation then commits exactly the
 greedy stream). ``temperature`` > 0 (with ``top_k``) samples on the device
@@ -43,8 +47,8 @@ table; ``prefix_cache=True`` adds a radix tree over prompt pages
 them into its block table and prefills only the rest. Both are token-exact
 with the dense cache: each step gathers the slots' pages back into the
 dense view and runs the same kernels at the same plans. A model whose cache
-has no page layout (Mamba-2's recurrent state) warns and runs the dense
-cache. Paged admission prefills straight into the resident grid, and runs
+has no page layout (Mamba-2's recurrent state, Griffin's ring buffers) warns
+and runs the dense cache. Paged admission prefills straight into the resident grid, and runs
 each chunk over the admitting slot ALONE (B = 1: its row of the block table
 and a view of its ``pos``), where the reference runs it over the whole grid
 with a per-slot ``n_valid`` to keep one compiled shape. The tokens and the
@@ -67,9 +71,17 @@ multi-token attention (admission chunks, the verify pass) through the CUDA
 flash attention kernel and the Mamba-2 decode recurrence (and the verify
 pass's per-token recurrence) through the CUDA SSD scan kernel
 (``kernels/ops.py``);
-on CPU tensors those wrappers run their plain versions. Not ported yet (the
-engine raises ``NotImplementedError`` when asked): CREST probes, the
-slot-wise loop and mesh serving.
+on CPU tensors those wrappers run their plain versions.
+
+``crest_enabled`` runs a CREST probe wave (``core/crest.py``; the paper's
+built-in self-test, Section 20.6) every ``crest_every`` steps, before the
+step's decode: the CREST-protected matmul on a dense f32 copy of
+``lm_head`` with a random (4, K) input. Confirmed faults and repairs
+accumulate in ``crest_state`` (``crest_report()``); ``fault_mask`` (N,)
+bool injects defective columns. A model without ``lm_head`` (Mamba-2's tied
+head) skips the probe, as the reference does. Not ported yet (the engine
+raises ``NotImplementedError`` when asked): the slot-wise loop and mesh
+serving.
 """
 from __future__ import annotations
 
@@ -82,6 +94,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import cascade, crest
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import cache_utils
@@ -190,14 +203,20 @@ class ServeConfig:
     max_batch: int = 8
     max_len: int = 256
     eos_id: int = -1              # -1: only stop at max_new_tokens
-    crest_enabled: bool = False   # not ported: raises
+    crest_enabled: bool = False   # CREST probe waves on lm_head. They keep a dense f32
+                                  # copy of it: 1.51 GB on codeqwen1.5-7b (4096 x 92416),
+                                  # 2.62 GB on recurrentgemma-2b, 0.41 GB on olmoe-1b-7b
+    crest_every: int = 4          # run a probe wave every N engine steps
+    crest_cfg: crest.CrestConfig = dataclasses.field(default_factory=crest.CrestConfig)
     batched: bool = True          # False (slot-wise loop) is not ported: raises
-    prefill_chunk: int = 32       # chunked-prefill piece size (0 = whole prompt)
+    prefill_chunk: int = 32       # chunked-prefill piece size (0 = whole prompt;
+                                  # clamped to the ring length for windowed archs)
     token_budget: int = 0         # max prompt tokens admitted per step (0 = no cap)
     temperature: float = 0.0      # <= 0: greedy argmax; > 0: seeded sampling on the device
     top_k: int = 0                # restrict sampling to the k best logits (0 = all)
     sample_seed: int = 0          # sampling is deterministic given seed + order of draws
     draft_len: int = 0            # speculative decode: K drafted tokens per slot per step
+                                  # (clamped to window - 1 for ring-buffer archs)
     ngram_max: int = 3            # longest suffix n-gram the prompt-lookup drafter matches
     ngram_lookback: int = 512     # drafter scans at most this many trailing stream tokens
     fused: bool = False           # CUDA kernels (FP4 matmul, decode and flash attention,
@@ -224,7 +243,6 @@ class _Staging:
 
 def _check_ported(scfg: ServeConfig, mesh) -> None:
     missing = [name for name, on in (
-        ("crest_enabled (ROADMAP Queue 1 item 8)", scfg.crest_enabled),
         ("batched=False (the slot-wise loop)", not scfg.batched),
         ("a device mesh (ROADMAP Queue 1 item 10)", mesh is not None),
     ) if on]
@@ -248,6 +266,10 @@ class ServeEngine:
         self._retired: List[Request] = []
         self._rejected = 0
         self._staging: Optional[_Staging] = None
+        self._steps = 0
+        self.crest_state = None
+        self.fault_mask = None        # (N,) bool: columns to corrupt, set by tests and demos
+        self._probe_w = None
         # every downgrade warns once and shows in metrics()['effective_mode']
         self.downgrades: List[str] = []
 
@@ -255,10 +277,14 @@ class ServeEngine:
             self.downgrades.append(msg)
             warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
+        # a ring buffer holds exactly the window: an admission chunk, and the
+        # verify pass's 1 + K tokens, must fit inside it
+        window = getattr(getattr(model, "attn_cfg", None), "window", 0)
+        self._chunk_cap = window
         self._draft_len = 0
         if scfg.draft_len > 0:
             if all(hasattr(model, m) for m in _SPEC_API):
-                self._draft_len = scfg.draft_len
+                self._draft_len = min(scfg.draft_len, window - 1) if window else scfg.draft_len
             else:
                 _downgrade("draft_len > 0 requested but this model lacks spec_verify/"
                            "spec_rewind -- speculative decode disabled")
@@ -303,7 +329,8 @@ class ServeEngine:
                 self.paged = True
             else:
                 _downgrade("paged KV requested but this model's cache state has no "
-                           "page-granular layout (recurrent state) -- running the dense cache")
+                           "page-granular layout (ring-buffer / recurrent state) -- running "
+                           "the dense cache")
         if self.paged:
             ps = max(1, scfg.page_size)
             self._page_size = ps
@@ -326,6 +353,12 @@ class ServeEngine:
         else:
             self.cache = model.init_cache(scfg.max_batch, self._cache_len,
                                           dtype=ccfg.resolved_kv_dtype, device=self.device)
+        if scfg.crest_enabled:
+            head = params.get("lm_head")
+            if head is not None:
+                self._probe_w = cascade.linear_weight(head, ccfg).to(torch.float32)
+                self.crest_state = crest.crest_init(self._probe_w.shape[1], scfg.crest_cfg,
+                                                    device=self.device)
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request):
@@ -457,6 +490,8 @@ class ServeEngine:
             st = self._staging
             prompt = st.req.prompt
             chunk = self.scfg.prefill_chunk or len(prompt)
+            if self._chunk_cap:
+                chunk = min(chunk, self._chunk_cap)
             logits = None
             while st.consumed < len(prompt) and spent < budget:
                 # the dense engine's chunk holding row ``consumed`` starts
@@ -636,6 +671,9 @@ class ServeEngine:
         if not active:
             return 0
         t0 = time.monotonic()
+        self._steps += 1
+        if self.scfg.crest_enabled and self._steps % self.scfg.crest_every == 0:
+            self._crest_probe()
         produced = self._decode_spec(active) if self.spec else self._decode_batched(active)
         self.step_times.append(time.monotonic() - t0)
         self._decode_tokens += produced
@@ -651,6 +689,32 @@ class ServeEngine:
             if not self.busy():
                 break
         return self._retired[n0:]
+
+    # ---------------------------------------------------------------- crest
+    @torch.no_grad()
+    def _crest_probe(self):
+        """A CREST probe wave (paper Section 20.6: CREST doubles as power-on
+        and built-in self-test with test vectors): the CREST-protected matmul
+        on the dense f32 ``lm_head`` with a random (4, K) f32 input; detected
+        faults accumulate in ``crest_state`` and are repaired by spare
+        recomputation. The input comes from a ``torch.Generator`` on the
+        engine's device seeded by the step count, as the reference seeds its
+        key by it; threefry's bits cannot be reproduced in torch, so the
+        vectors differ from the reference's (any input detects a corrupted
+        column: the injected corruption is 7 + 0.5 y). No host sync."""
+        if self._probe_w is None:
+            return
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._steps)
+        x = torch.randn((4, self._probe_w.shape[0]), generator=gen, device=self.device)
+        _, self.crest_state = crest.crest_matmul(x, self._probe_w, self.crest_state,
+                                                 self.scfg.crest_cfg, self.fault_mask)
+
+    def crest_report(self) -> dict:
+        if self.crest_state is None:
+            return {}
+        return {"confirmed_faults": int(self.crest_state.confirmed_faults.sum()),
+                "repaired": int(self.crest_state.n_repaired)}
 
     # -------------------------------------------------------------- metrics
     @property

@@ -179,11 +179,15 @@ def test_mamba_has_no_context_limit(mamba_models):
     assert _streams(tr) == _streams(jr)
 
 
-@pytest.mark.parametrize("opt", [dict(crest_enabled=True), dict(batched=False)])
+@pytest.mark.parametrize("opt", [dict(mesh=object()), dict(batched=False)])
 def test_unported_options_raise(models, opt):
+    """A device mesh and the slot-wise loop raise. (CREST, once the first
+    case here, is ported: tests/test_torch_crest.py.)"""
     _, _, _, tm, tp = models
+    mesh = opt.get("mesh")
+    scfg = {k: v for k, v in opt.items() if k != "mesh"}
     with pytest.raises(NotImplementedError, match="not ported"):
-        tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**opt), device="cpu")
+        tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**scfg), mesh=mesh, device="cpu")
 
 
 def test_fused_without_fp4_params_downgrades(models):

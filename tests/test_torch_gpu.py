@@ -430,9 +430,10 @@ def test_flash_attention_forced_splits_match_plain(cuda, name, b, hq, hkv, s, t,
 
 # (leading shape, d): mamba2-370m's norms (1,024 and the gated 2,048) and
 # codeqwen's (4,096) at a decode step's 8 rows and a verify pass's (8, 5);
-# 8,192; a width off 16 bytes
+# 8,192; a width off 16 bytes; recurrentgemma-2b's 2,560 (its first block's
+# norm) at a decode step, a verify pass and an admission chunk
 NORM_CASES = [((8,), 1024), ((8, 5), 2048), ((8, 1), 4096), ((40,), 4096), ((3, 2), 8192),
-              ((5,), 1000), ((2, 3), 36)]
+              ((5,), 1000), ((2, 3), 36), ((8, 1), 2560), ((8, 5), 2560), ((1, 32), 2560)]
 
 
 @pytest.mark.parametrize("lead,d", NORM_CASES)
@@ -461,12 +462,13 @@ def test_norm_cuda_matches_plain(cuda, lead, d, norm_type, dtype):
 
 
 @pytest.mark.parametrize("d,norm_type", [(4096, "rmsnorm"), (1024, "rmsnorm"),
-                                         (2048, "layernorm"), (4096, "layernorm")])
+                                         (2048, "layernorm"), (4096, "layernorm"),
+                                         (2560, "rmsnorm")])
 def test_norm_kernel_rows_round_alike_in_any_number_of_rows(cuda, d, norm_type):
     """The norm kernel over (8, 5, d) bf16 rows (a verify chunk) gives each
     token's rows what it gives over that token's (8, 1, d) rows (a decode
-    step), bit for bit: codeqwen's width and mamba2-370m's, RMSNorm and
-    LayerNorm, 100 draws of 40 rows."""
+    step), bit for bit: codeqwen's width, mamba2-370m's and
+    recurrentgemma-2b's, RMSNorm and LayerNorm, 100 draws of 40 rows."""
     from repro_torch.models import layers as L
 
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -506,12 +508,15 @@ def test_norm_raises_on_what_the_kernel_does_not_take(cuda):
 # add-norm at codeqwen's 4,096 (a decode step's 8 rows, a verify pass's
 # (8, 5), an admission chunk's (1, 32)) and mamba2-370m's 1,024, LayerNorm;
 # the gated form at mamba2-370m's 2,048, z a column slice of in_proj's
-# (..., 4384) output; widths off 16 bytes
+# (..., 4384) output; widths off 16 bytes; add-norm at recurrentgemma-2b's
+# 2,560 (a decode step, a verify pass, an admission chunk)
 FUSED_NORM_CASES = [("add", (8, 1), 4096, "rmsnorm"), ("add", (8, 5), 4096, "rmsnorm"),
                     ("add", (1, 32), 4096, "rmsnorm"), ("add", (8, 1), 1024, "rmsnorm"),
                     ("add", (8, 5), 1024, "rmsnorm"), ("add", (8, 1), 4096, "layernorm"),
                     ("add", (5,), 1000, "layernorm"), ("gated", (8, 1), 2048, "rmsnorm"),
-                    ("gated", (8, 5), 2048, "rmsnorm"), ("gated", (3, 2), 36, "rmsnorm")]
+                    ("gated", (8, 5), 2048, "rmsnorm"), ("gated", (3, 2), 36, "rmsnorm"),
+                    ("add", (8, 1), 2560, "rmsnorm"), ("add", (8, 5), 2560, "rmsnorm"),
+                    ("add", (1, 32), 2560, "rmsnorm")]
 
 
 def _fused_inputs(cuda, form, lead, d, norm_type, dtype, seed):
@@ -1076,3 +1081,197 @@ def test_olmoe_paged_decode_step_and_admission_give_the_dense_logits_bit_for_bit
     assert ops.LAUNCHES["cascade_matmul_grouped"] > 0 and ops.LAUNCHES["decode_attention"] > 0
     assert torch.isfinite(got).all() and torch.equal(got, want)
     assert torch.equal(paged["layers"]["pos"], dense["layers"]["pos"])
+
+
+# ---------------------------------------------------------------------------
+# Griffin (recurrentgemma-2b): local attention at head dim 256, the ring
+# decode, and the RG-LRU's verify rows against its decode steps
+# ---------------------------------------------------------------------------
+
+def ring_slot_pos(b, t, positions, device):
+    """(B, T) int32 ``slot_pos`` of a ring of T rows whose row b next writes
+    position ``positions[b]``: row r holds the last position p < positions[b]
+    with p % T == r, or -1 (never written)."""
+    pos = torch.tensor(positions, dtype=torch.int64, device=device)[:, None]
+    r = torch.arange(t, device=device)[None, :]
+    last = pos - 1 - ((pos - 1 - r) % t)
+    return torch.where(last >= 0, last, -1).to(torch.int32)
+
+
+# (name, B, Hq, Hkv, S, ring T or 0, D, window, offsets): Griffin's admission
+# chunk (S = 32 over a 2,048-row ring and the chunk) before and after the
+# ring wraps, its verify pass (8 rows of 5), a windowed S = T = 2048 prompt
+# at window 2048 and 512 (no k_pos), and small rings at D = 128 and 16
+LOCAL_CASES = [("griffin_admit_early", 1, 10, 1, 32, 2048, 256, 2048, [96]),
+               ("griffin_admit_wrapped", 1, 10, 1, 32, 2048, 256, 2048, [2040]),
+               ("griffin_verify", 8, 10, 1, 5, 2048, 256, 2048,
+                [40, 300, 1000, 2047, 2048, 2100, 3000, 4000]),
+               ("prefill_w2048", 1, 10, 1, 2048, 0, 256, 2048, [0]),
+               ("prefill_w512", 1, 10, 1, 2048, 0, 256, 512, [0]),
+               ("ring_d128", 2, 8, 2, 7, 64, 128, 64, [10, 150]),
+               ("ring_d16_w5", 3, 4, 4, 9, 16, 16, 5, [0, 9, 40])]
+
+
+@pytest.mark.parametrize("name,b,hq,hkv,s,ring,d,window,offsets", LOCAL_CASES,
+                         ids=[c[0] for c in LOCAL_CASES])
+def test_flash_attention_local_cuda_matches_plain(cuda, name, b, hq, hkv, s, ring, d, window,
+                                                  offsets):
+    """Local attention on the kernel: with ``k_pos`` (a ring's rows at their
+    positions, then the chunk's own) and ``window``, and a windowed prompt
+    without ``k_pos``; within the flash tolerance of the plain version, also
+    with every split count the plan could pick."""
+    gen = torch.Generator(device=cuda).manual_seed(s + ring + d)
+    t = ring + s if ring else s
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kc = torch.randn((b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    vc = torch.randn((b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    args = (q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2))
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    k_pos = None
+    if ring:
+        rows = off[:, None] + torch.arange(s, device=cuda, dtype=torch.int32)
+        k_pos = torch.cat([ring_slot_pos(b, ring, offsets, cuda), rows], dim=1)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*args, q_offset=off, k_pos=k_pos, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = tfa.flash_attention_plain(*args, True, None, off, k_pos, window)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_tolerance(want, vc)).all()), float(err.max())
+    for splits in (2, 5, 16):
+        split = tfa.flash_attention_cuda(*args, True, None, off, k_pos, window, splits=splits)
+        torch.cuda.synchronize()
+        err = (split.float() - want.float()).abs()
+        assert bool((err <= flash_tolerance(want, vc)).all()), (splits, float(err.max()))
+
+
+def test_flash_attention_without_k_pos_or_window_keeps_its_bits(cuda):
+    """``k_pos`` holding each key's own index and a window wider than T give
+    the bits of the call without them (the masks are the same)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, hq, hkv, s, t, d = 8, 32, 32, 5, 192, 128
+    q = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, hkv, t, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, hkv, t, d), generator=gen, device=cuda).to(torch.bfloat16)
+    off = torch.tensor([0, 27, 53, 80, 107, 133, 160, 187], dtype=torch.int32, device=cuda)
+    base = ops.flash_attention(q, k, v, q_offset=off)
+    idx = torch.arange(t, dtype=torch.int32, device=cuda).expand(b, t).contiguous()
+    assert torch.equal(ops.flash_attention(q, k, v, q_offset=off, k_pos=idx), base)
+    assert torch.equal(ops.flash_attention(q, k, v, q_offset=off, window=t + 8), base)
+
+
+def test_flash_attention_refuses_local_arguments_it_does_not_take(cuda):
+    q = torch.zeros((1, 4, 8, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="causal"):
+        ops.flash_attention(q, q, q, causal=False, window=4)
+    with pytest.raises(ValueError, match="k_pos"):
+        ops.flash_attention(q, q, q, k_pos=torch.zeros((1, 8), device=cuda, dtype=torch.int64))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=-1)
+
+
+@pytest.mark.parametrize("positions", [[96 + 37 * i for i in range(8)],
+                                       [2040, 2047, 2048, 2049, 2100, 3000, 4095, 6000]])
+def test_decode_attention_ring_mask_at_griffin_shape(cuda, positions):
+    """The ring decode as Griffin serves it: 8 slots, a 2,048-row ring, 10
+    query heads over one KV head of 256 (two blocks of 5 heads), the (B, T)
+    mask built from ``slot_pos``, before and after the ring wraps; within
+    atol/rtol 1e-4 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(positions))
+    b, t, hq, hkv, d, window = 8, 2048, 10, 1, 256, 2048
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    sp = ring_slot_pos(b, t, [p + 1 for p in positions], cuda)       # the token at p written
+    mask = (sp >= 0) & (sp <= pos[:, None]) & (pos[:, None] - sp < window)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, kc[1], vc[1], mask)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 1 and tda.heads_per_block(hq // hkv) == 5
+    want = tda.decode_attention_plain(q, kc[1], vc[1], mask)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _griffin_verify_vs_decode(cuda, n_layers):
+    """recurrentgemma-2b at full width cut to ``n_layers``, bf16, FP4
+    kernels, seed-0 weights: from one cache, 5 tokens decoded a step at a
+    time, and from a copy one verify pass over them. Returns (decode
+    logits per step, verify logits, decode R-block states per step, the
+    verify checkpoint)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(registry.get_config("recurrentgemma-2b"), n_layers=n_layers)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(0, ccfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, s = 8, 5
+    prompt = torch.randint(0, cfg.vocab, (b, 32), generator=gen, device=cuda)
+    chunk = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=cuda)
+    with torch.no_grad():
+        cache = model.init_cache(b, 64, dtype=torch.bfloat16, device=cuda)
+        model.prefill_extend(params, {"tokens": prompt}, cache, ccfg)
+        copy = _clone_tree(cache)
+        decoded, states = [], []
+        for j in range(s):
+            lj, _ = model.decode_step(params, {"tokens": chunk[:, j:j + 1]}, cache, ccfg)
+            decoded.append(lj[:, 0])
+            states.append(cache["layers"]["h"].clone())
+        verified, _, ckpt = model.spec_verify(params, {"tokens": chunk}, copy, ccfg)
+        torch.cuda.synchronize()
+    return decoded, verified, states, ckpt
+
+
+def test_griffin_verify_rows_equal_decode_steps_bit_for_bit(cuda):
+    """Depth 2 (two RG-LRU blocks, no attention): row j of the verify logits
+    equals decode step j's bit for bit (the chunk's recurrence runs in order
+    with decode's operations, its conv with decode's arithmetic, and every
+    kernel's rows round alike at any row count), so a speculative greedy
+    stream is the plain one. Depth 3 adds the local-attention block, which
+    verifies through flash attention and decodes through decode attention:
+    there the two R blocks' states after each token still equal the decode
+    steps' bit for bit."""
+    decoded, verified, states, ckpt = _griffin_verify_vs_decode(cuda, 2)
+    rows_equal = [torch.equal(decoded[j], verified[:, j]) for j in range(len(decoded))]
+    assert all(rows_equal), rows_equal
+    _, _, states, ckpt = _griffin_verify_vs_decode(cuda, 3)
+    for j, st in enumerate(states):
+        assert torch.equal(ckpt["layers"]["h"][:, :, j + 1], st), j
+
+
+def test_griffin_fused_engine_serves_past_the_window_with_the_path_kernels(cuda, monkeypatch):
+    """Griffin's smoke config (window 16) at bf16 on the card, prompts and
+    streams past the window: the fused engine launches its path's kernels
+    (a verify pass: flash attention and no decode attention), and the plain
+    greedy stream equals the engine's with every wrapper sent to its plain
+    version."""
+    cfg, model = registry.load("recurrentgemma-2b", smoke=True)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+    params = model.init_params(0, ccfg, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [np.resize(rng.integers(0, cfg.vocab, 4), n).astype(np.int32) for n in (30, 9, 21)]
+
+    def serve(**opts):
+        eng = engine.ServeEngine(model, params, ccfg, engine.ServeConfig(
+            max_batch=2, max_len=24, prefill_chunk=8, fused=True, **opts), device=cuda)
+        reqs = [engine.Request(uid=i, prompt=p, max_new_tokens=14) for i, p in enumerate(prompts)]
+        ops.reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert all(r.done and len(r.tokens_out) == 14 for r in reqs)
+        return [r.tokens_out for r in reqs], dict(ops.LAUNCHES)
+
+    plain, launches = serve()
+    assert all(launches[k] > 0 for k in ("cascade_matmul", "decode_attention",
+                                         "flash_attention", "norm")), launches
+    _, launches = serve(draft_len=3)
+    assert launches["decode_attention"] == 0 and launches["flash_attention"] > 0
+    for mod, name, plain_fn in ((tcm, "cascade_matmul_cuda", tcm.cascade_matmul_plain),
+                                (tda, "decode_attention_cuda", tda.decode_attention_plain),
+                                (tfa, "flash_attention_cuda", tfa.flash_attention_plain),
+                                (tnorm, "norm_cuda", tnorm.norm_plain),
+                                (tnorm, "add_norm_cuda", tnorm.add_norm_plain)):
+        monkeypatch.setattr(mod, name, plain_fn)
+    assert serve()[0] == plain

@@ -259,6 +259,12 @@ def test_cache_at_and_write_cache_address_the_slot_axis(codeqwen):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "musicgen-large", "qwen2-vl-2b"])
 def test_registry_names_the_roadmap_item_for_unported_families(arch):
+    """The audio and VLM families raise naming their ROADMAP item; the hybrid
+    family (recurrentgemma-2b), once refused here too, now builds Griffin."""
+    if arch == "recurrentgemma-2b":
+        from repro_torch.models.griffin import GriffinLM
+        assert isinstance(registry.load(arch, smoke=True)[1], GriffinLM)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.load(arch, smoke=True)
 
