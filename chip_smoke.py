@@ -23,6 +23,24 @@ device time), and CREST on its dense lm_head through ``crest_matmul`` (3
 injected columns over 3 cursor cycles: all detected and repaired, none
 falsely, the repaired output within ``tol`` of the clean product).
 
+The modality-stub backbones, the slot-wise loop and the fleet add: flash
+attention at head dim 64 (musicgen-large's prefill and an admission chunk)
+and at qwen2-vl-2b's GQA 12/2 prefill, decode attention at head dim 64 and
+at 12/2 heads, the LayerNorm (with bias) and add-LayerNorm at 2,048 and the
+RMSNorm at 1,536, and the FP4 matmul at both configs' weight shapes (a
+decode step's 8 rows and the prefill's 1,024), each held, timed and bounded
+as below; both configs' depth-2 parity at full width (a prefill of stub
+embeddings, qwen2-vl with the M-RoPE positions of an 8 x 8 image then text,
+and a decode step, musicgen with ``pos_offset``); both at full width and
+depth at the model level (the engine takes token prompts, so 8 rows go
+through ``prefill`` and 32 ``decode_step``s fed seeded stub embeddings);
+the slot-wise loop (codeqwen1.5-7b at depth 2, ``batched=False``, through
+the kernels, its downgrades recorded and its streams held to an unfused
+run's); and the ``--traffic`` path: two full-width codeqwen
+replicas under the SLO-aware router on a seeded Poisson trace of 24
+requests at 4 req/s, replica 0 failed 2 s in, every stream finished and
+each rebuilt one held to the same request served alone.
+
 1. Kernels: each CUDA kernel at the shapes the serving paths give it, held
    to its plain PyTorch version on the same inputs (tolerances below), and
    timed with CUDA events over CUDA-graph replays of many launches (device
@@ -153,9 +171,12 @@ SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #     limits: a dense transformer of the same kind
 #     recurrentgemma-2b (depth 3: one (R, R, A) group): relative L2 0.0072 /
 #     0.0069 / 0.0072 and at most 1.5 / 1.25 / 1.625 steps on an H100
+#     qwen2-vl-2b and musicgen-large (fed stub embeddings) take codeqwen's
+#     limits: dense transformers of the same kind
 PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1),
                  "qwen2.5-32b": (2.0 ** -6, 2), "olmoe-1b-7b": (2.0 ** -5.5, 10),
-                 "deepseek-v2-236b": (2.0 ** -5, 25), "recurrentgemma-2b": (2.0 ** -6, 3)}
+                 "deepseek-v2-236b": (2.0 ** -5, 25), "recurrentgemma-2b": (2.0 ** -6, 3),
+                 "qwen2-vl-2b": (2.0 ** -6, 2), "musicgen-large": (2.0 ** -6, 2)}
 #: depth of the parity phase's model, where it is not 2: Griffin's first
 #: (R, R, A) group, so an attention block is held too
 PARITY_DEPTH = {"recurrentgemma-2b": 3}
@@ -196,12 +217,33 @@ RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention
                                          "flash_attention", "norm"),
                ("recurrentgemma-2b", "plain"): ("cascade_matmul", "decode_attention",
                                                 "flash_attention", "norm"),
-               ("recurrentgemma-2b", "spec"): ("cascade_matmul", "flash_attention", "norm")}
+               ("recurrentgemma-2b", "spec"): ("cascade_matmul", "flash_attention", "norm"),
+               ("qwen2-vl-2b", "model"): ("cascade_matmul", "decode_attention",
+                                          "flash_attention", "norm"),
+               ("musicgen-large", "model"): ("cascade_matmul", "decode_attention",
+                                             "flash_attention", "norm")}
 #: the Griffin run whose streams cross the window: CROSS_REQ prompts of
 #: CROSS_LEN tokens, MAX_NEW new tokens each (positions past 2,048); its
 #: unfused reference admits them in chunks of CROSS_REF_CHUNK (8 calls a
 #: prompt, not 64: each unfused call dequantizes every weight)
 CROSS_REQ, CROSS_LEN, CROSS_REF_CHUNK = 4, 2040, 256
+#: the modality-stub backbones, run at the model level (the engine takes
+#: token prompts): STUB_ROWS rows of a STUB_LEN-token prefill of seeded stub
+#: embeddings (qwen2-vl: first an image of 1 x STUB_GRID x STUB_GRID
+#: patches at its (t, h, w) positions, then text), then STUB_DECODES decode
+#: steps into a cache of STUB_LEN + STUB_DECODES rows
+STUB_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+STUB_ROWS, STUB_LEN, STUB_GRID, STUB_DECODES = MAX_BATCH, 128, 8, 32
+#: the slot-wise loop: codeqwen1.5-7b cut to SLOT_DEPTH layers at full width,
+#: SLOT_REQ requests of PROMPT_LEN // 4 prompt tokens and as many new ones
+SLOT_DEPTH, SLOT_REQ = 2, 2
+#: the fleet (the --traffic path): FLEET_REPLICAS replicas of codeqwen1.5-7b
+#: at full width sharing one params tree, MAX_BATCH slots each, a seeded
+#: Poisson trace of FLEET_REQ arrivals at FLEET_RATE req/s (prompts of
+#: PROMPT_LEN / 2 to PROMPT_LEN tokens, outputs of MAX_NEW / 2 to MAX_NEW),
+#: a FLEET_SLO_S TTFT target, no deadline; replica 0 fails FLEET_KILL_S
+#: into the trace
+FLEET_REPLICAS, FLEET_REQ, FLEET_RATE, FLEET_SLO_S, FLEET_KILL_S = 2, 24, 4.0, 1.0, 2.0
 #: CREST on codeqwen's dense lm_head: injected columns, the cursor cycles the
 #: detection run takes (n_spares 16, threshold 3: the defaults), and the
 #: leading columns it protects: three cycles over all 92,416 took 28.6 s on
@@ -292,6 +334,26 @@ MATMUL_LAYERS = {("codeqwen1.5-7b", 4096, 4096, True): 4 * 32,
 #: codeqwen's FP4 lm_head, once a step (mamba2-370m's head is tied to the
 #: embedding: no FP4 matmul)
 MATMUL_HEAD = ("codeqwen1.5-7b", 4096, 92416, False)
+#: (arch, K, N, bias) -> launches per decode step of the modality-stub
+#: backbones, run at the model level: qwen2-vl-2b's q (bias), k and v (bias;
+#: 2 KV heads of 128: N = 256), o, its SwiGLU MLP in each of 28 layers and
+#: its 151,936-wide head; musicgen-large's q/k/v/o and GELU MLP in each of
+#: 48 layers, and its 4-codebook head (2048 -> 4 x 2048, as w_up). Each runs
+#: at a decode step's 8 rows and the layers at the 8 x 128-token prefill's
+#: 1,024 (the head reads the last position only)
+STUB_MATMUL = {("qwen2-vl-2b", 1536, 1536, True): 28,
+               ("qwen2-vl-2b", 1536, 256, True): 2 * 28,
+               ("qwen2-vl-2b", 1536, 1536, False): 28,
+               ("qwen2-vl-2b", 1536, 8960, False): 2 * 28,
+               ("qwen2-vl-2b", 8960, 1536, False): 28,
+               ("qwen2-vl-2b", 1536, 151936, False): 1,
+               ("musicgen-large", 2048, 2048, False): 4 * 48,
+               ("musicgen-large", 2048, 8192, False): 48 + 1,
+               ("musicgen-large", 8192, 2048, False): 48}
+STUB_PREFILL_ROWS = 8 * 128
+#: decode-attention case -> (arch, launches per model-level decode step):
+#: one a layer
+STUB_ATTN = {"musicgen_step_d64": ("musicgen-large", 48), "qwen2vl_step_g6": ("qwen2-vl-2b", 28)}
 #: leading row counts whose rows must equal, bit for bit, the same rows of
 #: a call over ROWS_ACROSS_M rows: 1 to 4 m-tiles a block, two block rows
 ROWS_ACROSS_M = 65
@@ -312,8 +374,13 @@ def matmul_shapes():
             rows.append((arch, m, k, n, bias, count if m == MAX_BATCH else 0,
                          count if m == v else 0))
     cq = MATMUL_HEAD[0]
-    return rows + [(cq, 64, 4096, 13440, False, 0, 0), (cq, 64, 13440, 4096, False, 0, 0),
-                   (cq, 1, *MATMUL_HEAD[1:], 0, 0)]
+    rows += [(cq, 64, 4096, 13440, False, 0, 0), (cq, 64, 13440, 4096, False, 0, 0),
+             (cq, 1, *MATMUL_HEAD[1:], 0, 0)]
+    for (arch, k, n, bias), count in STUB_MATMUL.items():
+        rows.append((arch, MAX_BATCH, k, n, bias, count, 0))
+        if n < 100000:
+            rows.append((arch, STUB_PREFILL_ROWS, k, n, bias, 0, 0))
+    return rows
 
 
 def matmul_phase(torch, dev):
@@ -386,7 +453,8 @@ def matmul_rows_phase(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     out = []
-    for arch, k, n, with_bias in MATMUL_LAYERS:
+    for arch, k, n, with_bias in list(MATMUL_LAYERS) + [key for key in STUB_MATMUL
+                                                        if key[2] < 100000]:
         packed, scales = quant.quantize_weight(torch.randn((k, n), generator=gen, device=dev), 0)
         bias = torch.randn((n,), generator=gen, device=dev) if with_bias else None
         x = (torch.randn((ROWS_ACROSS_M, k), generator=gen, device=dev) / k ** 0.5) \
@@ -496,17 +564,21 @@ def grouped_matmul_phase(torch, dev):
 
 
 def decode_attention_cases():
-    """(name, B, Hq, Hkv, T, positions), D = 128: the served codeqwen step
-    (8 slots at 128-156 of the engine's 192-row cache), qwen2.5-32b's GQA
-    heads (40 over 8) at the same positions, and a long context (T = 4096,
-    positions spread over 2,047-4,095, so 2,048-4,096 live keys a row)."""
+    """(name, B, Hq, Hkv, T, positions, D): the served codeqwen step (8
+    slots at 128-156 of the engine's 192-row cache), qwen2.5-32b's GQA
+    heads (40 over 8) at the same positions, a long context (T = 4096,
+    positions spread over 2,047-4,095, so 2,048-4,096 live keys a row), and
+    the modality-stub backbones' steps: musicgen-large's 32 heads at D = 64
+    and qwen2-vl-2b's 12 over 2 KV heads (G = 6)."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
     served = [PROMPT_LEN + 4 * i for i in range(MAX_BATCH)]
     long_pos = [2047 + round(i * 2048 / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
-    return [("codeqwen_step", MAX_BATCH, 32, 32, t, served),
-            ("olmoe_step", MAX_BATCH, 16, 16, t, served),
-            ("qwen2.5-32b_gqa", MAX_BATCH, 40, 8, t, served),
-            ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos)]
+    return [("codeqwen_step", MAX_BATCH, 32, 32, t, served, 128),
+            ("olmoe_step", MAX_BATCH, 16, 16, t, served, 128),
+            ("qwen2.5-32b_gqa", MAX_BATCH, 40, 8, t, served, 128),
+            ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos, 128),
+            ("musicgen_step_d64", MAX_BATCH, 32, 32, t, served, 64),
+            ("qwen2vl_step_g6", MAX_BATCH, 12, 2, t, served, 128)]
 
 
 def attention_phase(torch, dev):
@@ -514,9 +586,8 @@ def attention_phase(torch, dev):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
 
-    d = 128
     rows = []
-    for name, b, hq, hkv, t, positions in decode_attention_cases():
+    for name, b, hq, hkv, t, positions, d in decode_attention_cases():
         gen = torch.Generator(device=dev)
         gen.manual_seed(2)
         q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -560,8 +631,9 @@ def attention_phase(torch, dev):
                     "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
                                  else "operations")})
-        if name == "codeqwen_step":
-            row["launches_per_decode_step"] = 32
+        row["launches_per_decode_step"] = {"codeqwen_step": 32, "olmoe_step": 16,
+                                           **{c: k for c, (_, k) in STUB_ATTN.items()}
+                                           }.get(name, 0)
         rows.append(row)
         del sets, kc, vc
         torch.cuda.empty_cache()
@@ -569,25 +641,31 @@ def attention_phase(torch, dev):
 
 
 def flash_cases():
-    """(name, B, Hq, Hkv, S, T, causal, offsets), D = 128 throughout: the
-    TPU kernel's own signature (T = S, offset 0), not causal, GQA at
-    phi4-mini's 24/8 heads, the admission chunk at each of its offsets into
-    the engine's 192-row cache and late in a 4,096-row one (T is the live
-    prefix the engine hands in, offset + 32: from 256 live keys on the
-    chunk is split over the keys), and the verify pass (8 rows of 1 + 4
-    tokens at positions spread over the cache)."""
+    """(name, B, Hq, Hkv, S, T, causal, offsets, D): at D = 128 the TPU
+    kernel's own signature (T = S, offset 0), not causal, GQA at phi4-mini's
+    24/8 heads, the admission chunk at each of its offsets into the engine's
+    192-row cache and late in a 4,096-row one (T is the live prefix the
+    engine hands in, offset + 32: from 256 live keys on the chunk is split
+    over the keys), and the verify pass (8 rows of 1 + 4 tokens at positions
+    spread over the cache); the modality-stub backbones' 8 x 128-token
+    prefills (musicgen-large's 32 heads at D = 64, qwen2-vl-2b's 12 over 2
+    KV heads) and, at D = 64, an admission chunk of 32 over a 160-row cache."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1 + DRAFT_LEN) // CHUNK) * CHUNK     # the engine's cache
     n = DRAFT_LEN + 1
     verify_off = [round(i * (t - n) / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
-    return ([("tpu_causal_128", 1, 32, 32, 128, 128, True, [0]),
-             ("tpu_causal_2048", 1, 32, 32, 2048, 2048, True, [0]),
-             ("tpu_full_128", 1, 32, 32, 128, 128, False, [0]),
-             ("gqa_512", 1, 24, 8, 512, 512, True, [0])]
-            + [(f"admit_off{o}", 1, 32, 32, CHUNK, o + CHUNK, True, [o])
+    d = 128
+    return ([("tpu_causal_128", 1, 32, 32, 128, 128, True, [0], d),
+             ("tpu_causal_2048", 1, 32, 32, 2048, 2048, True, [0], d),
+             ("tpu_full_128", 1, 32, 32, 128, 128, False, [0], d),
+             ("gqa_512", 1, 24, 8, 512, 512, True, [0], d)]
+            + [(f"admit_off{o}", 1, 32, 32, CHUNK, o + CHUNK, True, [o], d)
                for o in (0, 32, 64, 96)]
-            + [(f"admit4k_off{o}", 1, 32, 32, CHUNK, o + CHUNK, True, [o])
+            + [(f"admit4k_off{o}", 1, 32, 32, CHUNK, o + CHUNK, True, [o], d)
                for o in (224, 2016, LONG_LEN - CHUNK)]
-            + [("verify", MAX_BATCH, 32, 32, n, t, True, verify_off)])
+            + [("verify", MAX_BATCH, 32, 32, n, t, True, verify_off, d),
+               ("musicgen_prefill_d64", MAX_BATCH, 32, 32, 128, 128, True, [0] * MAX_BATCH, 64),
+               ("musicgen_admit_d64", 1, 32, 32, CHUNK, 160, True, [128], 64),
+               ("qwen2vl_prefill", MAX_BATCH, 12, 2, 128, 128, True, [0] * MAX_BATCH, d)])
 
 
 def flash_phase(torch, dev):
@@ -595,9 +673,8 @@ def flash_phase(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    d = 128
     rows = []
-    for name, b, hq, hkv, s, t, causal, offsets in flash_cases():
+    for name, b, hq, hkv, s, t, causal, offsets, d in flash_cases():
         gen = torch.Generator(device=dev)
         gen.manual_seed(s * 7 + t)
         # q as the model's (B, S, H, D) projection transposed, k/v as one
@@ -823,7 +900,9 @@ def norm_cases():
     codeqwen's 4,096 and mamba2-370m's 1,024 and gated 2,048) at a decode
     step's 8 rows, a verify pass's (8, 5) and an admission chunk's (1, 32),
     recurrentgemma-2b's first block's norm at 2,560 in the same three
-    shapes, and a LayerNorm at codeqwen's width."""
+    shapes, a LayerNorm at codeqwen's width, musicgen-large's LayerNorm
+    (with bias) at 2,048 in 8, (8, 5) and 32 rows, and qwen2-vl-2b's
+    RMSNorm at 1,536."""
     v = (MAX_BATCH, 1 + DRAFT_LEN)
     return [("codeqwen_step", (MAX_BATCH, 1), 4096, "rmsnorm"),
             ("codeqwen_verify", v, 4096, "rmsnorm"),
@@ -834,7 +913,11 @@ def norm_cases():
             ("griffin_step", (MAX_BATCH, 1), 2560, "rmsnorm"),
             ("griffin_verify", v, 2560, "rmsnorm"),
             ("griffin_admit", (1, CHUNK), 2560, "rmsnorm"),
-            ("layernorm_4096", (MAX_BATCH, 1), 4096, "layernorm")]
+            ("layernorm_4096", (MAX_BATCH, 1), 4096, "layernorm"),
+            ("musicgen_step", (MAX_BATCH, 1), 2048, "layernorm"),
+            ("musicgen_verify", v, 2048, "layernorm"),
+            ("musicgen_rows32", (1, CHUNK), 2048, "layernorm"),
+            ("qwen2vl_step", (MAX_BATCH, 1), 1536, "rmsnorm")]
 
 
 #: mamba2-370m's in_proj output width (z, x, B, C, dt): z is its first
@@ -843,13 +926,14 @@ MAMBA_IN_PROJ = 4384
 
 
 def fused_norm_cases():
-    """(name, form, leading shape, d): the residual add inside the norm
+    """(name, form, leading shape, d, x dtype[, norm type]): the residual add inside the norm
     (add-norm) at codeqwen's 4,096 (a decode step's 8 rows, a verify pass's
     (8, 5), an admission chunk's (1, 32)), recurrentgemma-2b's 2,560 in the
     same three shapes, mamba2-370m's 1,024 (step and verify), and Mamba-2's
     gate inside its gated norm at 2,048 (step and verify, and an admission
-    chunk, whose dual form hands over f32 y beside bf16 z). Rows are bf16
-    but where stated."""
+    chunk, whose dual form hands over f32 y beside bf16 z), and musicgen-
+    large's add-LayerNorm (with bias) at 2,048 in 8, (8, 5) and 32 rows.
+    Rows are bf16 but where stated; the norm is RMSNorm but where stated."""
     v = (MAX_BATCH, 1 + DRAFT_LEN)
     return [("codeqwen_step_add", "add", (MAX_BATCH, 1), 4096, "bfloat16"),
             ("codeqwen_verify_add", "add", v, 4096, "bfloat16"),
@@ -862,7 +946,10 @@ def fused_norm_cases():
             ("mamba_verify_add", "add", v, 1024, "bfloat16"),
             ("mamba_gated_step_fused", "gated", (MAX_BATCH, 1), 2048, "bfloat16"),
             ("mamba_gated_verify_fused", "gated", v, 2048, "bfloat16"),
-            ("mamba_gated_admit_fused_f32_y", "gated", (1, CHUNK), 2048, "float32")]
+            ("mamba_gated_admit_fused_f32_y", "gated", (1, CHUNK), 2048, "float32"),
+            ("musicgen_step_add", "add", (MAX_BATCH, 1), 2048, "bfloat16", "layernorm"),
+            ("musicgen_verify_add", "add", v, 2048, "bfloat16", "layernorm"),
+            ("musicgen_rows32_add", "add", (1, CHUNK), 2048, "bfloat16", "layernorm")]
 
 
 def fused_norm_phase(torch, dev):
@@ -877,7 +964,8 @@ def fused_norm_phase(torch, dev):
     from repro_torch.kernels import ops
 
     rows = []
-    for name, form, lead, d, xdtype in fused_norm_cases():
+    for name, form, lead, d, xdtype, *kind in fused_norm_cases():
+        kind = kind[0] if kind else "rmsnorm"
         gen = torch.Generator(device=dev).manual_seed(d + len(lead) + 1)
         x = (3 * torch.randn(lead + (d,), generator=gen, device=dev) + 0.5) \
             .to(getattr(torch, xdtype))
@@ -885,19 +973,24 @@ def fused_norm_phase(torch, dev):
         r = (3 * torch.randn(lead + (width,), generator=gen, device=dev)).to(torch.bfloat16)
         r = r[..., :d]                       # the gate's z: a column slice, read in place
         scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        bias = 0.1 * torch.randn((d,), generator=gen, device=dev) if kind == "layernorm" \
+            else None
         w16 = scale.to(x.dtype)
+        b16 = None if bias is None else bias.to(x.dtype)
         if form == "add":
             def kern(a, b):
-                return ops.add_norm(a, b, scale)
+                return ops.add_norm(a, b, scale, bias, norm_type=kind)
 
             def old(a, b):
                 s = a + b
-                return ops.norm(s, scale), s
+                return ops.norm(s, scale, bias, norm_type=kind), s
 
             def plain(a, b):
-                return nrm.add_norm_plain(a, b, scale)
+                return nrm.add_norm_plain(a, b, scale, bias, kind)
 
             def lib(a, b):
+                if kind == "layernorm":
+                    return F.layer_norm(torch.add(a, b), (d,), w16, b16, 1e-6)
                 return F.rms_norm(torch.add(a, b), (d,), w16, 1e-6)
         else:
             def kern(a, b):
@@ -917,7 +1010,7 @@ def fused_norm_phase(torch, dev):
         torch.cuda.synchronize()
         err = (got[0].float() - ref[0].float()).abs()
         tol = NORM_RTOL * ref[0].float().abs() + NORM_MTOL * float(ref[0].float().abs().max())
-        row = {"case": name, "form": form, "rows": list(lead), "d": d, "norm_type": "rmsnorm",
+        row = {"case": name, "form": form, "rows": list(lead), "d": d, "norm_type": kind,
                "dtype": xdtype, "z_row_stride": width if form == "gated" else None,
                "equals_old_route": all(torch.equal(a, b) for a, b in zip(got, want)),
                "rows_equal_one_token_calls": all(torch.equal(a, b)
@@ -932,17 +1025,16 @@ def fused_norm_phase(torch, dev):
                  f"round otherwise in one-token calls, or it is out of tolerance: {row}")
         # read x and r (or y and z) and the scale, write the normed rows (and the sum)
         nbytes = (x.element_size() * (2 + (1 if form == "add" else 0)) + r.element_size()) \
-            * x.numel() + d * 4
+            * x.numel() + d * 4 * (2 if bias is not None else 1)
         row.update({"ms": graph_ms(torch, kern, [(x, r)], 200),
                     "old_route_ms": graph_ms(torch, old, [(x, r)], 200),
                     "host_us": host_us(torch, kern, (x, r)),
                     "old_route_host_us": host_us(torch, old, (x, r)),
                     "plain_ms": graph_ms(torch, plain, [(x, r)], 100),
                     "library_ms": graph_ms(torch, lib, [(x, r)], 200),
-                    "library_note": ("torch.add" if form == "add" else
-                                     "F.silu, multiply, cast") + " then F.rms_norm on weights "
-                                                                  "in the rows' dtype, a "
-                                                                  "yardstick only",
+                    "library_note": ("torch.add" if form == "add" else "F.silu, multiply, cast")
+                    + (" then F.layer_norm" if kind == "layernorm" else " then F.rms_norm")
+                    + " on weights in the rows' dtype, a yardstick only",
                     "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                     "bound_by": "bytes"})
         rows.append(row)
@@ -1239,20 +1331,10 @@ def parity_phase(torch, dev, arch: str):
              f"{launches['decode_attention']} times, not once per attention layer: {launches}")
     if not all(torch.isfinite(o).all() for o in out["kernel"]):
         fail(f"depth-2 parity ({arch}): kernel logits not finite")
-    rel_limit, step_limit = PARITY_LIMITS[arch]
     res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
            "heads": [cfg.n_heads, cfg.n_kv_heads], "kernel_launches": launches,
-           "logit_absmax": float(out["plain"][1].abs().max()),
-           "tol": {"rel_l2": rel_limit, "max_bf16_steps": step_limit}}
-    rels, steps = [], []
-    for stage, a, b in zip(("prefill", "decode", "verify"), out["kernel"], out["plain"]):
-        rels.append(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)))
-        steps.append(float((a - b).abs().max()) / bf16_step(float(b.abs().max())))
-        res.update({f"{stage}_max_abs_err": float((a - b).abs().max()),
-                    f"{stage}_rel_l2": rels[-1], f"{stage}_max_bf16_steps": steps[-1],
-                    f"{stage}_moved_share": float((a != b).float().mean()),
-                    f"{stage}_argmax_agree": float((a.argmax(-1) == b.argmax(-1))
-                                                   .float().mean())})
+           "logit_absmax": float(out["plain"][1].abs().max())}
+    parity_readings(torch, res, arch, ("prefill", "decode", "verify"), out)
     if cfg.family == "moe":
         res["routing"] = route_flips(torch, routes["plain"], routes["kernel"])
     if cfg.kv_lora:
@@ -1271,8 +1353,26 @@ def parity_phase(torch, dev, arch: str):
                       "dequants_per_decode_step": cfg.n_layers,
                       "decode_step": {k: step[k] for k in ("device_busy_ms", "device_kernels",
                                                            "our_kernels", "top_kernels")}}
-    res["within_limits"] = max(rels) <= rel_limit and max(steps) <= step_limit
     return res
+
+
+def parity_readings(torch, res: dict, arch: str, stages, out: dict):
+    """Per stage, the kernel run's logits against the plain run's: into
+    ``res`` the largest error, relative L2, error in bf16 steps of
+    max|plain|, the share of logits moved and argmax agreement, the path's
+    limits and ``within_limits``."""
+    rel_limit, step_limit = PARITY_LIMITS[arch]
+    res["tol"] = {"rel_l2": rel_limit, "max_bf16_steps": step_limit}
+    rels, steps = [], []
+    for stage, a, b in zip(stages, out["kernel"], out["plain"]):
+        rels.append(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)))
+        steps.append(float((a - b).abs().max()) / bf16_step(float(b.abs().max())))
+        res.update({f"{stage}_max_abs_err": float((a - b).abs().max()),
+                    f"{stage}_rel_l2": rels[-1], f"{stage}_max_bf16_steps": steps[-1],
+                    f"{stage}_moved_share": float((a != b).float().mean()),
+                    f"{stage}_argmax_agree": float((a.argmax(-1) == b.argmax(-1))
+                                                   .float().mean())})
+    res["within_limits"] = max(rels) <= rel_limit and max(steps) <= step_limit
 
 
 def profile_step(torch, eng) -> dict:
@@ -1601,6 +1701,7 @@ def serve_phase(torch, dev, arch: str):
         out["crest_healthy"] = crest_serve_run(torch, dev, arch, model, params, ccfg, prompts,
                                                reqs)
         out["crest_detection"] = crest_detection(torch, dev, params, ccfg)
+        out["fleet"] = fleet_run(torch, dev, arch, model, params, ccfg)
     elif arch == "recurrentgemma-2b":
         out.update(window_crossing_runs(torch, dev, arch, model, params, ccfg))
     elif arch == "olmoe-1b-7b":
@@ -1900,6 +2001,373 @@ def long_context_run(torch, dev, arch, model, params, ccfg):
     return run
 
 
+def stub_inputs(torch, dev, cfg, seed: int):
+    """Seeded stub-frontend inputs for STUB_ROWS rows: embeddings (rows,
+    STUB_LEN + STUB_DECODES, d) f32 and, for M-RoPE, (3, rows, same) int32
+    positions: a t = 1 image of STUB_GRID x STUB_GRID patches at its (t, h,
+    w) positions, then text from the grid's largest position + 1 in all
+    three streams, as Qwen2-VL numbers them."""
+    n = STUB_LEN + STUB_DECODES
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn((STUB_ROWS, n, cfg.d_model), generator=gen, device=dev)
+    if not cfg.mrope_sections:
+        return emb, None
+    g = STUB_GRID
+    hh, ww = torch.meshgrid(torch.arange(g), torch.arange(g), indexing="ij")
+    img = torch.stack([torch.zeros(g * g, dtype=torch.int64), hh.flatten(), ww.flatten()])
+    text = (img.max() + 1 + torch.arange(n - g * g))[None].expand(3, n - g * g)
+    pos = torch.cat([img, text], dim=1)[:, None].expand(3, STUB_ROWS, n)
+    return emb, pos.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def stub_batch(emb, pos, lo: int, hi: int) -> dict:
+    """Columns lo:hi of the stub inputs as a model batch: M-RoPE positions,
+    or (no RoPE: musicgen) the sinusoid's ``pos_offset``."""
+    batch = {"inputs_embeds": emb[:, lo:hi]}
+    if pos is not None:
+        batch["positions"] = pos[:, :, lo:hi]
+    else:
+        batch["pos_offset"] = lo
+    return batch
+
+
+def stub_parity_phase(torch, dev, arch: str):
+    """Depth-2 parity of a modality-stub backbone at full width: a
+    STUB_LEN-token prefill of stub embeddings (qwen2-vl: the image's M-RoPE
+    positions, then text) and one decode step (musicgen: ``pos_offset``),
+    through the kernels and through their plain versions on the card, as
+    ``parity_phase`` holds the served paths (a prefill here, not an
+    admission chunk: an M-RoPE config cannot extend, as in the reference)."""
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(3, ccfg, device=dev)
+    emb, pos = stub_inputs(torch, dev, cfg, 4)
+    out = {}
+    with torch.no_grad():
+        for name, route in (("plain", plain_versions_on_card), ("kernel", contextlib.nullcontext)):
+            ops.reset_launch_counts()
+            with route():
+                l1, cache = model.prefill(params, stub_batch(emb, pos, 0, STUB_LEN), ccfg,
+                                          max_len=STUB_LEN + STUB_DECODES)
+                l2, _ = model.decode_step(params, stub_batch(emb, pos, STUB_LEN, STUB_LEN + 1),
+                                          cache, ccfg)
+            out[name] = (l1, l2)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["decode_attention"] != cfg.n_layers or launches["flash_attention"] != cfg.n_layers:
+        fail(f"depth-2 parity ({arch}): attention launches {launches}, not one flash and one "
+             f"decode launch per layer")
+    if not all(torch.isfinite(o).all() for o in out["kernel"]):
+        fail(f"depth-2 parity ({arch}): kernel logits not finite")
+    res = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.resolved_head_dim,
+           "codebooks": cfg.n_codebooks, "mrope_sections": list(cfg.mrope_sections),
+           "logits_shape": list(out["kernel"][1].shape), "kernel_launches": launches,
+           "logit_absmax": float(out["plain"][1].abs().max())}
+    parity_readings(torch, res, arch, ("prefill", "decode"), out)
+    return res
+
+
+def check_stub_counts(arch: str, mm: list, atts: list, measured: dict):
+    """The kernels line's per-step sums for a modality-stub backbone scale
+    per-call times by fixed counts (STUB_MATMUL, STUB_ATTN): each must equal
+    the launches the model-level run's decode step made. (No norm count
+    enters the line for these configs.)"""
+    want = {"cascade_matmul": sum(r["launches_per_decode_step"] for r in mm if r["arch"] == arch),
+            "decode_attention": sum(r["launches_per_decode_step"] for r in atts
+                                    if STUB_ATTN.get(r["case"], ("",))[0] == arch)}
+    got = {k: measured["launches_per_decode_step"].get(k, 0) for k in want}
+    if got != want:
+        fail(f"model level ({arch}): a decode step launched {got}, where the kernels line "
+             f"counts {want}")
+
+
+def stub_model_phase(torch, dev, arch: str):
+    """A modality-stub backbone at full width and depth, at the model level
+    (the engine takes token prompts; the reference's cannot serve these
+    configs either): STUB_ROWS rows through a STUB_LEN-token ``prefill`` of
+    seeded stub embeddings, then STUB_DECODES ``decode_step``s, each fed the
+    next seeded embedding with its positions (qwen2-vl) or ``pos_offset``
+    (musicgen) advanced. Every logit must be finite, of the config's shape
+    (musicgen's (8, 1, 4, 2048)), and every kernel of the path launched in
+    the run (counts reset just before, read just after). Reports each
+    step's host-clock ms (synchronized), one decode step profiled, and the
+    peak memory."""
+    import numpy as np
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    cfg, model = registry.load(arch)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    t0 = time.monotonic()
+    params = model.init_params(0, ccfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    emb, pos = stub_inputs(torch, dev, cfg, 5)
+    want = ((STUB_ROWS, 1, cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks
+            else (STUB_ROWS, 1, cfg.vocab))
+    finite, shapes, step_ms = [], set(), []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.monotonic()
+        logits, cache = model.prefill(params, stub_batch(emb, pos, 0, STUB_LEN), ccfg,
+                                      max_len=STUB_LEN + STUB_DECODES)
+        finite.append(torch.isfinite(logits).all())
+        shapes.add(tuple(logits.shape))
+        torch.cuda.synchronize()
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        per_step = {}
+        for i in range(STUB_LEN, STUB_LEN + STUB_DECODES - 1):
+            before = dict(ops.LAUNCHES)
+            t0 = time.monotonic()
+            logits, cache = model.decode_step(params, stub_batch(emb, pos, i, i + 1), cache, ccfg)
+            finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            shapes.add(tuple(logits.shape))
+            per_step = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the last decode step, profiled (not timed: the profiler slows the host)
+        i = STUB_LEN + STUB_DECODES - 1
+        profiled = profile_call(torch, lambda: model.decode_step(
+            params, stub_batch(emb, pos, i, i + 1), cache, ccfg)[0].shape[0])
+    if not bool(torch.stack(finite).all()):
+        fail(f"model level ({arch}): non-finite logits")
+    if shapes != {want}:
+        fail(f"model level ({arch}): logits of shapes {shapes}, expected {want}")
+    if not all(launches[k] > 0 for k in RUN_KERNELS[(arch, "model")]):
+        fail(f"model level ({arch}): a kernel of the path never launched: {launches}")
+    return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.resolved_head_dim,
+            "codebooks": cfg.n_codebooks, "rows": STUB_ROWS, "prefill_len": STUB_LEN,
+            "decode_steps": STUB_DECODES, "logits_shape": list(want), "init_s": init_s,
+            "prefill_ms": prefill_ms, "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p99": float(np.percentile(step_ms, 99)), "launches": launches,
+            "launches_per_decode_step": per_step, "peak_mem_gb": peak,
+            "profiled_decode_step": profiled}
+
+
+def slotwise_run(torch, dev, model, params, ccfg, prompts, fused: bool):
+    """One run of the slot-wise loop (``batched=False``, speculation and
+    pages asked for): the prompts, each with as many new tokens, launch
+    counts reset just before and read just after. Every logit the loop
+    picks from is checked finite, and the top-2 logits and max|logit| of
+    the row behind each committed token are kept by (request, token index):
+    the loop calls ``prefill`` or ``decode_step`` at B = 1 and commits from
+    that call's last row."""
+    import warnings
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    n = len(prompts[0])
+    scfg = ServeConfig(max_batch=MAX_BATCH, max_len=2 * n + 1, batched=False, fused=fused,
+                       draft_len=DRAFT_LEN, paged=True)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        eng = ServeEngine(model, params, ccfg, scfg, device=dev)
+    rec = {"finite": [], "top2": {}, "warnings": len(warned)}
+    last = {}
+    for name in ("prefill", "decode_step"):
+        fn = getattr(model, name)
+
+        def call(*a, _fn=fn, **kw):
+            out = _fn(*a, **kw)
+            row = out[0][0, -1]
+            rec["finite"].append(torch.isfinite(out[0]).all())
+            last["top2"] = torch.cat([torch.topk(row, 2).values, row.abs().amax()[None]])
+            return out
+        setattr(model, name, call)
+    commit = eng._commit_token
+
+    def record(req, tok):
+        rec["top2"][(req.uid, len(req.tokens_out))] = last["top2"]
+        commit(req, tok)
+    eng._commit_token = record
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n) for i, p in enumerate(prompts)]
+    try:
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.monotonic() - t0
+        rec["launches"] = dict(ops.LAUNCHES)
+    finally:
+        for name in ("prefill", "decode_step"):
+            model.__dict__.pop(name, None)
+    return eng, reqs, rec
+
+
+def slotwise_phase(torch, dev):
+    """The slot-wise loop on the card: codeqwen1.5-7b cut to SLOT_DEPTH
+    layers at full width, ``batched=False`` with speculation, fused kernels
+    and pages asked for, SLOT_REQ requests. Speculation and pages must
+    downgrade with their warnings, listed in ``metrics()["downgrades"]``;
+    fused does not: the loop runs ``prefill`` and ``decode_step`` through
+    the kernels (mode ``slotwise-greedy-fused``), and every kernel of
+    codeqwen's path must launch in the run. The same requests then run the
+    loop unfused (no launch), and each kernel stream must equal its unfused
+    stream but where the unfused run's top-2 margin is within twice the
+    path's bf16-step limit (each such departure counted). Every request
+    must end with its tokens and let go of its cache, and every logit must
+    be finite."""
+    import numpy as np
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.models import registry
+
+    arch = "codeqwen1.5-7b"
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=SLOT_DEPTH)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+    params = model.init_params(0, ccfg, device=dev)
+    n = PROMPT_LEN // 4
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for _ in range(SLOT_REQ)]
+    runs = {fused: slotwise_run(torch, dev, model, params, ccfg, prompts, fused)
+            for fused in (True, False)}
+    eng, reqs, rec = runs[True]
+    _, plain_reqs, plain_rec = runs[False]
+    m = eng.metrics()
+    want = ("speculat", "paged")
+    res = {"arch": arch, "layers": SLOT_DEPTH, "requests": SLOT_REQ, "prompt_len": n,
+           "max_new": n, "effective_mode": m["effective_mode"], "downgrades": m["downgrades"],
+           "warnings": rec["warnings"], "launches": rec["launches"],
+           "unfused_mode": runs[False][0].effective_mode,
+           "unfused_launches": plain_rec["launches"], "wall_s": rec["wall_s"],
+           "unfused_wall_s": plain_rec["wall_s"], "step_ms_p50": m["step_time_p50_s"] * 1e3,
+           "decode_tokens_per_s": m["tokens_per_s"], "first_tokens": reqs[0].tokens_out[:8]}
+    if not (m["effective_mode"] == "slotwise-greedy-fused" and len(m["downgrades"]) == len(want)
+            and all(any(k in d for d in m["downgrades"]) for k in want)
+            and rec["warnings"] == len(want)):
+        fail(f"slot-wise loop: the downgrades are not speculation and pages alone: {res}")
+    if not all(rec["launches"][k] > 0 for k in RUN_KERNELS[(arch, "plain")]):
+        fail(f"slot-wise loop: a kernel of the path never launched: {res}")
+    if res["unfused_mode"] != "slotwise-greedy" or any(plain_rec["launches"].values()):
+        fail(f"slot-wise loop: the unfused run launched a kernel: {res}")
+    if not bool(torch.stack(rec["finite"] + plain_rec["finite"]).all()):
+        fail("slot-wise loop: non-finite logits")
+    for e, rs in ((eng, reqs), (runs[False][0], plain_reqs)):
+        if not all(r.done and len(r.tokens_out) == n for r in rs) or any(e.caches):
+            fail(f"slot-wise loop: not every request ended with {n} tokens and let go of its "
+                 f"cache: {[len(r.tokens_out) for r in rs]}")
+    margin_limit = 2 * PARITY_LIMITS[arch][1]
+    departures = []
+    for pr, r in zip(plain_reqs, reqs):
+        j = first_departure(pr, r)
+        if j is None:
+            continue
+        mg, steps = top2_margin(plain_rec["top2"][(pr.uid, j)])
+        d = {"uid": r.uid, "index": j, "unfused": pr.tokens_out[j], "fused": r.tokens_out[j],
+             "unfused_margin": mg, "margin_bf16_steps": steps}
+        departures.append(d)
+        if steps > margin_limit:
+            fail(f"slot-wise loop: a kernel stream departs from the unfused one where the "
+                 f"margin is {steps:.2f} bf16 steps (limit {margin_limit}): {d}")
+    res.update({"streams_equal_unfused": len(reqs) - len(departures), "departures": departures,
+                "margin_limit_bf16_steps": margin_limit})
+    return res
+
+
+def fleet_run(torch, dev, arch, model, params, ccfg):
+    """The --traffic path on the card: FLEET_REPLICAS replicas of the full
+    model sharing one params tree (``launch.serve.fleet``), fused, under the
+    SLO-aware router, on a seeded Poisson trace (``launch.serve.
+    traffic_config``), replica 0 failed FLEET_KILL_S into it, on the wall
+    clock. Every request must finish with its ``max_new_tokens`` (none shed
+    or rejected), replica 0 must hold nothing at the end, at least one
+    stream must have been rebuilt on the survivor (``prompt_carried`` > 0),
+    and each rebuilt greedy stream must equal the same request served alone
+    by one engine on the same weights, but where that run's top-2 margin is
+    within twice the path's bf16-step limit (each such departure counted).
+    TTFT and inter-token percentiles are measurements, not limits."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fleet, traffic_config
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.traffic import poisson_trace
+
+    t_phase = time.monotonic()
+    scfg = ServeConfig(max_batch=MAX_BATCH, max_len=PROMPT_LEN + MAX_NEW + 1,
+                       prefill_chunk=CHUNK, fused=True)
+    router = fleet(model, params, ccfg, scfg, FLEET_REPLICAS, dev)
+    trace = poisson_trace(traffic_config(model.cfg.vocab, FLEET_REQ, FLEET_RATE, PROMPT_LEN,
+                                         MAX_NEW, FLEET_SLO_S, 0.0))
+    prompts = {a.request.uid: a.request.prompt.copy() for a in trace}
+    engines = router.replicas.engines
+    with instrumented(torch, engines[0], margins=False) as rec:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        recs = router.run_trace(trace, kills=[(FLEET_KILL_S, 0)])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = router.metrics()
+    rebuilt = [r for r in recs if r.prompt_carried > 0]
+    res = {"arch": arch, "replicas": FLEET_REPLICAS, "max_batch": MAX_BATCH,
+           "requests": FLEET_REQ, "rate_rps": FLEET_RATE, "slo_ttft_s": FLEET_SLO_S,
+           "kill_at_s": FLEET_KILL_S, "prompt_lens": [PROMPT_LEN // 2, PROMPT_LEN],
+           "output_lens": [MAX_NEW // 2, MAX_NEW], "wall_s": wall, "peak_mem_gb": peak,
+           "effective_mode": engines[1].effective_mode, "launches": launches,
+           "rebuilt_streams": len(rebuilt), "failover_clones": len(router.replicas.requeued),
+           "tokens_carried": sum(r.prompt_carried for r in rebuilt),
+           **{k: m[k] for k in ("ttft_p50_s", "ttft_p99_s", "inter_token_p50_s",
+                                "inter_token_p99_s", "slo_attainment", "replicas_alive",
+                                "requests_offered", "requests_finished", "requests_shed",
+                                "requests_rejected")},
+           "replica_steps": [h.steps for h in router.replicas.health],
+           "replica_step_ewma_ms": [h.ewma_ms for h in router.replicas.health],
+           "served_by_replica": [len(e._retired) for e in engines]}
+    if not (m["requests_shed"] == 0 and m["requests_rejected"] == 0 and len(recs) == FLEET_REQ
+            and all(r.done and len(r.tokens_out) == r.max_new_tokens for r in recs)):
+        fail(f"fleet: a request did not finish with its tokens: {res}")
+    if engines[0]._active() or engines[0]._staging is not None or engines[0].queue \
+            or m["replicas_alive"] != FLEET_REPLICAS - 1:
+        fail(f"fleet: the killed replica still holds work: {res}")
+    if not rebuilt:
+        fail(f"fleet: no stream was rebuilt on the survivor: {res}")
+    if not bool(torch.stack(rec["finite"]).all()):
+        fail("fleet: non-finite logits")
+    if not all(launches[k] > 0 for k in RUN_KERNELS[(arch, "plain")]):
+        fail(f"fleet: a kernel of the path never launched: {launches}")
+    # each rebuilt stream against the same request served alone on one engine
+    margin_limit = 2 * PARITY_LIMITS[arch][1]
+    departures = []
+    for r in rebuilt:
+        _, eng, (alone,), arec = serve_run(torch, dev, arch, model, params, ccfg,
+                                           [prompts[r.uid]], f"fleet_alone_{r.uid}",
+                                           margins=True, max_new=r.max_new_tokens)
+        del eng
+        j = first_departure(alone, r)
+        if j is None:
+            continue
+        mg, steps = top2_margin(arec["top2"][(alone.uid, j)])
+        d = {"uid": r.uid, "index": j, "carried": r.prompt_carried, "alone": alone.tokens_out[j],
+             "fleet": r.tokens_out[j], "alone_margin": mg, "margin_bf16_steps": steps}
+        departures.append(d)
+        if steps > margin_limit:
+            fail(f"fleet: a rebuilt stream departs from the request served alone where the "
+                 f"margin is {steps:.2f} bf16 steps (limit {margin_limit}): {d}")
+    res.update({"rebuilt_equal_alone": len(rebuilt) - len(departures),
+                "departures": departures, "margin_limit_bf16_steps": margin_limit,
+                "phase_s": time.monotonic() - t_phase})
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1961,7 +2429,17 @@ def main() -> int:
     for arch in PARITY_ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
         print(json.dumps({"parity_depth2": par[arch]}), flush=True)
+    for arch in STUB_ARCHS:
+        par[arch] = timed(f"parity {arch}", stub_parity_phase, arch)
+        print(json.dumps({"parity_depth2": par[arch]}), flush=True)
     par_failed = [a for a, r in par.items() if not r["within_limits"]]
+    stub = {}
+    for arch in STUB_ARCHS:
+        stub[arch] = timed(f"model level {arch}", stub_model_phase, arch)
+        print(json.dumps({"model_level": stub[arch]}), flush=True)
+        check_stub_counts(arch, mm, atts, stub[arch])
+    slot = timed("slot-wise loop", slotwise_phase)
+    print(json.dumps({"slotwise": slot}), flush=True)
     crest_det = None
     for arch in ARCHS:
         srv[arch] = timed(f"serve {arch}", serve_phase, arch)
@@ -1969,6 +2447,13 @@ def main() -> int:
         for run in srv[arch].values():
             print(json.dumps({"serve": run}), flush=True)
     print(json.dumps({"crest_detection": crest_det}), flush=True)
+    fleet = srv[ARCHS[0]]["fleet"]
+    phase_s[f"fleet (inside serve {ARCHS[0]})"] = fleet["phase_s"]
+    print(json.dumps({"fleet_summary": {
+        "gpu": gpu_name_and_power(), **{k: fleet[k] for k in (
+            "replicas", "requests", "rate_rps", "kill_at_s", "ttft_p50_s", "ttft_p99_s",
+            "inter_token_p50_s", "inter_token_p99_s", "slo_attainment", "replicas_alive",
+            "wall_s", "rebuilt_streams", "rebuilt_equal_alone", "departures")}}}), flush=True)
 
     def step_summary(prof):
         return {"device_busy_ms": prof["device_busy_ms"], "device_kernels": prof["device_kernels"],
@@ -1993,6 +2478,10 @@ def main() -> int:
         """Launches in every serve run, each counted from zero."""
         return {f"{arch}/{kind}": rec["launches"][name] for arch in ARCHS
                 for kind, rec in srv[arch].items() if "launches" in rec}
+
+    def model_level(name):
+        """Launches in each model-level run of a modality-stub backbone."""
+        return {arch: stub[arch]["launches"][name] for arch in STUB_ARCHS}
 
     cq, mb, om, rg = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
@@ -2073,6 +2562,12 @@ def main() -> int:
                               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
          "recurrentgemma_2b_step": {key: per_step(rg, key)
                                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"{a.replace('-', '_').replace('.', '_')}_step": {
+             key: per_step(a, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for a in STUB_ARCHS},
+         "launches_model_level": model_level("cascade_matmul"),
+         "launches_per_model_level_decode_step": {
+             a: stub[a]["launches_per_decode_step"]["cascade_matmul"] for a in STUB_ARCHS},
          "verify_step_m40": {a: verify_step(a) for a in (cq, mb, rg)},
          "geometry": mm_geometry,
          "rows_equal_across_m": all(r["rows_equal"] for r in mm_rows),
@@ -2125,6 +2620,7 @@ def main() -> int:
          "geometry": att_geometry, "splits": att["splits"],
          "launches_per_griffin_decode_step":
              srv[rg]["plain"]["launches_per_decode_step"]["decode_attention"],
+         "launches_model_level": model_level("decode_attention"),
          "decode_attention_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits", "max_abs_err")}
              for r in atts + ring}},
@@ -2149,6 +2645,7 @@ def main() -> int:
          "geometry": fla_geometry,
          "launches_per_griffin_verify_step":
              srv[rg]["spec"]["launches_per_decode_step"]["flash_attention"],
+         "launches_model_level": model_level("flash_attention"),
          "flash_attention_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "ms_one_split", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
              "heads_per_block") if k in r} for r in fla + fla_local},
@@ -2180,6 +2677,7 @@ def main() -> int:
          "library_ms": nq["library_ms"], "library_note": nq["library_note"],
          "recurrentgemma_2b_steps": {"decode": griffin_norms("step", "plain"),
                                      "verify": griffin_norms("verify", "spec")},
+         "launches_model_level": model_level("norm"),
          "norm_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "old_route_ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
              if k in r} for r in nrm + nrm_fused}},
@@ -2207,7 +2705,8 @@ def main() -> int:
               "decode_attention": atts, "decode_attention_ring": ring, "flash_attention": fla,
               "flash_attention_local": fla_local, "griffin_and_crest": griffin, "norm": nrm,
               "norm_fused": nrm_fused, "ssd_scan": ssd,
-              "parity_depth2": par, "serve": srv, "paged_pool": pool,
+              "parity_depth2": par, "serve": srv, "paged_pool": pool, "model_level": stub,
+              "slotwise": slot,
               "paged_decode_step_vs_dense": paged_vs_dense,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -47,6 +47,24 @@ after the first maps the shared pages instead of prefilling them):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --fused --prefix-cache
 
+Open-loop traffic over a fleet of replicas (``--traffic``): a seeded
+Poisson trace of ``--requests`` arrivals at ``--rate`` req/s (prompts of
+``--prompt-len``/2 to ``--prompt-len`` tokens, outputs of ``--max-new``/2 to
+``--max-new``), routed by the SLO-aware router over ``--replicas`` engines
+that share one params tree; ``--kill-at T`` fails replica 0 T seconds into
+the trace (its streams are rebuilt on the survivor). The replicas step in
+turn on one thread. On the H100 and as a CPU smoke:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
+        --traffic --replicas 2 --requests 24 --rate 4 --prompt-len 128 \
+        --max-new 32 --max-batch 8 --slo-ttft 1.0 --kill-at 2.0 --fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --traffic --kill-at 0.2
+
+The modality-stub configs (qwen2-vl-2b, musicgen-large) take embeddings from
+a stub frontend, not token prompts: the engine refuses them, as the
+reference's engine cannot serve them either. They run at the model level
+(``prefill``, ``decode_step``; see ``chip_smoke.py``).
+
 ``--draft-len K`` drafts K tokens per slot per step by prompt lookup and
 verifies them in one pass (greedy: the stream stays the greedy stream; the
 output adds ``accepted/step``). ``--temperature`` > 0 (with ``--top-k``)
@@ -67,7 +85,27 @@ import torch
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.serve.elastic import ReplicaSet
 from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+from repro_torch.serve.router import SLORouter
+from repro_torch.serve.traffic import TrafficConfig
+
+
+def fleet(model, params, ccfg, scfg: ServeConfig, replicas: int, device=None) -> SLORouter:
+    """``replicas`` engines sharing ``params``, under one router, on the wall
+    clock."""
+    engines = [ServeEngine(model, params, ccfg, scfg, device=device) for _ in range(replicas)]
+    return SLORouter(ReplicaSet(engines))
+
+
+def traffic_config(vocab: int, requests: int, rate: float, prompt_len: int, max_new: int,
+                   slo_ttft: float, deadline: float) -> TrafficConfig:
+    """The CLI's trace: prompts of prompt_len/2..prompt_len tokens, outputs of
+    max_new/2..max_new, every request stamped with the SLO and deadline."""
+    return TrafficConfig(rate_rps=rate, n_requests=requests,
+                         prompt_lens=((max(1, prompt_len // 2), prompt_len),),
+                         output_lens=((max(1, max_new // 2), max_new),), vocab=vocab,
+                         slo_ttft_s=slo_ttft, deadline_s=deadline)
 
 
 def main(argv=None) -> int:
@@ -102,6 +140,20 @@ def main(argv=None) -> int:
                     help="tokens per KV page under --prefix-cache")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
+    ap.add_argument("--traffic", action="store_true",
+                    help="route a seeded open-loop Poisson trace (--rate, --requests "
+                         "arrivals) over --replicas engines through the SLO-aware router; "
+                         "prints TTFT and inter-token percentiles and SLO attainment")
+    ap.add_argument("--replicas", type=int, default=2, help="engine replicas under --traffic")
+    ap.add_argument("--rate", type=float, default=20.0,
+                    help="Poisson arrival rate (requests/s) under --traffic")
+    ap.add_argument("--slo-ttft", type=float, default=0.5,
+                    help="per-request TTFT SLO seconds under --traffic (0 = none)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="admission deadline seconds under --traffic (0 = never shed)")
+    ap.add_argument("--kill-at", type=float, default=None, metavar="T",
+                    help="with --traffic: fail replica 0 T seconds into the trace (its "
+                         "streams are rebuilt on a survivor)")
     args = ap.parse_args(argv)
 
     try:
@@ -119,6 +171,31 @@ def main(argv=None) -> int:
                        temperature=args.temperature,
                        top_k=args.top_k, sample_seed=args.sample_seed,
                        prefix_cache=args.prefix_cache, page_size=args.page_size)
+
+    if args.traffic:
+        from repro_torch.serve.traffic import poisson_trace
+        router = fleet(model, params, ccfg, scfg, args.replicas, device)
+        trace = poisson_trace(traffic_config(cfg.vocab, args.requests, args.rate,
+                                             args.prompt_len, args.max_new, args.slo_ttft,
+                                             args.deadline))
+        kills = [(args.kill_at, 0)] if args.kill_at is not None else []
+        t0 = time.time()
+        recs = router.run_trace(trace, kills=kills)
+        dt = time.time() - t0
+        m = router.metrics()
+        print(f"mode={router.replicas.engines[0].effective_mode} device={device}")
+        print(f"traffic: {m['requests_offered']} arrivals at {args.rate:g} req/s over "
+              f"{args.replicas} replicas ({m['replicas_alive']} alive after {len(kills)} "
+              f"kill(s), {len(router.replicas.requeued)} stream(s) rebuilt) in {dt:.2f}s")
+        print(f"  ttft p50/p99 {m['ttft_p50_s'] * 1e3:.1f}/{m['ttft_p99_s'] * 1e3:.1f} ms, "
+              f"inter-token p50/p99 {m['inter_token_p50_s'] * 1e3:.1f}/"
+              f"{m['inter_token_p99_s'] * 1e3:.1f} ms")
+        print(f"  SLO attainment {m['slo_attainment']:.3f} (finished {m['requests_finished']}, "
+              f"shed {m['requests_shed']}, rejected {m['requests_rejected']})")
+        for r in recs[:3]:
+            print(f"  req {r.uid}: {r.tokens_out}")
+        return 0
+
     eng = ServeEngine(model, params, ccfg, scfg, device=device)
 
     rng = np.random.default_rng(0)

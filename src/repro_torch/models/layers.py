@@ -11,8 +11,10 @@ arrays. A paged cache (``attn_cache_init_paged``) is written and read
 through a block table (``cache_utils.paged_*``). A windowed config
 (``AttnConfig.window`` > 0, Griffin's local attention) keeps a ring buffer
 of ``window`` rows: position p lives in row p % window and ``slot_pos``
-records the position each row holds (-1: empty). Not ported yet: M-RoPE
-and explicit position inputs (ROADMAP Queue 1 item 6).
+records the position each row holds (-1: empty). Qwen2-VL's M-RoPE
+(``AttnConfig.mrope_sections``) rotates by explicit ``(3, B, S)`` (t, h, w)
+positions the caller passes (``attn_apply(positions=...)``); they set the
+rotary angle only, never the cache row a token is written to or the mask.
 """
 from __future__ import annotations
 
@@ -84,7 +86,7 @@ def gated_norm_apply(params: dict, y: torch.Tensor, z: torch.Tensor, eps: float 
 
 
 # ---------------------------------------------------------------------------
-# RoPE (incl. partial rotary)
+# RoPE (incl. partial rotary and Qwen2-VL M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0, device=None) -> torch.Tensor:
@@ -94,17 +96,37 @@ def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0, device=None) 
     return 1.0 / torch.pow(float(theta), exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S). Rotates the first
-    2*len(inv_freq) channels, passes the rest through (partial rotary)."""
-    rot2 = inv_freq.shape[0]
-    ang = positions[..., None].to(torch.float32) * inv_freq       # (B, S, r/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the first 2*r channels of x (B, S, H, D) by the (B, S, r)
+    angles, pass the rest through (partial rotary; r = 0 passes all)."""
+    rot2 = ang.shape[-1]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x_rot, x_pass = x[..., : 2 * rot2], x[..., 2 * rot2:]
     x1, x2 = x_rot[..., :rot2], x_rot[..., rot2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S). Rotates the first
+    2*len(inv_freq) channels, passes the rest through (partial rotary)."""
+    return _rotate(x, positions[..., None].to(torch.float32) * inv_freq)     # (B, S, r/2)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (arXiv:2409.12191). positions: (3, B, S),
+    the (t, h, w) streams; the ``inv_freq`` bands are split into
+    ``sections`` (half-dim units), band i rotated by stream ``i % 3``."""
+    if positions.dim() != 3 or positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE takes (3, B, S) positions, got {tuple(positions.shape)}")
+    ang_all = positions[..., None].to(torch.float32) * inv_freq      # (3, B, S, r/2)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[i % 3, :, :, start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +170,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0
     window: int = 0              # 0 = full causal; > 0 = local attention window
+    mrope_sections: tuple = ()   # Qwen2-VL M-RoPE bands (half-dim units); () = plain RoPE
     q_chunk: int = 0             # chunked attention for long prefill (0 = off)
 
 
@@ -211,6 +234,7 @@ def attn_apply(
     max_len: int | None = None,
     n_valid=None,
     kv_len: int | None = None,
+    positions: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Attention with four modes:
 
@@ -241,6 +265,14 @@ def attn_apply(
     row position plus s), hands the kernel only that prefix of the cache, so
     its launch plan (the split over the keys) follows the live keys and not
     the allocated length.
+
+    ``positions`` sets the rotary angles only: (B, S), or (3, B, S) under
+    M-RoPE, where a token's rotary position is not its cache row. Without
+    them each token rotates by its row (the cache's ``pos`` plus its index
+    in the chunk); an M-RoPE config then raises ``ValueError`` (the
+    reference's extend and verify pass none, and fail there too). The mask,
+    decode attention's ``q_pos`` and flash attention's ``q_offset`` always
+    read the cache rows.
     """
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -250,14 +282,23 @@ def attn_apply(
     v = cascade.linear_apply(params["wv"], x, ccfg).reshape(b, s, hk, hd)
 
     steps = torch.arange(s, dtype=torch.int32, device=dev)
-    if cache is not None:
-        positions = cache["pos"][:, None] + steps[None, :]
-    else:
-        positions = steps[None, :].expand(b, s)
+    if cfg.mrope_sections and positions is None:
+        raise ValueError(
+            "an M-RoPE config (mrope_sections) needs explicit (3, B, S) positions; "
+            "prefill_extend and spec_verify pass none, as the reference's do")
+    if positions is None:
+        if cache is not None:
+            positions = cache["pos"][:, None] + steps[None, :]
+        else:
+            positions = steps[None, :].expand(b, s)
 
     inv = rope_freqs(hd, cfg.rope_theta, cfg.rope_fraction, device=dev)
-    q = apply_rope(q, positions, inv)
-    k = apply_rope(k, positions, inv)
+    if cfg.mrope_sections:
+        q = apply_mrope(q, positions, inv, cfg.mrope_sections)
+        k = apply_mrope(k, positions, inv, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, inv)
+        k = apply_rope(k, positions, inv)
 
     scale = 1.0 / (hd ** 0.5)
 

@@ -27,14 +27,6 @@ FAMILY_SMOKE = {
     "ssm": "mamba2-370m",             # conv + SSD state
 }
 
-#: families the port does not build yet, and the ROADMAP item that ports each
-_NOT_PORTED = {
-    "audio": "ROADMAP Queue 1 item 6 (sinusoidal positions and the "
-             "multi-codebook head of TransformerLM)",
-    "vlm": "ROADMAP Queue 1 item 6 (M-RoPE in models/layers.py)",
-}
-
-
 def canonical(arch_id: str) -> str:
     return ALIASES.get(arch_id, arch_id)
 
@@ -45,10 +37,6 @@ def get_config(arch_id: str, smoke: bool = False) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            f"yet; see {_NOT_PORTED[cfg.family]}")
     if cfg.family == "ssm":
         from repro_torch.models.ssm import Mamba2LM
         return Mamba2LM(cfg)

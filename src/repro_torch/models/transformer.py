@@ -11,8 +11,18 @@ block table the caller passes in the batch (``batch["block_table"]``).
 
 A windowed config (local attention) keeps ring-buffer caches
 (``layers.attn_apply``); its context is then not bounded by the cache, and
-it has no page layout. Not ported yet: M-RoPE, sinusoidal positions,
-multi-codebook heads and stub-embedding inputs.
+it has no page layout.
+
+The modality-stub backbones run here too. With ``input_embeds`` (the stub
+frontends of qwen2-vl-2b and musicgen-large) the batch carries
+``inputs_embeds`` (B, S, d) instead of ``tokens``; the tree then has no
+``embed`` leaf and its head is untied, ``vocab * max(1, n_codebooks)``
+wide. A multi-codebook head (musicgen) gives (B, S, n_codebooks, vocab)
+logits. ``rope_fraction == 0`` (musicgen) adds sinusoidal positions at
+``batch["pos_offset"]`` (default 0) to the embeddings. Qwen2-VL's M-RoPE
+reads ``batch["positions"]`` (3, B, S) in ``forward``, ``prefill`` and
+``decode_step``; ``prefill_extend`` and ``spec_verify`` pass no positions,
+as the reference's do, so an M-RoPE config raises ``ValueError`` there.
 """
 from __future__ import annotations
 
@@ -28,11 +38,6 @@ from repro_torch.models import layers as L
 
 class TransformerLM:
     def __init__(self, cfg: ArchConfig):
-        if (cfg.mrope_sections or cfg.n_codebooks or cfg.input_embeds
-                or cfg.rope_fraction == 0.0):
-            raise NotImplementedError(
-                f"{cfg.name}: M-RoPE, sinusoidal positions, multi-codebook heads and "
-                "stub-embedding inputs are not ported yet (ROADMAP Queue 1 item 6)")
         self.cfg = cfg
         self.attn_cfg = L.AttnConfig(
             d_model=cfg.d_model,
@@ -43,6 +48,7 @@ class TransformerLM:
             rope_theta=cfg.rope_theta,
             rope_fraction=cfg.rope_fraction,
             window=cfg.window,
+            mrope_sections=cfg.mrope_sections,
             q_chunk=cfg.q_chunk,
         )
         # a windowed config holds O(window) ring state: the serving context
@@ -61,7 +67,9 @@ class TransformerLM:
 
     def init_params(self, seed: int, ccfg: CascadeConfig, device=None) -> dict:
         """Random params from ``seed``. In ``serve_fp4`` mode every matrix is
-        quantized as it is drawn (full width never holds a dense f32 tree)."""
+        quantized as it is drawn (full width never holds a dense f32 tree).
+        A stub-embedding config has no ``embed`` leaf and an untied head of
+        ``vocab`` columns per codebook."""
         cfg = self.cfg
         device = resolve_device(device)
         gen = torch.Generator(device=device)
@@ -70,37 +78,58 @@ class TransformerLM:
             "layers": cache_utils.stack_layers(
                 [self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers)]),
             "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
-            "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=ccfg.compute_dtype,
-                                  device=device),
         }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg,
-                                                    device=device)
+        if not cfg.input_embeds:
+            params["embed"] = L.embed_init(gen, cfg.vocab, cfg.d_model,
+                                           dtype=ccfg.compute_dtype, device=device)
+        if not self._tied:
+            params["lm_head"] = cascade.linear_init(
+                gen, cfg.d_model, cfg.vocab * max(1, cfg.n_codebooks), ccfg, device=device)
         return params
 
+    @property
+    def _tied(self) -> bool:
+        return self.cfg.tie_embeddings and not self.cfg.input_embeds
+
     # --------------------------------------------------------------- forward
-    def _embed(self, params: dict, batch: dict) -> torch.Tensor:
-        return L.embed_apply(params["embed"], batch["tokens"])
+    def _embed(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
+        """The token embeddings, or the stub frontend's ``inputs_embeds`` in
+        the compute dtype; plus, for a config without RoPE (musicgen), the
+        sinusoid of positions ``pos_offset`` on (one offset for every row)."""
+        cfg = self.cfg
+        if cfg.input_embeds:
+            x = batch["inputs_embeds"].to(ccfg.compute_dtype)
+        else:
+            x = L.embed_apply(params["embed"], batch["tokens"])
+        if cfg.rope_fraction == 0.0:
+            pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, batch.get("pos_offset", 0),
+                                        device=x.device)
+            x = x + pe[None].to(x.dtype)
+        return x
 
     def _head(self, params: dict, x: torch.Tensor, pending: torch.Tensor,
               ccfg: CascadeConfig) -> torch.Tensor:
         """Logits of the rows of ``x + pending`` (the last layer's MLP output
-        is added inside the final norm)."""
+        is added inside the final norm): (B, S, V), or (B, S, n_codebooks, V)
+        from a multi-codebook head."""
         cfg = self.cfg
         x, _ = L.add_norm_apply(params["final_norm"], x, pending, cfg.norm_type,
                                 use_kernel=ccfg.use_kernel)
-        if cfg.tie_embeddings:
+        if self._tied:
             logits = L.tied_head(params["embed"], x, ccfg.compute_dtype)
         else:
             logits = cascade.linear_apply(params["lm_head"], x, ccfg)
+        if cfg.n_codebooks:
+            logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks, cfg.vocab)
         return logits.to(torch.float32)
 
     def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
                max_len: int | None = None, n_valid=None, kv_len: int | None = None,
-               pending: torch.Tensor | None = None):
+               pending: torch.Tensor | None = None, positions: torch.Tensor | None = None):
         """One layer. ``pending``: the previous layer's MLP output, not yet
         added to the residual stream ``x``; the add runs inside ln1 (one
         add-norm), as this layer's attention output's runs inside ln2.
+        ``positions``: the rotary positions (see ``layers.attn_apply``).
         Returns (x, this layer's MLP output, still to be added, new cache)."""
         cfg = self.cfg
         uk = ccfg.use_kernel
@@ -108,8 +137,9 @@ class TransformerLM:
             u = L.norm_apply(lp["ln1"], x, cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln1"], x, pending, cfg.norm_type, use_kernel=uk)
-        h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, cache=cache, mode=mode,
-                                    max_len=max_len, n_valid=n_valid, kv_len=kv_len)
+        h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, positions=positions,
+                                    cache=cache, mode=mode, max_len=max_len, n_valid=n_valid,
+                                    kv_len=kv_len)
         u, x = L.add_norm_apply(lp["ln2"], x, h, cfg.norm_type, use_kernel=uk)
         return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
 
@@ -131,9 +161,16 @@ class TransformerLM:
     def _layer_params(self, params: dict, i: int) -> dict:
         return cache_utils.layer_view(params["layers"], i)
 
+    @staticmethod
+    def _positions(batch: dict) -> dict:
+        """The batch's explicit rotary positions as a ``_block`` keyword, if
+        it has any (only dense-family blocks take them)."""
+        return {"positions": batch["positions"]} if "positions" in batch else {}
+
     def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
         """Full-sequence forward (no cache): logits (B, S, V) f32."""
-        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "full")
+        x, pending, _ = self._layers(params, self._embed(params, batch, ccfg), ccfg, "full",
+                                     **self._positions(batch))
         return self._head(params, x, pending, ccfg)
 
     # --------------------------------------------------------------- serving
@@ -149,8 +186,9 @@ class TransformerLM:
     @property
     def paged_attention(self) -> bool:
         """Full attention pages; a ring buffer does not (its cache runs
-        dense, as in the reference)."""
-        return self.attn_cfg.window == 0
+        dense, as in the reference), nor does a multi-codebook model (it is
+        served slot-wise)."""
+        return self.attn_cfg.window == 0 and not self.cfg.n_codebooks
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
                          dtype=torch.bfloat16, device=None) -> dict:
@@ -178,16 +216,17 @@ class TransformerLM:
                 max_len: int | None = None):
         """Prompt forward that also builds the cache: logits of the last
         position (B, 1, V) and ``{"layers": {k, v, pos}}`` stacked (L, ...)."""
-        x, pending, caches = self._layers(params, self._embed(params, batch), ccfg, "prefill",
-                                          max_len=max_len)
+        x, pending, caches = self._layers(params, self._embed(params, batch, ccfg), ccfg,
+                                          "prefill", max_len=max_len, **self._positions(batch))
         return (self._head(params, x[:, -1:], pending[:, -1:], ccfg),
                 {"layers": cache_utils.stack_layers(caches)})
 
     def decode_step(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig):
         """One token per row against ``cache`` (updated in place; a paged
         cache through ``batch["block_table"]``)."""
-        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "decode", cache,
-                                     block_table=batch.get("block_table"))
+        x, pending, _ = self._layers(params, self._embed(params, batch, ccfg), ccfg, "decode",
+                                     cache, block_table=batch.get("block_table"),
+                                     **self._positions(batch))
         return self._head(params, x, pending, ccfg), cache
 
     def prefill_extend(self, params: dict, batch: dict, cache: dict, ccfg: CascadeConfig,
@@ -201,8 +240,9 @@ class TransformerLM:
         ``layers.attn_apply``), None for the whole cache. A paged cache is
         written through ``batch["block_table"]``.
         """
-        nv = batch["tokens"].shape[1] if n_valid is None else n_valid
-        x, pending, _ = self._layers(params, self._embed(params, batch), ccfg, "extend", cache,
+        x = self._embed(params, batch, ccfg)
+        nv = x.shape[1] if n_valid is None else n_valid
+        x, pending, _ = self._layers(params, x, ccfg, "extend", cache,
                                      block_table=batch.get("block_table"), n_valid=nv,
                                      kv_len=kv_len)
         if not all_logits:

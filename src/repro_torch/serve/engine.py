@@ -79,14 +79,30 @@ step's decode: the CREST-protected matmul on a dense f32 copy of
 ``lm_head`` with a random (4, K) input. Confirmed faults and repairs
 accumulate in ``crest_state`` (``crest_report()``); ``fault_mask`` (N,)
 bool injects defective columns. A model without ``lm_head`` (Mamba-2's tied
-head) skips the probe, as the reference does. Not ported yet (the engine
-raises ``NotImplementedError`` when asked): the slot-wise loop and mesh
-serving.
+head) skips the probe, as the reference does.
+
+``batched=False``, or a model with a multi-codebook head (musicgen), runs
+the slot-wise loop instead: each request is prefilled whole into its own
+cache (``model.prefill``) and decoded one slot at a time, a 4-D logits row
+picking codebook 0, at admission as at decode. As in the reference, that
+loop runs no speculation and no pages: each such request downgrades with a
+warning. Unlike the reference's, ``fused=True`` runs it through the kernels
+(its calls are ``prefill`` and ``decode_step`` at B = 1). A model
+fed stub embeddings (``input_embeds``) is refused: the engine takes token
+prompts.
+
+Every time the engine records (arrival, admission, token commits, step
+times) reads an injected clock (``serve/traffic.py``: ``MonotonicClock``
+by default, a ``VirtualClock`` in deterministic fleet tests). The fleet
+layer (``serve/elastic.py``, ``serve/router.py``) drives engines through
+``submit``, ``step``, ``load``, ``evict`` and ``abort_in_flight``; a
+request rebuilt after a replica failure carries its emitted tokens inside
+its prompt (``Request.prompt_carried`` of them). Not ported yet (the
+engine raises ``NotImplementedError`` when asked): mesh serving.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from collections import deque
 from typing import Any, List, Optional
@@ -100,6 +116,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cache_utils
 from repro_torch.serve.prefix import PagePool, RadixPrefixCache
 from repro_torch.serve.spec import ngram_propose
+from repro_torch.serve.traffic import MonotonicClock
 
 #: methods a model needs for speculative decode
 _SPEC_API = ("spec_verify", "spec_rewind")
@@ -194,8 +211,14 @@ class Request:
     finished_at: float = 0.0
     tokens_out: list = dataclasses.field(default_factory=list)
     done: bool = False
+    prompt_carried: int = 0       # leading tokens_out entries a failover rebuild put into
+                                  # ``prompt``
     #: token_times[i] is the clock reading when tokens_out[i] was committed
     token_times: list = dataclasses.field(default_factory=list)
+    slo_ttft_s: float = 0.0       # TTFT target this request is judged by (0: none)
+    deadline_s: float = 0.0       # the router sheds the request if it is not dispatched
+                                  # this many seconds after arrival (0: never)
+    prefix_id: int = -1           # the traffic generator's shared-prefix tag (-1: none)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,7 +231,8 @@ class ServeConfig:
                                   # 2.62 GB on recurrentgemma-2b, 0.41 GB on olmoe-1b-7b
     crest_every: int = 4          # run a probe wave every N engine steps
     crest_cfg: crest.CrestConfig = dataclasses.field(default_factory=crest.CrestConfig)
-    batched: bool = True          # False (slot-wise loop) is not ported: raises
+    batched: bool = True          # one decode over the whole slot grid; False: the
+                                  # slot-wise loop (multi-codebook heads always)
     prefill_chunk: int = 32       # chunked-prefill piece size (0 = whole prompt;
                                   # clamped to the ring length for windowed archs)
     token_budget: int = 0         # max prompt tokens admitted per step (0 = no cap)
@@ -241,20 +265,19 @@ class _Staging:
     slot: int
 
 
-def _check_ported(scfg: ServeConfig, mesh) -> None:
-    missing = [name for name, on in (
-        ("batched=False (the slot-wise loop)", not scfg.batched),
-        ("a device mesh (ROADMAP Queue 1 item 10)", mesh is not None),
-    ) if on]
-    if missing:
-        raise NotImplementedError("not ported to PyTorch yet: " + "; ".join(missing))
-
-
 class ServeEngine:
     def __init__(self, model, params, ccfg: CascadeConfig, scfg: ServeConfig,
-                 mesh=None, device=None):
-        _check_ported(scfg, mesh)
+                 mesh=None, device=None, clock=None):
+        if mesh is not None:
+            raise NotImplementedError("not ported to PyTorch yet: a device mesh "
+                                      "(ROADMAP Queue 1 item 10)")
+        mcfg = getattr(model, "cfg", None)
+        if getattr(mcfg, "input_embeds", False):
+            raise ValueError(
+                f"{mcfg.name} takes stub-frontend embeddings (input_embeds), but the engine "
+                "takes token prompts: run it at the model level (prefill, decode_step)")
         self.device = resolve_device(device)
+        self.clock = clock if clock is not None else MonotonicClock()
         self.model = model
         self.params = params
         self.scfg = scfg
@@ -277,13 +300,23 @@ class ServeEngine:
             self.downgrades.append(msg)
             warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
+        # the batched path needs flat logits: a multi-codebook head runs the
+        # slot-wise loop, as in the reference
+        codebooks = getattr(mcfg, "n_codebooks", 0)
+        self.batched = scfg.batched and not codebooks
+        if scfg.batched and not self.batched:
+            _downgrade("batched serving requested but this model has a multi-codebook "
+                       "head -- falling back to the slot-wise decode loop")
         # a ring buffer holds exactly the window: an admission chunk, and the
         # verify pass's 1 + K tokens, must fit inside it
         window = getattr(getattr(model, "attn_cfg", None), "window", 0)
-        self._chunk_cap = window
+        self._chunk_cap = window if self.batched else 0
         self._draft_len = 0
         if scfg.draft_len > 0:
-            if all(hasattr(model, m) for m in _SPEC_API):
+            if not self.batched:
+                _downgrade("draft_len > 0 requested but speculation needs the batched "
+                           "stacked-cache path -- speculative decode disabled")
+            elif all(hasattr(model, m) for m in _SPEC_API):
                 self._draft_len = min(scfg.draft_len, window - 1) if window else scfg.draft_len
             else:
                 _downgrade("draft_len > 0 requested but this model lacks spec_verify/"
@@ -325,7 +358,11 @@ class ServeEngine:
         self._prefix_hits = 0
         self._prefix_lookups = 0
         if scfg.paged or scfg.prefix_cache:
-            if getattr(model, "paged_attention", False):
+            if not self.batched:
+                _downgrade("paged KV requested but the engine runs the slot-wise loop -- "
+                           "paging needs the batched stacked-cache path; running the dense "
+                           "cache")
+            elif getattr(model, "paged_attention", False):
                 self.paged = True
             else:
                 _downgrade("paged KV requested but this model's cache state has no "
@@ -350,9 +387,14 @@ class ServeEngine:
             self._watermark_pages = max(1, int(scfg.evict_watermark * (npages - 1)))
             if scfg.prefix_cache:
                 self.prefix = RadixPrefixCache(self.pool, ps, copy_page=self._cow_page)
-        else:
+        elif self.batched:
             self.cache = model.init_cache(scfg.max_batch, self._cache_len,
                                           dtype=ccfg.resolved_kv_dtype, device=self.device)
+        else:
+            # the slot-wise loop: one prefill-built cache per resident request
+            self._cache_len = scfg.max_len
+            self.cache = None
+            self.caches: List[Any] = [None] * scfg.max_batch
         if scfg.crest_enabled:
             head = params.get("lm_head")
             if head is not None:
@@ -362,8 +404,10 @@ class ServeEngine:
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request):
+        # an open-loop load generator (or a failover rebuild) pre-stamps the arrival;
+        # stamping it again would erase queueing delay TTFT must charge
         if req.created_at == 0.0:
-            req.created_at = time.monotonic()
+            req.created_at = self.clock.now()
         self.queue.append(req)
 
     def _pop_admittable(self) -> Optional[Request]:
@@ -376,7 +420,7 @@ class ServeEngine:
                                         or len(req.prompt) < self.scfg.max_len):
                 return req
             req.done = True
-            req.finished_at = time.monotonic()
+            req.finished_at = self.clock.now()
             self._rejected += 1
             self._retired.append(req)
         return None
@@ -466,7 +510,11 @@ class ServeEngine:
         """Spend up to ``token_budget`` prompt tokens on (chunked) prefill:
         into a batch-1 staging cache, or (paged) straight into the slot's
         pages. Under the prefix cache only the unmatched suffix is prefilled
-        and counted against the budget."""
+        and counted against the budget. The slot-wise loop prefills whole
+        prompts into free slots instead (``_admit_slotwise``)."""
+        if not self.batched:
+            self._admit_slotwise()
+            return
         budget = self.scfg.token_budget or 1 << 30
         spent = 0
         while spent < budget:
@@ -477,7 +525,7 @@ class ServeEngine:
                 req = self._pop_admittable()
                 if req is None:
                     return
-                req.admitted_at = time.monotonic()
+                req.admitted_at = self.clock.now()
                 self._admission_waits.append(req.admitted_at - req.created_at)
                 if self.paged:
                     self._staging = _Staging(req, self._slot_cache(slot),
@@ -522,10 +570,37 @@ class ServeEngine:
                 self.model.write_cache(self.cache, st.cache, st.slot)
             self.slots[st.slot] = st.req
             if self.spec:
-                self._spec_ctx[st.slot] = st.req.prompt.tolist() + st.req.tokens_out
+                # the visible stream: the prompt (failover-carried tokens are
+                # already inside it) and every token emitted since
+                self._spec_ctx[st.slot] = (st.req.prompt.tolist()
+                                           + st.req.tokens_out[st.req.prompt_carried:])
             self._staging = None
             # the prefill-generated token may already end the stream
             self._retire_if_done(st.req, st.slot, nxt)
+
+    def _admit_slotwise(self):
+        """The slot-wise loop's admission: each free slot takes the next
+        request and prefills its whole prompt into a cache of its own."""
+        for i in range(self.scfg.max_batch):
+            if self.slots[i] is None and self.queue:
+                req = self._pop_admittable()
+                if req is None:
+                    return
+                req.admitted_at = self.clock.now()
+                self._admission_waits.append(req.admitted_at - req.created_at)
+                logits, cache = self.model.prefill(
+                    self.params, {"tokens": self._tokens(req.prompt[None].astype(np.int32))},
+                    self.ccfg, max_len=self.scfg.max_len)
+                # a multi-codebook row (C, V) picks codebook 0, as decode does
+                # (the reference's flat argmax over C * V ids can pass the
+                # vocabulary)
+                row = logits[0, -1]
+                nxt = self._pick(row if row.dim() == 1 else row[0])
+                self._commit_token(req, nxt)
+                self.slots[i] = req
+                self.caches[i] = cache
+                # the prefill-generated token may already end the stream
+                self._retire_if_done(req, i, nxt)
 
     # --------------------------------------------------------------- decode
     def _active(self):
@@ -540,24 +615,34 @@ class ServeEngine:
                                   self.scfg.top_k)[0])
 
     def _commit_token(self, req: Request, tok: int):
+        """Commit a token with its clock reading; ``first_token_at`` is set
+        once a stream (a failover clone arrives with it set)."""
         req.tokens_out.append(tok)
-        req.token_times.append(time.monotonic())
+        req.token_times.append(self.clock.now())
         if req.first_token_at == 0.0:
             req.first_token_at = req.token_times[-1]
 
+    @staticmethod
+    def _used(req: Request) -> int:
+        """Cache rows the stream uses: the prompt (carried tokens inside it)
+        and every token emitted since."""
+        return len(req.prompt) + len(req.tokens_out) - req.prompt_carried
+
     def _retire_if_done(self, req: Request, i: int, nxt: int):
-        used = len(req.prompt) + len(req.tokens_out)
+        used = self._used(req)
         if (len(req.tokens_out) >= req.max_new_tokens
                 or nxt == self.scfg.eos_id
                 # context limit: the next write would fall outside the cache
                 # (never fires for recurrent archs: their state is O(1))
                 or (not self.ctx_unbounded and used >= self.scfg.max_len)):
             req.done = True
-            req.finished_at = time.monotonic()
+            req.finished_at = self.clock.now()
             self._retired.append(req)
             self.slots[i] = None
             if self.paged:
                 self._release_slot_pages(i)
+            if not self.batched:
+                self.caches[i] = None
 
     def _batch(self, toks: np.ndarray, active: List[int], rows_ahead: int) -> dict:
         """A step's batch dict: the tokens and, paged, the block table, after
@@ -566,8 +651,7 @@ class ServeEngine:
         batch = {"tokens": self._tokens(toks)}
         if self.paged:
             for i in active:
-                req = self.slots[i]
-                self._ensure_pages(i, len(req.prompt) + len(req.tokens_out) + rows_ahead)
+                self._ensure_pages(i, self._used(self.slots[i]) + rows_ahead)
             batch["block_table"] = self._bt_dev()
         return batch
 
@@ -620,8 +704,7 @@ class ServeEngine:
         # headroom leaves them unread
         batch = self._batch(toks, active, k)
         toks_dev = batch["tokens"]
-        live = max(len(self.slots[i].prompt) + len(self.slots[i].tokens_out)
-                   for i in active) + k
+        live = max(self._used(self.slots[i]) for i in active) + k
         logits, self.cache, self._ckpt = self.model.spec_verify(
             self.params, batch, self.cache, self.ccfg, ckpt=self._ckpt, kv_len=live)
         if self._sampled:
@@ -664,23 +747,74 @@ class ServeEngine:
         self.cache = self.model.spec_rewind(self.cache, self._ckpt, self._tokens(keep))
         return produced
 
+    @torch.no_grad()
+    def _decode_slotwise(self, active: List[int]) -> int:
+        """One decode step per resident request, each on its own cache; a
+        multi-codebook head's (1, 1, C, V) logits pick codebook 0."""
+        for i in active:
+            req = self.slots[i]
+            tok = self._tokens(np.asarray([[req.tokens_out[-1]]], np.int32))
+            logits, self.caches[i] = self.model.decode_step(self.params, {"tokens": tok},
+                                                            self.caches[i], self.ccfg)
+            nxt = self._pick(logits[0, -1] if logits.dim() == 3 else logits[0, -1, 0])
+            self._commit_token(req, nxt)
+            self._retire_if_done(req, i, nxt)
+        return len(active)
+
     def step(self) -> int:
         """One engine step; returns the number of decode tokens produced."""
         self._admit()
         active = self._active()
         if not active:
             return 0
-        t0 = time.monotonic()
+        t0 = self.clock.now()
         self._steps += 1
         if self.scfg.crest_enabled and self._steps % self.scfg.crest_every == 0:
             self._crest_probe()
-        produced = self._decode_spec(active) if self.spec else self._decode_batched(active)
-        self.step_times.append(time.monotonic() - t0)
+        produced = (self._decode_spec(active) if self.spec
+                    else self._decode_batched(active) if self.batched
+                    else self._decode_slotwise(active))
+        self.step_times.append(self.clock.now() - t0)
         self._decode_tokens += produced
         return produced
 
     def busy(self) -> bool:
         return bool(self.queue) or self._staging is not None or bool(self._active())
+
+    # ------------------------------------------------------------- failover
+    def evict(self, i: int) -> Optional[Request]:
+        """Free slot i and return its request. Its cache rows become garbage:
+        the stream's state is rebuilt from its prompt and emitted tokens."""
+        req = self.slots[i]
+        self.slots[i] = None
+        if self.paged:
+            self._release_slot_pages(i)
+        if not self.batched:
+            self.caches[i] = None
+        return req
+
+    def abort_in_flight(self) -> List[Request]:
+        """Evict every resident request and the one mid-prefill (a replica's
+        death): the requests, for the fleet to rebuild elsewhere."""
+        out = [r for r in (self.evict(i) for i in self._active()) if r is not None]
+        if self._staging is not None:
+            if self.paged:
+                self._release_slot_pages(self._staging.slot)
+            out.append(self._staging.req)
+            self._staging = None
+        return out
+
+    def load(self) -> int:
+        """Queued, resident and mid-prefill requests (the fleet's dispatch
+        balances on it)."""
+        return (len(self.queue) + sum(r is not None for r in self.slots)
+                + (self._staging is not None))
+
+    def straggler_p99(self) -> float:
+        """The 99th percentile of the recorded step times (0 before any)."""
+        if not self.step_times:
+            return 0.0
+        return float(np.percentile(np.asarray(self.step_times), 99))
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
         n0 = len(self._retired)
@@ -720,15 +854,32 @@ class ServeEngine:
     @property
     def effective_mode(self) -> str:
         """The decode path this engine actually runs, downgrades included:
-        '{spec|batched}-{greedy|sampled}[-fused][-paged]'."""
-        mode = f"{'spec' if self.spec else 'batched'}-{'sampled' if self._sampled else 'greedy'}"
+        '{spec|batched|slotwise}-{greedy|sampled}[-fused][-paged]'."""
+        decode = "spec" if self.spec else "batched" if self.batched else "slotwise"
+        mode = f"{decode}-{'sampled' if self._sampled else 'greedy'}"
         return mode + ("-fused" if self.fused else "") + ("-paged" if self.paged else "")
+
+    @staticmethod
+    def latency_percentiles(requests) -> dict:
+        """TTFT (first committed token minus ``created_at``, the arrival
+        under an open-loop load generator) and inter-token gaps (successive
+        differences of each request's ``token_times``) percentiles over the
+        requests that produced a token."""
+        tt = np.asarray([r.first_token_at - r.created_at for r in requests
+                         if r.first_token_at > 0.0], np.float64)
+        gp = np.asarray([b - a for r in requests
+                         for a, b in zip(r.token_times, r.token_times[1:])], np.float64)
+        pct = lambda a, q: float(np.percentile(a, q)) if a.size else 0.0
+        return {"ttft_p50_s": pct(tt, 50), "ttft_p99_s": pct(tt, 99),
+                "inter_token_p50_s": pct(gp, 50), "inter_token_p99_s": pct(gp, 99)}
 
     def metrics(self) -> dict:
         """Throughput/latency counters."""
         st = np.asarray(self.step_times, np.float64)
         total = float(st.sum()) if st.size else 0.0
         return {
+            **self.latency_percentiles(self._retired),
+            "batched": self.batched,
             "effective_mode": self.effective_mode,
             "downgrades": list(self.downgrades),
             "fused": self.fused,

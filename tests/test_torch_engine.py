@@ -7,6 +7,8 @@ must emit the same greedy token streams: codeqwen (dense transformer) with
 kernels in interpret mode; the port's wrappers run their plain versions on
 the CPU tensors.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -181,13 +183,147 @@ def test_mamba_has_no_context_limit(mamba_models):
 
 @pytest.mark.parametrize("opt", [dict(mesh=object()), dict(batched=False)])
 def test_unported_options_raise(models, opt):
-    """A device mesh and the slot-wise loop raise. (CREST, once the first
-    case here, is ported: tests/test_torch_crest.py.)"""
-    _, _, _, tm, tp = models
-    mesh = opt.get("mesh")
-    scfg = {k: v for k, v in opt.items() if k != "mesh"}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**scfg), mesh=mesh, device="cpu")
+    """A device mesh raises. ``batched=False``, once refused here too, is the
+    slot-wise loop now: its streams equal the JAX slot-wise engine's and the
+    port's batched engine's on the same prompts. (CREST, once a case here,
+    is ported: tests/test_torch_crest.py.)"""
+    cfg, jm, jp, tm, tp = models
+    if "mesh" in opt:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(), mesh=opt["mesh"],
+                                device="cpu")
+        return
+    prompts = _prompts(cfg, [7, 12, 9], seed=3)
+    scfg = dict(max_batch=2, max_len=40, **opt)
+    jeng = jengine.ServeEngine(jm, jp, J_FP4, jengine.ServeConfig(**scfg))
+    teng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**scfg), device="cpu")
+    batched = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(max_batch=2, max_len=40),
+                                  device="cpu")
+    jr, tr, br = (_serve(e, mod, prompts, 8) for e, mod in
+                  ((jeng, jengine), (teng, tengine), (batched, tengine)))
+    assert teng.effective_mode == jeng.effective_mode == "slotwise-greedy"
+    assert not teng.batched and teng.cache is None
+    assert _streams(tr) == _streams(jr) == _streams(br)
+    assert all(c is None for c in teng.caches)          # every retired slot let go
+    for key in ("steps", "decode_tokens", "requests_finished"):
+        assert teng.metrics()[key] == jeng.metrics()[key], key
+
+
+def _musicgen_tokens(n_codebooks=4):
+    """musicgen's smoke config fed tokens (``input_embeds=False``) with 4
+    codebooks, as the full config has: the reference serves this variant
+    slot-wise (its registry config, fed stub embeddings, it cannot serve)."""
+    from repro.models.transformer import TransformerLM as JTransformerLM
+    from repro_torch.models.transformer import TransformerLM as TTransformerLM
+    cfg = dataclasses.replace(jregistry.get_config("musicgen-large", smoke=True),
+                              input_embeds=False, n_codebooks=n_codebooks)
+    jm = JTransformerLM(cfg)
+    jp = jcascade.tree_to_serve_fp4(
+        jm.init_params(jax.random.PRNGKey(0),
+                       JCascadeConfig(mode="train", compute_dtype=jnp.float32)), J_FP4)
+    tcfg = dataclasses.replace(registry.get_config("musicgen-large", smoke=True),
+                               input_embeds=False, n_codebooks=n_codebooks)
+    tm = TTransformerLM(tcfg)
+    return cfg, jm, jp, tm, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _jax_codebook0_stream(jm, jp, prompt, max_len, n):
+    """A greedy stream of the JAX model picking codebook 0 at every step,
+    admission included, as the port's slot-wise loop picks."""
+    logits, cache = jm.prefill(jp, {"tokens": jnp.asarray(prompt[None])}, J_FP4,
+                               max_len=max_len)
+    out = [int(jnp.argmax(logits[0, -1, 0]))]
+    while len(out) < n:
+        logits, cache = jm.decode_step(jp, {"tokens": jnp.asarray([[out[-1]]], jnp.int32)},
+                                       cache, J_FP4)
+        out.append(int(jnp.argmax(logits[0, -1, 0])))
+    return out
+
+
+def test_musicgen_token_input_variant_is_served_slotwise_as_in_jax():
+    """The multi-codebook head downgrades to the slot-wise loop on both
+    sides; the reference also downgrades fused, the port runs the loop
+    through its kernels (plain versions on CPU tensors). A 4-D logits row
+    picks codebook 0, at decode as in the reference and at admission too,
+    where the reference's flat argmax over C * V ids can pass the
+    vocabulary (a NaN embedding through ``jnp.take``). Every port stream
+    equals the JAX model's greedy stream on codebook 0, and the JAX
+    engine's but where its first id passes the vocabulary (here every
+    request's: 77 of 32). On
+    random smoke weights the streams prove little, so the decode logits of
+    all 4 codebooks are held to JAX's too (atol/rtol 1e-4, f32)."""
+    cfg, jm, jp, tm, tp = _musicgen_tokens()
+    prompts = _prompts(cfg, [5, 9, 7])
+    scfg = dict(max_batch=2, max_len=32, fused=True)
+    with pytest.warns(RuntimeWarning, match="multi-codebook"):
+        jeng = jengine.ServeEngine(jm, jp, J_FP4, jengine.ServeConfig(**scfg))
+    with pytest.warns(RuntimeWarning, match="multi-codebook"):
+        teng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(**scfg), device="cpu")
+    jr, tr = _serve(jeng, jengine, prompts, 6), _serve(teng, tengine, prompts, 6)
+    assert jeng.effective_mode == "slotwise-greedy"
+    assert teng.effective_mode == "slotwise-greedy-fused" and teng.fused
+    assert [m.split(" -")[0] for m in teng.downgrades] \
+        == [m.split(" —")[0] for m in jeng.downgrades if "fused" not in m]
+    assert _streams(tr) == [_jax_codebook0_stream(jm, jp, p, 32, 6) for p in prompts]
+    for t_toks, j_toks in zip(_streams(tr), _streams(jr)):
+        assert t_toks == j_toks or j_toks[0] >= cfg.vocab
+    assert all(len(r.tokens_out) == 6 for r in tr)
+    toks = np.stack([p[:5] for p in prompts])
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, J_FP4, max_len=8)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, T_FP4, max_len=8)
+    nxt = toks[:, -1:]
+    jl, _ = jm.decode_step(jp, {"tokens": jnp.asarray(nxt)}, jc, J_FP4)
+    tl, _ = tm.decode_step(tp, {"tokens": torch.from_numpy(nxt)}, tc, T_FP4)
+    assert tl.shape == (3, 1, 4, cfg.vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+
+
+def test_slotwise_downgrades_warn_once_and_show_in_metrics():
+    """As the reference's test_spec.py case: on a slot-wise engine
+    speculation and pages each downgrade with one warning, listed in
+    metrics()["downgrades"]; fused kernels do not (the loop runs them); a
+    fully served config lists none."""
+    cfg, _, _, tm, tp = _musicgen_tokens(n_codebooks=2)
+    with pytest.warns(RuntimeWarning, match="multi-codebook"):
+        eng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(max_batch=2, max_len=64),
+                                  device="cpu")
+    assert not eng.batched and eng.effective_mode == "slotwise-greedy"
+    assert len(eng.metrics()["downgrades"]) == 1
+    with pytest.warns(RuntimeWarning, match="speculative"):
+        eng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(
+            max_batch=2, max_len=64, draft_len=4), device="cpu")
+    assert not eng.spec and eng.effective_mode == "slotwise-greedy"
+    assert len(eng.metrics()["downgrades"]) == 2
+    with pytest.warns(RuntimeWarning) as rec:
+        eng = tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(
+            max_batch=2, max_len=64, draft_len=4, fused=True, paged=True), device="cpu")
+    msgs = eng.metrics()["downgrades"]
+    assert len(rec) == len(msgs) == 3
+    assert [any(k in m for m in msgs) for k in ("multi-codebook", "speculat", "fused", "paged")] \
+        == [True, True, False, True]
+    assert eng.effective_mode == "slotwise-greedy-fused" and eng.fused and not eng.paged
+    assert eng.ccfg.use_kernel
+    _, _, _, tm2, tp2 = _codeqwen_models_for_modes()
+    eng2 = tengine.ServeEngine(tm2, tp2, T_FP4, tengine.ServeConfig(max_batch=2, max_len=64,
+                                                                    draft_len=2), device="cpu")
+    assert eng2.spec and eng2.effective_mode == "spec-greedy"
+    assert not eng2.metrics()["downgrades"]
+
+
+def _codeqwen_models_for_modes():
+    cfg, tm = registry.load("codeqwen1.5-7b", smoke=True)
+    return cfg, None, None, tm, tm.init_params(0, T_FP4, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_stub_embedding_configs_are_refused_at_construction(arch):
+    """The engine takes token prompts; a model fed stub embeddings is
+    refused when the engine is built (the reference's engine fails later,
+    with a KeyError at its first prefill)."""
+    _, tm = registry.load(arch, smoke=True)
+    tp = tm.init_params(0, T_FP4, device="cpu")
+    with pytest.raises(ValueError, match="token prompts"):
+        tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(), device="cpu")
 
 
 def test_fused_without_fp4_params_downgrades(models):

@@ -46,7 +46,13 @@ MATMUL_CASES = [(3, 64, 48, 0, True), (5, 63, 37, 0, False), (4, 96, 100, 24, Tr
                 (40, 4096, 4096, 0, True), (40, 2048, 1024, 0, False), (48, 258, 301, 0, True),
                 (64, 1024, 4384, 0, False), (64, 13440, 4096, 0, False),
                 (65, 63, 37, 0, True), (100, 96, 100, 24, True), (40, 512, 72, 64, False),
-                (65, 4096, 13440, 0, False)]
+                (65, 4096, 13440, 0, False),
+                # qwen2-vl-2b (q/k/v with bias, k/v of 2 KV heads: N = 256; the
+                # MLP; the 151,936-wide head) and musicgen-large (q/k/v/o, the
+                # GELU MLP; its 4-codebook head is 2048 -> 8192, as w_up)
+                (8, 1536, 1536, 0, True), (32, 1536, 256, 0, True), (40, 1536, 8960, 0, False),
+                (8, 8960, 1536, 0, False), (8, 1536, 151936, 0, False),
+                (8, 2048, 2048, 0, False), (32, 2048, 8192, 0, False), (8, 8192, 2048, 0, False)]
 
 
 @pytest.mark.parametrize("m,k,n,group,with_bias", MATMUL_CASES)
@@ -73,7 +79,11 @@ def test_cascade_matmul_cuda_matches_plain(cuda, m, k, n, group, with_bias, odty
 # (K, N, group, bias): codeqwen's q/k/v/o (bias) and down shapes, mamba's
 # in_proj, a K tail with N off the 32-column tile, groups of 24 rows
 ROWS_ACROSS_M_CASES = [(4096, 4096, 0, True), (13440, 4096, 0, False), (1024, 4384, 0, False),
-                       (258, 301, 0, True), (1032, 1000, 24, True)]
+                       (258, 301, 0, True), (1032, 1000, 24, True),
+                       # qwen2-vl-2b's and musicgen-large's weight shapes
+                       (1536, 1536, 0, True), (1536, 256, 0, True), (1536, 8960, 0, False),
+                       (8960, 1536, 0, False), (2048, 2048, 0, False), (2048, 8192, 0, False),
+                       (8192, 2048, 0, False)]
 
 
 @pytest.mark.parametrize("k,n,group,with_bias", ROWS_ACROSS_M_CASES)
@@ -130,7 +140,10 @@ def test_cascade_matmul_launcher_refuses_a_plan_that_does_not_fit_m(cuda):
 DECODE_CASES = [(3, 8, 2, 700, 16), (8, 32, 32, 192, 128), (4, 8, 1, 513, 256),
                 (2, 4, 4, 1, 64), (8, 24, 8, 192, 128), (8, 40, 8, 192, 128),
                 (8, 32, 32, 4096, 128), (2, 40, 8, 4096, 128), (4, 20, 2, 300, 64),
-                (2, 6, 2, 300, 80)]
+                (2, 6, 2, 300, 80),
+                # musicgen-large's decode step (32 MHA heads of 64) and
+                # qwen2-vl-2b's (12 over 2 KV heads: G = 6)
+                (8, 32, 32, 192, 64), (8, 12, 2, 192, 128)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,t,d", DECODE_CASES)
@@ -364,7 +377,13 @@ FLASH_CASES = [("causal128", 1, 32, 32, 128, 128, 128, True, [0]),
                ("s2048_t4096", 1, 8, 8, 2048, 4096, 64, True, [2048]),
                ("d96_full", 2, 6, 2, 65, 65, 96, False, [0, 0]),
                ("d32_s5", 3, 4, 4, 5, 40, 32, True, [0, 17, 35]),
-               ("g20", 1, 40, 2, 7, 50, 16, True, [30])]
+               ("g20", 1, 40, 2, 7, 50, 16, True, [30]),
+               # musicgen-large at D = 64: its 128-token prefill (8 rows) and
+               # an admission chunk of 32 over a 160-row cache; qwen2-vl-2b's
+               # prefill (GQA 12/2 at D = 128)
+               ("musicgen_prefill", 8, 32, 32, 128, 128, 64, True, [0] * 8),
+               ("musicgen_admit", 1, 32, 32, 32, 160, 64, True, [128]),
+               ("qwen2vl_prefill", 8, 12, 2, 128, 128, 128, True, [0] * 8)]
 
 
 def flash_tolerance(want, v):
@@ -433,7 +452,10 @@ def test_flash_attention_forced_splits_match_plain(cuda, name, b, hq, hkv, s, t,
 # 8,192; a width off 16 bytes; recurrentgemma-2b's 2,560 (its first block's
 # norm) at a decode step, a verify pass and an admission chunk
 NORM_CASES = [((8,), 1024), ((8, 5), 2048), ((8, 1), 4096), ((40,), 4096), ((3, 2), 8192),
-              ((5,), 1000), ((2, 3), 36), ((8, 1), 2560), ((8, 5), 2560), ((1, 32), 2560)]
+              ((5,), 1000), ((2, 3), 36), ((8, 1), 2560), ((8, 5), 2560), ((1, 32), 2560),
+              # musicgen-large's 2,048 (a decode step, (8, 5) and 32 rows) and
+              # qwen2-vl-2b's 1,536
+              ((8, 1), 2048), ((32,), 2048), ((8, 1), 1536), ((8, 128), 1536)]
 
 
 @pytest.mark.parametrize("lead,d", NORM_CASES)
@@ -516,7 +538,11 @@ FUSED_NORM_CASES = [("add", (8, 1), 4096, "rmsnorm"), ("add", (8, 5), 4096, "rms
                     ("add", (5,), 1000, "layernorm"), ("gated", (8, 1), 2048, "rmsnorm"),
                     ("gated", (8, 5), 2048, "rmsnorm"), ("gated", (3, 2), 36, "rmsnorm"),
                     ("add", (8, 1), 2560, "rmsnorm"), ("add", (8, 5), 2560, "rmsnorm"),
-                    ("add", (1, 32), 2560, "rmsnorm")]
+                    ("add", (1, 32), 2560, "rmsnorm"),
+                    # musicgen-large's add-layernorm with bias at 2,048;
+                    # qwen2-vl-2b's add-rmsnorm at 1,536
+                    ("add", (8, 1), 2048, "layernorm"), ("add", (8, 5), 2048, "layernorm"),
+                    ("add", (32,), 2048, "layernorm"), ("add", (8, 1), 1536, "rmsnorm")]
 
 
 def _fused_inputs(cuda, form, lead, d, norm_type, dtype, seed):
@@ -617,6 +643,87 @@ def test_fused_norm_rows_round_alike_in_any_number_of_rows(cuda, form, d):
             differing += int((whole[k] != per_token).any(dim=-1).sum())
     assert ops.LAUNCHES["norm"] == 100 * 6
     assert differing == 0, f"{differing} rows round otherwise"
+
+
+@pytest.mark.parametrize("d,norm_type", [(2048, "layernorm"), (1536, "rmsnorm")])
+def test_add_norm_rows_round_alike_in_any_number_of_rows_at_the_stub_widths(cuda, d, norm_type):
+    """musicgen-large's add-layernorm (with bias) at 2,048 and qwen2-vl-2b's
+    add-rmsnorm at 1,536: each token's rows of an (8, 5) call and of a
+    32-row call equal, bit for bit, one-token calls over the same rows."""
+    differing = 0
+    for i in range(20):
+        for lead in ((8, 5), (1, 32)):
+            x, r, scale, bias = _fused_inputs(cuda, "add", lead, d, norm_type, "bfloat16", i)
+            whole = ops.add_norm(x, r, scale, bias, norm_type=norm_type)
+            parts = [ops.add_norm(x[:, j:j + 1], r[:, j:j + 1], scale, bias,
+                                  norm_type=norm_type) for j in range(lead[1])]
+            for k in range(2):
+                per_token = torch.cat([p[k] for p in parts], dim=1)
+                differing += int((whole[k] != per_token).any(dim=-1).sum())
+    assert differing == 0, f"{differing} rows round otherwise"
+
+
+def _plain_routes(monkeypatch):
+    """Send every wrapper's CUDA tensors to its kernel's plain version."""
+    for mod, name, plain in ((tcm, "cascade_matmul_cuda", tcm.cascade_matmul_plain),
+                             (tda, "decode_attention_cuda", tda.decode_attention_plain),
+                             (tfa, "flash_attention_cuda", tfa.flash_attention_plain),
+                             (tnorm, "norm_cuda", tnorm.norm_plain),
+                             (tnorm, "add_norm_cuda", tnorm.add_norm_plain)):
+        monkeypatch.setattr(mod, name, plain)
+
+
+def _vl_positions(b, grid, n_text, start=0):
+    """(3, B, grid^2 + n_text): a t = 1 image of grid x grid patches at its
+    (t, h, w) positions, then text from the grid's largest position + 1."""
+    hh, ww = torch.meshgrid(torch.arange(grid), torch.arange(grid), indexing="ij")
+    img = torch.stack([torch.zeros(grid * grid, dtype=torch.int64), hh.flatten(), ww.flatten()])
+    text = (img.max() + 1 + torch.arange(n_text))[None].expand(3, n_text)
+    pos = torch.cat([img, text], dim=1)[:, start:]
+    return pos[:, None].expand(3, b, pos.shape[1]).to(torch.int32)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_stub_backbone_depth2_logits_through_the_kernels_match_plain(cuda, arch, monkeypatch):
+    """The model cut to 2 layers at full width, fed seeded stub embeddings:
+    a 128-token prefill (qwen2-vl: an 8 x 8 image's M-RoPE positions, then
+    text) and one decode step (musicgen: ``pos_offset``), through the
+    kernels and through their plain versions on the card. Logits (musicgen's
+    4 codebooks too) within codeqwen's parity limits: relative L2 2^-6 and
+    every logit within 2 bf16 steps of max|plain|."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=2)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(3, ccfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    emb = torch.randn((8, 129, cfg.d_model), generator=gen, device=cuda)
+    pre, dec = {"inputs_embeds": emb[:, :128]}, {"inputs_embeds": emb[:, 128:]}
+    if cfg.mrope_sections:
+        pos = _vl_positions(8, 8, 65).to(cuda)
+        pre["positions"], dec["positions"] = pos[:, :, :128], pos[:, :, 128:]
+    else:
+        dec["pos_offset"] = 128
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            _plain_routes(monkeypatch)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            l1, cache = model.prefill(params, pre, ccfg, max_len=160)
+            l2, _ = model.decode_step(params, dec, cache, ccfg)
+        torch.cuda.synchronize()
+        if route == "kernel":
+            assert ops.LAUNCHES["flash_attention"] == 2 and ops.LAUNCHES["decode_attention"] == 2
+        out[route] = (l1, l2)
+    if cfg.n_codebooks:
+        assert out["kernel"][1].shape == (8, 1, cfg.n_codebooks, cfg.vocab)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert bool(torch.isfinite(a).all())
+        rel = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+        absmax = float(b.abs().max())
+        steps = float((a - b).abs().max()) / 2.0 ** (np.floor(np.log2(absmax)) - 7)
+        assert rel <= 2.0 ** -6 and steps <= 2, (rel, steps)
 
 
 def test_fused_norms_raise_on_what_the_kernel_does_not_take(cuda):

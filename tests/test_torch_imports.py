@@ -40,6 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
         (ROOT / "scripts").glob("*.py"))
     assert len(files) > 20
+    serve = {f.name for f in files if f.parent.name == "serve"}
+    assert {"traffic.py", "elastic.py", "router.py", "engine.py"} <= serve
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, bad

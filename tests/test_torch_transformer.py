@@ -259,14 +259,19 @@ def test_cache_at_and_write_cache_address_the_slot_axis(codeqwen):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "musicgen-large", "qwen2-vl-2b"])
 def test_registry_names_the_roadmap_item_for_unported_families(arch):
-    """The audio and VLM families raise naming their ROADMAP item; the hybrid
-    family (recurrentgemma-2b), once refused here too, now builds Griffin."""
+    """Every family once refused here, naming its ROADMAP item, builds now:
+    the hybrid family (recurrentgemma-2b) a GriffinLM, the audio and VLM
+    families (musicgen-large, qwen2-vl-2b) a TransformerLM fed stub
+    embeddings, at smoke size and at full size."""
+    from repro_torch.models.transformer import TransformerLM
     if arch == "recurrentgemma-2b":
         from repro_torch.models.griffin import GriffinLM
         assert isinstance(registry.load(arch, smoke=True)[1], GriffinLM)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.load(arch, smoke=True)
+    for smoke in (True, False):
+        cfg, model = registry.load(arch, smoke=smoke)
+        assert type(model) is TransformerLM and cfg.input_embeds
+        assert model.attn_cfg.mrope_sections == cfg.mrope_sections
 
 
 def test_registry_builds_mamba2_whose_cache_has_the_stated_slot_axes():
