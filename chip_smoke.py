@@ -6,8 +6,9 @@
 from the root of a checkout. It builds the CUDA kernels from ``src/repro_torch/
 kernels/csrc`` with nvcc (sm_90a), all at once, and runs the phases below on
 the four served paths, the dense transformer (codeqwen1.5-7b), Mamba-2
-(mamba2-370m), the MoE family (olmoe-1b-7b) and Griffin (recurrentgemma-2b);
-any failure exits non-zero before the final ``ok`` line is printed.
+(mamba2-370m), the MoE family (olmoe-1b-7b) and Griffin (recurrentgemma-2b),
+and on the QAT training path (phi4-mini-3.8b; phase 4); any failure exits
+non-zero before the final ``ok`` line is printed.
 
 Griffin and CREST (the paper's fault tolerance) add: flash attention at
 head dim 256 with the local-window mask (``k_pos``, ``window``) at Griffin's
@@ -101,6 +102,28 @@ each rebuilt one held to the same request served alone.
    The paged pool's gather and scatter (PyTorch ops, not kernels of the
    port) are also timed per call at the served step's shapes.
 
+4. The training side (after the serve runs): the fake-quant kernel at
+   phi4-mini-3.8b's weight shapes, codeqwen's 4096 x 13440, a group of 32
+   and an olmoe expert stack (one launch), bf16 and f32, and the exact
+   CASCADE kernel at M = 8 over codeqwen's widths (with a bias, and rows
+   holding a NaN, an inf and a saturating run), each bit-equal to its plain
+   version and timed against its bound; phi4-mini-3.8b QAT-trained at full
+   width (params from seed 0 on the card, bf16, remat "dots", AdamW lr 3e-4
+   with 2 warmup steps, 8 steps of 2 x 256 synthetic tokens): every loss
+   and gnorm finite, the last loss under the first, the first loss bit-equal
+   to the same forward with the fake quantization on its plain version, 448
+   fake-quant launches a step (7 linears x 32 layers, forward and
+   recompute), one more step profiled; the trained params converted to FP4
+   (validation cross entropy dense against FP4) and served (8 requests of
+   64 + 16 tokens through all four serving kernels); codeqwen1.5-7b at full
+   width and depth 2 through ``precision_sim`` (every linear on the exact
+   kernel, 15 launches; finite logits, relative L2 against the FP4 route);
+   and a checkpoint restart (smoke phi4-mini, a child process under
+   deterministic algorithms: 6 steps, an async save after 3, a fresh state
+   restored and run on, its losses equal to the uninterrupted run's bit for
+   bit, or within rtol 1e-6 where an op without a deterministic CUDA path
+   is named).
+
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
 full record goes to ``results/chip_smoke.json``.
@@ -173,8 +196,12 @@ SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #     0.0069 / 0.0072 and at most 1.5 / 1.25 / 1.625 steps on an H100
 #     qwen2-vl-2b and musicgen-large (fed stub embeddings) take codeqwen's
 #     limits: dense transformers of the same kind
+#     phi4-mini-3.8b (GQA 24/8, partial rotary, the QAT-trained model served
+#     after training) takes codeqwen's limits: a dense transformer of the
+#     same kind
 PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1),
-                 "qwen2.5-32b": (2.0 ** -6, 2), "olmoe-1b-7b": (2.0 ** -5.5, 10),
+                 "qwen2.5-32b": (2.0 ** -6, 2), "phi4-mini-3.8b": (2.0 ** -6, 2),
+                 "olmoe-1b-7b": (2.0 ** -5.5, 10),
                  "deepseek-v2-236b": (2.0 ** -5, 25), "recurrentgemma-2b": (2.0 ** -6, 3),
                  "qwen2-vl-2b": (2.0 ** -6, 2), "musicgen-large": (2.0 ** -6, 2)}
 #: depth of the parity phase's model, where it is not 2: Griffin's first
@@ -201,9 +228,10 @@ LONG_LEN, LONG_REQ, LONG_BATCH, LONG_NEW = 4096, 1, 2, 8
 SHORT_REQ = MAX_BATCH
 
 ARCHS = ("codeqwen1.5-7b", "mamba2-370m", "olmoe-1b-7b", "recurrentgemma-2b")
-#: the depth-2 parity phase also runs a GQA transformer and DeepSeek-V2's
-#: MLA (layer 0 dense, layer 1 160 routed experts); neither is served here
-PARITY_ARCHS = ARCHS + ("qwen2.5-32b", "deepseek-v2-236b")
+#: the depth-2 parity phase also runs a GQA transformer, DeepSeek-V2's MLA
+#: (layer 0 dense, layer 1 160 routed experts), neither served here, and
+#: phi4-mini-3.8b, the model QAT-trained and then served (qat_serve_phase)
+PARITY_ARCHS = ARCHS + ("qwen2.5-32b", "deepseek-v2-236b", "phi4-mini-3.8b")
 #: (arch, decode) -> the kernels that run launches; a speculative step's
 #: decode is the verify pass, which never launches decode attention
 RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention",
@@ -221,6 +249,9 @@ RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention
                ("qwen2-vl-2b", "model"): ("cascade_matmul", "decode_attention",
                                           "flash_attention", "norm"),
                ("musicgen-large", "model"): ("cascade_matmul", "decode_attention",
+                                             "flash_attention", "norm"),
+               ("phi4-mini-3.8b", "train"): ("fake_quant_fp4", "flash_attention", "norm"),
+               ("phi4-mini-3.8b", "plain"): ("cascade_matmul", "decode_attention",
                                              "flash_attention", "norm")}
 #: the Griffin run whose streams cross the window: CROSS_REQ prompts of
 #: CROSS_LEN tokens, MAX_NEW new tokens each (positions past 2,048); its
@@ -317,7 +348,10 @@ def copies_beyond_l2(nbytes: int) -> int:
 #: in each of 16 layers and its lm_head (its experts take the grouped entry)
 #: recurrentgemma-2b's 18 RG-LRU blocks (w_in, w_gate, w_out; wa and wx with
 #: bias), 8 attention blocks (q, o; k and v of one KV head: N = 256), the
-#: GeGLU MLP of all 26 layers and its untied head
+#: GeGLU MLP of all 26 layers and its untied head; phi4-mini-3.8b's q/o, k/v
+#: (8 KV heads of 128: N = 1,024), gate/up and down in each of 32 layers
+#: (its head is tied to the embedding: a plain f32 matmul, as in the
+#: reference, not an FP4 one)
 MATMUL_LAYERS = {("codeqwen1.5-7b", 4096, 4096, True): 4 * 32,
                  ("codeqwen1.5-7b", 4096, 13440, False): 2 * 32,
                  ("codeqwen1.5-7b", 13440, 4096, False): 32,
@@ -330,7 +364,11 @@ MATMUL_LAYERS = {("codeqwen1.5-7b", 4096, 4096, True): 4 * 32,
                  ("recurrentgemma-2b", 2560, 256, False): 2 * 8,
                  ("recurrentgemma-2b", 2560, 7680, False): 2 * 26,
                  ("recurrentgemma-2b", 7680, 2560, False): 26,
-                 ("recurrentgemma-2b", 2560, 256000, False): 1}
+                 ("recurrentgemma-2b", 2560, 256000, False): 1,
+                 ("phi4-mini-3.8b", 3072, 3072, False): 2 * 32,
+                 ("phi4-mini-3.8b", 3072, 1024, False): 2 * 32,
+                 ("phi4-mini-3.8b", 3072, 8192, False): 2 * 32,
+                 ("phi4-mini-3.8b", 8192, 3072, False): 32}
 #: codeqwen's FP4 lm_head, once a step (mamba2-370m's head is tied to the
 #: embedding: no FP4 matmul)
 MATMUL_HEAD = ("codeqwen1.5-7b", 4096, 92416, False)
@@ -569,16 +607,20 @@ def decode_attention_cases():
     heads (40 over 8) at the same positions, a long context (T = 4096,
     positions spread over 2,047-4,095, so 2,048-4,096 live keys a row), and
     the modality-stub backbones' steps: musicgen-large's 32 heads at D = 64
-    and qwen2-vl-2b's 12 over 2 KV heads (G = 6)."""
+    and qwen2-vl-2b's 12 over 2 KV heads (G = 6), and phi4-mini-3.8b's step
+    after QAT (24 over 8 heads, G = 3, in the qat serve run's 96-row cache)."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
     served = [PROMPT_LEN + 4 * i for i in range(MAX_BATCH)]
+    t_qat = -(-(QAT_PROMPT + QAT_NEW + 1) // CHUNK) * CHUNK
+    served_qat = [QAT_PROMPT + 2 * i for i in range(MAX_BATCH)]
     long_pos = [2047 + round(i * 2048 / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
     return [("codeqwen_step", MAX_BATCH, 32, 32, t, served, 128),
             ("olmoe_step", MAX_BATCH, 16, 16, t, served, 128),
             ("qwen2.5-32b_gqa", MAX_BATCH, 40, 8, t, served, 128),
             ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos, 128),
             ("musicgen_step_d64", MAX_BATCH, 32, 32, t, served, 64),
-            ("qwen2vl_step_g6", MAX_BATCH, 12, 2, t, served, 128)]
+            ("qwen2vl_step_g6", MAX_BATCH, 12, 2, t, served, 128),
+            ("phi4_step_g3", MAX_BATCH, 24, 8, t_qat, served_qat, 128)]
 
 
 def attention_phase(torch, dev):
@@ -632,6 +674,7 @@ def attention_phase(torch, dev):
                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
                                  else "operations")})
         row["launches_per_decode_step"] = {"codeqwen_step": 32, "olmoe_step": 16,
+                                           "phi4_step_g3": 32,
                                            **{c: k for c, (_, k) in STUB_ATTN.items()}
                                            }.get(name, 0)
         rows.append(row)
@@ -649,7 +692,9 @@ def flash_cases():
     over the keys), and the verify pass (8 rows of 1 + 4 tokens at positions
     spread over the cache); the modality-stub backbones' 8 x 128-token
     prefills (musicgen-large's 32 heads at D = 64, qwen2-vl-2b's 12 over 2
-    KV heads) and, at D = 64, an admission chunk of 32 over a 160-row cache."""
+    KV heads) and, at D = 64, an admission chunk of 32 over a 160-row cache;
+    phi4-mini-3.8b's QAT training forward (2 rows of 256 tokens, 24 over 8
+    heads) and its second admission chunk after QAT (offset 32)."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1 + DRAFT_LEN) // CHUNK) * CHUNK     # the engine's cache
     n = DRAFT_LEN + 1
     verify_off = [round(i * (t - n) / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
@@ -665,7 +710,10 @@ def flash_cases():
             + [("verify", MAX_BATCH, 32, 32, n, t, True, verify_off, d),
                ("musicgen_prefill_d64", MAX_BATCH, 32, 32, 128, 128, True, [0] * MAX_BATCH, 64),
                ("musicgen_admit_d64", 1, 32, 32, CHUNK, 160, True, [128], 64),
-               ("qwen2vl_prefill", MAX_BATCH, 12, 2, 128, 128, True, [0] * MAX_BATCH, d)])
+               ("qwen2vl_prefill", MAX_BATCH, 12, 2, 128, 128, True, [0] * MAX_BATCH, d),
+               ("phi4_train", TRAIN_BATCH, 24, 8, TRAIN_SEQ, TRAIN_SEQ, True,
+                [0] * TRAIN_BATCH, d),
+               ("phi4_admit_off32", 1, 24, 8, CHUNK, 2 * CHUNK, True, [CHUNK], d)])
 
 
 def flash_phase(torch, dev):
@@ -901,8 +949,9 @@ def norm_cases():
     step's 8 rows, a verify pass's (8, 5) and an admission chunk's (1, 32),
     recurrentgemma-2b's first block's norm at 2,560 in the same three
     shapes, a LayerNorm at codeqwen's width, musicgen-large's LayerNorm
-    (with bias) at 2,048 in 8, (8, 5) and 32 rows, and qwen2-vl-2b's
-    RMSNorm at 1,536."""
+    (with bias) at 2,048 in 8, (8, 5) and 32 rows, qwen2-vl-2b's RMSNorm at
+    1,536, and phi4-mini-3.8b's at 3,072 in the served three shapes and the
+    QAT training forward's 2 x 256 rows."""
     v = (MAX_BATCH, 1 + DRAFT_LEN)
     return [("codeqwen_step", (MAX_BATCH, 1), 4096, "rmsnorm"),
             ("codeqwen_verify", v, 4096, "rmsnorm"),
@@ -917,7 +966,11 @@ def norm_cases():
             ("musicgen_step", (MAX_BATCH, 1), 2048, "layernorm"),
             ("musicgen_verify", v, 2048, "layernorm"),
             ("musicgen_rows32", (1, CHUNK), 2048, "layernorm"),
-            ("qwen2vl_step", (MAX_BATCH, 1), 1536, "rmsnorm")]
+            ("qwen2vl_step", (MAX_BATCH, 1), 1536, "rmsnorm"),
+            ("phi4_step", (MAX_BATCH, 1), 3072, "rmsnorm"),
+            ("phi4_verify", v, 3072, "rmsnorm"),
+            ("phi4_admit", (1, CHUNK), 3072, "rmsnorm"),
+            ("phi4_train", (TRAIN_BATCH, TRAIN_SEQ), 3072, "rmsnorm")]
 
 
 #: mamba2-370m's in_proj output width (z, x, B, C, dt): z is its first
@@ -932,8 +985,10 @@ def fused_norm_cases():
     same three shapes, mamba2-370m's 1,024 (step and verify), and Mamba-2's
     gate inside its gated norm at 2,048 (step and verify, and an admission
     chunk, whose dual form hands over f32 y beside bf16 z), and musicgen-
-    large's add-LayerNorm (with bias) at 2,048 in 8, (8, 5) and 32 rows.
-    Rows are bf16 but where stated; the norm is RMSNorm but where stated."""
+    large's add-LayerNorm (with bias) at 2,048 in 8, (8, 5) and 32 rows, and
+    phi4-mini-3.8b's add-norm at 3,072 (a decode step, an admission chunk,
+    the QAT training forward's 2 x 256 rows). Rows are bf16 but where
+    stated; the norm is RMSNorm but where stated."""
     v = (MAX_BATCH, 1 + DRAFT_LEN)
     return [("codeqwen_step_add", "add", (MAX_BATCH, 1), 4096, "bfloat16"),
             ("codeqwen_verify_add", "add", v, 4096, "bfloat16"),
@@ -949,7 +1004,10 @@ def fused_norm_cases():
             ("mamba_gated_admit_fused_f32_y", "gated", (1, CHUNK), 2048, "float32"),
             ("musicgen_step_add", "add", (MAX_BATCH, 1), 2048, "bfloat16", "layernorm"),
             ("musicgen_verify_add", "add", v, 2048, "bfloat16", "layernorm"),
-            ("musicgen_rows32_add", "add", (1, CHUNK), 2048, "bfloat16", "layernorm")]
+            ("musicgen_rows32_add", "add", (1, CHUNK), 2048, "bfloat16", "layernorm"),
+            ("phi4_step_add", "add", (MAX_BATCH, 1), 3072, "bfloat16"),
+            ("phi4_admit_add", "add", (1, CHUNK), 3072, "bfloat16"),
+            ("phi4_train_add", "add", (TRAIN_BATCH, TRAIN_SEQ), 3072, "bfloat16")]
 
 
 def fused_norm_phase(torch, dev):
@@ -1164,17 +1222,22 @@ def ssd_phase(torch, dev):
 
 
 @contextlib.contextmanager
-def plain_versions_on_card():
+def plain_versions_on_card(only: tuple | None = None):
     """Send the wrappers' CUDA tensors to the kernels' plain versions (the
-    parity phase's reference run); the launch counts are put back after."""
+    parity phase's reference run), or only the named launchers' (``only``);
+    the launch counts are put back after."""
+    from repro_torch.kernels import cascade_exact as ce
     from repro_torch.kernels import cascade_matmul as cm
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import fake_quant as fq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import norm as nrm
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
 
     routes = [(cm, "cascade_matmul_cuda", cm.cascade_matmul_plain),
+              (ce, "cascade_matmul_exact_cuda", ce.cascade_matmul_exact_plain),
+              (fq, "fake_quant_fp4_cuda", fq.fake_quant_fp4_plain),
               (cm, "cascade_matmul_grouped_cuda", cm.cascade_matmul_grouped_plain),
               (da, "decode_attention_cuda", da.decode_attention_plain),
               (fa, "flash_attention_cuda", fa.flash_attention_plain),
@@ -1182,6 +1245,7 @@ def plain_versions_on_card():
               (nrm, "add_norm_cuda", nrm.add_norm_plain),
               (nrm, "gated_norm_cuda", nrm.gated_norm_plain),
               (ssd, "ssd_scan_cuda", ssd.ssd_scan_plain)]
+    routes = [r for r in routes if only is None or r[1] in only]
     saved = [getattr(mod, name) for mod, name, _ in routes], dict(ops.LAUNCHES)
     for mod, name, plain in routes:
         setattr(mod, name, plain)
@@ -1394,9 +1458,10 @@ def profile_call(torch, fn) -> dict:
         produced = fn()
         torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
+    from repro_torch.kernels.ops import PLAIN_GRADIENT
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(PLAIN_GRADIENT):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
@@ -1404,7 +1469,7 @@ def profile_call(torch, fn) -> dict:
     ours = {}                  # the port's kernels, every instantiation (and merge) summed
     for name, (n, us) in by_name.items():
         for k in ("cascade_matmul", "cascade_matmul_grouped", "decode_attention",
-                  "flash_attention", "norm", "ssd_scan"):
+                  "flash_attention", "norm", "ssd_scan", "fake_quant_fp4", "cascade_matmul_exact"):
             if re.search(rf"(?<![A-Za-z0-9_]){k}_(kernel|merge)\b", name):
                 c, t = ours.get(k, (0, 0.0))
                 ours[k] = (c + n, t + us)
@@ -1441,13 +1506,23 @@ def profile_call(torch, fn) -> dict:
             if dev_us is None:
                 dev_us = getattr(ev, "cuda_time_total", 0.0)
             routing[key] = {"count": ev.count, "ms": dev_us / 1e3}
+    # the plain versions' gradients (ops._PlainGradient's backward, and its
+    # recompute of the plain forward inside it): device ms of the kernels
+    # launched inside each range
+    plain_grad = {}
+    for ev in prof.key_averages():
+        if ev.key.startswith(PLAIN_GRADIENT) and ev.device_type == DeviceType.CPU:
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            plain_grad[ev.key] = {"count": ev.count, "device_ms": dev_us / 1e3}
     return {"tokens": produced, "wall_ms_under_profiler": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_kernels": sum(n for n, _ in by_name.values()),
             "our_kernels": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in ours.items()},
             "eager_elementwise": eager,
             "kv_rows": {k: {"count": n, "ms": us / 1e3} for k, (n, us) in pool.items()},
-            "routing_ops": routing,
+            "routing_ops": routing, "plain_gradient": plain_grad,
             "top_kernels": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top]}
 
 
@@ -2368,6 +2443,481 @@ def fleet_run(torch, dev, arch, model, params, ccfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the training side: QAT fake quantization, the exact CASCADE matmul, the
+# full-width QAT train steps, restart, serving after QAT, precision_sim
+# ---------------------------------------------------------------------------
+
+#: the full-width QAT run: phi4-mini-3.8b, TRAIN_STEPS AdamW steps on
+#: TRAIN_BATCH x TRAIN_SEQ synthetic tokens, remat "dots"; then FP4 serving
+#: of QAT_REQ prompts of QAT_PROMPT tokens, QAT_NEW new tokens each
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "phi4-mini-3.8b", 8, 2, 256
+QAT_REQ, QAT_PROMPT, QAT_NEW = 8, 64, 16
+#: phi4-mini's linears a layer (q, k, v, o, gate, up, down), each fake-
+#: quantized once in the forward and once in the recompute of a step
+QAT_LINEARS = 7
+#: (case, weight shape, group, experts, launches in one phi4-mini forward)
+FQ_SHAPES = [("phi4_qo", (3072, 3072), 0, False, 2 * 32),
+             ("phi4_kv", (3072, 1024), 0, False, 2 * 32),
+             ("phi4_gate_up", (3072, 8192), 0, False, 2 * 32),
+             ("phi4_down", (8192, 3072), 0, False, 32),
+             ("codeqwen_up", (4096, 13440), 0, False, 0),
+             ("phi4_gate_up_g32", (3072, 8192), 32, False, 0),
+             ("olmoe_experts", (64, 2048, 1024), 0, True, 0)]
+#: the exact CASCADE matmul: (M, K, N) at codeqwen's widths, each with and
+#: without a bias; ops a (row, column, k) step counted against the f32 rate
+#: outside the tensor cores: the product, the add, two saturation compares,
+#: the subnormal compare and select, two mantissa masks
+CE_SHAPES = [(8, 4096, 4096), (8, 4096, 13440), (8, 13440, 4096)]
+CE_OPS_PER_STEP = 8
+#: precision_sim: codeqwen1.5-7b cut to SIM_DEPTH layers at full width, a
+#: forward of SIM_ROWS x SIM_LEN tokens
+SIM_DEPTH, SIM_ROWS, SIM_LEN = 2, 8, 16
+
+
+def same_bits(torch, got, want) -> bool:
+    """Bit for bit, but any NaN equals any NaN."""
+    nan = torch.isnan(got) & torch.isnan(want)
+    iv = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return bool(((got.view(iv) == want.view(iv)) | nan).all())
+
+
+def event_ms(torch, fn, argsets, iters: int) -> float:
+    """Device ms per call of ``iters`` eager calls between CUDA events, after
+    one warm-up call (for plain versions whose eager ops a CUDA graph cannot
+    capture: they copy small tables from the host)."""
+    fn(*argsets[0])
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for i in range(iters):
+        fn(*argsets[i % len(argsets)])
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def fake_quant_phase(torch, dev):
+    """The fake-quant kernel at phi4-mini's and codeqwen's weight shapes, a
+    group of 32 and an olmoe expert stack, bf16 and f32: bit-equal to its
+    plain version, timed cold against its byte bound and the plain version."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels import ops
+
+    rows = []
+    for case, shape, group, experts, per_fwd in FQ_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(len(case) + len(shape))
+            w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+            ops.reset_launch_counts()
+            got = ops.fake_quant_fp4(w, group, experts=experts)
+            torch.cuda.synchronize()
+            launched = ops.LAUNCHES["fake_quant_fp4"]
+            want = quant.fake_quant_fp4_plain(w, group, experts)
+            if launched != 1 or not same_bits(torch, got, want):
+                fail(f"fake_quant_fp4 {case} {dtype}: {launched} launches, or the kernel "
+                     f"differs from its plain version")
+            nbytes = 2 * w.numel() * w.element_size()
+            sets = [(w.clone(),) for _ in range(copies_beyond_l2(nbytes))]
+            kern = lambda t: ops.fake_quant_fp4(t, group, experts=experts)
+            plain = lambda t: quant.fake_quant_fp4_plain(t, group, experts)
+            rows.append({"case": case, "shape": list(shape), "group": group,
+                         "dtype": str(dtype).split(".")[-1], "experts": experts,
+                         "launches_per_phi4_forward": per_fwd,
+                         "strip_width": fq.strip_width(shape[0] if experts else 1,
+                                                       shape[-2], shape[-1],
+                                                       quant.fake_quant_groups(shape[-2], group)),
+                         "max_abs_err": float((got.float() - want.float()).abs().max()),
+                         "bit_equal": True,
+                         "ms": graph_ms(torch, kern, sets, 20),
+                         "plain_ms": event_ms(torch, plain, sets, 3),
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                         "bytes": nbytes, "library_ms": None,
+                         "library_note": "none: no PyTorch call computes it"})
+            del sets, got, want, w
+            torch.cuda.empty_cache()
+    return rows
+
+
+def cascade_exact_phase(torch, dev):
+    """The exact CASCADE kernel at M = 8 over codeqwen's 4096 -> 4096, 4096 ->
+    13440 and 13440 -> 4096, with and without a bias, and on rows that hold
+    a NaN, an inf and a saturating run: bit-equal to its plain version,
+    timed against its bound and the plain version (K dependent eager steps)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+
+    rows = []
+    for m, k, n in CE_SHAPES:
+        for bias_on in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(k + n + bias_on)
+            x4 = quant.fp4_round(torch.randn((m, k), generator=gen, device=dev) * 2.0)
+            w4 = quant.fp4_round(torch.randn((k, n), generator=gen, device=dev) * 2.0)
+            bias = torch.randn((n,), generator=gen, device=dev) * 4 if bias_on else None
+            special = bias_on and (k, n) == (4096, 13440)
+            if special:             # a saturating run, a NaN and an inf
+                x4[0], w4[:, 0] = 6.0, 6.0
+                x4[1, k // 2] = float("nan")
+                x4[2, 3] = float("inf")
+            ops.reset_launch_counts()
+            got = ops.cascade_matmul_exact(x4, w4, bias)
+            torch.cuda.synchronize()
+            launched = ops.LAUNCHES["cascade_matmul_exact"]
+            t0 = time.monotonic()
+            want = quant.cascade_matmul_exact(x4, w4, bias)
+            torch.cuda.synchronize()
+            plain_wall_ms = (time.monotonic() - t0) * 1e3
+            if launched != 1 or not same_bits(torch, got, want):
+                fail(f"cascade_exact {m}x{k}->{n} bias={bias_on}: {launched} launches, or the "
+                     f"kernel differs from its plain version")
+            if special and not (float(got[0, 0]) == 448.0 and bool(torch.isnan(got[1]).all())):
+                fail("cascade_exact: the saturating row or the NaN row came out otherwise")
+            nbytes = (x4.numel() + w4.numel() + got.numel() + (n if bias_on else 0)) * 4
+            ops_n = CE_OPS_PER_STEP * m * n * k
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOP_PER_S
+            sets = [(x4, w4.clone(), bias) for _ in range(copies_beyond_l2(w4.numel() * 4))]
+            finite = torch.isfinite(want)
+            rows.append({"M": m, "K": k, "N": n, "bias": bias_on, "special_rows": special,
+                         "bit_equal": True,
+                         "max_abs_err": float((got[finite] - want[finite]).abs().max()),
+                         "saturated_share": float((want.abs() == 448.0).float().mean()),
+                         "ms": graph_ms(torch, lambda a, b, c: ops.cascade_matmul_exact(a, b, c),
+                                        sets, 10),
+                         "plain_ms": plain_wall_ms, "plain_timing": "one eager call, host clock "
+                         "around it ending in a synchronize (K dependent steps of eager ops)",
+                         "bound_ms": max(t_bytes, t_ops) * 1e3,
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                         "bound_ops": ops_n, "bound_bytes": nbytes, "library_ms": None,
+                         "library_note": "none: no PyTorch call computes it"})
+            del sets
+            torch.cuda.empty_cache()
+    return rows
+
+
+def train_steps(torch, state, step, data):
+    """TRAIN_STEPS steps on ``data``'s batches 0, 1, ...: (the state, the
+    run's readings: losses (0-d tensors), gnorms, lrs, step ms, peak memory,
+    the launches, and the launches of each step)."""
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, lrs, step_ms, per_step = [], [], [], [], []
+    ops.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        state, m = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        losses.append(m["loss"])
+        gnorms.append(float(m["gnorm"]))
+        lrs.append(float(m["lr"]))
+        per_step.append({k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES})
+    p50 = float(sorted(step_ms)[len(step_ms) // 2])
+    return state, {"losses": losses, "gnorms": gnorms, "lrs": lrs, "step_ms": step_ms,
+                   "step_ms_p50": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / p50,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": dict(ops.LAUNCHES), "launches_by_step": per_step}
+
+
+def train_phase(torch, dev):
+    """phi4-mini-3.8b at full width: params from seed 0 on the card, bf16,
+    QAT through the fake-quant kernel, remat "dots", AdamW; TRAIN_STEPS
+    steps of synthetic batches. Returns (the readings, the trained params)."""
+    from repro_torch import tree as T
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import loop as tloop
+
+    cfg, model = registry.load(TRAIN_ARCH)
+    ccfg = CascadeConfig(mode="train", qat=True, use_kernel=True, compute_dtype=torch.bfloat16)
+    opt = AdamW(lr=3e-4, warmup_steps=2, decay_steps=TRAIN_STEPS)
+    t0 = time.monotonic()
+    state = tloop.init_state(model, ccfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in T.leaves(state.params))
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    step = tloop.make_train_step(model, ccfg, opt, remat=True, remat_policy="dots")
+    # the first batch's loss with the fake quantization on its plain version,
+    # the forward run as the train step runs it (recorded, remat "dots")
+    b0 = {k: torch.as_tensor(v).to(dev) for k, v in data.batch_at(0).items()}
+    with plain_versions_on_card(only=("fake_quant_fp4_cuda",)):
+        loss_plain_fq = tloop.cross_entropy(
+            model.forward(state.params, b0, ccfg, remat=True, remat_policy="dots"),
+            b0["labels"]).detach()
+    del b0
+    state, run = train_steps(torch, state, step, data)
+    per_step = run.pop("launches_by_step")
+    want_fq = 2 * QAT_LINEARS * cfg.n_layers
+    losses = run["losses"]
+    rec = {"arch": TRAIN_ARCH, "params": n_params, "steps": TRAIN_STEPS,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat_policy": "dots", "init_s": init_s,
+           **run, "losses": [float(x) for x in losses],
+           "first_loss_plain_fake_quant": float(loss_plain_fq),
+           "first_loss_bit_equal_plain_fake_quant": bool(torch.equal(losses[0], loss_plain_fq)),
+           "launches_per_step": per_step[-1],
+           "fake_quant_per_step_expected": want_fq,
+           "state_gb": sum(p.numel() * (p.element_size() + 8)
+                           for p in T.leaves(state.params)) / 1e9}
+    launches, gnorms = rec["launches"], rec["gnorms"]
+    if not all(math.isfinite(x) for x in rec["losses"] + gnorms):
+        fail(f"train: a loss or gnorm is not finite: {rec['losses']}, {gnorms}")
+    if not rec["losses"][-1] < rec["losses"][0]:
+        fail(f"train: the loss did not fall: {rec['losses']}")
+    if not rec["first_loss_bit_equal_plain_fake_quant"]:
+        fail(f"train: the first loss {rec['losses'][0]!r} differs from the plain fake "
+             f"quantization's {rec['first_loss_plain_fake_quant']!r}")
+    if any(s["fake_quant_fp4"] != want_fq for s in per_step):
+        fail(f"train: fake-quant launches a step {[s['fake_quant_fp4'] for s in per_step]}, "
+             f"expected {want_fq} (7 linears x {cfg.n_layers} layers x forward + recompute)")
+    if not all(launches[k] > 0 for k in RUN_KERNELS[(TRAIN_ARCH, "train")]):
+        fail(f"train: a kernel of the path never launched: {launches}")
+    # one more step under the profiler: device busy time and the top kernels
+    prof = profile_call(torch, lambda: step(state, data.batch_at(TRAIN_STEPS)))
+    state = prof.pop("tokens")[0]
+    rec["profiled_step"] = {k: prof[k] for k in ("wall_ms_under_profiler", "device_busy_ms",
+                                                 "device_kernels", "our_kernels",
+                                                 "plain_gradient", "top_kernels")}
+    params = T.tree_map(lambda p: p.detach(), state.params)
+    del state, step
+    return rec, params
+
+
+def qat_serve_phase(torch, dev, params):
+    """The QAT-trained full-width params converted to FP4: validation cross
+    entropy dense against FP4 on a held-out batch, then QAT_REQ requests
+    served through ServeEngine(fused=True)."""
+    import numpy as np
+    from repro_torch.core import cascade
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.train import loop as tloop
+
+    cfg, model = registry.load(TRAIN_ARCH)
+    dense = CascadeConfig(mode="train", use_kernel=True, compute_dtype=torch.bfloat16)
+    fp4 = CascadeConfig(mode="serve_fp4", use_kernel=True, compute_dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    fp4_params = cascade.tree_to_serve_fp4(params, fp4)
+    torch.cuda.synchronize()
+    convert_s = time.monotonic() - t0
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    val = {k: torch.as_tensor(v).to(dev) for k, v in data.batch_at(10_000).items()}
+    with torch.no_grad():
+        ce_dense = float(tloop.cross_entropy(model.forward(params, val, dense), val["labels"]))
+        ce_fp4 = float(tloop.cross_entropy(model.forward(fp4_params, val, fp4), val["labels"]))
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (math.isfinite(ce_dense) and math.isfinite(ce_fp4)):
+        fail(f"qat serve: validation cross entropy not finite: {ce_dense}, {ce_fp4}")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, QAT_PROMPT).astype(np.int32) for _ in range(QAT_REQ)]
+    run, _, _, _ = serve_run(torch, dev, TRAIN_ARCH, model, fp4_params, fp4, prompts,
+                             "after_qat", max_new=QAT_NEW, max_len=QAT_PROMPT + QAT_NEW + 1)
+    want = {"cascade_matmul": QAT_LINEARS * cfg.n_layers, "decode_attention": cfg.n_layers,
+            "norm": 2 * cfg.n_layers + 1}
+    got = {k: run["launches_per_decode_step"][k] for k in want}
+    if got != want:
+        fail(f"qat serve: launches a decode step {got}, expected {want} (an FP4 matmul for "
+             f"each of 7 linears, decode attention and two norms a layer, the final norm; "
+             f"the head is tied)")
+    return {"convert_s": convert_s, "val_ce_dense": ce_dense, "val_ce_fp4": ce_fp4,
+            "val_ce_delta": ce_fp4 - ce_dense,
+            "fp4_weight_gb": cascade.num_weight_bytes(fp4_params) / 1e9, "serve": run}
+
+
+#: train_recipe_phase's runs: (name, use_kernel, warmup steps), each on the
+#: train phase's seed, batches and steps
+RECIPE_RUNS = (("plain_route", False, 2), ("warmup_all_steps", True, TRAIN_STEPS))
+
+
+def train_recipe_phase(torch, dev, kernel_run: dict):
+    """phi4-mini-3.8b's full-width QAT run twice more: with every kernel on
+    its plain version (``use_kernel`` off), then on the kernels with the
+    learning-rate warmup over all steps. The plain route's first loss must
+    be within a bf16 step of the kernel route's (the card test's limit),
+    and it must launch no kernel; the curves show whether the kernel route
+    or the recipe's two-step warmup makes the train phase's loss spike."""
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import loop as tloop
+
+    cfg, model = registry.load(TRAIN_ARCH)
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    runs = {}
+    for name, use_kernel, warmup in RECIPE_RUNS:
+        ccfg = CascadeConfig(mode="train", qat=True, use_kernel=use_kernel,
+                             compute_dtype=torch.bfloat16)
+        opt = AdamW(lr=3e-4, warmup_steps=warmup, decay_steps=TRAIN_STEPS)
+        state = tloop.init_state(model, ccfg, opt, seed=0, device=dev)
+        step = tloop.make_train_step(model, ccfg, opt, remat=True, remat_policy="dots")
+        state, run = train_steps(torch, state, step, data)
+        del state, step, run["launches_by_step"]
+        run["losses"] = [float(x) for x in run["losses"]]
+        runs[name] = {"use_kernel": use_kernel, "warmup_steps": warmup, **run}
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain = runs["plain_route"]
+    lk, lp = kernel_run["losses"], plain["losses"]
+    rec = {"kernel_route": {k: kernel_run[k] for k in ("losses", "gnorms", "lrs")}, **runs,
+           "loss_rel_diff_kernel_vs_plain": [abs(a - b) / abs(b) for a, b in zip(lk, lp)],
+           "gnorm_rel_diff_kernel_vs_plain": [abs(a - b) / abs(b) for a, b in
+                                              zip(kernel_run["gnorms"], plain["gnorms"])]}
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"] + r["gnorms"]):
+        fail(f"train recipe: a loss or gnorm is not finite: {runs}")
+    if any(plain["launches"].values()):
+        fail(f"train recipe: the plain route launched a kernel: {plain['launches']}")
+    if not rec["loss_rel_diff_kernel_vs_plain"][0] <= 2.0 ** -7:
+        fail(f"train recipe: the first loss on the kernels {lk[0]!r} is not within a bf16 step "
+             f"of the plain route's {lp[0]!r}")
+    return rec
+
+
+def precision_sim_phase(torch, dev):
+    """codeqwen1.5-7b at full width, depth SIM_DEPTH: a forward with
+    ``precision_sim`` through the exact CASCADE kernel (every linear, the
+    92,416-wide head among them), bit-equal to the same forward with that
+    kernel on its plain version, and read against the same forward on the
+    FP4 kernel route."""
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config("codeqwen1.5-7b"), n_layers=SIM_DEPTH)
+    model = registry.build_model(cfg)
+    fp4 = CascadeConfig(mode="serve_fp4", use_kernel=True, compute_dtype=torch.bfloat16)
+    sim = dataclasses.replace(fp4, precision_sim=True)
+    params = model.init_params(5, fp4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (SIM_ROWS, SIM_LEN), device=dev,
+                                     generator=gen)}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out_sim = model.forward(params, batch, sim)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(ops.LAUNCHES)
+        out_fp4 = model.forward(params, batch, fp4)
+        prof = profile_call(torch, lambda: model.forward(params, batch, sim).shape[0])
+        t0 = time.monotonic()
+        with plain_versions_on_card(only=("cascade_matmul_exact_cuda",)):
+            out_plain = model.forward(params, batch, sim)
+        torch.cuda.synchronize()
+        plain_wall = time.monotonic() - t0
+    want = QAT_LINEARS * SIM_DEPTH + 1
+    if launches["cascade_matmul_exact"] != want or launches["cascade_matmul"]:
+        fail(f"precision_sim: launches {launches}, expected {want} cascade_matmul_exact and no "
+             f"cascade_matmul")
+    if not bool(torch.isfinite(out_sim).all()):
+        fail("precision_sim: non-finite logits")
+    if not same_bits(torch, out_sim, out_plain):
+        fail("precision_sim: the forward through the exact kernel differs from the same "
+             "forward with the kernel on its plain version")
+    rel = float(torch.linalg.vector_norm(out_sim - out_fp4)
+                / torch.linalg.vector_norm(out_fp4))
+    top1 = float((out_sim.argmax(-1) == out_fp4.argmax(-1)).float().mean())
+    return {"arch": "codeqwen1.5-7b", "layers": SIM_DEPTH, "rows": [SIM_ROWS, SIM_LEN],
+            "launches": launches, "wall_s": wall, "plain_route_wall_s": plain_wall,
+            "bit_equal_plain_route": True, "rel_l2_vs_fp4_route": rel,
+            "top1_agreement": top1, "logit_absmax": float(out_sim.abs().max()),
+            "profiled_forward": {k: prof[k] for k in ("device_busy_ms", "device_kernels",
+                                                      "our_kernels", "top_kernels")}}
+
+
+RESTART_DIR = ROOT / "results" / "restart_ckpt"
+
+
+def restart_child() -> int:
+    """The restart phase's body, in its own process (cuBLAS reads
+    CUBLAS_WORKSPACE_CONFIG when it starts): smoke phi4-mini on the card
+    through the kernels, 6 steps uninterrupted with an async save after step
+    3, then a fresh state restored from it and steps 4-6 again, under
+    deterministic algorithms. Prints one JSON line."""
+    import shutil
+    import warnings
+
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda")
+    shutil.rmtree(RESTART_DIR, ignore_errors=True)
+    cfg, model = registry.load(TRAIN_ARCH, smoke=True)
+    ccfg = CascadeConfig(mode="train", qat=True, use_kernel=True, compute_dtype=torch.bfloat16)
+    opt = AdamW(lr=3e-3, warmup_steps=2, decay_steps=6)
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    step = tloop.make_train_step(model, ccfg, opt, remat=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = tloop.init_state(model, ccfg, opt, seed=0, device=dev)
+        losses, saver = [], None
+        for i in range(6):
+            state, m = step(state, data.batch_at(i))
+            losses.append(m["loss"])
+            if i == 2:
+                saver = ckpt.save(state, str(RESTART_DIR), 3, extra={"data_step": 3},
+                                  async_=True)
+        saver.join()
+        resumed, extra = ckpt.restore(tloop.init_state(model, ccfg, opt, seed=1, device=dev),
+                                      str(RESTART_DIR))
+        tail = []
+        for i in range(extra["data_step"], 6):
+            resumed, m = step(resumed, data.batch_at(i))
+            tail.append(m["loss"])
+    shutil.rmtree(RESTART_DIR, ignore_errors=True)
+    named = sorted({str(w.message).split(" does not have a deterministic")[0]
+                    for w in caught if "deterministic" in str(w.message)})
+    print(json.dumps({
+        "losses": [float(x) for x in losses], "resumed_tail": [float(x) for x in tail],
+        "tail_bit_equal": all(torch.equal(a, b) for a, b in zip(tail, losses[3:])),
+        "params_bit_equal": all(torch.equal(a.detach(), b.detach()) for a, b in
+                                zip(T.leaves(resumed.params), T.leaves(state.params))),
+        "max_rel_diff": max(abs(float(a) - float(b)) / abs(float(b))
+                            for a, b in zip(tail, losses[3:])),
+        "nondeterministic_ops": named}), flush=True)
+    return 0
+
+
+def restart_phase(torch, dev):
+    """Checkpoint and restart on the card, in a subprocess with
+    CUBLAS_WORKSPACE_CONFIG set: the resumed tail's losses must equal the
+    uninterrupted run's bit for bit, or, where an op with no deterministic
+    CUDA path ran (named), within the reference demo's rtol 1e-6."""
+    import os
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--restart-child"],
+                         capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    if res.returncode != 0:
+        fail(f"restart: the child failed ({res.returncode}): {res.stderr[-3000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    ok = rec["tail_bit_equal"] or (rec["nondeterministic_ops"] and rec["max_rel_diff"] <= 1e-6)
+    if not ok:
+        fail(f"restart: the resumed losses differ from the uninterrupted run's: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2376,6 +2926,8 @@ def main() -> int:
         from repro_torch.kernels import build
     except ImportError as e:
         fail(f"the port is not importable ({e}); run chip_smoke.py from a checkout")
+    if sys.argv[1:] == ["--restart-child"]:
+        return restart_child()
     dev = torch.device("cuda")
     print(gpu_name_and_power(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2425,6 +2977,10 @@ def main() -> int:
     print(json.dumps({"ssd_scan": ssd}), flush=True)
     pool = timed("paged pool", paged_pool_phase)
     print(json.dumps({"paged_pool": pool}), flush=True)
+    fqs = timed("fake_quant", fake_quant_phase)
+    print(json.dumps({"fake_quant_fp4": fqs}), flush=True)
+    ces = timed("cascade_exact", cascade_exact_phase)
+    print(json.dumps({"cascade_exact": ces}), flush=True)
     par, srv = {}, {}
     for arch in PARITY_ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
@@ -2462,6 +3018,17 @@ def main() -> int:
                       "paged": step_summary(srv[ARCHS[0]]["paged"]["profiled_decode_step"]),
                       "pool_ops_per_step_ms": pool["per_step_ms"]}
     print(json.dumps({"paged_decode_step_vs_dense": paged_vs_dense}), flush=True)
+    train, trained = timed("train", train_phase)
+    print(json.dumps({"train": train}), flush=True)
+    qat = timed("qat serve", qat_serve_phase, trained)
+    del trained
+    print(json.dumps({"qat_serve": qat}), flush=True)
+    recipe = timed("train recipe", train_recipe_phase, train)
+    print(json.dumps({"train_recipe": recipe}), flush=True)
+    sim = timed("precision_sim", precision_sim_phase)
+    print(json.dumps({"precision_sim": sim}), flush=True)
+    restart = timed("restart", restart_phase)
+    print(json.dumps({"restart": restart}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
 
     def per_step(arch, key, per="launches_per_decode_step"):
@@ -2475,9 +3042,11 @@ def main() -> int:
         return {arch: srv[arch]["plain"]["launches"][name] for arch in ARCHS}
 
     def by_run(name):
-        """Launches in every serve run, each counted from zero."""
-        return {f"{arch}/{kind}": rec["launches"][name] for arch in ARCHS
-                for kind, rec in srv[arch].items() if "launches" in rec}
+        """Launches in every serve run (phi4-mini's after QAT among them),
+        each counted from zero."""
+        return {**{f"{arch}/{kind}": rec["launches"][name] for arch in ARCHS
+                   for kind, rec in srv[arch].items() if "launches" in rec},
+                f"{TRAIN_ARCH}/after_qat": qat["serve"]["launches"][name]}
 
     def model_level(name):
         """Launches in each model-level run of a modality-stub backbone."""
@@ -2485,6 +3054,7 @@ def main() -> int:
 
     cq, mb, om, rg = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
+    ce_row = next(r for r in ces if (r["K"], r["N"], r["bias"]) == (4096, 13440, False))
 
     def grouped_step(key):
         return sum(r[key] * r["launches_per_decode_step"] for r in grp)
@@ -2564,7 +3134,7 @@ def main() -> int:
                                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
          **{f"{a.replace('-', '_').replace('.', '_')}_step": {
              key: per_step(a, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-            for a in STUB_ARCHS},
+            for a in STUB_ARCHS + (TRAIN_ARCH,)},
          "launches_model_level": model_level("cascade_matmul"),
          "launches_per_model_level_decode_step": {
              a: stub[a]["launches_per_decode_step"]["cascade_matmul"] for a in STUB_ARCHS},
@@ -2696,6 +3266,40 @@ def main() -> int:
          "ms": ssd["ms"], "kernel_ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
          "library_ms": None, "library_note": ssd["library_note"]},
+        {"name": "fake_quant_fp4", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fake_quant.cu",
+         "replaces": "no TPU kernel: the reference's fake_quant_fp4, "
+                     "src/repro/core/quant.py:257 (plain XLA, QAT's weight fake quantization)",
+         "shape": "one phi4-mini-3.8b QAT train step (bf16): 32 layers x [(3072,3072) x 2, "
+                  "(3072,1024) x 2, (3072,8192) x 2, (8192,3072)], each launched in the "
+                  "forward and again in the remat recompute; times are summed over the step's "
+                  "448 launches (every shape under fake_quant_shapes)",
+         "launches": train["launches"]["fake_quant_fp4"],
+         "launches_per_train_step": train["launches_per_step"]["fake_quant_fp4"],
+         "max_abs_err": max(r["max_abs_err"] for r in fqs),
+         "tol": "bit-equal to the plain version (any NaN equal to any NaN)",
+         **{key: sum(2 * r[key] * r["launches_per_phi4_forward"] for r in fqs
+                     if r["dtype"] == "bfloat16")
+            for key in ("ms", "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library_ms": None,
+         "library_note": "none: no PyTorch call computes it",
+         "fake_quant_shapes": {f"{r['case']} {r['dtype']}": {k: r[k] for k in (
+             "shape", "group", "strip_width", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+             for r in fqs}},
+        {"name": "cascade_matmul_exact", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/cascade_exact.cu",
+         "replaces": "no TPU kernel: the reference's cascade_matmul_exact, "
+                     "src/repro/core/quant.py:180 (an XLA fori_loop over K)",
+         "shape": "M=8, 4096 -> 13440 without a bias (every shape under cascade_exact_shapes; "
+                  "the precision_sim forward runs it at M=128, 15 launches)",
+         "launches": sim["launches"]["cascade_matmul_exact"],
+         "max_abs_err": max(r["max_abs_err"] for r in ces),
+         "tol": "bit-equal to the plain version (any NaN equal to any NaN)",
+         **{k: ce_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "library_note": "none: no PyTorch call computes it",
+         "cascade_exact_shapes": {f"{r['M']}x{r['K']}->{r['N']} bias={r['bias']}": {k: r[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "saturated_share", "max_abs_err")}
+             for r in ces}},
     ]
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)
@@ -2708,6 +3312,9 @@ def main() -> int:
               "parity_depth2": par, "serve": srv, "paged_pool": pool, "model_level": stub,
               "slotwise": slot,
               "paged_decode_step_vs_dense": paged_vs_dense,
+              "fake_quant_fp4": fqs, "cascade_exact": ces, "train": train, "qat_serve": qat,
+              "train_recipe": recipe,
+              "precision_sim": sim, "restart": restart,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if par_failed:

@@ -3,19 +3,31 @@
 A linear layer's params are a dict in one of these formats:
 
 * ``train`` / ``bf16`` -- ``{"w": (d_in, d_out)[, "b"]}`` dense weights in
-  the compute dtype;
+  the compute dtype; in ``train`` mode with ``qat`` the forward multiplies
+  the FP4 fake-quantized weight (paper Section 4), whose gradient is the
+  straight-through identity; ``use_kernel`` sends the fake quantization to
+  its CUDA kernel (``kernels.ops.fake_quant_fp4``);
 * ``serve_fp4`` -- ``{"codes": (ceil(d_in/2), d_out) uint8, "scale": (G,
   d_out) f32[, "b"]}``: packed FP4 E2M1 codes + per-(group, column) scales,
   4 bits per weight in device memory. ``use_kernel`` sends the matmul to the
   CUDA kernel (``kernels.ops.cascade_matmul``); otherwise the weight is
   dequantized and multiplied in plain PyTorch.
 
+``precision_sim`` (``serve_fp4`` only) runs the paper's bit-accurate
+dataflow instead: FP4 activations under one absmax scale over all of x (so
+the rows of a batch share it, as in the reference), the weights re-rounded
+onto the FP4 grid per column, FP5 products summed down each column in FP8
+(``quant.cascade_matmul_exact``; its CUDA kernel,
+``kernels.ops.cascade_matmul_exact``, under ``use_kernel``), then both
+scales and the bias.
+
 Expert linears (the MoE family) carry a leading expert axis on every leaf,
 ``(E, ...)``; with ``use_kernel`` all E matmuls go through one grouped
-launch of the same kernel (``kernels.ops.cascade_matmul_grouped``).
+launch of the same kernel (``kernels.ops.cascade_matmul_grouped``), and
+QAT fake-quantizes the whole stack in one launch, each expert with its own
+scales.
 
-Not ported yet: QAT fake-quant, the bit-accurate FP8 ``precision_sim``
-path and the mesh sharding hooks.
+Not ported: the mesh sharding hooks (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -31,8 +43,10 @@ from repro_torch.core import quant
 class CascadeConfig:
     """Behavior of every CascadeLinear in a model."""
     mode: str = "train"            # train | serve_fp4 | bf16
+    qat: bool = False              # fake-quant weights during training
     group_size: int = 0            # 0 => per-output-column scales
-    use_kernel: bool = False       # CUDA FP4 kernel vs dequant + matmul
+    use_kernel: bool = False       # CUDA kernels vs their plain versions
+    precision_sim: bool = False    # bit-accurate FP8-accumulation path
     compute_dtype: Any = torch.bfloat16
     kv_dtype: Any = None           # KV cache dtype; None = follow compute_dtype
 
@@ -67,12 +81,59 @@ def linear_from_dense(w: torch.Tensor, cfg: CascadeConfig,
     return p
 
 
+def linear_abstract(d_in: int, d_out: int, cfg: CascadeConfig, use_bias: bool = False) -> dict:
+    """The params :func:`linear_init` makes, as shape-and-dtype leaves on the
+    ``meta`` device (no storage)."""
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    if cfg.mode == "serve_fp4":
+        g = (d_in // cfg.group_size) if cfg.group_size > 0 else 1
+        p = {"codes": meta((d_in // 2, d_out), torch.uint8),
+             "scale": meta((g, d_out), torch.float32)}
+    else:
+        p = {"w": meta((d_in, d_out), cfg.compute_dtype)}
+    if use_bias:
+        p["b"] = meta((d_out,), torch.float32)
+    return p
+
+
+def _fake_quant(w: torch.Tensor, cfg: CascadeConfig, experts: bool = False) -> torch.Tensor:
+    """QAT's FP4 fake quantization, on the kernel route under ``use_kernel``."""
+    if cfg.use_kernel:
+        from repro_torch.kernels import ops
+        return ops.fake_quant_fp4(w, cfg.group_size, experts=experts)
+    return quant.fake_quant_fp4(w, cfg.group_size, experts)
+
+
+def _precision_sim(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
+    """The bit-accurate CASCADE path: FP4 activations (one scale over all of
+    x), FP4 weights re-normalized per column, FP5 products, FP8 column sums;
+    the scales applied at the column's end, then the bias."""
+    w = quant.dequantize_weight(params["codes"], params["scale"], torch.float32)
+    xs = x.abs().amax() / quant.FP4_MAX
+    x4 = quant.fp4_decode(quant.fp4_encode(x / xs))
+    ws = w.abs().amax(dim=0, keepdim=True) / quant.FP4_MAX
+    ws = torch.where(ws > 0, ws, torch.ones_like(ws))
+    w4 = quant.fp4_decode(quant.fp4_encode(w / ws))
+    if cfg.use_kernel:
+        from repro_torch.kernels import ops
+        out = ops.cascade_matmul_exact(x4, w4)
+    else:
+        out = quant.cascade_matmul_exact(x4, w4)
+    out = out * (xs * ws)
+    b = params.get("b")
+    if b is not None:
+        out = out + b
+    return out.to(cfg.compute_dtype)
+
+
 def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
     """y = x @ W (+ b) under the configured format; f32 accumulation, output
     in the compute dtype."""
     cd = cfg.compute_dtype
     b = params.get("b")
     if cfg.mode == "serve_fp4":
+        if cfg.precision_sim:
+            return _precision_sim(params, x, cfg)
         if cfg.use_kernel:
             # activations enter the matmul in the compute dtype, as on the
             # plain path (Mamba-2's gated norm hands over f32 after extend)
@@ -81,7 +142,10 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Ten
                                       out_dtype=cd)
         w = quant.dequantize_weight(params["codes"], params["scale"], cd)
     else:
-        w = params["w"].to(cd)
+        w = params["w"]
+        if cfg.qat and cfg.mode == "train":
+            w = _fake_quant(w, cfg)
+        w = w.to(cd)
     out = torch.matmul(x.to(cd).to(torch.float32), w.to(torch.float32))
     if b is not None:
         out = out + b
@@ -112,7 +176,10 @@ def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
         w = torch.stack([quant.dequantize_weight(c, s, cd)
                          for c, s in zip(params["codes"], params["scale"])])
     else:
-        w = params["w"].to(cd)
+        w = params["w"]
+        if cfg.qat and cfg.mode == "train":
+            w = _fake_quant(w, cfg, experts=True)
+        w = w.to(cd)
     return torch.matmul(x.to(cd).to(torch.float32), w.to(torch.float32)).to(cd)
 
 

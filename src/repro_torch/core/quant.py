@@ -11,8 +11,21 @@ the JAX package's ``core/quant.py`` bit for bit:
 * Two codes per uint8 along the contraction dim, low nibble = even row.
 * Absmax group quantization of (K, N) weights into packed codes + (G, N)
   f32 scales, with a zero pad row for odd K.
-
-The FP5/FP8 CASCADE oracles and QAT fake-quant are not ported yet.
+* The bit-accurate CASCADE oracles (paper Sections 10.4-10.6): FP5 E3M1
+  products (a 1-bit mantissa truncation of the f32 product) summed down a
+  column in FP8 E4M3, saturating at +/-448 and truncating, in order over K.
+  Integer work on an f32 carrier, bit for bit the reference's, NaN and
+  +/-inf included: a NaN passes the saturation as ``jnp.clip`` passes it,
+  and a NaN whose payload lies below the kept mantissa bits masks to +/-inf.
+  :func:`cascade_matmul_exact` computes product k's (..., N) slice inside
+  its loop over K (the reference builds all K at once), so the plain version
+  also runs at a full model's widths; its CUDA kernel is
+  ``kernels/csrc/cascade_exact.cu`` (``kernels.ops.cascade_matmul_exact``).
+* QAT fake quantization with a straight-through gradient (paper Section
+  4): :func:`fake_quant_fp4`, ``w + (qdq(w) - f32(w)).to(w.dtype)`` in w's
+  dtype (at bf16 not the same bits as ``qdq(w)``), whose kernel is
+  ``kernels/csrc/fake_quant.cu`` (``kernels.ops.fake_quant_fp4``), and
+  :func:`fake_quant_fp8_e4m3`.
 """
 from __future__ import annotations
 
@@ -120,3 +133,148 @@ def dequantize_weight(packed: torch.Tensor, scales: torch.Tensor,
     g = k // scales.shape[0]
     vals = fp4_decode(codes, torch.float32).reshape(k // g, g, n)
     return (vals * scales[:, None, :]).reshape(k, n).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Mantissa truncation primitives (FP5 product / FP8 accumulate)
+# --------------------------------------------------------------------------
+
+def _mask(mbits: int) -> int:
+    """The int32 mask that keeps the sign, the exponent and ``mbits`` bits."""
+    m = 0xFFFFFFFF ^ ((1 << (23 - mbits)) - 1)
+    return m - (1 << 32) if m >= 1 << 31 else m
+
+
+def truncate_mantissa_f32(x: torch.Tensor, mbits: int) -> torch.Tensor:
+    """Truncate (round toward zero) an f32 mantissa to ``mbits`` bits, on the
+    sign-magnitude bits (so right for negatives; a NaN whose payload lies
+    below the kept bits becomes +/-inf, as in the reference)."""
+    xi = x.to(torch.float32).contiguous().view(torch.int32)
+    return (xi & _mask(mbits)).view(torch.float32)
+
+
+def fp5_e3m1_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The paper's multiplier (Section 10.6): FP4 x FP4 truncated to FP5 E3M1,
+    i.e. the f32 product with its mantissa cut to one bit."""
+    return truncate_mantissa_f32(a.to(torch.float32) * b.to(torch.float32), 1)
+
+
+FP8_E4M3_MAX = 448.0
+_FP8_MIN_NORMAL = 2.0 ** -6
+_FP8_SUB_STEP = 2.0 ** -9
+
+
+def fp8_e4m3_truncate(x: torch.Tensor) -> torch.Tensor:
+    """The accumulator's numerics (Sections 10.4/10.6): FP8 E4M3, saturating
+    at +/-448, truncating toward zero, no inf (a NaN stays NaN: the clamp
+    keeps it, as ``jnp.clip`` does). Subnormals are multiples of 2^-9."""
+    x = x.to(torch.float32)
+    sat = torch.clamp(x, -FP8_E4M3_MAX, FP8_E4M3_MAX)
+    normal = truncate_mantissa_f32(sat, 3)
+    sub = torch.trunc(sat * (1.0 / _FP8_SUB_STEP)) * _FP8_SUB_STEP    # exact: powers of two
+    return torch.where(sat.abs() < _FP8_MIN_NORMAL, sub, normal)
+
+
+def cascade_column_accumulate(products: torch.Tensor,
+                              init: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum FP5 products (..., K) down a CASCADE column in FP8, in order over
+    K; ``init`` is the bias preloaded into the output sum (Section 13.1).
+    Returns the (...,) FP8-valued sums in an f32 carrier."""
+    acc = (torch.zeros(products.shape[:-1], dtype=torch.float32, device=products.device)
+           if init is None else init.to(torch.float32))
+    for i in range(products.shape[-1]):
+        acc = fp8_e4m3_truncate(acc + products[..., i])
+    return acc
+
+
+def cascade_matmul_exact(x4: torch.Tensor, w4: torch.Tensor,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Bit-accurate CASCADE matmul (paper Table 6): x4 (..., K) and w4 (K, N)
+    FP4-valued in f32, FP5 products, FP8 sums down each column in order over
+    K, starting from ``fp8_e4m3_truncate(bias)`` where a bias is given.
+    Returns (..., N) f32. Product k's (..., N) slice is made inside the loop
+    (the products are elementwise, so the bits are the reference's without
+    its (..., K, N) tensor)."""
+    x4 = x4.to(torch.float32)
+    w4 = w4.to(torch.float32)
+    shape = x4.shape[:-1] + (w4.shape[-1],)
+    acc = (torch.zeros(shape, dtype=torch.float32, device=x4.device) if bias is None
+           else fp8_e4m3_truncate(bias).expand(shape).clone())
+    for k in range(x4.shape[-1]):
+        acc = fp8_e4m3_truncate(acc + fp5_e3m1_product(x4[..., k, None], w4[k]))
+    return acc
+
+
+# --------------------------------------------------------------------------
+# QAT fake quantization (straight-through estimator), paper Section 4
+# --------------------------------------------------------------------------
+
+def fake_quant_groups(k: int, group_size: int) -> int:
+    """Rows per scale group of a K-row weight: ``group_size`` where it
+    divides K, else one group over all K (as the reference)."""
+    return group_size if (group_size > 0 and k % group_size == 0) else k
+
+
+def fake_quant_fp4_plain(w: torch.Tensor, group_size: int = 0,
+                         experts: bool = False) -> torch.Tensor:
+    """The forward value of :func:`fake_quant_fp4` (no gradient rule): ``w +
+    (qdq(w) - f32(w)).to(w.dtype)``, the add in w's dtype, where qdq maps the
+    absmax of each (group, column) to 6 and rounds ``w / scale`` onto the
+    FP4 grid. Every step is one IEEE operation (the scale's division is a
+    tensor by a tensor: a division by a Python number is a multiply by the
+    reciprocal on the card). A weight of more than two dims is one (-1, N)
+    matrix, as in the reference; with ``experts`` a (E, K, N) stack is E
+    matrices, each with its own scales (the reference's ``vmap``)."""
+    shape = w.shape
+    w3 = w.reshape(shape[0] if experts else 1, -1, shape[-1])
+    b, k, n = w3.shape
+    g = fake_quant_groups(k, group_size)
+    wf = w3.to(torch.float32)
+    wg = wf.reshape(b, k // g, g, n)
+    absmax = wg.abs().amax(dim=2, keepdim=True)
+    scales = torch.where(absmax > 0, absmax / torch.full_like(absmax, FP4_MAX),
+                         torch.ones_like(absmax))
+    qdq = (fp4_round(wg / scales) * scales).reshape(b, k, n)
+    return (w3 + (qdq - wf).to(w.dtype)).reshape(shape)
+
+
+class _StraightThrough(torch.autograd.Function):
+    """Forward: ``fn(w)``; backward: the incoming gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, w, fn):
+        return fn(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def straight_through(w: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(w)`` forward, the identity backward (the reference's
+    ``w + stop_gradient(f(w) - w)``)."""
+    return _StraightThrough.apply(w, fn)
+
+
+def fake_quant_fp4(w: torch.Tensor, group_size: int = 0, experts: bool = False) -> torch.Tensor:
+    """Differentiable FP4 fake quantization, the plain route: forward
+    :func:`fake_quant_fp4_plain`, backward the straight-through identity.
+    ``kernels.ops.fake_quant_fp4`` is the same function on the kernel route."""
+    return straight_through(w, lambda t: fake_quant_fp4_plain(t, group_size, experts))
+
+
+def fp8_e4m3_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast to FP8 E4M3 (fn: no inf) and back to x's dtype, as
+    ``ml_dtypes`` casts: round to nearest even, and a magnitude past 464
+    (which rounds beyond 448), an inf or a NaN becomes NaN of x's sign. Torch's
+    own cast saturates there, so those are written explicitly."""
+    q = x.to(torch.float8_e4m3fn).to(x.dtype)
+    nan = torch.where(torch.signbit(x), -float("nan"), float("nan")).to(x.dtype)
+    over = torch.isnan(x) | (x.abs() > 464.0)
+    return torch.where(over, nan, q)
+
+
+def fake_quant_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """FP8 fake quantization with a straight-through gradient (the
+    reference's KV-cache QAT experiments): ``x + (q - x)`` in x's dtype."""
+    return straight_through(x, lambda t: t + (fp8_e4m3_round(t) - t))

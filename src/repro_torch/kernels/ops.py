@@ -4,21 +4,39 @@ A tensor on the CPU goes to the kernel's plain version; a CUDA tensor goes
 to the CUDA kernel, which launches or raises. There is no fallback from one
 to the other. Every kernel launch adds one to ``LAUNCHES[name]``, so a run
 can show that its path went through the kernels.
+
+Gradients: the fake-quant kernel's is the straight-through identity, as its
+plain version's. The norm and flash-attention kernels have no backward of
+their own (nor had the TPU kernels); where autograd records a call (a
+training forward on the kernel route), their outputs come from the kernel
+and their gradient is the plain version's, recomputed in the backward from
+the saved inputs. A call autograd does not record launches alone. That
+backward runs inside the profiler range ``PLAIN_GRADIENT`` (its recompute
+inside ``PLAIN_GRADIENT + ".recompute"``), so a profiled step reads its
+device time apart.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import quant as _quant
+from repro_torch.kernels import cascade_exact as _ce
 from repro_torch.kernels import cascade_matmul as _cm
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import norm as _norm
 from repro_torch.kernels import ssd_scan as _ssd
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES = {"cascade_matmul": 0, "cascade_matmul_grouped": 0, "decode_attention": 0,
-            "flash_attention": 0, "norm": 0, "ssd_scan": 0}
+LAUNCHES = {"cascade_matmul": 0, "cascade_matmul_exact": 0, "cascade_matmul_grouped": 0,
+            "decode_attention": 0, "fake_quant_fp4": 0, "flash_attention": 0, "norm": 0,
+            "ssd_scan": 0}
+
+
+#: profiler range of :class:`_PlainGradient`'s backward
+PLAIN_GRADIENT = "ops.plain_gradient"
 
 
 def reset_launch_counts() -> None:
@@ -30,6 +48,41 @@ def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"no kernel route for a tensor on {t.device}")
+
+
+class _PlainGradient(torch.autograd.Function):
+    """Forward: ``launch(*inputs)`` (the kernel); backward: the gradient of
+    ``plain(*inputs)``, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        with torch.profiler.record_function(PLAIN_GRADIENT):
+            leaves = [t.detach().requires_grad_(nd) if t is not None else None
+                      for t, nd in zip(ctx.saved_tensors, need)]
+            with torch.enable_grad(), torch.profiler.record_function(PLAIN_GRADIENT
+                                                                     + ".recompute"):
+                out = ctx.plain(*leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+            wrt = [t for t, nd in zip(leaves, need) if nd]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                           allow_unused=True) if pairs else [None] * len(wrt))
+            return (None, None) + tuple(next(got) if nd else None for nd in need)
+
+
+def _kernel_call(launch, plain, *inputs):
+    """``launch(*inputs)``; where autograd records the call, through
+    :class:`_PlainGradient` (so the plain version gives the gradient)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return _PlainGradient.apply(launch, plain, *inputs)
+    return launch(*inputs)
 
 
 def cascade_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -72,6 +125,35 @@ def cascade_matmul_grouped(x: torch.Tensor, packed: torch.Tensor, scales: torch.
     return _cm.cascade_matmul_grouped_plain(x, packed, scales, rows, out_dtype)
 
 
+def fake_quant_fp4(w: torch.Tensor, group_size: int = 0, *,
+                   experts: bool = False) -> torch.Tensor:
+    """QAT's FP4 fake quantization with the straight-through gradient: ``w +
+    (qdq(w) - f32(w)).to(w.dtype)``, scales per (group, column) of the (K, N)
+    weight (a weight of more dims is one (-1, N) matrix; with ``experts`` a
+    (E, K, N) stack is E matrices, one launch for all of them). ``group_size``
+    0, or one that does not divide K, means one group over K."""
+    if _route(w) == "cuda":
+        def launch(t):
+            out = _fq.fake_quant_fp4_cuda(t, group_size, experts)
+            LAUNCHES["fake_quant_fp4"] += 1
+            return out
+        return _quant.straight_through(w, launch)
+    return _quant.fake_quant_fp4(w, group_size, experts)
+
+
+def cascade_matmul_exact(x4: torch.Tensor, w4: torch.Tensor,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The bit-accurate CASCADE matmul: x4 (..., K) and w4 (K, N) FP4-valued
+    f32, FP5 products summed down each column in FP8 in order over K (from
+    the FP8 bias where one is given). Returns (..., N) f32."""
+    lead = x4.shape[:-1]
+    if _route(x4) == "cuda":
+        out = _ce.cascade_matmul_exact_cuda(x4.reshape(-1, x4.shape[-1]), w4, bias)
+        LAUNCHES["cascade_matmul_exact"] += 1
+        return out.reshape(*lead, w4.shape[-1])
+    return _ce.cascade_matmul_exact_plain(x4, w4, bias)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor | None = None, *, scale: float | None = None,
                      q_pos: torch.Tensor | None = None) -> torch.Tensor:
@@ -100,7 +182,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     kernel takes bf16 only and reads q/k/v through their strides, so k/v
     may be a cache's live prefix (its launch plan follows T)."""
     if _route(q) == "cuda":
-        out = _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset, k_pos, window)
+        out = _kernel_call(
+            lambda q, k, v: _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset, k_pos,
+                                                     window),
+            lambda q, k, v: _fa.flash_attention_plain(q, k, v, causal, scale, q_offset, k_pos,
+                                                      window), q, k, v)
         LAUNCHES["flash_attention"] += 1
         return out
     return _fa.flash_attention_plain(q, k, v, causal, scale, q_offset, k_pos, window)
@@ -112,7 +198,8 @@ def norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None,
     CUDA kernel sums each row in one order fixed by the width, so a row
     rounds alike whatever the number of rows in the call."""
     if _route(x) == "cuda":
-        out = _norm.norm_cuda(x, scale, bias, norm_type, eps)
+        out = _kernel_call(lambda *t: _norm.norm_cuda(*t, norm_type, eps),
+                           lambda *t: _norm.norm_plain(*t, norm_type, eps), x, scale, bias)
         LAUNCHES["norm"] += 1
         return out
     return _norm.norm_plain(x, scale, bias, norm_type, eps)
@@ -125,7 +212,9 @@ def add_norm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
     sum rounded to x's dtype as eager ``x + r`` rounds it. One launch of the
     norm kernel on the card (counted under ``LAUNCHES["norm"]``)."""
     if _route(x) == "cuda":
-        out = _norm.add_norm_cuda(x, r, scale, bias, norm_type, eps)
+        out = _kernel_call(lambda *t: _norm.add_norm_cuda(*t, norm_type, eps),
+                           lambda *t: _norm.add_norm_plain(*t, norm_type, eps),
+                           x, r, scale, bias)
         LAUNCHES["norm"] += 1
         return out
     return _norm.add_norm_plain(x, r, scale, bias, norm_type, eps)
@@ -138,7 +227,8 @@ def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *,
     its row stride). One launch of the norm kernel on the card (counted
     under ``LAUNCHES["norm"]``)."""
     if _route(y) == "cuda":
-        out = _norm.gated_norm_cuda(y, z, scale, eps)
+        out = _kernel_call(lambda *t: _norm.gated_norm_cuda(*t, eps),
+                           lambda *t: _norm.gated_norm_plain(*t, eps), y, z, scale)
         LAUNCHES["norm"] += 1
         return out
     return _norm.gated_norm_plain(y, z, scale, eps)

@@ -102,6 +102,18 @@ def layer_view(tree, i: int):
     return tree[i]
 
 
+def unstack_layers(tree) -> list:
+    """Every layer's view of a stacked param tree at once (one
+    ``torch.unbind`` a leaf). Under autograd the views' gradients reach the
+    stacked leaf as one stack, where a ``layer_view`` a layer would add a
+    zero-padded copy of the whole leaf for each layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_layers(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def stack_layers(trees: list):
     """Stack per-layer trees into one tree of (L, ...) leaves."""
     if isinstance(trees[0], dict):

@@ -44,6 +44,7 @@ from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
+from repro_torch.models import remat as R
 from repro_torch.models.ssm import (_causal_conv, _conv_decode, _conv_extend, _conv_steps,
                                     conv_prefill_state)
 
@@ -245,10 +246,16 @@ class GriffinLM:
         return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), nc
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
-                cache=None, max_len: int | None = None, n_valid=None, collect=None):
+                cache=None, max_len: int | None = None, n_valid=None, collect=None,
+                remat: bool = False, remat_policy: str = "dots"):
         """Run every layer in order; returns (x, the last layer's MLP output
         still to be added, the R blocks' caches, the A blocks' caches).
-        ``collect``: a verify checkpoint's R stacks, filled layer by layer."""
+        ``collect``: a verify checkpoint's R stacks, filled layer by layer.
+        ``remat``: each block one checkpointed region under ``remat_policy``
+        (``models.remat``; the reference checkpoints an (R, R, A) group and
+        leaves the tail out, the bits are the same)."""
+        rblock = R.layer_fn(self._rblock, remat, remat_policy)
+        ablock = R.layer_fn(self._ablock, remat, remat_policy)
         pending, rcaches, acaches = None, [], []
         for li, kind in enumerate(self.kinds):
             lp = params["layers"][li]
@@ -256,12 +263,12 @@ class GriffinLM:
                 ri = len(rcaches)
                 c = cache_utils.layer_view(cache["layers"], ri) if cache is not None else None
                 ck = cache_utils.layer_view(collect, ri) if collect is not None else None
-                x, pending, nc = self._rblock(lp, x, ccfg, c, mode, n_valid, ck, pending)
+                x, pending, nc = rblock(lp, x, ccfg, c, mode, n_valid, ck, pending)
                 rcaches.append(nc)
             else:
                 c = (cache_utils.layer_view(cache["attn"], len(acaches)) if cache is not None
                      else None)
-                x, pending, nc = self._ablock(lp, x, ccfg, c, mode, max_len, n_valid, pending)
+                x, pending, nc = ablock(lp, x, ccfg, c, mode, max_len, n_valid, pending)
                 acaches.append(nc)
         return x, pending, rcaches, acaches
 
@@ -272,10 +279,12 @@ class GriffinLM:
                                 use_kernel=ccfg.use_kernel)
         return cascade.linear_apply(params["lm_head"], x, ccfg).to(torch.float32)
 
-    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
-        """Full-sequence forward (no cache): logits (B, S, V) f32."""
+    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig, remat: bool = False,
+                remat_policy: str = "dots") -> torch.Tensor:
+        """Full-sequence forward (no cache; the training forward): logits (B, S,
+        V) f32, each block checkpointed under ``remat`` (see :meth:`_layers`)."""
         x, pending, _, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
-                                        ccfg, "full")
+                                        ccfg, "full", remat=remat, remat_policy=remat_policy)
         return self._head(params, x, pending, ccfg)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:

@@ -334,11 +334,8 @@ class MoELM(TransformerLM):
         }
 
     # --------------------------------------------------------------- layers
-    def _layer_params(self, params: dict, i: int) -> dict:
-        nd = self.cfg.first_dense_layers
-        if i < nd:
-            return params["dense_layers"][i]
-        return cache_utils.layer_view(params["layers"], i - nd)
+    def _layer_list(self, params: dict) -> list:
+        return list(params["dense_layers"]) + cache_utils.unstack_layers(params["layers"])
 
     def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
                max_len: int | None = None, n_valid=None, kv_len: int | None = None,

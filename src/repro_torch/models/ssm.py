@@ -17,7 +17,8 @@ Speculative decode checkpoints the state after every token of the verify
 chunk and rewinds by selecting the checkpoint at each slot's accept
 boundary; with ``use_kernel`` the verify pass runs the conv and recurrence
 of plain decode, the recurrence through the kernel, one launch per chunk
-token. Not ported yet: activation checkpointing of ``forward``.
+token. ``forward`` (the training forward) checkpoints each layer under
+``remat`` (``models.remat``).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
+from repro_torch.models import remat as R
 
 
 def _pad_seq(a: torch.Tensor, pad: int) -> torch.Tensor:
@@ -333,23 +335,31 @@ class Mamba2LM:
         return logits.to(torch.float32)
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
-                cache=None, n_valid=None, collect=None):
+                cache=None, n_valid=None, collect=None, remat: bool = False,
+                remat_policy: str = "dots"):
         """Run every layer (``collect``: a verify checkpoint's stacked
         ``layers``, filled layer by layer); returns x, the last layer's mixer
-        output still to be added, and the per-layer caches."""
+        output still to be added, and the per-layer caches. ``remat``: each
+        layer one checkpointed region under ``remat_policy``
+        (``models.remat``)."""
+        def block(lp, x, c, ck, pending):
+            return self._block(lp, x, ccfg, c, mode, n_valid, ck, pending=pending)
+
+        body = R.layer_fn(block, remat, remat_policy)
         pending, caches = None, []
-        for i in range(self.cfg.n_layers):
+        for i, lp in enumerate(cache_utils.unstack_layers(params["layers"])):
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
             ck = cache_utils.layer_view(collect, i) if collect is not None else None
-            x, pending, nc = self._block(cache_utils.layer_view(params["layers"], i), x, ccfg, c,
-                                         mode, n_valid, ck, pending=pending)
+            x, pending, nc = body(lp, x, c, ck, pending)
             caches.append(nc)
         return x, pending, caches
 
-    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
-        """Full-sequence forward (no cache): logits (B, S, V) f32."""
+    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig, remat: bool = False,
+                remat_policy: str = "dots") -> torch.Tensor:
+        """Full-sequence forward (no cache; the training forward): logits (B, S,
+        V) f32, each layer checkpointed under ``remat`` (see :meth:`_layers`)."""
         x, pending, _ = self._layers(params, L.embed_apply(params["embed"], batch["tokens"]),
-                                     ccfg, "full")
+                                     ccfg, "full", remat=remat, remat_policy=remat_policy)
         return self._head(params, x, pending, ccfg)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:

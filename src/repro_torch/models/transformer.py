@@ -34,6 +34,7 @@ from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
+from repro_torch.models import remat as R
 
 
 class TransformerLM:
@@ -144,22 +145,29 @@ class TransformerLM:
         return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
-                cache=None, block_table: torch.Tensor | None = None, **kw):
+                cache=None, block_table: torch.Tensor | None = None, remat: bool = False,
+                remat_policy: str = "dots", **kw):
         """Run every layer: (x, the last layer's MLP output still to be added,
         the per-layer caches). ``block_table``: a paged cache's (B, nb) page
-        ids, handed to every layer's attention."""
+        ids, handed to every layer's attention. ``remat``: each layer one
+        checkpointed region under ``remat_policy`` (``models.remat``); the
+        un-added MLP output (``pending``) passes from region to region."""
+        def block(lp, x, c, pending):
+            return self._block(lp, x, ccfg, c, mode, pending=pending, **kw)
+
+        body = R.layer_fn(block, remat, remat_policy)
         pending, caches = None, []
-        for i in range(self.cfg.n_layers):
+        for i, lp in enumerate(self._layer_list(params)):
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
             if block_table is not None:
                 c = dict(c, block_table=block_table)
-            x, pending, nc = self._block(self._layer_params(params, i), x, ccfg, c, mode,
-                                         pending=pending, **kw)
+            x, pending, nc = body(lp, x, c, pending)
             caches.append(nc)
         return x, pending, caches
 
-    def _layer_params(self, params: dict, i: int) -> dict:
-        return cache_utils.layer_view(params["layers"], i)
+    def _layer_list(self, params: dict) -> list:
+        """Every layer's params, in order (``cache_utils.unstack_layers``)."""
+        return cache_utils.unstack_layers(params["layers"])
 
     @staticmethod
     def _positions(batch: dict) -> dict:
@@ -167,9 +175,12 @@ class TransformerLM:
         it has any (only dense-family blocks take them)."""
         return {"positions": batch["positions"]} if "positions" in batch else {}
 
-    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig) -> torch.Tensor:
-        """Full-sequence forward (no cache): logits (B, S, V) f32."""
+    def forward(self, params: dict, batch: dict, ccfg: CascadeConfig, remat: bool = False,
+                remat_policy: str = "dots") -> torch.Tensor:
+        """Full-sequence forward (no cache; the training forward): logits (B, S,
+        V) f32, each layer checkpointed under ``remat`` (see :meth:`_layers`)."""
         x, pending, _ = self._layers(params, self._embed(params, batch, ccfg), ccfg, "full",
+                                     remat=remat, remat_policy=remat_policy,
                                      **self._positions(batch))
         return self._head(params, x, pending, ccfg)
 

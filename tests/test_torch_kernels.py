@@ -90,8 +90,9 @@ def test_cascade_matmul_wrapper_flattens_leading_dims_and_counts_no_cpu_launch()
     xp = torch.nn.functional.pad(_t(x), (0, 1))
     want = tcm.cascade_matmul_plain(xp, _t(packed), _t(scales), _t(bias), torch.bfloat16)
     assert torch.equal(got.reshape(6, 20), want)
-    assert tops.LAUNCHES == {"cascade_matmul": 0, "cascade_matmul_grouped": 0,
-                             "decode_attention": 0, "flash_attention": 0, "norm": 0,
+    assert tops.LAUNCHES == {"cascade_matmul": 0, "cascade_matmul_exact": 0,
+                             "cascade_matmul_grouped": 0, "decode_attention": 0,
+                             "fake_quant_fp4": 0, "flash_attention": 0, "norm": 0,
                              "ssd_scan": 0}
 
 

@@ -107,3 +107,107 @@ def test_quantize_weight_matches_reference(k, n, group):
 def test_quantize_rejects_odd_k_with_groups():
     with pytest.raises(ValueError):
         tq.quantize_weight(torch.zeros(7, 4), group_size=7)
+
+
+# ---------------------------------------------------------------------------
+# the CASCADE oracles and QAT fake quantization: bit for bit
+# ---------------------------------------------------------------------------
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def _special_f32() -> np.ndarray:
+    """Random normals at many scales, subnormals, +/-0, +/-inf and NaNs of
+    both signs, some with payloads only in the low mantissa bits."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(4000) * np.exp2(rng.integers(-30, 30, 4000))).astype(np.float32)
+    sub = (rng.integers(1, 1 << 23, 200, dtype=np.uint32)
+           | (rng.integers(0, 2, 200, dtype=np.uint32) << 31)).view(np.float32)
+    nans = np.array([0x7fc00000, 0xffc00000, 0x7f800001, 0xff800003, 0x7fa00000,
+                     0x7f800100], np.uint32).view(np.float32)
+    edge = np.array([0.0, -0.0, np.inf, -np.inf, 448.0, -448.0, 449.0, 1e30, 2.0 ** -6,
+                     2.0 ** -9, 2.0 ** -10], np.float32)
+    return np.concatenate([x, sub, nans, edge])
+
+
+def test_truncate_mantissa_matches_reference_bit_for_bit_at_every_width():
+    x = _special_f32()
+    for mbits in range(1, 23):
+        want = jq.truncate_mantissa_f32(jnp.asarray(x), mbits)
+        got = tq.truncate_mantissa_f32(_t(x), mbits)
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=f"mbits={mbits}")
+
+
+def test_fp5_products_exhaustive_16x16_bit_for_bit():
+    vals = np.asarray(jq.fp4_decode(jnp.arange(16, dtype=jnp.uint8)))
+    a, b = np.meshgrid(vals, vals, indexing="ij")
+    want = jq.fp5_e3m1_product(jnp.asarray(a), jnp.asarray(b))
+    got = tq.fp5_e3m1_product(_t(a), _t(b))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_fp8_truncate_sweep_bit_for_bit():
+    """Across +/-448 and past it, the subnormal range and its edge, NaN
+    (payloads masked to +/-inf as in the reference) and inf."""
+    sweep = np.concatenate([np.linspace(-600, 600, 24001, dtype=np.float32),
+                            np.linspace(-2.0 ** -5, 2.0 ** -5, 4001, dtype=np.float32),
+                            _special_f32()])
+    want = jq.fp8_e4m3_truncate(jnp.asarray(sweep))
+    got = tq.fp8_e4m3_truncate(_t(sweep))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("case", ["representable", "well_scaled", "bias_preload"])
+def test_cascade_matmul_exact_reference_cases_bit_for_bit(case):
+    """The reference's three oracle cases (tests/test_quant.py)."""
+    if case == "representable":
+        x4, w4, bias = np.ones((2, 16), np.float32), np.full((16, 3), 0.5, np.float32), None
+    elif case == "well_scaled":
+        x4 = np.asarray(jq.fp4_decode(jq.fp4_encode(
+            jax.random.normal(jax.random.PRNGKey(0), (8, 64)) * 0.4)))
+        w4 = np.asarray(jq.fp4_decode(jq.fp4_encode(
+            jax.random.normal(jax.random.PRNGKey(1), (64, 16)) * 0.4)))
+        bias = None
+    else:
+        x4, w4 = np.ones((2, 4), np.float32), np.ones((4, 3), np.float32)
+        bias = np.broadcast_to(np.array([1.0, -1.0, 0.5], np.float32), (2, 3)).copy()
+    want = jq.cascade_matmul_exact(jnp.asarray(x4), jnp.asarray(w4),
+                                   None if bias is None else jnp.asarray(bias))
+    got = tq.cascade_matmul_exact(_t(x4), _t(w4), None if bias is None else _t(bias))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _fp4_valued(rng, shape, scale):
+    return np.asarray(jq.fp4_decode(jq.fp4_encode(
+        jnp.asarray((rng.standard_normal(shape) * scale).astype(np.float32)))))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("scale", [0.4, 3.0])
+def test_cascade_matmul_exact_random_fp4_inputs_bit_for_bit(bias, scale):
+    """Random FP4 operands, 3-D activations, with and without a bias; at scale 3
+    the sums saturate at +/-448."""
+    rng = np.random.default_rng(int(scale * 10) + bias)
+    x4 = _fp4_valued(rng, (2, 3, 96), scale)
+    w4 = _fp4_valued(rng, (96, 24), scale)
+    b = (rng.standard_normal(24) * 5).astype(np.float32) if bias else None
+    want = jq.cascade_matmul_exact(jnp.asarray(x4), jnp.asarray(w4),
+                                   None if b is None else jnp.asarray(b))
+    got = tq.cascade_matmul_exact(_t(x4), _t(w4), None if b is None else _t(b))
+    assert got.shape == (2, 3, 24)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_cascade_column_accumulate_bit_for_bit(init):
+    """FP5 products summed in FP8 down (4, 5) columns of 40, from a preloaded
+    bias or from zero."""
+    rng = np.random.default_rng(9 + init)
+    prods = np.asarray(jq.fp5_e3m1_product(jnp.asarray(_fp4_valued(rng, (4, 5, 40), 2.0)),
+                                           jnp.asarray(_fp4_valued(rng, (4, 5, 40), 2.0))))
+    start = (rng.standard_normal((4, 5)) * 3).astype(np.float32) if init else None
+    want = jq.cascade_column_accumulate(jnp.asarray(prods),
+                                        None if start is None else jnp.asarray(start))
+    got = tq.cascade_column_accumulate(_t(prods), None if start is None else _t(start))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
