@@ -103,11 +103,17 @@ each rebuilt one held to the same request served alone.
    port) are also timed per call at the served step's shapes.
 
 4. The training side (after the serve runs): the fake-quant kernel at
-   phi4-mini-3.8b's weight shapes, codeqwen's 4096 x 13440, a group of 32
-   and an olmoe expert stack (one launch), bf16 and f32, and the exact
-   CASCADE kernel at M = 8 over codeqwen's widths (with a bias, and rows
-   holding a NaN, an inf and a saturating run), each bit-equal to its plain
-   version and timed against its bound; phi4-mini-3.8b QAT-trained at full
+   phi4-mini-3.8b's weight shapes, codeqwen's 4096 x 13440, a group of 32,
+   an olmoe expert stack (one launch) and nemotron4-15b's down projection
+   (a group walked in chunks), bf16 and f32, each with its launch plan
+   (strip, cluster, rows a block, chunks), and the exact CASCADE kernel at
+   M = 8 over codeqwen's widths (with a bias, and rows holding a NaN, an
+   inf and a saturating run) and at precision_sim's M = 128 shapes, each
+   with its plan (rows a thread, warps a block), its step's SASS
+   instructions (no FFMA), and one-thread clock64 chains of one f32 add
+   (the chain bound) and of the kernel's step (its latency); each
+   bit-equal to its plain version and timed against its bound;
+   phi4-mini-3.8b QAT-trained at full
    width (params from seed 0 on the card, bf16, remat "dots", AdamW lr 3e-4
    with 2 warmup steps, 8 steps of 2 x 256 synthetic tokens): every loss
    and gnorm finite, the last loss under the first, the first loss bit-equal
@@ -2463,16 +2469,54 @@ FQ_SHAPES = [("phi4_qo", (3072, 3072), 0, False, 2 * 32),
              ("phi4_down", (8192, 3072), 0, False, 32),
              ("codeqwen_up", (4096, 13440), 0, False, 0),
              ("phi4_gate_up_g32", (3072, 8192), 32, False, 0),
-             ("olmoe_experts", (64, 2048, 1024), 0, True, 0)]
-#: the exact CASCADE matmul: (M, K, N) at codeqwen's widths, each with and
-#: without a bias; ops a (row, column, k) step counted against the f32 rate
-#: outside the tensor cores: the product, the add, two saturation compares,
-#: the subnormal compare and select, two mantissa masks
-CE_SHAPES = [(8, 4096, 4096), (8, 4096, 13440), (8, 13440, 4096)]
-CE_OPS_PER_STEP = 8
+             ("olmoe_experts", (64, 2048, 1024), 0, True, 0),
+             ("nemotron_down", (24576, 6144), 0, False, 0)]
 #: precision_sim: codeqwen1.5-7b cut to SIM_DEPTH layers at full width, a
 #: forward of SIM_ROWS x SIM_LEN tokens
 SIM_DEPTH, SIM_ROWS, SIM_LEN = 2, 8, 16
+#: the exact CASCADE matmul: (M, K, N) at codeqwen's widths, each with and
+#: without a bias; and precision_sim's forward at M = SIM_ROWS * SIM_LEN,
+#: (M, K, N, launches a forward): q/k/v/o, gate/up, down and the head
+CE_SHAPES = [(8, 4096, 4096), (8, 4096, 13440), (8, 13440, 4096)]
+CE_SIM_SHAPES = [(SIM_ROWS * SIM_LEN, 4096, 4096, 4 * SIM_DEPTH),
+                 (SIM_ROWS * SIM_LEN, 4096, 13440, 2 * SIM_DEPTH),
+                 (SIM_ROWS * SIM_LEN, 13440, 4096, SIM_DEPTH),
+                 (SIM_ROWS * SIM_LEN, 4096, 92416, 1)]
+#: the SASS opcodes of one exact step (FMUL, FADD, FMNMX, FRND, LOP3 and the
+#: unsigned min): a step's operation count is their number in the kernel's
+#: code over its FRND count (one FRND a step), counted at the operation rate
+CE_STEP_OPCODES = ("FMUL", "FADD", "FMNMX", "FRND", "LOP3", "IMNMX", "VIMNMX")
+#: steps of the one-thread chain probes: of the kernel's step (its latency,
+#: a diagnosis) and of plain f32 adds (one operation's latency)
+CE_CHAIN_STEPS, CE_ADD_STEPS = 1 << 20, 1 << 24
+#: the dependent operations a step needs at least: the add, and one that
+#: cuts the sum to FP8 (no instruction of the card does both); K of them at
+#: an add's latency are the chain bound
+CE_CHAIN_OPS = 2
+
+
+def sass_opcodes(lib) -> dict:
+    """``cuobjdump -sass`` of a built kernel library: each function's SASS
+    opcodes (the name before the first '.'), counted. The tool sits beside
+    nvcc; its absence fails the smoke, since nvcc built the kernels."""
+    import collections
+    import re
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {lib} failed: {res.stderr[-2000:]}")
+    funcs, cur = {}, None
+    ins = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), collections.Counter())
+        elif cur is not None:
+            hit = ins.search(line)
+            if hit:
+                cur[hit.group(1).split(".")[0]] += 1
+    return funcs
 
 
 def same_bits(torch, got, want) -> bool:
@@ -2499,8 +2543,10 @@ def event_ms(torch, fn, argsets, iters: int) -> float:
 
 def fake_quant_phase(torch, dev):
     """The fake-quant kernel at phi4-mini's and codeqwen's weight shapes, a
-    group of 32 and an olmoe expert stack, bf16 and f32: bit-equal to its
-    plain version, timed cold against its byte bound and the plain version."""
+    group of 32, an olmoe expert stack and a group taller than a cluster
+    holds at once, bf16 and f32: bit-equal to its plain version, timed cold
+    against its byte bound and the plain version, with its launch plan
+    (strip, cluster, rows a block, chunks)."""
     from repro_torch.core import quant
     from repro_torch.kernels import fake_quant as fq
     from repro_torch.kernels import ops
@@ -2514,6 +2560,10 @@ def fake_quant_phase(torch, dev):
             got = ops.fake_quant_fp4(w, group, experts=experts)
             torch.cuda.synchronize()
             launched = ops.LAUNCHES["fake_quant_fp4"]
+            b = shape[0] if experts else 1
+            k = w.numel() // (shape[-1] * b)
+            pl = dict(fq.plan(b, k, shape[-1], quant.fake_quant_groups(k, group),
+                              w.element_size()))
             want = quant.fake_quant_fp4_plain(w, group, experts)
             if launched != 1 or not same_bits(torch, got, want):
                 fail(f"fake_quant_fp4 {case} {dtype}: {launched} launches, or the kernel "
@@ -2522,12 +2572,10 @@ def fake_quant_phase(torch, dev):
             sets = [(w.clone(),) for _ in range(copies_beyond_l2(nbytes))]
             kern = lambda t: ops.fake_quant_fp4(t, group, experts=experts)
             plain = lambda t: quant.fake_quant_fp4_plain(t, group, experts)
-            rows.append({"case": case, "shape": list(shape), "group": group,
-                         "dtype": str(dtype).split(".")[-1], "experts": experts,
-                         "launches_per_phi4_forward": per_fwd,
-                         "strip_width": fq.strip_width(shape[0] if experts else 1,
-                                                       shape[-2], shape[-1],
-                                                       quant.fake_quant_groups(shape[-2], group)),
+            dt = str(dtype).split(".")[-1]
+            rows.append({"case": case, "shape": list(shape), "group": group, "dtype": dt,
+                         "experts": experts, "launches_per_phi4_forward": per_fwd,
+                         "plan": pl, "slabs_per_sm": pl["slabs"] / fq.SMS,
                          "max_abs_err": float((got.float() - want.float()).abs().max()),
                          "bit_equal": True,
                          "ms": graph_ms(torch, kern, sets, 20),
@@ -2540,59 +2588,101 @@ def fake_quant_phase(torch, dev):
     return rows
 
 
+def cascade_exact_step_ops(torch) -> dict:
+    """The exact kernel's step as compiled: its SASS opcodes (every
+    function of the library), the instructions of one step (CE_STEP_OPCODES
+    in the matmul kernels over their FRND count), and FFMA's count in them,
+    which must be 0 (no contraction in the step)."""
+    from repro_torch.kernels import build
+    funcs = sass_opcodes(build.library_path("cascade_exact"))
+    mm = [c for f, c in funcs.items() if "cascade_matmul_exact_kernel" in f]
+    if not mm:
+        fail(f"cascade_exact: no matmul kernel in the library's SASS ({sorted(funcs)})")
+    step = sum(c[o] for c in mm for o in CE_STEP_OPCODES)
+    frnd = sum(c["FRND"] for c in mm)
+    ffma = sum(c["FFMA"] for c in mm)
+    if ffma or not frnd:
+        fail(f"cascade_exact: the matmul kernels hold {ffma} FFMA and {frnd} FRND in their SASS")
+    return {"ops_per_step": step / frnd, "ffma": ffma,
+            "opcodes": {f: dict(c) for f, c in funcs.items()}}
+
+
 def cascade_exact_phase(torch, dev):
     """The exact CASCADE kernel at M = 8 over codeqwen's 4096 -> 4096, 4096 ->
     13440 and 13440 -> 4096, with and without a bias, and on rows that hold
-    a NaN, an inf and a saturating run: bit-equal to its plain version,
-    timed against its bound and the plain version (K dependent eager steps)."""
+    a NaN, an inf and a saturating run, and at precision_sim's M = 128
+    shapes (the head's 92,416 columns among them): bit-equal to its plain
+    version, timed against its bound and the plain version (K dependent
+    eager steps), with its launch plan. The bound is the largest of the
+    bytes, the step's SASS instructions over all M * N * K steps at the f32
+    rate, and the chain: K steps of CE_CHAIN_OPS dependent operations at the
+    latency of one f32 add, which a one-thread clock64 chain of adds
+    measures. A one-thread chain of the kernel's own step gives its latency
+    beside it (a diagnosis, not a bound)."""
     from repro_torch.core import quant
+    from repro_torch.kernels import cascade_exact as ce
     from repro_torch.kernels import ops
 
+    sass = cascade_exact_step_ops(torch)
+    chain = ce.chain_cycles(CE_CHAIN_STEPS, dev)
+    chain.update(cycles_per_step=chain["cycles"] / chain["steps"],
+                 ns_per_step=chain["ms"] * 1e6 / chain["steps"])
+    add = ce.chain_cycles(CE_ADD_STEPS, dev, add=True)
+    ns_add = add["ms"] * 1e6 / add["steps"]
+    add.update(cycles_per_add=add["cycles"] / add["steps"], ns_per_add=ns_add)
     rows = []
-    for m, k, n in CE_SHAPES:
-        for bias_on in (False, True):
-            gen = torch.Generator(device=dev).manual_seed(k + n + bias_on)
-            x4 = quant.fp4_round(torch.randn((m, k), generator=gen, device=dev) * 2.0)
-            w4 = quant.fp4_round(torch.randn((k, n), generator=gen, device=dev) * 2.0)
-            bias = torch.randn((n,), generator=gen, device=dev) * 4 if bias_on else None
-            special = bias_on and (k, n) == (4096, 13440)
-            if special:             # a saturating run, a NaN and an inf
-                x4[0], w4[:, 0] = 6.0, 6.0
-                x4[1, k // 2] = float("nan")
-                x4[2, 3] = float("inf")
-            ops.reset_launch_counts()
-            got = ops.cascade_matmul_exact(x4, w4, bias)
-            torch.cuda.synchronize()
-            launched = ops.LAUNCHES["cascade_matmul_exact"]
-            t0 = time.monotonic()
-            want = quant.cascade_matmul_exact(x4, w4, bias)
-            torch.cuda.synchronize()
-            plain_wall_ms = (time.monotonic() - t0) * 1e3
-            if launched != 1 or not same_bits(torch, got, want):
-                fail(f"cascade_exact {m}x{k}->{n} bias={bias_on}: {launched} launches, or the "
-                     f"kernel differs from its plain version")
-            if special and not (float(got[0, 0]) == 448.0 and bool(torch.isnan(got[1]).all())):
-                fail("cascade_exact: the saturating row or the NaN row came out otherwise")
-            nbytes = (x4.numel() + w4.numel() + got.numel() + (n if bias_on else 0)) * 4
-            ops_n = CE_OPS_PER_STEP * m * n * k
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOP_PER_S
-            sets = [(x4, w4.clone(), bias) for _ in range(copies_beyond_l2(w4.numel() * 4))]
-            finite = torch.isfinite(want)
-            rows.append({"M": m, "K": k, "N": n, "bias": bias_on, "special_rows": special,
-                         "bit_equal": True,
-                         "max_abs_err": float((got[finite] - want[finite]).abs().max()),
-                         "saturated_share": float((want.abs() == 448.0).float().mean()),
-                         "ms": graph_ms(torch, lambda a, b, c: ops.cascade_matmul_exact(a, b, c),
-                                        sets, 10),
-                         "plain_ms": plain_wall_ms, "plain_timing": "one eager call, host clock "
-                         "around it ending in a synchronize (K dependent steps of eager ops)",
-                         "bound_ms": max(t_bytes, t_ops) * 1e3,
-                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                         "bound_ops": ops_n, "bound_bytes": nbytes, "library_ms": None,
-                         "library_note": "none: no PyTorch call computes it"})
-            del sets
-            torch.cuda.empty_cache()
-    return rows
+    cases = [(m, k, n, bias_on, 0) for m, k, n in CE_SHAPES for bias_on in (False, True)]
+    cases += [(m, k, n, True, per_fwd) for m, k, n, per_fwd in CE_SIM_SHAPES]
+    for m, k, n, bias_on, per_fwd in cases:
+        gen = torch.Generator(device=dev).manual_seed(k + n + bias_on + m)
+        x4 = quant.fp4_round(torch.randn((m, k), generator=gen, device=dev) * 2.0)
+        w4 = quant.fp4_round(torch.randn((k, n), generator=gen, device=dev) * 2.0)
+        bias = torch.randn((n,), generator=gen, device=dev) * 4 if bias_on else None
+        special = bias_on and (k, n) == (4096, 13440)
+        if special:             # a saturating run, a NaN and an inf
+            x4[0], w4[:, 0] = 6.0, 6.0
+            x4[1, k // 2] = float("nan")
+            x4[2, 3] = float("inf")
+        ops.reset_launch_counts()
+        got = ops.cascade_matmul_exact(x4, w4, bias)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["cascade_matmul_exact"]
+        t0 = time.monotonic()
+        want = quant.cascade_matmul_exact(x4, w4, bias)
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.monotonic() - t0) * 1e3
+        if launched != 1 or not same_bits(torch, got, want):
+            fail(f"cascade_exact {m}x{k}->{n} bias={bias_on}: {launched} launches, or the "
+                 f"kernel differs from its plain version")
+        if special and not (float(got[0, 0]) == 448.0 and bool(torch.isnan(got[1]).all())):
+            fail("cascade_exact: the saturating row or the NaN row came out otherwise")
+        nbytes = (x4.numel() + w4.numel() + got.numel() + (n if bias_on else 0)) * 4
+        ops_n = sass["ops_per_step"] * m * n * k
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOP_PER_S
+        t_chain = k * CE_CHAIN_OPS * ns_add * 1e-9
+        term = max((t_bytes, "bytes"), (t_ops, "operations"), (t_chain, "chain"))[1]
+        sets = [(x4, w4.clone(), bias) for _ in range(copies_beyond_l2(w4.numel() * 4))]
+        finite = torch.isfinite(want)
+        rows.append({"M": m, "K": k, "N": n, "bias": bias_on, "special_rows": special,
+                     "launches_per_sim_forward": per_fwd, "plan": ce.plan(m, n),
+                     "bit_equal": True,
+                     "max_abs_err": float((got[finite] - want[finite]).abs().max()),
+                     "saturated_share": float((want.abs() == 448.0).float().mean()),
+                     "ms": graph_ms(torch, lambda a, b, c: ops.cascade_matmul_exact(a, b, c),
+                                    sets, 10 if m <= 8 else 3),
+                     "plain_ms": plain_wall_ms, "plain_timing": "one eager call, host clock "
+                     "around it ending in a synchronize (K dependent steps of eager ops)",
+                     "bound_ms": max(t_bytes, t_ops, t_chain) * 1e3, "bound_by": term,
+                     "bound_bytes_ms": t_bytes * 1e3,
+                     "bound_ops_ms": t_ops * 1e3, "bound_chain_ms": t_chain * 1e3,
+                     "bound_ops": ops_n, "bound_bytes": nbytes,
+                     "step_chain_ms": k * chain["ns_per_step"] * 1e-6, "library_ms": None,
+                     "library_note": "none: no PyTorch call computes it"})
+        del sets, got, want
+        torch.cuda.empty_cache()
+    return {"rows": rows, "chain": chain, "add_chain": add,
+            "ops_per_step": sass["ops_per_step"], "sass_ffma": sass["ffma"],
+            "sass_opcodes": sass["opcodes"]}
 
 
 def train_steps(torch, state, step, data):
@@ -2979,8 +3069,11 @@ def main() -> int:
     print(json.dumps({"paged_pool": pool}), flush=True)
     fqs = timed("fake_quant", fake_quant_phase)
     print(json.dumps({"fake_quant_fp4": fqs}), flush=True)
-    ces = timed("cascade_exact", cascade_exact_phase)
-    print(json.dumps({"cascade_exact": ces}), flush=True)
+    ce_res = timed("cascade_exact", cascade_exact_phase)
+    ces = ce_res["rows"]
+    print(json.dumps({"cascade_exact": ces, "chain": ce_res["chain"],
+                      "add_chain": ce_res["add_chain"],
+                      "ops_per_step": ce_res["ops_per_step"]}), flush=True)
     par, srv = {}, {}
     for arch in PARITY_ARCHS:
         par[arch] = timed(f"parity {arch}", parity_phase, arch)
@@ -3054,7 +3147,8 @@ def main() -> int:
 
     cq, mb, om, rg = ARCHS
     fv = next(r for r in fla if r["case"] == "verify")
-    ce_row = next(r for r in ces if (r["K"], r["N"], r["bias"]) == (4096, 13440, False))
+    ce_row = next(r for r in ces
+                  if (r["M"], r["K"], r["N"], r["bias"]) == (8, 4096, 13440, False))
 
     def grouped_step(key):
         return sum(r[key] * r["launches_per_decode_step"] for r in grp)
@@ -3284,7 +3378,8 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "library_note": "none: no PyTorch call computes it",
          "fake_quant_shapes": {f"{r['case']} {r['dtype']}": {k: r[k] for k in (
-             "shape", "group", "strip_width", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+             "shape", "group", "plan", "ms", "plain_ms", "bound_ms",
+             "max_abs_err")}
              for r in fqs}},
         {"name": "cascade_matmul_exact", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cascade_exact.cu",
@@ -3297,8 +3392,15 @@ def main() -> int:
          "tol": "bit-equal to the plain version (any NaN equal to any NaN)",
          **{k: ce_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "library_note": "none: no PyTorch call computes it",
+         "sim_forward_exact_ms": {key: sum(r[key] * r["launches_per_sim_forward"]
+                                           for r in ces) for key in ("ms", "bound_ms")},
+         "chain_ns_per_add": ce_res["add_chain"]["ns_per_add"],
+         "chain_ops_per_step": CE_CHAIN_OPS,
+         "step_latency_ns": ce_res["chain"]["ns_per_step"],
+         "ops_per_step": ce_res["ops_per_step"],
          "cascade_exact_shapes": {f"{r['M']}x{r['K']}->{r['N']} bias={r['bias']}": {k: r[k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "saturated_share", "max_abs_err")}
+             "plan", "ms", "plain_ms", "bound_ms", "bound_by", "step_chain_ms",
+             "saturated_share", "max_abs_err")}
              for r in ces}},
     ]
     out_dir = ROOT / "results"
@@ -3312,7 +3414,7 @@ def main() -> int:
               "parity_depth2": par, "serve": srv, "paged_pool": pool, "model_level": stub,
               "slotwise": slot,
               "paged_decode_step_vs_dense": paged_vs_dense,
-              "fake_quant_fp4": fqs, "cascade_exact": ces, "train": train, "qat_serve": qat,
+              "fake_quant_fp4": fqs, "cascade_exact": ce_res, "train": train, "qat_serve": qat,
               "train_recipe": recipe,
               "precision_sim": sim, "restart": restart,
               "phase_s": phase_s}

@@ -1414,10 +1414,16 @@ def _qat_weight(shape, cuda, seed, edges):
 
 # (shape, group): phi4-mini's q/o, k/v, gate/up and down, codeqwen's up, a
 # group of 32, a group that does not divide K (one group), a 3-D weight
-# (one (-1, N) matrix), N off every strip width
+# (one (-1, N) matrix), N off every strip width and off the 16-byte vector
+# (one element a copy); tall groups split over a cluster: K = 3000, and K =
+# 3001 (prime: the last block's rows fewer), with 16-byte copies and with
+# one-element ones; groups taller than a cluster holds in one chunk (walked
+# in chunks, read twice): nemotron4-15b's and qwen2.5-32b's down projections
+# at group 0, and K = 24,576 with one-element copies
 FQ_CASES = [((3072, 3072), 0), ((3072, 1024), 0), ((3072, 8192), 0), ((8192, 3072), 0),
             ((4096, 13440), 0), ((3072, 8192), 32), ((96, 40), 64), ((2, 48, 24), 16),
-            ((64, 37), 0), ((40, 5), 8)]
+            ((64, 37), 0), ((40, 5), 8), ((3000, 1024), 0), ((3001, 200), 0), ((3001, 37), 0),
+            ((24576, 6144), 0), ((27648, 5120), 0), ((24576, 37), 0)]
 
 
 @pytest.mark.parametrize("shape,group", FQ_CASES)
@@ -1445,6 +1451,40 @@ def test_fake_quant_kernel_expert_stack_is_one_launch_equal_to_per_expert_calls(
     assert all(_same_bits(got[e], ops.fake_quant_fp4(w[e], 0)) for e in (0, 3, 63))
 
 
+def _around(values, ulps):
+    """Every f32 within ``ulps`` steps of each value, both signs."""
+    bits = torch.tensor(values, dtype=torch.float32).view(torch.int32)
+    near = (bits[:, None] + torch.arange(-ulps, ulps + 1, dtype=torch.int32)).reshape(-1)
+    near = near.view(torch.float32)
+    return torch.cat([near, -near])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fake_quant_kernel_rounds_every_quotient_like_the_plain_version(cuda, dtype):
+    """A column whose absmax is 6 has scale 1, so each quotient is the value
+    itself: in bf16 every finite value of magnitude up to 6 (all of them),
+    in f32 every value within 64 steps of each FP4 grid value and midpoint
+    and random ones; each must round onto the grid as the plain version's
+    midpoint count rounds it."""
+    if dtype == "bfloat16":
+        every = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+        vals = every.view(torch.bfloat16).float()
+        vals = vals[torch.isfinite(vals) & (vals.abs() <= 6.0)]
+    else:
+        grid = [0.0, 0.25, 0.5, 0.75, 1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0]
+        gen = torch.Generator().manual_seed(3)
+        vals = torch.cat([_around(grid, 64), torch.rand(20000, generator=gen) * 12 - 6,
+                          torch.tensor([1e-40, -1e-45, 2.0 ** -126])])
+        vals = vals[vals.abs() <= 6.0]
+    cols = 64                                            # each column's row 0 is 6
+    vals = torch.cat([vals, torch.zeros(-len(vals) % cols)]).reshape(-1, cols)
+    w = torch.cat([torch.full((1, cols), 6.0), vals]).to(getattr(torch, dtype))
+    w = torch.cat([w, -w, w / 3], dim=1).to(cuda)
+    got = ops.fake_quant_fp4(w, 0)
+    torch.cuda.synchronize()
+    assert _same_bits(got, quant.fake_quant_fp4_plain(w, 0))
+
+
 def test_fake_quant_kernel_gradient_is_straight_through(cuda):
     w = _qat_weight((3072, 1024), cuda, 9, False).to(torch.bfloat16).requires_grad_(True)
     g = torch.randn((3072, 1024), device=cuda).to(torch.bfloat16)
@@ -1469,9 +1509,13 @@ def _fp4_valued(shape, cuda, seed, scale):
 
 
 # (M, K, N, bias): the chip smoke's codeqwen shapes at M = 8, a row tail
-# (M = 20: a block of 8 rows and one of 4), N off the 256-column block
+# (M = 20: 4 rows a thread, 5 warps), N off the 32-column block; M = 1 (one
+# warp a block), M = 9 (2 rows a thread), M = 40 (8 rows a thread, a second
+# block row of 8), and M = 128 with K off the 32-step tile and N off the
+# column block
 CE_CASES = [(8, 4096, 4096, False), (8, 4096, 13440, True), (8, 13440, 4096, False),
-            (20, 300, 1000, True), (3, 64, 7, False)]
+            (20, 300, 1000, True), (3, 64, 7, False), (1, 4096, 4096, True),
+            (9, 300, 70, False), (40, 100, 33, True), (128, 4099, 1000, True)]
 
 
 @pytest.mark.parametrize("m,k,n,with_bias", CE_CASES)
@@ -1492,7 +1536,7 @@ def test_cascade_exact_kernel_equals_plain_bit_for_bit(cuda, m, k, n, with_bias)
     assert ops.LAUNCHES["cascade_matmul_exact"] == 1
     want = quant.cascade_matmul_exact(x4, w4, bias)
     assert _same_bits(got, want)
-    assert float(got[0, 0]) == 448.0 and bool(torch.isnan(got[1]).any()) == (m > 2)
+    assert float(got[0, 0]) == 448.0 and (m < 2 or bool(torch.isnan(got[1]).any()) == (m > 2))
 
 
 def test_cascade_exact_kernel_takes_leading_dims_and_raises_on_the_rest(cuda):

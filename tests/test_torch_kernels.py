@@ -24,8 +24,11 @@ from repro.core import quant as jq
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
+from repro_torch.core import quant as tq
+from repro_torch.kernels import cascade_exact as tce
 from repro_torch.kernels import cascade_matmul as tcm
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import fake_quant as tfq
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import norm as tnorm
 from repro_torch.kernels import ops as tops
@@ -223,6 +226,81 @@ def test_decode_attention_splits_and_heads_per_block_follow_the_shapes():
     assert tda.choose_splits(8, 32, 1, 4096) == 9          # long context
     assert tda.choose_splits(2, 8, 5, 4096) == 16          # few blocks, long T
     assert tda.choose_splits(1, 1, 1, 1 << 20) == 32       # capped
+
+
+# (b, k, n, group): the chip smoke's fake-quant weights (phi4-mini's q/o,
+# k/v, gate/up, down; codeqwen's up; a group of 32; the olmoe expert stack)
+# and the card tests' other cases (groups a cluster splits unevenly, groups
+# that do not divide K, N off the 16-byte vector; groups taller than a
+# cluster holds in one chunk: nemotron4-15b's and qwen2.5-32b's down
+# projections at group 0, and one with one-element copies)
+FQ_PLAN_PHI4 = [(1, 3072, 3072, 0), (1, 3072, 1024, 0), (1, 3072, 8192, 0), (1, 8192, 3072, 0)]
+FQ_PLAN_CASES = FQ_PLAN_PHI4 + [
+    (1, 4096, 13440, 0), (1, 3072, 8192, 32), (64, 2048, 1024, 0), (1, 3000, 1024, 0),
+    (1, 3001, 200, 0), (1, 96, 40, 64), (1, 96, 24, 16), (1, 64, 37, 0), (1, 40, 5, 8),
+    (1, 24576, 6144, 0), (1, 27648, 5120, 0), (1, 24576, 37, 0)]
+
+
+@pytest.mark.parametrize("b,k,n,group", FQ_PLAN_CASES)
+@pytest.mark.parametrize("elsize", [2, 4])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fake_quant_plan_tiles_each_group_over_a_portable_cluster(b, k, n, group, elsize,
+                                                                  aligned):
+    """Each group's rows are split over at most 8 blocks of one cluster, in
+    consecutive runs that tile them exactly (none empty), each within its
+    threads' copies; a block's slab (one of its two shared-memory buffers)
+    is at most 64 KB; the strips cover N; 16-byte copies only where a row
+    is aligned; an item is a (strip, group, matrix); a group of up to
+    16,384 rows is held in one chunk (read once), a taller one in chunks of
+    at most 8 copies a thread (64 one-element ones) over a cluster of 8."""
+    g = tq.fake_quant_groups(k, group)
+    pl = tfq.plan(b, k, n, g, elsize, aligned)
+    s, rows = pl["cluster"], pl["rows"]
+    assert 1 <= s <= tfq.MAX_CLUSTER
+    spans = [(q * rows, min(g, (q + 1) * rows)) for q in range(s)]
+    assert spans[0][0] == 0 and spans[-1][1] == g
+    assert all(lo < hi for lo, hi in spans) and all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+    assert pl["lanes"] * pl["loads"] * pl["chunks"] >= rows
+    assert pl["lanes"] * pl["tpr"] == tfq.THREADS
+    if g <= 16384:
+        assert pl["chunks"] == 1
+    else:
+        assert pl["chunks"] > 1 and s == tfq.MAX_CLUSTER
+        assert pl["loads"] <= (tfq.LOADS_PREFERRED if pl["vec"] > 1 else tfq.SCALAR_LOADS_MAX)
+    vec_ok = aligned and (n * elsize) % 16 == 0
+    assert pl["vec"] == (16 // elsize if vec_ok else 1)
+    assert pl["loads"] <= (tfq.LOADS_MAX if pl["vec"] > 1 else tfq.SCALAR_LOADS_MAX)
+    assert pl["slab_bytes"] == tfq.THREADS * pl["loads"] * pl["vec"] * elsize <= 64 * 1024
+    assert pl["cols"] <= 64 and (pl["strips"] - 1) * pl["cols"] < n <= pl["strips"] * pl["cols"]
+    assert pl["items"] == pl["strips"] * (k // g) * b and pl["slabs"] == pl["items"] * s
+
+
+@pytest.mark.parametrize("b,k,n,group", FQ_PLAN_PHI4 + [(1, 3072, 8192, 32)])
+@pytest.mark.parametrize("elsize", [2, 4])
+def test_fake_quant_plan_gives_phi4_mini_two_slabs_an_sm(b, k, n, group, elsize):
+    """At phi4-mini's weights every SM gets at least two blocks' worth of
+    work, in 16-byte copies of slabs of at most 8 copies a thread."""
+    pl = tfq.plan(b, k, n, tq.fake_quant_groups(k, group), elsize)
+    assert pl["slabs"] >= 2 * tfq.SMS and pl["vec"] == 16 // elsize and pl["loads"] <= 8
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 20, 40, 128])
+@pytest.mark.parametrize("n", [7, 1000, 4096])
+def test_cascade_exact_plan_covers_every_output_once(m, n):
+    """Every (row, column) of the output is one thread's, once: a block's
+    warps take consecutive runs of ``rows`` rows over its 32 columns."""
+    pl = tce.plan(m, n)
+    gx, gy = pl["grid"]
+    assert pl["threads"] == 32 * pl["warps"] <= 256 and pl["block_rows"] <= 32
+    hits = np.zeros((m, n), dtype=np.int64)
+    for by in range(gy):
+        for warp in range(pl["warps"]):
+            for r in range(pl["rows"]):
+                row = by * pl["block_rows"] + warp * pl["rows"] + r
+                if row < m:
+                    hits[row, :] += 1
+    assert (hits == 1).all() and gx * tce.COLS >= n > (gx - 1) * tce.COLS
+    assert pl["rows"] == (1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8)
 
 
 # the shapes of the reference's own flash kernel tests (tests/test_kernels.py):
