@@ -51,9 +51,13 @@ each rebuilt one held to the same request served alone.
    admission chunk's 32, a verify pass's 40 and (codeqwen's MLP) 64, each
    row with its launch plan (m-tiles a block, grid); at each served weight
    shape its rows over 1-64 leading rows of x must equal, bit for bit, the
-   same rows of a call over 65. Decode attention runs at three shapes: the served
-   codeqwen step, qwen2.5-32b's GQA heads (40 over 8) and a 4096-row
-   cache whose rows are split across blocks. The SSD scan is also held to
+   same rows of a call over 65. The grouped expert matmul runs at olmoe's and
+   deepseek-v2's expert shapes with rows routed top-k, one weight stack and
+   (olmoe's gate and up) two in one launch, each live row bit-equal to a
+   per-expert call and every row past the routed ones an exact zero, each
+   shape with its launch plan and the kernel's registers. Decode attention
+   runs at three shapes: the served codeqwen step, qwen2.5-32b's GQA heads
+   (40 over 8) and a 4096-row cache whose rows are split across blocks. The SSD scan is also held to
    its plain version at a multi-step shape with an initial state and at a
    grouped (G > 1) shape;
    flash attention at the TPU kernel's own signature (S = T = 128 and 2048,
@@ -520,89 +524,138 @@ def matmul_rows_phase(torch, dev):
     return out
 
 
-#: (arch, experts, top-k, K, N, C, launches per decode step): the grouped
-#: expert matmul at olmoe's gate/up (2048 -> 1024, two a layer) and down
-#: (1024 -> 2048) at a decode step's C = 8, an admission chunk's 32 and a
-#: verify pass's 40, and deepseek-v2's (5120 -> 1536, 1536 -> 5120) at C = 8
-GROUPED_SHAPES = ([("olmoe-1b-7b", 64, 8, 2048, 1024, c, 2 * 16 if c == MAX_BATCH else 0)
-                   for c in (MAX_BATCH, CHUNK, MAX_BATCH * (1 + DRAFT_LEN))]
-                  + [("olmoe-1b-7b", 64, 8, 1024, 2048, c, 16 if c == MAX_BATCH else 0)
+#: (arch, experts, top-k, K, N, C, stacks, launches per decode step): the
+#: grouped expert matmul at olmoe's gate/up (2048 -> 1024; one stack, and the
+#: two stacks of a layer in one launch, as served) and down (1024 -> 2048)
+#: at a decode step's C = 8, an admission chunk's 32 and a verify pass's 40,
+#: and deepseek-v2's (5120 -> 1536, 1536 -> 5120) at C = 8
+GROUPED_SHAPES = ([("olmoe-1b-7b", 64, 8, 2048, 1024, c, stacks,
+                    16 if c == MAX_BATCH and stacks == 2 else 0)
+                   for stacks in (1, 2) for c in (MAX_BATCH, CHUNK, MAX_BATCH * (1 + DRAFT_LEN))]
+                  + [("olmoe-1b-7b", 64, 8, 1024, 2048, c, 1, 16 if c == MAX_BATCH else 0)
                      for c in (MAX_BATCH, CHUNK, MAX_BATCH * (1 + DRAFT_LEN))]
-                  + [("deepseek-v2-236b", 160, 6, 5120, 1536, MAX_BATCH, 0),
-                     ("deepseek-v2-236b", 160, 6, 1536, 5120, MAX_BATCH, 0)])
+                  + [("deepseek-v2-236b", 160, 6, 5120, 1536, MAX_BATCH, 1, 0),
+                     ("deepseek-v2-236b", 160, 6, 1536, 5120, MAX_BATCH, 1, 0)])
+#: the earlier grouped kernel (one m-tile and 32 columns a block, a grid
+#: layer an expert: the grouped entry of csrc/cascade_matmul.cu at commit
+#: b6e8133): ms a call per GROUPED_SHAPES row, bf16 out, as PERF.md section
+#: 6 records it (the pair: its two launches);
+#: scripts/grouped_matmul_sweep.py --against-grouped times it in turns with
+#: the current kernel
+EARLIER_GROUPED_MS = {
+    **{("olmoe-1b-7b", 2048, 1024, c, st): st * ms
+       for c, ms in ((8, 0.0581), (32, 0.0845), (40, 0.0894)) for st in (1, 2)},
+    **{("olmoe-1b-7b", 1024, 2048, c, 1): ms
+       for c, ms in ((8, 0.0633), (32, 0.0998), (40, 0.1063))},
+    ("deepseek-v2-236b", 5120, 1536, 8, 1): 0.1896, ("deepseek-v2-236b", 1536, 5120, 8, 1): 0.2070}
 
 
-def grouped_matmul_phase(torch, dev):
+def grouped_stacks(torch, gen, dev, e, k, n, stacks):
+    """``stacks`` (packed, scales) expert stacks of e random (k, n) weights."""
+    from repro_torch.core import quant
+    out = []
+    for _ in range(stacks):
+        parts = [quant.quantize_weight(torch.randn((k, n), generator=gen, device=dev), 0)
+                 for _ in range(e)]
+        out.append((torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])))
+    return out
+
+
+def grouped_matmul_phase(torch, dev, registers: list):
     """The grouped expert matmul at the served shapes, its rows routed as a
     step routes its tokens (C tokens, each to top-k distinct experts drawn
-    at random; x zero past each expert's rows, as the dispatch builds it):
-    held to its plain version (bf16 out, as served) and, bit for bit, to a
-    loop of per-expert ``ops.cascade_matmul`` calls over each expert's C
-    rows (the route it replaces); timed cold beside the plain version,
-    ``torch.bmm`` on the dense bf16 experts and that loop, and its bound
-    from the bytes of the experts with rows."""
+    at random; x zero past each expert's rows, as the dispatch builds it),
+    one weight stack a launch or (olmoe's gate and up) two: each output held
+    to its plain version (bf16 out, as served), bit for bit to a loop of
+    per-expert ``ops.cascade_matmul`` calls over each expert's C rows (the
+    route it replaces), and to exact zeros past the rows; timed cold beside
+    the plain version, ``torch.bmm`` on the dense bf16 experts (both stacks
+    side by side for the pair) and that loop, with its bound from the bytes
+    of the experts with rows, its launch plan and the kernel's registers
+    (``registers``: ptxas' lines)."""
     from repro_torch.core import quant
     from repro_torch.kernels import cascade_matmul as cm
     from repro_torch.kernels import ops
 
     rows_out = []
-    for arch, e, top, k, n, c, per_step in GROUPED_SHAPES:
+    for arch, e, top, k, n, c, nst, per_step in GROUPED_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(e + k + c)
-        parts = [quant.quantize_weight(torch.randn((k, n), generator=gen, device=dev), 0)
-                 for _ in range(e)]
-        packed = torch.stack([p[0] for p in parts])
-        scales = torch.stack([p[1] for p in parts])
-        del parts
+        stacks = grouped_stacks(torch, gen, dev, e, k, n, nst)
         picks = torch.argsort(torch.rand((c, e), generator=gen, device=dev), dim=-1)[:, :top]
         rows = torch.bincount(picks.flatten(), minlength=e).to(torch.int32)
         live = torch.arange(c, device=dev)[None, :] < rows[:, None]
         x = torch.randn((e, c, k), generator=gen, device=dev) / k ** 0.5
         x = torch.where(live[..., None], x, 0.0).to(torch.bfloat16)
-        got = ops.cascade_matmul_grouped(x, packed, scales, rows, out_dtype=torch.bfloat16)
-        want = cm.cascade_matmul_grouped_plain(x, packed, scales, rows, torch.bfloat16)
-        loop = torch.stack([ops.cascade_matmul(x[i], packed[i], scales[i],
-                                               out_dtype=torch.bfloat16) for i in range(e)])
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = MATMUL_BF16_RTOL * float(want.float().abs().max()) + MATMUL_ATOL
-        row = {"arch": arch, "E": e, "top_k": top, "C": c, "K": k, "N": n,
+        ops.reset_launch_counts()
+        if nst == 2:
+            got = ops.cascade_matmul_grouped_pair(x, *stacks, rows, out_dtype=torch.bfloat16)
+        else:
+            got = (ops.cascade_matmul_grouped(x, *stacks[0], rows, out_dtype=torch.bfloat16),)
+        launched = ops.LAUNCHES["cascade_matmul_grouped"]
+        err, tol, equal, zeros = 0.0, 0.0, True, True
+        for out, (packed, scales) in zip(got, stacks):
+            want = cm.cascade_matmul_grouped_plain(x, packed, scales, rows, torch.bfloat16)
+            loop = torch.stack([ops.cascade_matmul(x[i], packed[i], scales[i],
+                                                   out_dtype=torch.bfloat16) for i in range(e)])
+            torch.cuda.synchronize()
+            err = max(err, float((out.float() - want.float()).abs().max()))
+            tol = max(tol, MATMUL_BF16_RTOL * float(want.float().abs().max()) + MATMUL_ATOL)
+            equal = equal and bool(torch.equal(out, loop))
+            zeros = zeros and not bool(out[~live].any())
+        pl = cm.plan_grouped(e, n)
+        row = {"arch": arch, "E": e, "top_k": top, "C": c, "K": k, "N": n, "stacks": nst,
                "experts_with_rows": int((rows > 0).sum()), "routed_rows": int(rows.sum()),
-               "plan": {kk: list(v) if isinstance(v, tuple) else v
-                        for kk, v in cm.plan_grouped(e, c, n).items()},
+               "plan": {**pl, "blocks": cm.grouped_blocks(pl, k, k, torch.bfloat16)},
+               "registers": registers, "launches": launched,
                "launches_per_decode_step": per_step, "max_abs_err": err, "tol": tol,
-               "equals_per_expert_calls": bool(torch.equal(got, loop)),
-               "zeros_past_rows": not bool(got[~live].any())}
-        if not (err <= tol and row["equals_per_expert_calls"] and row["zeros_past_rows"]):
-            fail(f"cascade_matmul_grouped {arch} ({e}x{c}, {k}->{n}): {row}")
-        wbytes = (packed.numel() // e + scales.numel() // e * 4) * row["experts_with_rows"]
-        nc = copies_beyond_l2(packed.numel() + scales.numel() * 4)
-        sets = [(x, packed if i == 0 else packed.clone(), scales if i == 0 else scales.clone(),
-                 rows) for i in range(nc)]
-        kern = lambda a, p, sc, r: ops.cascade_matmul_grouped(a, p, sc, r,
-                                                              out_dtype=torch.bfloat16)
-        plain = lambda a, p, sc, r: cm.cascade_matmul_grouped_plain(a, p, sc, r, torch.bfloat16)
-        per_expert = lambda a, p, sc, r: [ops.cascade_matmul(a[i], p[i], sc[i],
-                                                             out_dtype=torch.bfloat16)
-                                          for i in range(e)]
-        dense = torch.stack([quant.dequantize_weight(packed[i], scales[i], torch.bfloat16)
-                             for i in range(e)])
+               "equals_per_expert_calls": equal, "zeros_past_rows": zeros}
+        if not (err <= tol and equal and zeros and launched == 1):
+            fail(f"cascade_matmul_grouped {arch} ({nst} x {e}x{c}, {k}->{n}): {row}")
+        nc = copies_beyond_l2(sum(p.numel() + s.numel() * 4 for p, s in stacks))
+        sets = [(x, *[t if i == 0 else t.clone() for st in stacks for t in st], rows)
+                for i in range(nc)]
+        if nst == 2:
+            kern = lambda a, p0, s0, p1, s1, r: ops.cascade_matmul_grouped_pair(
+                a, (p0, s0), (p1, s1), r, out_dtype=torch.bfloat16)
+            plain = lambda a, p0, s0, p1, s1, r: cm.cascade_matmul_grouped_pair_plain(
+                a, (p0, s0), (p1, s1), r, torch.bfloat16)
+        else:
+            kern = lambda a, p, sc, r: ops.cascade_matmul_grouped(a, p, sc, r,
+                                                                  out_dtype=torch.bfloat16)
+            plain = lambda a, p, sc, r: cm.cascade_matmul_grouped_plain(a, p, sc, r,
+                                                                       torch.bfloat16)
+
+        def per_expert(a, *ts):
+            return [ops.cascade_matmul(a[i], ts[2 * j][i], ts[2 * j + 1][i],
+                                       out_dtype=torch.bfloat16)
+                    for j in range(nst) for i in range(e)]
+        dense = torch.cat([torch.stack([quant.dequantize_weight(p[i], s[i], torch.bfloat16)
+                                        for i in range(e)]) for p, s in stacks], dim=2)
         lib_sets = [(x, dense if i == 0 else dense.clone())
                     for i in range(copies_beyond_l2(dense.numel() * 2))]
         row.update({"ms": graph_ms(torch, kern, sets, 40),
+                    "earlier_kernel_ms": EARLIER_GROUPED_MS[(arch, k, n, c, nst)],
                     "per_expert_loop_ms": graph_ms(torch, per_expert, sets, 3),
                     "plain_ms": graph_ms(torch, plain, sets[:1], 2),
                     "library_ms": graph_ms(torch, lambda a, wd: torch.bmm(a, wd), lib_sets, 10),
-                    "library_note": "torch.bmm of bf16 (E, C, K) x dense bf16 (E, K, N) experts"})
-        # the weights of the experts with rows, their live rows of x, every
-        # output row written (zeros past the rows included)
-        nbytes = wbytes + int(rows.sum()) * k * 2 + e * c * n * 2
-        flops = 2 * int(rows.sum()) * k * n
+                    "library_note": "torch.bmm of bf16 (E, C, K) x dense bf16 (E, K, N) experts"
+                                    + (" (both stacks side by side: N x 2)" if nst == 2 else "")})
+        # the weights of the experts with rows, their live rows of x (read
+        # once), every output row written (zeros past the rows included)
+        wbytes = sum(p.numel() // e + s.numel() // e * 4 for p, s in stacks) \
+            * row["experts_with_rows"]
+        nbytes = wbytes + int(rows.sum()) * k * 2 + nst * e * c * n * 2
+        flops = 2 * nst * int(rows.sum()) * k * n
         row.update({"bytes": nbytes, "flops": flops,
                     "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
                                  else "operations")})
+        print(json.dumps({"grouped_row": {kk: row[kk] for kk in (
+            "arch", "stacks", "C", "K", "N", "ms", "earlier_kernel_ms", "bound_ms",
+            "library_ms")}}),
+            flush=True)
         rows_out.append(row)
-        del sets, lib_sets, dense, packed, scales
+        del sets, lib_sets, dense, stacks
         torch.cuda.empty_cache()
     return rows_out
 
@@ -1638,6 +1691,12 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
         fail(f"serve ({arch}, {kind}): a token outside the vocabulary")
     ttft = [r.first_token_at - r.created_at for r in reqs]
     steps = rec["verify"] if eng.spec else rec["decode"]
+    if eng.fused and arch == "olmoe-1b-7b":
+        # gate and up in one launch, then down: two grouped launches a layer
+        seen = sorted({st["cascade_matmul_grouped"] for st in steps})
+        if seen != [2 * model.cfg.n_layers]:
+            fail(f"serve ({arch}, {kind}): grouped launches a step {seen}, expected "
+                 f"{2 * model.cfg.n_layers}")
     out = {"arch": arch, "run": kind, "effective_mode": m["effective_mode"], "wall_s": wall,
            "tokens_out": sum(len(r.tokens_out) for r in reqs),
            "decode_tokens": m["decode_tokens"], "decode_steps": m["steps"],
@@ -1664,7 +1723,7 @@ def serve_run(torch, dev, arch, model, params, ccfg, prompts, kind, margins=Fals
         want = {"flash_attention": (0 if arch == "mamba2-370m"
                                     else getattr(model, "n_attn", n_layers)),
                 "ssd_scan": n_layers * (1 + DRAFT_LEN) if arch == "mamba2-370m" else 0,
-                "cascade_matmul_grouped": 3 * n_layers if arch == "olmoe-1b-7b" else 0,
+                "cascade_matmul_grouped": 2 * n_layers if arch == "olmoe-1b-7b" else 0,
                 "decode_attention": 0, "norm": 2 * n_layers + 1}
         if any(per_verify[k] != [n] for k, n in want.items()):
             fail(f"serve ({arch}, {kind}): launches per verify pass {per_verify}, "
@@ -3045,7 +3104,10 @@ def main() -> int:
     print(json.dumps({"cascade_matmul_shapes": mm, "geometry": mm_geometry}), flush=True)
     mm_rows = timed("cascade_matmul rows", matmul_rows_phase)
     print(json.dumps({"cascade_matmul_rows_across_m": mm_rows}), flush=True)
-    grp = timed("cascade_matmul_grouped", grouped_matmul_phase)
+    grouped_ptxas = [ln.strip() for ln in libs["cascade_matmul_grouped"].with_suffix(".log")
+                     .read_text().splitlines()
+                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    grp = timed("cascade_matmul_grouped", grouped_matmul_phase, grouped_ptxas)
     print(json.dumps({"cascade_matmul_grouped": grp}), flush=True)
     atts = timed("decode_attention", attention_phase)
     att = atts[0]
@@ -3162,7 +3224,7 @@ def main() -> int:
                 for kind, run, prof in (("decode", "plain", "profiled_decode_step"),
                                         ("verify", "spec", "profiled_verify_step"))}
     moe_step["decode_kernels_vs_bound"] = {
-        "cascade_matmul_grouped": {"launches": 48, "ms": grouped_step("ms"),
+        "cascade_matmul_grouped": {"launches": 32, "ms": grouped_step("ms"),
                                    "bound_ms": grouped_step("bound_ms")},
         "cascade_matmul": {"launches": sum(n for (a, *_), n in MATMUL_LAYERS.items() if a == om),
                            "ms": per_step(om, "ms"), "bound_ms": per_step(om, "bound_ms")},
@@ -3239,13 +3301,13 @@ def main() -> int:
              "m_tiles", "grid", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "max_abs_err")} for r in mm}},
         {"name": "cascade_matmul_grouped", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/cascade_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/cascade_matmul_grouped.cu",
          "replaces": "no TPU kernel: the reference's expert_linear_apply, "
                      "src/repro/core/cascade.py:154 (an XLA einsum after dequantizing every "
                      "expert)",
-         "shape": "one olmoe-1b-7b decode step: 16 x [(64 experts x C=8, 2048->1024) x 2, "
-                  "(64 x 8, 1024->2048)], rows routed top-8; times are summed over its 48 "
-                  "launches (every shape under grouped_shapes)",
+         "shape": "one olmoe-1b-7b decode step: 16 x [(64 experts x C=8, 2048->1024, gate "
+                  "and up in one launch), (64 x 8, 1024->2048)], rows routed top-8; times are "
+                  "summed over its 32 launches (every shape under grouped_shapes)",
          "launches": srv[om]["plain"]["launches"]["cascade_matmul_grouped"],
          "launches_by_run": by_run("cascade_matmul_grouped"),
          "launches_per_decode_step":
@@ -3260,7 +3322,8 @@ def main() -> int:
          "bound_ms": grouped_step("bound_ms"), "bound_by": "bytes",
          "library_ms": grouped_step("library_ms"),
          "library_note": "torch.bmm of bf16 (E, C, K) x dense bf16 (E, K, N) experts",
-         "grouped_shapes": {f"{r['arch']} {r['E']}x{r['C']} {r['K']}->{r['N']}": {k: r[k] for k in (
+         "grouped_shapes": {f"{r['arch']} {r['stacks']} x {r['E']}x{r['C']} "
+                            f"{r['K']}->{r['N']}": {k: r[k] for k in (
              "experts_with_rows", "ms", "per_expert_loop_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "max_abs_err")} for r in grp}},
         {"name": "decode_attention", "route": "cuda",

@@ -23,9 +23,10 @@ scales and the bias.
 
 Expert linears (the MoE family) carry a leading expert axis on every leaf,
 ``(E, ...)``; with ``use_kernel`` all E matmuls go through one grouped
-launch of the same kernel (``kernels.ops.cascade_matmul_grouped``), and
-QAT fake-quantizes the whole stack in one launch, each expert with its own
-scales.
+launch (``kernels.ops.cascade_matmul_grouped``), two expert linears over
+the same input (gate and up) through one launch for the pair
+(:func:`expert_linear_pair_apply`), and QAT fake-quantizes the whole stack
+in one launch, each expert with its own scales.
 
 Not ported: the mesh sharding hooks (Queue 1 item 10).
 """
@@ -181,6 +182,20 @@ def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
             w = _fake_quant(w, cfg, experts=True)
         w = w.to(cd)
     return torch.matmul(x.to(cd).to(torch.float32), w.to(torch.float32)).to(cd)
+
+
+def expert_linear_pair_apply(first: dict, second: dict, x: torch.Tensor, cfg: CascadeConfig,
+                             rows: torch.Tensor | None = None) -> tuple:
+    """:func:`expert_linear_apply` of two expert linears of one shape over
+    the same x (the MoE layer's gate and up): in ``serve_fp4`` with
+    ``use_kernel``, one grouped launch for both; otherwise two calls. Each
+    output has the bits its own call gives it."""
+    if cfg.mode == "serve_fp4" and cfg.use_kernel:
+        from repro_torch.kernels import ops
+        return ops.cascade_matmul_grouped_pair(
+            x.to(cfg.compute_dtype), (first["codes"], first["scale"]),
+            (second["codes"], second["scale"]), rows, out_dtype=cfg.compute_dtype)
+    return (expert_linear_apply(first, x, cfg, rows), expert_linear_apply(second, x, cfg, rows))
 
 
 def linear_weight(params: dict, cfg: CascadeConfig) -> torch.Tensor:

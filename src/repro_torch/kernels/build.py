@@ -20,8 +20,8 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("cascade_exact", "cascade_matmul", "decode_attention", "fake_quant", "flash_attention",
-           "norm", "ssd_scan")
+KERNELS = ("cascade_exact", "cascade_matmul", "cascade_matmul_grouped", "decode_attention",
+           "fake_quant", "flash_attention", "norm", "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

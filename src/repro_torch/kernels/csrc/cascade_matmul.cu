@@ -52,32 +52,16 @@
 // loads), then the 8 warps are added in order. So a row's bits do not depend
 // on M, on its place in the block or on MT: a verify pass's rows round as a
 // decode step's.
-// The grouped entry (cascade_matmul_grouped_launch) runs the same body, as
-// its own kernel (cascade_matmul_grouped_kernel), over E experts at once:
-// the MoE family's expert matmuls, which have no TPU kernel (the reference
-// dequantizes all E experts and runs one einsum). The grid gets a third
-// axis over experts; block z offsets x (E, C, K), codes (E, K/2, N), scales
-// (E, G, N) and out (E, C, N) by expert z, and takes rows[z] (a device int,
-// the expert's routed rows) where the plain entry takes M for its rows: an
-// expert with no routed row reads none of its weights, and every row at or
-// past rows[z] is stored as an exact zero. The tiling, the table decode,
-// the mma path and the sum order are the plain entry's, so each live row
-// has the bits a per-expert call gives it. One launch takes the place of E
-// launches of mostly idle grids (32-64 column blocks each on 132 SMs). Its
-// blocks hold one m-tile (16 rows): an expert's routed rows are few (a
-// decode step routes 64 rows over olmoe's 64 experts, a verify pass 320),
-// so more m-tiles a block would be dead weight (at C = 32, two m-tiles a
-// block ran at 2.9x the C = 8 time); C > 16 takes more block rows, and a
-// block past its expert's rows exits at once.
 // Past the weight stream, each block re-reads its rows of x from L2 for every
 // 32 columns (x is M*K*2 bytes, read N/32 times), and each k16 step's MT
 // products and loads lengthen the block, so a call at M = 40 takes well
 // over its M = 8 time (PERF.md), and a grid of few column blocks (N = 1024:
 // 32 blocks) leaves most SMs idle. wgmma, TMA, cp.async pipelining, split-K and a
 // wider column tile are left for later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The MoE family's grouped expert matmuls have a kernel of their own, over
+// the same helpers (fp4_mma.cuh) and the same sum order:
+// cascade_matmul_grouped.cu.
+#include "fp4_mma.cuh"
 
 // m-tiles of 16 rows a block holds at most (1-4)
 #ifndef CM_MAX_MT
@@ -112,51 +96,7 @@ __host__ __device__ constexpr int batch_steps() {
   return MT == 1 ? CM_KBATCH1 : MT == 2 ? CM_KBATCH2 : MT == 3 ? CM_KBATCH3 : CM_KBATCH4;
 }
 
-// one group (the serving path), groups on the 16-row step, groups off it
-enum Mode { kOneGroup = 0, kGroups = 1, kEdges = 2 };
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// E2M1 code -> exact f32 value: s = bit 3, e = bits 2..1, m = bit 0;
-// e > 0 is (1 + m/2) * 2^(e-1), e == 0 is m/2.
-__device__ __forceinline__ float fp4_value(uint32_t c) {
-  const uint32_t s = (c >> 3) & 1u, e = (c >> 1) & 3u, m = c & 1u;
-  const uint32_t mag = e ? (((126u + e) << 23) | (m << 22)) : (m ? (126u << 23) : 0u);
-  return __uint_as_float(mag | (s << 31));
-}
-
-// Every FP4 value is exact in bf16: the top half of its f32 pattern.
-__device__ __forceinline__ uint32_t fp4_bf16_bits(uint32_t c) {
-  return __float_as_uint(fp4_value(c)) >> 16;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Keeps the bf16 halves of an activation pair (K rows k, k + 1) that lie in
-// [lo, hi).
-__device__ __forceinline__ uint32_t pair_mask(int k, int lo, int hi) {
-  return (k >= lo && k < hi ? 0x0000FFFFu : 0u) | (k + 1 >= lo && k + 1 < hi ? 0xFFFF0000u : 0u);
-}
+using namespace fp4mma;
 
 // One warp owns 32 columns and every 8th k16 step of K. For mma.m16n8k16 a
 // lane (group gid = lane / 4, tig = lane % 4) must supply B rows k0 + 2 tig
@@ -167,46 +107,21 @@ __device__ __forceinline__ uint32_t pair_mask(int k, int lo, int hi) {
 // weight column n0 + 4 gid + j. A byte maps to its two bf16 values (even
 // row low) through a 256-entry table in shared memory. The lane's A rows in
 // m-tile t (as ldmatrix hands them over) are m0 + 16 t + gid and that + 8.
-// The body of both kernels below; kGrouped: one grid layer per expert.
-template <typename TO, int kMode, int MT, bool kGrouped>
+template <typename TO, int kMode, int MT>
 __device__ __forceinline__ void matmul_block(const __nv_bfloat16* __restrict__ x,
                                              const uint8_t* __restrict__ packed,
                                              const float* __restrict__ scales,
                                              const float* __restrict__ bias,
                                              TO* __restrict__ out, int M, int K, int N,
-                                             int group, int vec,
-                                             const int* __restrict__ rows) {
+                                             int group, int vec) {
   constexpr int kBatch = batch_steps<MT>();
-  // the grouped entry: expert blockIdx.z's operands, and its live rows
-  const int M_all = M;                              // the rows of x and out
-  if constexpr (kGrouped) {
-    const size_t e = blockIdx.z;
-    x += e * M_all * K;
-    packed += e * (K / 2) * N;
-    scales += e * (K / group) * N;
-    out += e * M_all * N;
-    M = min(max(rows[e], 0), M_all);
-  }
   constexpr bool kMulti = kMode != kOneGroup;
   __shared__ uint32_t lut[256];
   __shared__ float red[kWarps][kBM * kBN];   // 16 KB: one m-tile's sums at a time
   __shared__ __align__(16) uint32_t xs[kWarps][MT][kBM * 8];   // a warp's x of one k16 step
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * (kBM * MT);
-  // rows [lo, hi) of this block's columns as exact zeros (rows past the
-  // expert's live rows; never reached from the plain entry)
-  auto zero_rows = [&](int lo, int hi) {
-    for (int i = threadIdx.x; i < (hi - lo) * kBN; i += kThreads) {
-      const int n = n0 + i % kBN;
-      if (n < N) out[(size_t)(lo + i / kBN) * N + n] = from_f32<TO>(0.f);
-    }
-  };
-  if (m0 >= M) {                                   // no live row: no weight is read
-    zero_rows(m0, min(m0 + kBM * MT, M_all));
-    return;
-  }
-  for (int i = threadIdx.x; i < 256; i += kThreads)
-    lut[i] = fp4_bf16_bits(i & 0xFu) | (fp4_bf16_bits(i >> 4) << 16);
+  for (int i = threadIdx.x; i < 256; i += kThreads) lut[i] = fp4_pair_bits(i);
   __syncthreads();
 
   const int lane = threadIdx.x % 32;
@@ -384,11 +299,7 @@ __device__ __forceinline__ void matmul_block(const __nv_bfloat16* __restrict__ x
     for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
       const int m = m0 + kBM * t + i / kBN;
       const int n = n0 + i % kBN;
-      if (m >= M_all || n >= N) continue;
-      if (m >= M) {
-        out[(size_t)m * N + n] = from_f32<TO>(0.f);
-        continue;
-      }
+      if (m >= M || n >= N) continue;
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s += red[w][i];
@@ -396,7 +307,6 @@ __device__ __forceinline__ void matmul_block(const __nv_bfloat16* __restrict__ x
       out[(size_t)m * N + n] = from_f32<TO>(s);
     }
   }
-  zero_rows(m0 + kBM * live_mt, min(m0 + kBM * MT, M_all));   // m-tiles wholly past M
 }
 
 template <typename TO, int kMode, int MT>
@@ -404,65 +314,43 @@ __global__ void __launch_bounds__(kThreads)
 cascade_matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
                       const float* __restrict__ scales, const float* __restrict__ bias,
                       TO* __restrict__ out, int M, int K, int N, int group, int vec) {
-  matmul_block<TO, kMode, MT, false>(x, packed, scales, bias, out, M, K, N, group, vec,
-                                     nullptr);
-}
-
-// The grouped entry's kernel: expert blockIdx.z, its live rows rows[z].
-template <typename TO, int kMode, int MT>
-__global__ void __launch_bounds__(kThreads)
-cascade_matmul_grouped_kernel(const __nv_bfloat16* __restrict__ x,
-                              const uint8_t* __restrict__ packed,
-                              const float* __restrict__ scales, TO* __restrict__ out, int M,
-                              int K, int N, int group, int vec, const int* __restrict__ rows) {
-  matmul_block<TO, kMode, MT, true>(x, packed, scales, nullptr, out, M, K, N, group, vec, rows);
+  matmul_block<TO, kMode, MT>(x, packed, scales, bias, out, M, K, N, group, vec);
 }
 
 template <typename TO, int kMode, int MT>
 void launch(const void* x, const void* packed, const void* scales, const void* bias,
-            void* out, int M, int K, int N, int group, int vec, const int* rows, int E,
-            cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM * MT - 1) / (kBM * MT), E);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* pk = static_cast<const uint8_t*>(packed);
-  const auto* sc = static_cast<const float*>(scales);
-  if (rows != nullptr)
-    cascade_matmul_grouped_kernel<TO, kMode, MT><<<grid, kThreads, 0, stream>>>(
-        xb, pk, sc, static_cast<TO*>(out), M, K, N, group, vec, rows);
-  else
-    cascade_matmul_kernel<TO, kMode, MT><<<grid, kThreads, 0, stream>>>(
-        xb, pk, sc, static_cast<const float*>(bias), static_cast<TO*>(out), M, K, N, group,
-        vec);
+            void* out, int M, int K, int N, int group, int vec, cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM * MT - 1) / (kBM * MT));
+  cascade_matmul_kernel<TO, kMode, MT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(scales), static_cast<const float*>(bias), static_cast<TO*>(out),
+      M, K, N, group, vec);
 }
 
 template <typename TO, int kMode>
 void launch_mt(int mt, const void* x, const void* packed, const void* scales,
                const void* bias, void* out, int M, int K, int N, int group, int vec,
-               const int* rows, int E, cudaStream_t s) {
+               cudaStream_t s) {
   constexpr int cap = kMode == kOneGroup ? kMaxMT : kMaxMTGroups;
-  if (mt == 1)
-    launch<TO, kMode, 1>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+  if (mt == 1) launch<TO, kMode, 1>(x, packed, scales, bias, out, M, K, N, group, vec, s);
   if constexpr (cap >= 2)
-    if (mt == 2)
-      launch<TO, kMode, 2>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+    if (mt == 2) launch<TO, kMode, 2>(x, packed, scales, bias, out, M, K, N, group, vec, s);
   if constexpr (cap >= 3)
-    if (mt == 3)
-      launch<TO, kMode, 3>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+    if (mt == 3) launch<TO, kMode, 3>(x, packed, scales, bias, out, M, K, N, group, vec, s);
   if constexpr (cap >= 4)
-    if (mt == 4)
-      launch<TO, kMode, 4>(x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+    if (mt == 4) launch<TO, kMode, 4>(x, packed, scales, bias, out, M, K, N, group, vec, s);
 }
 
 template <typename TO>
 void launch_mode(int mode, int mt, const void* x, const void* packed, const void* scales,
                  const void* bias, void* out, int M, int K, int N, int group, int vec,
-                 const int* rows, int E, cudaStream_t s) {
+                 cudaStream_t s) {
   if (mode == kOneGroup)
-    launch_mt<TO, kOneGroup>(mt, x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+    launch_mt<TO, kOneGroup>(mt, x, packed, scales, bias, out, M, K, N, group, vec, s);
   else if (mode == kGroups)
-    launch_mt<TO, kGroups>(mt, x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+    launch_mt<TO, kGroups>(mt, x, packed, scales, bias, out, M, K, N, group, vec, s);
   else
-    launch_mt<TO, kEdges>(mt, x, packed, scales, bias, out, M, K, N, group, vec, rows, E, s);
+    launch_mt<TO, kEdges>(mt, x, packed, scales, bias, out, M, K, N, group, vec, s);
 }
 
 }  // namespace
@@ -481,41 +369,19 @@ static int m_tiles_for(int M, int K, int group) {
 // block; one that is not m_tiles_for(M, K, group) is refused with
 // cudaErrorInvalidValue before anything is launched. Returns
 // cudaGetLastError() otherwise.
-static int launch_any(const void* x, const void* packed, const void* scales,
-                      const void* bias, const int* rows, void* out, int E, int M, int K, int N,
-                      int group, int out_bf16, int m_tiles, int want_m_tiles, void* stream) {
-  if (m_tiles != want_m_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(packed) & 3u) == 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int mode = group == K ? kOneGroup : group % 16 == 0 ? kGroups : kEdges;
-  if (out_bf16)
-    launch_mode<__nv_bfloat16>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group,
-                               vec, rows, E, s);
-  else
-    launch_mode<float>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group, vec, rows,
-                       E, s);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int cascade_matmul_launch(const void* x, const void* packed, const void* scales,
                                      const void* bias, void* out, int M, int K, int N,
                                      int group, int out_bf16, int m_tiles, void* stream) {
-  return launch_any(x, packed, scales, bias, nullptr, out, 1, M, K, N, group, out_bf16,
-                    m_tiles, m_tiles_for(M, K, group), stream);
-}
-
-// The grouped entry: x (E, C, K) row-major bf16; packed (E, K/2, N) uint8;
-// scales (E, K/group, N) f32; rows (E,) int32 on the device, expert e's
-// live rows (clamped into [0, C]); out (E, C, N), bf16 or f32. No bias
-// (experts have none). Rows at or past rows[e] come out as exact zeros;
-// m_tiles must be 1 (one m-tile a block; C > 16 takes more block rows).
-extern "C" int cascade_matmul_grouped_launch(const void* x, const void* packed,
-                                             const void* scales, const void* rows, void* out,
-                                             int E, int C, int K, int N, int group,
-                                             int out_bf16, int m_tiles, void* stream) {
-  if (rows == nullptr || E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(x, packed, scales, nullptr, static_cast<const int*>(rows), out, E, C, K,
-                    N, group, out_bf16, m_tiles, 1, stream);
+  if (m_tiles != m_tiles_for(M, K, group)) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(packed) & 3u) == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = mode_for(K, group);
+  if (out_bf16)
+    launch_mode<__nv_bfloat16>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group,
+                               vec, s);
+  else
+    launch_mode<float>(mode, m_tiles, x, packed, scales, bias, out, M, K, N, group, vec, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The build's geometry: m-tiles a block at most (one group, more than one),

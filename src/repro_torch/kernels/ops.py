@@ -125,6 +125,26 @@ def cascade_matmul_grouped(x: torch.Tensor, packed: torch.Tensor, scales: torch.
     return _cm.cascade_matmul_grouped_plain(x, packed, scales, rows, out_dtype)
 
 
+def cascade_matmul_grouped_pair(x: torch.Tensor, first: tuple, second: tuple,
+                                rows: torch.Tensor | None = None, *,
+                                out_dtype=torch.float32) -> tuple:
+    """Two stacks of E FP4 expert matmuls over the same x in ONE launch (the
+    MoE layer's gate and up): ``first`` and ``second`` are ``(packed,
+    scales)`` of one shape; returns their two (E, C, N) outputs, each with
+    the bits :func:`cascade_matmul_grouped` gives it. On the CPU, two plain
+    grouped calls."""
+    if first[0].shape[1] * 2 == x.shape[-1] + 1:
+        x = F.pad(x, (0, 1))
+    if _route(x) == "cuda":
+        if rows is None:
+            rows = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+        out = _cm.cascade_matmul_grouped_pair_cuda(x.contiguous(), first, second, rows,
+                                                   out_dtype)
+        LAUNCHES["cascade_matmul_grouped"] += 1
+        return out
+    return _cm.cascade_matmul_grouped_pair_plain(x, first, second, rows, out_dtype)
+
+
 def fake_quant_fp4(w: torch.Tensor, group_size: int = 0, *,
                    experts: bool = False) -> torch.Tensor:
     """QAT's FP4 fake quantization with the straight-through gradient: ``w +

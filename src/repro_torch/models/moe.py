@@ -5,10 +5,11 @@ Routing is the reference's capacity dispatch: each token's top-k experts
 get a row of an (E, C, d) buffer, built with a scatter-add and read back
 with a gather. Serving dispatches drop-free (capacity t rounded up to 8),
 so a token's output depends on that token alone; ``forward`` keeps the
-capacity-factor drops. With ``use_kernel`` each expert matmul (gate, up,
-down) is ONE grouped launch over all E experts
-(``kernels.ops.cascade_matmul_grouped``), handed the routed rows of each
-expert on the device, so an expert no token chose reads none of its
+capacity-factor drops. With ``use_kernel`` the expert matmuls take two
+grouped launches over all E experts a layer: gate and up together
+(``kernels.ops.cascade_matmul_grouped_pair``), then down
+(``kernels.ops.cascade_matmul_grouped``), each handed the routed rows of
+each expert on the device, so an expert no token chose reads none of its
 weights. The combine sums each token's k expert outputs in f32 in top-k
 order, one elementwise add at a time, so a row's bits do not depend on how
 many rows the step has.
@@ -130,10 +131,10 @@ def moe_ffn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: CascadeC
 
     xk = xf[:, None].expand(t, k, d).reshape(t * k, d)                  # token-major
     buf = xf.new_zeros((e * cap + 1, d)).index_add_(0, dst, xk)[:-1].reshape(e, cap, d)
-    lin = lambda name, a: cascade.expert_linear_apply(params[name], a, ccfg, rows)
-    h = F.silu(lin("wg", buf).to(torch.float32))
-    h = (h * lin("wu", buf).to(torch.float32)).to(buf.dtype)
-    out = lin("wd", h).reshape(e * cap, d)                               # (E*C, d)
+    gate, up = cascade.expert_linear_pair_apply(params["wg"], params["wu"], buf, ccfg, rows)
+    h = F.silu(gate.to(torch.float32))
+    h = (h * up.to(torch.float32)).to(buf.dtype)
+    out = cascade.expert_linear_apply(params["wd"], h, ccfg, rows).reshape(e * cap, d)  # (E*C, d)
 
     got = torch.where(keep[:, None], out[torch.clamp(dst, max=e * cap - 1)],
                       torch.zeros((), dtype=out.dtype, device=out.device))

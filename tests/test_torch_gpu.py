@@ -806,7 +806,7 @@ def test_spec_engine_at_full_width_launches_the_path_kernels(cuda, arch):
             assert step["ssd_scan"] == 2 * 5 and step["flash_attention"] == 0
         else:
             assert step["flash_attention"] == 2 and step["ssd_scan"] == 0
-        assert step["cascade_matmul_grouped"] == (3 * 2 if arch == "olmoe-1b-7b" else 0)
+        assert step["cascade_matmul_grouped"] == (2 * 2 if arch == "olmoe-1b-7b" else 0)
         assert step["cascade_matmul"] > 0
 
 
@@ -1045,14 +1045,18 @@ def test_paged_decode_step_and_admission_give_the_dense_logits_bit_for_bit(cuda)
         assert torch.equal(view[slot, :n + 1], dense["layers"]["k"][1, slot, :n + 1])
 
 
-# (E, C, K, N, rows): olmoe's experts (64 of 2048 -> 1024 and 1024 -> 2048)
+# (E, C, K, N, group): olmoe's experts (64 of 2048 -> 1024 and 1024 -> 2048)
 # at a decode step's, an admission chunk's and a verify pass's C, and
-# deepseek-v2's (160 of 5120 -> 1536 and 1536 -> 5120) at a decode step's;
-# rows from a top-k draw, with experts at 0 rows and at all C forced; K and
-# N off the tiles, and C past one block row (65)
-GROUPED_CASES = [(64, 8, 2048, 1024), (64, 8, 1024, 2048), (64, 32, 2048, 1024),
-                 (64, 40, 1024, 2048), (160, 8, 5120, 1536), (160, 8, 1536, 5120),
-                 (5, 65, 258, 301), (3, 17, 96, 40)]
+# deepseek-v2's (160 of 5120 -> 1536 and 1536 -> 5120) at a decode step's
+# and (E = 160) at a verify pass's; rows from a top-k draw, with experts at
+# 0 rows and at all C forced (so one expert has over 16 rows wherever C
+# does); K and N off the tiles, C past two m-blocks (65) and C = 1; scale
+# groups of 32 (on the 16-row step) and 24 (off it)
+GROUPED_CASES = [(64, 8, 2048, 1024, 0), (64, 8, 1024, 2048, 0), (64, 32, 2048, 1024, 0),
+                 (64, 40, 1024, 2048, 0), (160, 8, 5120, 1536, 0), (160, 8, 1536, 5120, 0),
+                 (5, 65, 258, 301, 0), (3, 17, 96, 40, 0), (64, 1, 2048, 1024, 0),
+                 (160, 40, 5120, 1536, 0), (8, 24, 512, 256, 32), (6, 40, 240, 136, 24),
+                 (5, 9, 96, 300, 32), (4, 33, 144, 72, 24)]
 
 
 def _grouped_inputs(cuda, e, c, k, n, seed, group=0):
@@ -1073,13 +1077,13 @@ def _grouped_inputs(cuda, e, c, k, n, seed, group=0):
     return x.to(torch.bfloat16), packed, scales, rows
 
 
-@pytest.mark.parametrize("e,c,k,n", GROUPED_CASES)
+@pytest.mark.parametrize("e,c,k,n,group", GROUPED_CASES)
 @pytest.mark.parametrize("odtype", ["bfloat16", "float32"])
-def test_grouped_matmul_equals_per_expert_calls_bit_for_bit(cuda, e, c, k, n, odtype):
+def test_grouped_matmul_equals_per_expert_calls_bit_for_bit(cuda, e, c, k, n, group, odtype):
     """One grouped launch gives every expert the bits of a per-expert
     ``ops.cascade_matmul`` over its C rows (zeros past its routed rows,
     none routed included), and agrees with the plain version."""
-    x, packed, scales, rows = _grouped_inputs(cuda, e, c, k, n, seed=e + c + k)
+    x, packed, scales, rows = _grouped_inputs(cuda, e, c, k, n, seed=e + c + k, group=group)
     out_dtype = getattr(torch, odtype)
     ops.reset_launch_counts()
     got = ops.cascade_matmul_grouped(x, packed, scales, rows, out_dtype=out_dtype)
@@ -1108,6 +1112,46 @@ def test_grouped_matmul_zeros_past_the_rows_whatever_x_holds_there(cuda):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
 
 
+def test_grouped_matmul_with_no_routed_row_is_all_zeros(cuda):
+    """Every expert at 0 rows: the launch succeeds, reads no weight and
+    writes exact zeros over an output full of another value (one stack and
+    the pair)."""
+    x, packed, scales, rows = _grouped_inputs(cuda, 64, 8, 2048, 1024, seed=4)
+    rows = torch.zeros_like(rows)
+    ops.reset_launch_counts()
+    got = ops.cascade_matmul_grouped(x, packed, scales, rows, out_dtype=torch.bfloat16)
+    pair = ops.cascade_matmul_grouped_pair(x, (packed, scales), (packed, scales), rows,
+                                           out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cascade_matmul_grouped"] == 2
+    assert not got.any() and not pair[0].any() and not pair[1].any()
+
+
+@pytest.mark.parametrize("c", [8, 40])
+@pytest.mark.parametrize("odtype", ["bfloat16", "float32"])
+def test_grouped_pair_is_one_launch_with_each_stacks_bits(cuda, c, odtype):
+    """olmoe's gate and up (64 experts, 2048 -> 1024) in one launch: each
+    output bit for bit its own per-expert loop and its own grouped launch,
+    zeros past the rows."""
+    x, pg, sg, rows = _grouped_inputs(cuda, 64, c, 2048, 1024, seed=21 + c)
+    gen = torch.Generator(device=cuda).manual_seed(22 + c)
+    ws = [quant.quantize_weight(torch.randn((2048, 1024), generator=gen, device=cuda), 0)
+          for _ in range(64)]
+    pu, su = torch.stack([w[0] for w in ws]), torch.stack([w[1] for w in ws])
+    out_dtype = getattr(torch, odtype)
+    ops.reset_launch_counts()
+    gate, up = ops.cascade_matmul_grouped_pair(x, (pg, sg), (pu, su), rows, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cascade_matmul_grouped"] == 1
+    live = torch.arange(c, device=cuda)[None, :] < rows[:, None]
+    for got, p, s in ((gate, pg, sg), (up, pu, su)):
+        loop = torch.stack([ops.cascade_matmul(x[i], p[i], s[i], out_dtype=out_dtype)
+                            for i in range(64)])
+        loop = torch.where(live[..., None], loop, torch.zeros((), dtype=out_dtype, device=cuda))
+        assert torch.equal(got, loop)
+        assert torch.equal(got, ops.cascade_matmul_grouped(x, p, s, rows, out_dtype=out_dtype))
+
+
 def test_grouped_matmul_raises_on_what_it_does_not_take(cuda):
     x, packed, scales, rows = _grouped_inputs(cuda, 3, 8, 64, 32, seed=1)
     with pytest.raises(ValueError, match="not supported"):
@@ -1116,14 +1160,32 @@ def test_grouped_matmul_raises_on_what_it_does_not_take(cuda):
         tcm.cascade_matmul_grouped_cuda(x, packed, scales, rows.long())
     with pytest.raises(ValueError, match="do not agree"):
         tcm.cascade_matmul_grouped_cuda(x[:2], packed, scales, rows)
+    with pytest.raises(ValueError, match="do not agree"):
+        tcm.cascade_matmul_grouped_pair_cuda(x, (packed, scales), (packed[:, :16], scales), rows)
+    # a plan that is not the build's is refused before anything is launched:
+    # the output keeps its 7s, and the build's own plan then runs
     out = torch.full((3, 8, 32), 7.0, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    args = (x.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            3, 8, 64, 32, 64, 0)
-    assert tcm._library().cascade_matmul_grouped_launch(*args, 2, stream) != 0   # one m-tile
+    pl = tcm.plan_grouped(3, 32)
+    blocks = tcm.grouped_blocks(pl, 64, 64, torch.float32)
+    head = (x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), None, None,
+            None, rows.data_ptr(), 3, 8, 64, 32, 64, 0)
+
+    def launch(**kw):
+        p = {**pl, "blocks": blocks, **kw}
+        return tcm._grouped_library().cascade_matmul_grouped_launch(
+            *head, p["col_tile"], p["stages"], p["threads"], p["smem_bytes"], p["blocks"],
+            stream)
+    for wrong in ({"col_tile": 64}, {"stages": pl["stages"] + 1}, {"threads": 128},
+                  {"smem_bytes": pl["smem_bytes"] + 16}, {"blocks": 0},
+                  {"blocks": blocks + 1}):
+        assert launch(**wrong) != 0, wrong
     torch.cuda.synchronize()
     assert bool((out == 7.0).all())
-    assert tcm._library().cascade_matmul_grouped_launch(*args, 1, stream) == 0
+    assert launch() == 0
+    torch.cuda.synchronize()
+    want = tcm.cascade_matmul_grouped_plain(x, packed, scales, rows, torch.float32)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
 
 
 def test_router_logit_rows_are_bit_equal_at_decode_admission_and_verify_row_counts(cuda):

@@ -139,10 +139,61 @@ def test_grouped_plain_equals_per_expert_calls_and_zeros_past_the_routed_rows():
                                     for i in range(e)]))
 
 
-def test_grouped_plan_takes_one_m_tile_a_block_and_an_expert_axis():
-    assert tcm.plan_grouped(64, 8, 1024) == {"m_tiles": 1, "grid": (32, 1, 64)}
-    assert tcm.plan_grouped(160, 40, 1536) == {"m_tiles": 1, "grid": (48, 3, 160)}
-    assert tcm.plan_grouped(8, 100, 32) == {"m_tiles": 1, "grid": (1, 7, 8)}
+# (E, N): olmoe's gate/up and down, deepseek-v2's, and the card tests' (N
+# off the column tile; E = 3, 5, 6, 8)
+GROUPED_PLAN_SHAPES = [(64, 1024), (64, 2048), (160, 1536), (160, 5120), (5, 301), (3, 40),
+                       (6, 136), (8, 256)]
+
+
+@pytest.mark.parametrize("e,n", GROUPED_PLAN_SHAPES)
+def test_grouped_plan_fits_two_blocks_an_sm_and_covers_n(e, n):
+    """The grouped launch's plan: its shared memory leaves room for two
+    blocks an SM, its column tiles cover N with none past it, and it follows
+    from the shapes alone."""
+    pl = tcm.plan_grouped(e, n)
+    assert 2 * (pl["smem_bytes"] + tcm.BLOCK_RESERVED_SMEM) <= tcm.SM_SMEM_BYTES
+    assert pl["smem_bytes"] % 16 == 0
+    assert pl["col_tiles"] * pl["col_tile"] >= n > (pl["col_tiles"] - 1) * pl["col_tile"]
+    assert (pl["col_tile"], pl["stages"], pl["steps_a_stage"], pl["threads"]) == (128, 3, 8, 256)
+    assert pl == tcm.plan_grouped(e, n)
+    bigger = tcm.plan_grouped(e + 8, n)
+    assert bigger["smem_bytes"] > pl["smem_bytes"]                # the experts' prefix
+    assert {k: v for k, v in bigger.items() if k != "smem_bytes"} == \
+        {k: v for k, v in pl.items() if k != "smem_bytes"}
+
+
+# (E, C, K, N, group, rows): olmoe-like stacks at a decode step's C, an odd K
+# (the zero activation column), groups on and off the 16-row step, and an
+# expert at no row, one at all C and one past C
+GROUPED_PAIR_CASES = [(4, 8, 40, 24, 0, [0, 3, 8, 5]), (3, 17, 33, 20, 0, [17, 0, 9]),
+                      (2, 6, 64, 16, 32, [6, 2]), (3, 5, 48, 12, 24, [1, 5, 7])]
+
+
+@pytest.mark.parametrize("e,c,k,n,group,rows", GROUPED_PAIR_CASES)
+def test_grouped_pair_plain_route_equals_two_grouped_calls(e, c, k, n, group, rows):
+    """On the CPU the pair (gate and up in one launch on the card) is two
+    plain grouped calls: each output bit for bit the single call's, exact
+    zeros past each expert's rows whatever x holds there, no launch
+    counted; ``expert_linear_pair_apply`` gives each linear's own output."""
+    from repro_torch.core import quant
+    gen = torch.Generator().manual_seed(e * 100 + k)
+    stacks = []
+    for _ in range(2):
+        ws = [quant.quantize_weight(torch.randn((k, n), generator=gen), group) for _ in range(e)]
+        stacks.append((torch.stack([w[0] for w in ws]), torch.stack([w[1] for w in ws])))
+    x = torch.randn((e, c, k), generator=gen)
+    r = torch.tensor(rows, dtype=torch.int32)
+    ops.reset_launch_counts()
+    got = ops.cascade_matmul_grouped_pair(x, stacks[0], stacks[1], r)
+    assert ops.LAUNCHES["cascade_matmul_grouped"] == 0 and len(got) == 2
+    live = torch.arange(c)[None, :] < r.clamp(max=c)[:, None]
+    for out, (codes, scales) in zip(got, stacks):
+        assert torch.equal(out, ops.cascade_matmul_grouped(x, codes, scales, r))
+        assert not out[~live].any()
+    params = [{"codes": p, "scale": s} for p, s in stacks]
+    pair = tcascade.expert_linear_pair_apply(params[0], params[1], x, T_FP4_KERNEL, r)
+    for out, p in zip(pair, params):
+        assert torch.equal(out, tcascade.expert_linear_apply(p, x, T_FP4_KERNEL, r))
 
 
 def test_tree_to_serve_fp4_takes_stacked_experts_and_lists():
