@@ -134,6 +134,24 @@ each rebuilt one held to the same request served alone.
    bit, or within rtol 1e-6 where an op without a deterministic CUDA path
    is named).
 
+5. The examples and the audit (``examples_and_audit``, after the serve
+   runs): ``examples/quickstart.py`` and ``examples/fault_tolerance_demo.py``
+   with ``--fused`` (every printed number finite; the quickstart's FP4 kernel
+   path within 2^-6 of its round-tripped dense forward, its oracle's max
+   |sum| equal to the CPU run's on the same inputs; CREST 5 of 5 repaired,
+   none falsely; 9 of 9 requests after the failover; the resumed training
+   tail bit-equal), a closure reading ``.item()`` that must trip both the
+   census and ``torch.cuda.set_sync_debug_mode``, and the audit matrix
+   (``repro_torch.analysis``): the four families' smoke configs x {dense,
+   fused, paged}, then codeqwen1.5-7b at full width through the kernels on
+   the dense and the paged cache (8 requests of 64 + 8 tokens, speculative
+   and sampled), each served twice (nothing built or planned anew) and every
+   step closure held to the serving contract, with zero gating findings.
+   llama3.1-405b, the paper's example model, joins the depth-2 parity
+   (128/8 heads: decode attention at G = 16), and the kernel phases hold its
+   shapes (the FP4 matmul at M = 8 up to its 16384 x 128000 head, decode
+   attention at 128/8 heads, flash attention at its 128/8 prefill).
+
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
 full record goes to ``results/chip_smoke.json``.
@@ -209,11 +227,15 @@ SSD_Y_RTOL, SSD_Y_ATOL = 2.0 ** -7, 1e-5
 #     phi4-mini-3.8b (GQA 24/8, partial rotary, the QAT-trained model served
 #     after training) takes codeqwen's limits: a dense transformer of the
 #     same kind
+#     llama31_405b (the paper's example model at full width, 128/8 heads:
+#     decode attention at G = 16; K = 65,536 in the down projection) takes
+#     codeqwen's limits: a dense transformer of the same kind
 PARITY_LIMITS = {"codeqwen1.5-7b": (2.0 ** -6, 2), "mamba2-370m": (2.0 ** -9, 1),
                  "qwen2.5-32b": (2.0 ** -6, 2), "phi4-mini-3.8b": (2.0 ** -6, 2),
                  "olmoe-1b-7b": (2.0 ** -5.5, 10),
                  "deepseek-v2-236b": (2.0 ** -5, 25), "recurrentgemma-2b": (2.0 ** -6, 3),
-                 "qwen2-vl-2b": (2.0 ** -6, 2), "musicgen-large": (2.0 ** -6, 2)}
+                 "qwen2-vl-2b": (2.0 ** -6, 2), "musicgen-large": (2.0 ** -6, 2),
+                 "llama31_405b": (2.0 ** -6, 2)}
 #: depth of the parity phase's model, where it is not 2: Griffin's first
 #: (R, R, A) group, so an attention block is held too
 PARITY_DEPTH = {"recurrentgemma-2b": 3}
@@ -239,9 +261,11 @@ SHORT_REQ = MAX_BATCH
 
 ARCHS = ("codeqwen1.5-7b", "mamba2-370m", "olmoe-1b-7b", "recurrentgemma-2b")
 #: the depth-2 parity phase also runs a GQA transformer, DeepSeek-V2's MLA
-#: (layer 0 dense, layer 1 160 routed experts), neither served here, and
-#: phi4-mini-3.8b, the model QAT-trained and then served (qat_serve_phase)
-PARITY_ARCHS = ARCHS + ("qwen2.5-32b", "deepseek-v2-236b", "phi4-mini-3.8b")
+#: (layer 0 dense, layer 1 160 routed experts), neither served here,
+#: phi4-mini-3.8b, the model QAT-trained and then served (qat_serve_phase),
+#: and llama3.1-405b, the paper's own example model (two of its 80 layers at
+#: full width: 7.6 B weights, 4 GB packed, beside a 4.2 GB bf16 embedding)
+PARITY_ARCHS = ARCHS + ("qwen2.5-32b", "deepseek-v2-236b", "phi4-mini-3.8b", "llama31_405b")
 #: (arch, decode) -> the kernels that run launches; a speculative step's
 #: decode is the verify pass, which never launches decode attention
 RUN_KERNELS = {("codeqwen1.5-7b", "plain"): ("cascade_matmul", "decode_attention",
@@ -290,6 +314,15 @@ FLEET_REPLICAS, FLEET_REQ, FLEET_RATE, FLEET_SLO_S, FLEET_KILL_S = 2, 24, 4.0, 1
 #: leading columns it protects: three cycles over all 92,416 took 28.6 s on
 #: an H100 (17,328 probes at 1.65 ms), so the run takes the first 16,384
 CREST_FAULTS, CREST_CYCLES, CREST_COLUMNS = 3, 3, 16384
+#: the examples and the audit (phase 5): the quickstart's FP4 kernel path
+#: against its bf16 round-tripped dense forward (max|diff| / max|dense|);
+#: the audit matrix's modes on the four families' smoke configs, then
+#: codeqwen1.5-7b at full width through the kernels on the dense and the
+#: paged cache, AUDIT_REQ requests of AUDIT_PROMPT + AUDIT_NEW tokens,
+#: speculative and sampled (temperature 0.8, top-k 50), served twice
+QUICKSTART_EXACT_TOL = 2.0 ** -6
+AUDIT_MODES, AUDIT_FULL_MODES = ("dense", "fused", "paged"), ("fused", "fused-paged")
+AUDIT_REQ, AUDIT_PROMPT, AUDIT_NEW = 8, 64, 8
 NORM_RTOL, NORM_MTOL = 2.0 ** -7, 2.0 ** -20
 
 
@@ -399,6 +432,16 @@ STUB_MATMUL = {("qwen2-vl-2b", 1536, 1536, True): 28,
                ("musicgen-large", 2048, 8192, False): 48 + 1,
                ("musicgen-large", 8192, 2048, False): 48}
 STUB_PREFILL_ROWS = 8 * 128
+#: (arch, K, N, bias) -> launches per decode step of llama3.1-405b at the
+#: parity phase's depth 2: q and o (16,384 -> 16,384), k and v (8 KV heads of
+#: 128: N = 1,024), gate and up (-> 65,536) and down (65,536 -> 16,384) in
+#: each of 2 layers, and its untied 128,000-wide head; each at a decode
+#: step's 8 rows
+LLAMA_MATMUL = {("llama31_405b", 16384, 16384, False): 2 * 2,
+                ("llama31_405b", 16384, 1024, False): 2 * 2,
+                ("llama31_405b", 16384, 65536, False): 2 * 2,
+                ("llama31_405b", 65536, 16384, False): 2,
+                ("llama31_405b", 16384, 128000, False): 1}
 #: decode-attention case -> (arch, launches per model-level decode step):
 #: one a layer
 STUB_ATTN = {"musicgen_step_d64": ("musicgen-large", 48), "qwen2vl_step_g6": ("qwen2-vl-2b", 28)}
@@ -428,6 +471,8 @@ def matmul_shapes():
         rows.append((arch, MAX_BATCH, k, n, bias, count, 0))
         if n < 100000:
             rows.append((arch, STUB_PREFILL_ROWS, k, n, bias, 0, 0))
+    rows += [(arch, MAX_BATCH, k, n, bias, count, 0)
+             for (arch, k, n, bias), count in LLAMA_MATMUL.items()]
     return rows
 
 
@@ -666,8 +711,10 @@ def decode_attention_cases():
     heads (40 over 8) at the same positions, a long context (T = 4096,
     positions spread over 2,047-4,095, so 2,048-4,096 live keys a row), and
     the modality-stub backbones' steps: musicgen-large's 32 heads at D = 64
-    and qwen2-vl-2b's 12 over 2 KV heads (G = 6), and phi4-mini-3.8b's step
-    after QAT (24 over 8 heads, G = 3, in the qat serve run's 96-row cache)."""
+    and qwen2-vl-2b's 12 over 2 KV heads (G = 6), phi4-mini-3.8b's step
+    after QAT (24 over 8 heads, G = 3, in the qat serve run's 96-row cache),
+    and llama3.1-405b's 128 over 8 heads (G = 16: two blocks of 8 heads a
+    KV head) in the served 192-row cache."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK      # the engine's cache length
     served = [PROMPT_LEN + 4 * i for i in range(MAX_BATCH)]
     t_qat = -(-(QAT_PROMPT + QAT_NEW + 1) // CHUNK) * CHUNK
@@ -679,7 +726,8 @@ def decode_attention_cases():
             ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos, 128),
             ("musicgen_step_d64", MAX_BATCH, 32, 32, t, served, 64),
             ("qwen2vl_step_g6", MAX_BATCH, 12, 2, t, served, 128),
-            ("phi4_step_g3", MAX_BATCH, 24, 8, t_qat, served_qat, 128)]
+            ("phi4_step_g3", MAX_BATCH, 24, 8, t_qat, served_qat, 128),
+            ("llama_step_g16", MAX_BATCH, 128, 8, t, served, 128)]
 
 
 def attention_phase(torch, dev):
@@ -733,7 +781,7 @@ def attention_phase(torch, dev):
                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
                                  else "operations")})
         row["launches_per_decode_step"] = {"codeqwen_step": 32, "olmoe_step": 16,
-                                           "phi4_step_g3": 32,
+                                           "phi4_step_g3": 32, "llama_step_g16": 2,
                                            **{c: k for c, (_, k) in STUB_ATTN.items()}
                                            }.get(name, 0)
         rows.append(row)
@@ -753,7 +801,8 @@ def flash_cases():
     prefills (musicgen-large's 32 heads at D = 64, qwen2-vl-2b's 12 over 2
     KV heads) and, at D = 64, an admission chunk of 32 over a 160-row cache;
     phi4-mini-3.8b's QAT training forward (2 rows of 256 tokens, 24 over 8
-    heads) and its second admission chunk after QAT (offset 32)."""
+    heads) and its second admission chunk after QAT (offset 32); llama3.1-
+    405b's 8 x 128-token prefill at 128 over 8 heads."""
     t = -(-(PROMPT_LEN + MAX_NEW + 1 + DRAFT_LEN) // CHUNK) * CHUNK     # the engine's cache
     n = DRAFT_LEN + 1
     verify_off = [round(i * (t - n) / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
@@ -772,7 +821,8 @@ def flash_cases():
                ("qwen2vl_prefill", MAX_BATCH, 12, 2, 128, 128, True, [0] * MAX_BATCH, d),
                ("phi4_train", TRAIN_BATCH, 24, 8, TRAIN_SEQ, TRAIN_SEQ, True,
                 [0] * TRAIN_BATCH, d),
-               ("phi4_admit_off32", 1, 24, 8, CHUNK, 2 * CHUNK, True, [CHUNK], d)])
+               ("phi4_admit_off32", 1, 24, 8, CHUNK, 2 * CHUNK, True, [CHUNK], d),
+               ("llama_prefill_g16", MAX_BATCH, 128, 8, 128, 128, True, [0] * MAX_BATCH, d)])
 
 
 def flash_phase(torch, dev):
@@ -3067,6 +3117,194 @@ def restart_phase(torch, dev):
     return rec
 
 
+def examples_phase(torch, dev):
+    """Both examples with ``--fused`` on the card (the replicas and the FP4
+    forward through the kernels), their printed numbers checked: every one
+    finite; the quickstart's FP4 kernel path within QUICKSTART_EXACT_TOL of
+    its bf16 round-tripped dense forward and its oracle's max |sum| equal to
+    the CPU run's on the same inputs; CREST 5 of 5 detected, none falsely, 5
+    repaired; 9 of 9 requests completed after the failover; the resumed
+    tail bit-equal to the uninterrupted one, or, where an op with no
+    deterministic CUDA path ran (named by a rerun under deterministic
+    algorithms), within the reference demo's rtol 1e-6."""
+    import warnings
+    from repro_torch.examples import fault_tolerance_demo as demo
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    ops.reset_launch_counts()
+    qs = quickstart.main(["--fused"])
+    qs["launches"] = dict(ops.LAUNCHES)
+    ins = quickstart.inputs(registry.get_config(quickstart.ARCH, smoke=True).vocab)
+    qs["cpu_oracle_max_abs_sum"] = quickstart.matmul_three_ways(ins["w"], ins["x"])[
+        "oracle_max_abs_sum"]
+    numbers = [qs[k] for k in ("dense_bytes", "fp4_bytes", "exactness", "fp4_vs_dense",
+                               "kernel_vs_ref", "oracle_max_abs_sum")]
+    if not (all(math.isfinite(v) for v in numbers) and qs["finite"]):
+        fail(f"quickstart --fused: a number is not finite: {qs}")
+    if not qs["exactness"] <= QUICKSTART_EXACT_TOL:
+        fail(f"quickstart --fused: FP4 kernel path vs round-tripped dense {qs['exactness']} > "
+             f"{QUICKSTART_EXACT_TOL}")
+    if qs["oracle_max_abs_sum"] != qs["cpu_oracle_max_abs_sum"]:
+        fail(f"quickstart --fused: the oracle's max |sum| {qs['oracle_max_abs_sum']} differs "
+             f"from the CPU run's {qs['cpu_oracle_max_abs_sum']}")
+    for k in ("cascade_matmul", "flash_attention", "norm", "cascade_matmul_exact"):
+        if not qs["launches"][k]:
+            fail(f"quickstart --fused launched no {k}: {qs['launches']}")
+
+    ops.reset_launch_counts()
+    dm = demo.main(["--fused"])
+    dm["launches"] = dict(ops.LAUNCHES)
+    cr, fip, ck = dm["crest"], dm["fail_in_place"], dm["checkpoint_restart"]
+    if (cr["detected"], cr["false_positives"], cr["repaired"]) != (5, 0, 5) \
+            or not math.isfinite(cr["post_repair_max_err"]):
+        fail(f"fault_tolerance_demo --fused: CREST {cr}")
+    if fip["completed"] != fip["requests"] or fip["effective_mode"] != "batched-greedy-fused":
+        fail(f"fault_tolerance_demo --fused: fail-in-place {fip}")
+    for k in ("cascade_matmul", "decode_attention", "flash_attention", "norm"):
+        if not dm["launches"][k]:
+            fail(f"fault_tolerance_demo --fused launched no {k}: {dm['launches']}")
+    if not all(math.isfinite(v) for v in ck["losses"] + ck["resumed_tail"]):
+        fail(f"fault_tolerance_demo --fused: a loss is not finite: {ck}")
+    ck["nondeterministic_ops"] = []
+    if not ck["tail_bit_equal"]:
+        from repro_torch.core.cascade import CascadeConfig
+        from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+        from repro_torch.optim.adamw import AdamW
+        cfg, model = registry.load("phi4-mini-3.8b", smoke=True)
+        tccfg = CascadeConfig(mode="train", compute_dtype=torch.float32)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                demo.demo_checkpoint_restart(
+                    model, tccfg, model.init_params(0, tccfg, device=dev),
+                    SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2)),
+                    AdamW(lr=1e-3, warmup_steps=2, decay_steps=10))
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ck["nondeterministic_ops"] = sorted({str(w.message).split(" does not have a "
+                                                                  "deterministic")[0]
+                                             for w in caught
+                                             if "deterministic" in str(w.message)})
+        if not (ck["nondeterministic_ops"] and ck["max_rel_diff"] <= 1e-6):
+            fail(f"fault_tolerance_demo --fused: the resumed tail differs: {ck}")
+    fip.pop("streams")
+    return {"quickstart": qs, "fault_tolerance_demo": dm}
+
+
+def sync_contrast(torch, dev):
+    """A closure that reads ``.item()`` on the card must trip both witnesses:
+    the census (``aten._local_scalar_dense``) and
+    ``torch.cuda.set_sync_debug_mode`` (a warning under "warn", an error
+    under "error"); the same closure without the read trips neither."""
+    from repro_torch.analysis import census, contract
+    from repro_torch.analysis.findings import gating
+
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    reading = lambda t: t * t.sum().item()
+    _, c = census.record(reading, (x,))
+    _, fs = contract.audit_step("contrast", reading, (x,), contract.ServingContract(),
+                                takes_params=False)
+    _, clean = census.record(lambda t: t * 2, (x,))
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reading(x)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    res = {"census_host_reads": c.host_reads, "sync_warnings": c.sync_warnings,
+           "error_mode_raised": raised, "gating_findings": [f.to_dict() for f in gating(fs)],
+           "clean_host_reads": len(clean.host_reads),
+           "clean_sync_warnings": len(clean.sync_warnings)}
+    if not (c.host_reads and c.sync_warnings and "synchroniz" in raised and gating(fs)
+            and not clean.host_reads and not clean.sync_warnings):
+        fail(f"sync contrast: the .item() closure did not trip both witnesses: {res}")
+    return res
+
+
+def audit_phase(torch, dev):
+    """The audit matrix on the card (``repro_torch.analysis.audit.run_cell``):
+    the four families' smoke configs x AUDIT_MODES, and codeqwen1.5-7b at full
+    width x AUDIT_FULL_MODES (one FP4 params tree). Each cell serves its trace
+    twice (the second run may build or plan nothing new), then every step
+    closure is called under the census and the sync witness and held to the
+    serving contract. Fails on any gating finding, a cell whose trace did not
+    complete, a lint finding that gates, a downgraded cell that
+    ``audit.EXPECTED_DOWNGRADES`` does not name (the full-width pair
+    included), or a fused cell off the kernel route."""
+    from repro_torch.analysis import audit, lint
+    from repro_torch.analysis.findings import Finding, gating
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.models import registry
+
+    cells = [audit.run_cell(family, arch, mode, dev)
+             for family, arch in registry.FAMILY_SMOKE.items() for mode in AUDIT_MODES]
+    arch = registry.FAMILY_SMOKE["transformer"]
+    _, model = registry.load(arch)
+    params = model.init_params(0, CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16),
+                               device=dev)
+    for mode in AUDIT_FULL_MODES:
+        cells.append(audit.run_cell(
+            "transformer", arch, mode, dev, smoke=False, n_requests=AUDIT_REQ,
+            prompt_len=AUDIT_PROMPT, max_new=AUDIT_NEW, params=params, max_batch=MAX_BATCH,
+            max_len=AUDIT_PROMPT + AUDIT_NEW + CHUNK, prefill_chunk=CHUNK, temperature=0.8,
+            top_k=50, draft_len=DRAFT_LEN, page_size=PAGE_SIZE))
+    del params
+    # a cell the engine downgrades passes no closure through the audit: only
+    # the table's cells may, and every other fused cell runs the kernels
+    downgraded = {(c["family"], c["mode"]) for c in cells if c["status"] == "downgraded"}
+    expected = {(f, m) for f in registry.FAMILY_SMOKE for m in AUDIT_MODES
+                if (f, m) in audit.EXPECTED_DOWNGRADES}
+    if downgraded != expected:
+        fail(f"audit: downgraded cells {sorted(downgraded)}, expected {sorted(expected)}")
+    unfused = [(c["arch"], c["mode"], c["smoke"]) for c in cells if c["status"] == "audited"
+               and c["mode"].startswith("fused") and c.get("route") != "kernel"]
+    if unfused:
+        fail(f"audit: fused cells not on the kernel route: {unfused}")
+    lint_fs = lint.lint_paths(["src/repro_torch"], base=ROOT)
+    out = {"lint_findings": len(lint_fs), "lint_allowlisted": [f.where for f in lint_fs
+                                                               if f.allowlisted],
+           "cells": []}
+    bad = gating(lint_fs)
+    for cell in cells:
+        fs = [Finding.from_dict(d) for d in cell["findings"]]
+        bad += gating(fs)
+        n = cell.get("trace", {}).get("requests", 0)
+        if cell["status"] == "audited" and cell["trace"]["completed"] != 2 * n:
+            fail(f"audit {cell['arch']}/{cell['mode']}: the trace did not complete: "
+                 f"{cell['trace']}")
+        out["cells"].append({
+            "family": cell["family"], "arch": cell["arch"], "mode": cell["mode"],
+            "smoke": cell["smoke"], "status": cell["status"], "route": cell.get("route"),
+            "effective_mode": cell["effective_mode"], "downgrades": cell["downgrades"],
+            "closures": {name: {k: st.get(k) for k in (
+                "ops", "out_bytes", "host_reads", "host_transfers", "data_shaped_ops",
+                "f64_outputs", "densified", "sync_warnings", "cache_major_leaves",
+                "cache_leaves_in_place", "packed_params")} for name, st in cell["closures"].items()},
+            "allowlisted": [f"{f.check}: {f.where} — {f.detail}" for f in fs if f.allowlisted],
+            "info": [f"{f.check}: {f.where}" for f in fs if f.level == "info"]})
+    out["gating"] = [f.to_dict() for f in bad]
+    if bad:
+        fail(f"audit: {len(bad)} gating finding(s): {out['gating']}")
+    return out
+
+
+def examples_and_audit_phase(torch, dev):
+    """Phase 5: the two examples, the audit matrix and the sync contrast."""
+    t0 = time.monotonic()
+    ex = examples_phase(torch, dev)
+    t1 = time.monotonic()
+    contrast = sync_contrast(torch, dev)
+    au = audit_phase(torch, dev)
+    return {"gpu": gpu_name_and_power(), "examples": ex, "sync_contrast": contrast,
+            "audit": au, "examples_s": t1 - t0, "audit_s": time.monotonic() - t1}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3173,6 +3411,8 @@ def main() -> int:
                       "paged": step_summary(srv[ARCHS[0]]["paged"]["profiled_decode_step"]),
                       "pool_ops_per_step_ms": pool["per_step_ms"]}
     print(json.dumps({"paged_decode_step_vs_dense": paged_vs_dense}), flush=True)
+    exa = timed("examples_and_audit", examples_and_audit_phase)
+    print(json.dumps({"examples_and_audit": exa}), flush=True)
     train, trained = timed("train", train_phase)
     print(json.dumps({"train": train}), flush=True)
     qat = timed("qat serve", qat_serve_phase, trained)
@@ -3291,6 +3531,8 @@ def main() -> int:
          **{f"{a.replace('-', '_').replace('.', '_')}_step": {
              key: per_step(a, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
             for a in STUB_ARCHS + (TRAIN_ARCH,)},
+         "llama31_405b_depth2_step": {key: per_step("llama31_405b", key)
+                                      for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
          "launches_model_level": model_level("cascade_matmul"),
          "launches_per_model_level_decode_step": {
              a: stub[a]["launches_per_decode_step"]["cascade_matmul"] for a in STUB_ARCHS},
@@ -3479,7 +3721,7 @@ def main() -> int:
               "paged_decode_step_vs_dense": paged_vs_dense,
               "fake_quant_fp4": fqs, "cascade_exact": ce_res, "train": train, "qat_serve": qat,
               "train_recipe": recipe,
-              "precision_sim": sim, "restart": restart,
+              "precision_sim": sim, "restart": restart, "examples_and_audit": exa,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if par_failed:

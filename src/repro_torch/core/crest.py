@@ -64,10 +64,12 @@ def crest_init(n_cols: int, cfg: CrestConfig, device=None) -> CrestState:
 def full_f32_matmul():
     """f32 matmuls in full f32 (no TF32) inside, the caller's setting after."""
     prev = torch.get_float32_matmul_precision()
+    # lint: allow[torch-global-state] — scoped: the caller's setting is restored below
     torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
+        # lint: allow[torch-global-state] — restores the caller's setting
         torch.set_float32_matmul_precision(prev)
 
 

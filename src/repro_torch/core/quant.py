@@ -38,6 +38,18 @@ FP4_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
 FP4_MAX = 6.0
 #: Midpoints between adjacent positive values (all exact in f32).
 _FP4_MIDPOINTS = tuple((a + b) / 2.0 for a, b in zip(FP4_VALUES[1:], FP4_VALUES[:-1]))
+#: Elements of a (K, N) matrix the elementwise codec takes at once: a larger
+#: one (llama3.1-405b's 16384 x 128000 head) goes by blocks of columns, each
+#: quantized or decoded on its own as every column is anyway (the same
+#: bits), so the codec's f32 and int32 transients stay near 1 GB each.
+CODEC_BLOCK = 1 << 28
+
+
+def column_blocks(k: int, n: int) -> list:
+    """Column ranges [j, j + step) of a (K, N) matrix, each at most
+    ``CODEC_BLOCK`` elements (one range when the matrix is smaller)."""
+    step = n if k * n <= CODEC_BLOCK else max(1, CODEC_BLOCK // k)
+    return [(j, min(j + step, n)) for j in range(0, n, step)]
 
 
 def _table(values, like: torch.Tensor) -> torch.Tensor:
@@ -108,6 +120,10 @@ def quantize_weight(w: torch.Tensor, group_size: int = 0) -> Tuple[torch.Tensor,
     scales (G, N) f32.
     """
     k, n = w.shape
+    blocks = column_blocks(k, n)
+    if len(blocks) > 1:
+        parts = [quantize_weight(w[:, j0:j1], group_size) for j0, j1 in blocks]
+        return torch.cat([p for p, _ in parts], dim=1), torch.cat([s for _, s in parts], dim=1)
     w = w.to(torch.float32)
     if k % 2:
         if group_size != 0:
@@ -128,6 +144,10 @@ def dequantize_weight(packed: torch.Tensor, scales: torch.Tensor,
                       dtype=torch.bfloat16) -> torch.Tensor:
     """Inverse of :func:`quantize_weight` -> (K, N) dense weights (an odd-K
     original keeps its zero pad row)."""
+    blocks = column_blocks(2 * packed.shape[0], packed.shape[1])
+    if len(blocks) > 1:
+        return torch.cat([dequantize_weight(packed[:, j0:j1], scales[:, j0:j1], dtype)
+                          for j0, j1 in blocks], dim=1)
     codes = unpack_fp4(packed, axis=0)
     k, n = codes.shape
     g = k // scales.shape[0]

@@ -24,6 +24,9 @@ KERNELS = ("cascade_exact", "cascade_matmul", "cascade_matmul_grouped", "decode_
            "fake_quant", "flash_attention", "norm", "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: nvcc runs started and libraries loaded in this process (the retrace
+#: check reads them: serving a trace again must add neither)
+COUNTS = {"compiles": 0, "loads": 0}
 
 
 def find_nvcc() -> str:
@@ -66,6 +69,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
+        COUNTS["compiles"] += 1
     errors = []
     for n, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
@@ -84,5 +88,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
+        COUNTS["loads"] += 1
         _loaded[name] = lib
     return lib

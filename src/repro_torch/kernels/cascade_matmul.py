@@ -37,9 +37,15 @@ _OUT_DTYPES = (torch.bfloat16, torch.float32)
 def cascade_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                          bias: torch.Tensor | None = None,
                          out_dtype=torch.float32) -> torch.Tensor:
-    """Plain PyTorch version of the kernel. x: (M, K) with K = 2 * packed rows."""
+    """Plain PyTorch version of the kernel. x: (M, K) with K = 2 * packed rows.
+    A weight larger than ``quant.CODEC_BLOCK`` goes by blocks of columns."""
     m, k = x.shape
     n = packed.shape[1]
+    blocks = quant.column_blocks(k, n)
+    if len(blocks) > 1:
+        return torch.cat([cascade_matmul_plain(x, packed[:, j0:j1], scales[:, j0:j1],
+                                               None if bias is None else bias[j0:j1], out_dtype)
+                          for j0, j1 in blocks], dim=1)
     g = scales.shape[0]
     vals = quant.fp4_decode(quant.unpack_fp4(packed, axis=0), torch.float32)   # (K, N)
     xg = x.to(torch.float32).reshape(m, g, k // g).transpose(0, 1)           # (G, M, K/G)

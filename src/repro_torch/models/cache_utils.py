@@ -312,5 +312,5 @@ def reset_slot_pos(cache: dict, slot: int, value: int) -> dict:
         if isinstance(leaf, dict):
             reset_slot_pos(leaf, slot, value)
         elif name == "pos":
-            leaf[..., slot] = value
+            leaf[..., slot].fill_(value)
     return cache

@@ -105,7 +105,7 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from collections import deque
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -464,7 +464,7 @@ class ServeEngine:
         if self.pool.free_pages == 0:
             return None
         dst = self.pool.alloc()
-        self.model.paged_copy_page(self.cache, src, dst)
+        self.cache = self._copy_fn(self.cache, src, dst)
         return dst
 
     def _ensure_pages(self, slot: int, n_tokens: int):
@@ -484,10 +484,10 @@ class ServeEngine:
         self._slot_pages[slot] = []
         self._bt[slot, :] = 0
 
-    def _slot_cache(self, slot: int) -> dict:
+    def _slot_cache(self, slot: int, cache: Optional[dict] = None) -> dict:
         """The paged cache as the admitting slot alone sees it: the shared
         pools beside a view of the slot's ``pos``, advanced in place."""
-        lay = self.cache["layers"]
+        lay = (self.cache if cache is None else cache)["layers"]
         return {"layers": {**lay, "pos": lay["pos"][:, slot:slot + 1]}}
 
     def _start_paged(self, req: Request, slot: int) -> int:
@@ -502,7 +502,7 @@ class ServeEngine:
             matched = m.matched
             self._prefix_hits += m.hit_full
             self._prefix_lookups += len(req.prompt)
-        cache_utils.reset_slot_pos(self.cache, slot, matched)
+        self.cache = self._reset_pos_fn(self.cache, slot, matched)
         return matched
 
     @torch.no_grad()
@@ -548,14 +548,14 @@ class ServeEngine:
                 n = min(c0 + chunk - st.consumed, len(prompt) - st.consumed)
                 toks = np.zeros((1, chunk), np.int32)
                 toks[0, :n] = prompt[st.consumed:st.consumed + n]
-                batch = {"tokens": self._tokens(toks)}
+                bt = None
                 if self.paged:
                     self._ensure_pages(st.slot, st.consumed + n)
-                    batch["block_table"] = self._bt_dev()[st.slot:st.slot + 1]
+                    bt = self._bt_dev()[st.slot:st.slot + 1]
                 # the chunk's valid rows end by c0 + chunk: no key past that
                 # is live for them (pad rows past it attend to garbage)
-                logits, st.cache = self.model.prefill_extend(
-                    self.params, batch, st.cache, self.ccfg, n_valid=n, kv_len=c0 + chunk)
+                logits, st.cache = self._extend_fn(self.params, self._tokens(toks), st.cache, bt,
+                                                   n, c0 + chunk)
                 st.consumed += n
                 spent += n
             if st.consumed < len(prompt):
@@ -567,7 +567,7 @@ class ServeEngine:
                     # publish the prompt's full pages for later hits
                     self.prefix.insert(prompt, self._slot_pages[st.slot])
             else:
-                self.model.write_cache(self.cache, st.cache, st.slot)
+                self.cache = self._write_fn(self.cache, st.cache, st.slot)
             self.slots[st.slot] = st.req
             if self.spec:
                 # the visible stream: the prompt (failover-carried tokens are
@@ -607,12 +607,8 @@ class ServeEngine:
         return [i for i, r in enumerate(self.slots) if r is not None]
 
     def _pick(self, row: torch.Tensor) -> int:
-        """Next token from a (V,) logits row (admission): argmax, or one
-        draw from the engine's generator."""
-        if not self._sampled:
-            return int(torch.argmax(row))
-        return int(_sample_tokens(row[None], self._gen, self.scfg.temperature,
-                                  self.scfg.top_k)[0])
+        """Next token from a (V,) logits row (admission), read to the host."""
+        return int(self._pick_fn(row))
 
     def _commit_token(self, req: Request, tok: int):
         """Commit a token with its clock reading; ``first_token_at`` is set
@@ -644,31 +640,26 @@ class ServeEngine:
             if not self.batched:
                 self.caches[i] = None
 
-    def _batch(self, toks: np.ndarray, active: List[int], rows_ahead: int) -> dict:
-        """A step's batch dict: the tokens and, paged, the block table, after
-        backing each active slot's rows up to ``rows_ahead`` past its pending
-        token's row (``used - 1``) with pages."""
-        batch = {"tokens": self._tokens(toks)}
+    def _batch(self, toks: np.ndarray, active: List[int], rows_ahead: int) -> tuple:
+        """A step's device token grid and, paged, block table (else None),
+        after backing each active slot's rows up to ``rows_ahead`` past its
+        pending token's row (``used - 1``) with pages."""
+        bt = None
         if self.paged:
             for i in active:
                 self._ensure_pages(i, self._used(self.slots[i]) + rows_ahead)
-            batch["block_table"] = self._bt_dev()
-        return batch
+            bt = self._bt_dev()
+        return self._tokens(toks), bt
 
     @torch.no_grad()
     def _decode_batched(self, active: List[int]) -> int:
         toks = np.zeros((self.scfg.max_batch, 1), np.int32)
         for i in active:
             toks[i, 0] = self.slots[i].tokens_out[-1]
-        logits, self.cache = self.model.decode_step(
-            self.params, self._batch(toks, active, 0), self.cache, self.ccfg)
-        if self._sampled:
-            nxt = _sample_tokens(logits[:, -1], self._gen, self.scfg.temperature,
-                                 self.scfg.top_k)
-        else:
-            # torch.argmax returns the first maximum, as jnp.argmax does
-            nxt = torch.argmax(logits[:, -1], dim=-1)
-        nxt = nxt.cpu().numpy()
+        step = self._sample_fn if self._sampled else self._decode_fn
+        toks_dev, bt = self._batch(toks, active, 0)
+        nxt, self.cache = step(self.params, toks_dev, self.cache, bt)
+        nxt = nxt.cpu().numpy()         # the step's one read to the host
         for i in active:
             req = self.slots[i]
             tok = int(nxt[i])
@@ -702,17 +693,16 @@ class ServeEngine:
         # past max(used) + k (inactive rows' outputs are discarded); rows past
         # a slot's capacity land in the trash page, as the dense cache's
         # headroom leaves them unread
-        batch = self._batch(toks, active, k)
-        toks_dev = batch["tokens"]
+        toks_dev, bt = self._batch(toks, active, k)
         live = max(self._used(self.slots[i]) for i in active) + k
-        logits, self.cache, self._ckpt = self.model.spec_verify(
-            self.params, batch, self.cache, self.ccfg, ckpt=self._ckpt, kv_len=live)
         if self._sampled:
-            acc, fin = spec_sample_accept(logits, toks_dev[:, 1:], self._tokens(keff), self._gen,
-                                          self.scfg.temperature, self.scfg.top_k)
+            acc, fin, self.cache, self._ckpt = self._spec_sample_fn(
+                self.params, toks_dev, self.cache, bt, self._tokens(keff), live)
             acc, fin = acc.cpu().numpy(), fin.cpu().numpy()
         else:
-            greedy = torch.argmax(logits, dim=-1).cpu().numpy()     # (B, K+1)
+            greedy, self.cache, self._ckpt = self._verify_fn(self.params, toks_dev, self.cache,
+                                                             bt, live)
+            greedy = greedy.cpu().numpy()                            # (B, K+1)
         keep = np.zeros(b, np.int64)
         produced = 0
         for i in active:
@@ -744,7 +734,7 @@ class ServeEngine:
             lb = self.scfg.ngram_lookback
             if len(ctx) > 2 * lb:               # the drafter reads only the tail
                 del ctx[:len(ctx) - lb]
-        self.cache = self.model.spec_rewind(self.cache, self._ckpt, self._tokens(keep))
+        self.cache = self._rewind_fn(self.cache, self._ckpt, self._tokens(keep))
         return produced
 
     @torch.no_grad()
@@ -760,6 +750,151 @@ class ServeEngine:
             self._commit_token(req, nxt)
             self._retire_if_done(req, i, nxt)
         return len(active)
+
+    # -------------------------------------------------------- step closures
+    # The model-level calls a batched step makes, by the reference's names
+    # (its jitted closures): each takes the params where it reads them, the
+    # device token grid and the cache, and returns the cache it updated in
+    # place. ``step()`` goes through them and ``step_closures()`` lists them,
+    # so ``repro_torch.analysis`` audits what the step runs; the one read to
+    # the host (the step's tokens) follows them.
+    @staticmethod
+    def _batch_of(toks: torch.Tensor, bt: Optional[torch.Tensor]) -> dict:
+        return {"tokens": toks} if bt is None else {"tokens": toks, "block_table": bt}
+
+    @torch.no_grad()
+    def _decode_fn(self, params, toks, cache, bt=None):
+        """decode_step over the slot grid, then each row's argmax (B,)."""
+        logits, cache = self.model.decode_step(params, self._batch_of(toks, bt), cache, self.ccfg)
+        # torch.argmax returns the first maximum, as jnp.argmax does
+        return torch.argmax(logits[:, -1], dim=-1), cache
+
+    @torch.no_grad()
+    def _sample_fn(self, params, toks, cache, bt=None):
+        """decode_step over the slot grid, then one draw a row (B,)."""
+        logits, cache = self.model.decode_step(params, self._batch_of(toks, bt), cache, self.ccfg)
+        return _sample_tokens(logits[:, -1], self._gen, self.scfg.temperature,
+                              self.scfg.top_k), cache
+
+    @torch.no_grad()
+    def _extend_fn(self, params, toks, cache, bt, n_valid: int, kv_len: int):
+        return self.model.prefill_extend(params, self._batch_of(toks, bt), cache, self.ccfg,
+                                         n_valid=n_valid, kv_len=kv_len)
+
+    @torch.no_grad()
+    def _write_fn(self, cache, staging, slot: int):
+        return self.model.write_cache(cache, staging, slot)
+
+    @torch.no_grad()
+    def _verify_fn(self, params, toks, cache, bt, kv_len: int):
+        """The verify pass and each position's argmax (B, K+1)."""
+        logits, cache, ckpt = self.model.spec_verify(params, self._batch_of(toks, bt), cache,
+                                                     self.ccfg, ckpt=self._ckpt, kv_len=kv_len)
+        return torch.argmax(logits, dim=-1), cache, ckpt
+
+    @torch.no_grad()
+    def _spec_sample_fn(self, params, toks, cache, bt, keff, kv_len: int):
+        """The verify pass, then acceptance and resampling on the device."""
+        logits, cache, ckpt = self.model.spec_verify(params, self._batch_of(toks, bt), cache,
+                                                     self.ccfg, ckpt=self._ckpt, kv_len=kv_len)
+        acc, fin = spec_sample_accept(logits, toks[:, 1:], keff, self._gen,
+                                      self.scfg.temperature, self.scfg.top_k)
+        return acc, fin, cache, ckpt
+
+    @torch.no_grad()
+    def _rewind_fn(self, cache, ckpt, keep):
+        return self.model.spec_rewind(cache, ckpt, keep)
+
+    @torch.no_grad()
+    def _copy_fn(self, cache, src: int, dst: int):
+        return self.model.paged_copy_page(cache, src, dst)
+
+    @torch.no_grad()
+    def _reset_pos_fn(self, cache, slot: int, value: int):
+        return cache_utils.reset_slot_pos(cache, slot, value)
+
+    @torch.no_grad()
+    def _pick_fn(self, row: torch.Tensor) -> torch.Tensor:
+        """Admission's next token from a (V,) logits row: argmax, or one draw
+        from the engine's generator; a 0-d tensor on the row's device."""
+        if not self._sampled:
+            return torch.argmax(row)
+        return _sample_tokens(row[None], self._gen, self.scfg.temperature, self.scfg.top_k)[0]
+
+    def step_closures(self) -> Dict[str, dict]:
+        """Every step closure this engine's mode makes, by name: ``{"fn",
+        "donates_cache", "takes_params", "cache_arg", "cache_out"}``.
+        ``cache_arg`` is the cache's index among the closure's arguments
+        (:meth:`step_example_args`), ``cache_out`` its index among the
+        outputs (-1: the output is the cache; None: no cache). The reference
+        donates the cache to its closures; here they update it in place,
+        which ``repro_torch.analysis.contract`` checks leaf by leaf."""
+        assert self.batched, "step closures exist only on the batched engine"
+        reg: Dict[str, dict] = {}
+
+        def add(name, fn, cache_arg, cache_out, takes_params=True):
+            reg[name] = {"fn": fn, "donates_cache": cache_arg is not None,
+                         "takes_params": takes_params, "cache_arg": cache_arg,
+                         "cache_out": cache_out}
+
+        add("decode", self._decode_fn, 2, 1)
+        add("extend", self._extend_fn, 2, 1)
+        if not self.paged:
+            add("write", self._write_fn, 0, -1, takes_params=False)
+        if self.spec:
+            add("verify", self._verify_fn, 2, 1)
+            add("rewind", self._rewind_fn, 0, -1, takes_params=False)
+            if self._sampled:
+                add("spec_sample", self._spec_sample_fn, 2, 2)
+        if self._sampled:
+            add("sample", self._sample_fn, 2, 1)
+        if self.paged:
+            add("copy_page", self._copy_fn, 0, -1, takes_params=False)
+            add("reset_pos", self._reset_pos_fn, 0, -1, takes_params=False)
+        add("pick", self._pick_fn, None, None, takes_params=False)
+        return reg
+
+    def step_example_args(self, name: str, cache: dict) -> tuple:
+        """Arguments shaped as ``step()`` passes them to closure ``name``,
+        over ``cache`` (a copy of the engine's, so a closure's writes land
+        there): zero token grids on the device, the live block table, a
+        fresh staging cache for dense admission. ``rewind`` takes the
+        checkpoint of the last verify pass (one on ``cache`` if none ran)."""
+        b = self.scfg.max_batch
+        dev = self.device
+        bt = self._bt_dev() if self.paged else None
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+        if name in ("decode", "sample"):
+            return (self.params, zeros(b, 1), cache, bt)
+        if name in ("verify", "spec_sample"):
+            live = self._draft_len + 1
+            if name == "verify":
+                return (self.params, zeros(b, live), cache, bt, live)
+            return (self.params, zeros(b, live), cache, bt, zeros(b), live)
+        if name == "extend":
+            chunk = self.scfg.prefill_chunk or self.scfg.max_len
+            if self._chunk_cap:
+                chunk = min(chunk, self._chunk_cap)
+            if self.paged:
+                return (self.params, zeros(1, chunk), self._slot_cache(0, cache), bt[:1], chunk,
+                        chunk)
+            staging = self.model.init_cache(1, self._cache_len, dtype=self.ccfg.resolved_kv_dtype,
+                                            device=dev)
+            return (self.params, zeros(1, chunk), staging, None, chunk, chunk)
+        if name == "write":
+            staging = self.model.init_cache(1, self._cache_len, dtype=self.ccfg.resolved_kv_dtype,
+                                            device=dev)
+            return (cache, staging, 0)
+        if name == "rewind":
+            ckpt = self._ckpt
+            if ckpt is None:        # no verify pass yet: make one on this cache
+                ckpt = self._verify_fn(*self.step_example_args("verify", cache))[2]
+            return (cache, ckpt, zeros(b).to(torch.int64))
+        if name in ("copy_page", "reset_pos"):
+            return (cache, 0, 0)
+        if name == "pick":
+            return (torch.zeros((int(self.model.cfg.vocab),), dtype=torch.float32, device=dev),)
+        raise KeyError(f"unknown step closure {name!r}")
 
     def step(self) -> int:
         """One engine step; returns the number of decode tokens produced."""

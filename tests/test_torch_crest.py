@@ -329,7 +329,7 @@ def test_topk_sparsify_keeps_every_weight_tied_at_the_threshold():
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
 
 
-@pytest.mark.parametrize("arch", sorted(registry.ALIASES))
+@pytest.mark.parametrize("arch", sorted(registry.ALIASES) + ["llama31_405b"])
 def test_flops_equal_jax_for_every_registry_config(arch):
     for smoke in (False, True):
         tcfg = registry.get_config(arch, smoke)
