@@ -152,6 +152,24 @@ each rebuilt one held to the same request served alone.
    shapes (the FP4 matmul at M = 8 up to its 16384 x 128000 head, decode
    attention at 128/8 heads, flash attention at its 128/8 prefill).
 
+6. Multi-device serving (``mesh``, last; explicit SPMD on ``torch.distributed``): (a)
+   each rank's column band of the FP4 matmul (codeqwen1.5-7b's and llama3.1-405b's
+   shapes at m = 2, 4, 8) and of the grouped expert matmul (olmoe's, m = 2, 4) equal,
+   bit for bit, those columns of the unsharded call, and decode and flash attention over
+   half the slot grid, planned as the whole grid (``ops.planned_rows``), its rows; (b) a
+   world of one NCCL rank in this process: ``allreduce_compressed`` bit-equal to the
+   same call on the CPU, and a (1, 1) mesh engine's streams (codeqwen, full depth)
+   equal to the mesh-less engine's; (c) gloo worlds of 2 and 4 ranks sharing the card
+   (spawned processes; NCCL takes one rank a card), codeqwen1.5-7b and olmoe-1b-7b at
+   full width cut to ``MESH_DEPTH`` layers: cascade on (1, 2) and (2, 2), plain and
+   speculative, every stream equal to one rank's alone and no partial-sum all-reduce
+   in any step, megatron on (1, 2) (its all-reduces counted, its first departure read
+   with the reference's top-2 margin), megatron on mamba2-370m's tied head (the table
+   banded on the vocabulary: every stream served, the ranks agreeing), olmoe cascade on
+   (1, 2), and the EP MoE layer on
+   (1, 2) within 2^-6 of the unsharded layer; each rank's bands, memory and step times
+   (ranks time-slicing one card: not a multi-GPU reading).
+
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
 full record goes to ``results/chip_smoke.json``.
@@ -3305,6 +3323,481 @@ def examples_and_audit_phase(torch, dev):
             "audit": au, "examples_s": t1 - t0, "audit_s": time.monotonic() - t1}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: multi-device serving (explicit SPMD on torch.distributed)
+# ---------------------------------------------------------------------------
+
+#: the mesh phase: MESH_REQ requests of MESH_PROMPT + MESH_NEW tokens a run,
+#: MAX_BATCH slots, chunks of CHUNK; the contexts stay under 256 keys, where
+#: no attention launch splits over the keys at any batch (a data shard runs
+#: half the grid's rows: past 256 live keys the attention kernels' plans
+#: follow the rows of the call)
+MESH_REQ, MESH_PROMPT, MESH_NEW = 8, 64, 16
+#: column bands held to the unsharded FP4 matmul: model ranks, rows, shapes
+#: (codeqwen1.5-7b's projections and head, llama3.1-405b's)
+MESH_BANDS = (2, 4, 8)
+MESH_ROWS = MAX_BATCH
+MESH_MATMUL = (("codeqwen1.5-7b", 4096, 4096), ("codeqwen1.5-7b", 4096, 13440),
+               ("codeqwen1.5-7b", 13440, 4096), ("codeqwen1.5-7b", 4096, 92416),
+               ("llama31_405b", 16384, 16384), ("llama31_405b", 16384, 65536),
+               ("llama31_405b", 65536, 16384), ("llama31_405b", 16384, 128000))
+#: the grouped expert kernel on olmoe-1b-7b's N bands: (K, N, pair) at C =
+#: MAX_BATCH rows an expert, top-8 of 64 routed
+MESH_GROUPED = ((2048, 1024, True), (1024, 2048, False))
+MESH_GROUPED_BANDS = (2, 4)
+#: EP MoE layer (olmoe-1b-7b at full width, bf16, the grouped kernel) on
+#: (1, 2) against the unsharded drop-free layer: bf16 outputs of the same
+#: expert products summed in another grouping
+MESH_EP_RTOL = 2.0 ** -6
+#: keys of the attention band check: past 256, where a launch over half the
+#: grid's rows would split otherwise than one over all of them
+MESH_ATTN_T = 1024
+#: layers of the gloo worlds' models (full width): ranks sharing the card
+#: all-gather each linear's bands through gloo, which makes a step several
+#: times slower than one rank alone, so depth is cut to keep the phase near
+#: two minutes
+MESH_DEPTH = {"codeqwen1.5-7b": 16, "olmoe-1b-7b": 8, "mamba2-370m": 8}
+
+
+def random_fp4(torch, gen, dev, k: int, n: int, experts: int = 0):
+    """Random packed FP4 codes and positive per-column scales (the band
+    check needs no quantized matrix: every code pattern is a weight)."""
+    lead = (experts,) if experts else ()
+    codes = torch.randint(0, 256, lead + (k // 2, n), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.uint8)
+    scales = torch.rand(lead + (1, n), generator=gen, device=dev) * 0.02 + 1e-3
+    return codes, scales
+
+
+def column_band_phase(torch, dev):
+    """(a) each rank's output columns, computed from its band of the packed
+    weight (its own contiguous copy, as ``shard_tree`` cuts it), equal the
+    same columns of the unsharded kernel's output bit for bit."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = []
+    for arch, k, n in MESH_MATMUL:
+        codes, scales = random_fp4(torch, gen, dev, k, n)
+        x = torch.randn((MESH_ROWS, k), generator=gen, device=dev).to(torch.bfloat16)
+        full = ops.cascade_matmul(x, codes, scales, out_dtype=torch.bfloat16)
+        for m in MESH_BANDS:
+            w = n // m
+            equal = all(torch.equal(
+                ops.cascade_matmul(x, codes[:, r * w:(r + 1) * w].contiguous(),
+                                   scales[:, r * w:(r + 1) * w].contiguous(),
+                                   out_dtype=torch.bfloat16),
+                full[:, r * w:(r + 1) * w]) for r in range(m))
+            rows.append({"kernel": "cascade_matmul", "arch": arch, "K": k, "N": n, "m": m,
+                         "band": w, "band_mod_32": w % 32, "bit_equal": equal})
+        del codes, scales, full
+    e, top = 64, 8
+    for k, n, pair in MESH_GROUPED:
+        stacks = [random_fp4(torch, gen, dev, k, n, e) for _ in range(2 if pair else 1)]
+        # C tokens routed top-8 of 64: each expert's rows, x zero past them
+        choice = torch.stack([torch.randperm(e, generator=gen, device=dev)[:top]
+                              for _ in range(MAX_BATCH)])
+        rcount = torch.bincount(choice.reshape(-1), minlength=e).to(torch.int32)
+        x = torch.randn((e, MAX_BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+        x = x * (torch.arange(MAX_BATCH, device=dev)[None, :, None] < rcount[:, None, None])
+        if pair:
+            full = ops.cascade_matmul_grouped_pair(x, stacks[0], stacks[1], rcount,
+                                                   out_dtype=torch.bfloat16)
+        else:
+            full = (ops.cascade_matmul_grouped(x, *stacks[0], rcount, out_dtype=torch.bfloat16),)
+        for m in MESH_GROUPED_BANDS:
+            w = n // m
+            band = lambda t, r: t[..., r * w:(r + 1) * w].contiguous()
+            equal = True
+            for r in range(m):
+                parts = [(band(c, r), band(s, r)) for c, s in stacks]
+                got = (ops.cascade_matmul_grouped_pair(x, parts[0], parts[1], rcount,
+                                                       out_dtype=torch.bfloat16) if pair
+                       else (ops.cascade_matmul_grouped(x, *parts[0], rcount,
+                                                        out_dtype=torch.bfloat16),))
+                equal &= all(torch.equal(g, f[..., r * w:(r + 1) * w]) for g, f in zip(got, full))
+            rows.append({"kernel": "cascade_matmul_grouped" + ("_pair" if pair else ""),
+                         "arch": "olmoe-1b-7b", "E": e, "C": MAX_BATCH, "K": k, "N": n, "m": m,
+                         "band": w, "bit_equal": bool(equal)})
+    rows += attention_band_rows(torch, dev, gen)
+    bad = [r for r in rows if not r["bit_equal"]]
+    if bad:
+        fail(f"mesh: a rank's band differs from the unsharded kernel's output: {bad}")
+    return rows
+
+
+def attention_band_rows(torch, dev, gen):
+    """Decode attention (codeqwen's step) and flash attention (its verify
+    pass) over half the slot grid, as a data shard runs them, under
+    ``ops.planned_rows``: each row equal to the whole grid's call bit for
+    bit at MESH_ATTN_T keys (unplanned, the half's plan splits otherwise)."""
+    from repro_torch.kernels import ops
+    b, h, d, t, s = MAX_BATCH, 32, 128, MESH_ATTN_T, 1 + DRAFT_LEN
+    half = b // 2
+    k = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.randint(t // 2, t, (b,), generator=gen, device=dev, dtype=torch.int32)
+    qv = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    off = (pos - s).clamp(min=0).to(torch.int32)
+    calls = {"decode_attention": lambda lo, hi: ops.decode_attention(
+                 q[lo:hi], k[lo:hi], v[lo:hi], q_pos=pos[lo:hi]),
+             "flash_attention": lambda lo, hi: ops.flash_attention(
+                 qv[lo:hi], k[lo:hi].transpose(1, 2), v[lo:hi].transpose(1, 2),
+                 q_offset=off[lo:hi])}
+    rows = []
+    for name, call in calls.items():
+        full = call(0, b)
+        unplanned = all(torch.equal(call(r * half, (r + 1) * half), full[r * half:(r + 1) * half])
+                        for r in range(2))
+        with ops.planned_rows(half, b):
+            planned = all(torch.equal(call(r * half, (r + 1) * half),
+                                      full[r * half:(r + 1) * half]) for r in range(2))
+        rows.append({"kernel": name, "B": b, "rows": half, "T": t, "H": h, "N": None, "m": 2,
+                     "bit_equal": planned, "bit_equal_unplanned": unplanned})
+    return rows
+
+
+def mesh_prompts(vocab: int, repetitive: bool):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    if repetitive:
+        return [np.tile(rng.integers(0, vocab, 4).astype(np.int32), MESH_PROMPT // 4)
+                for _ in range(MESH_REQ)]
+    return [rng.integers(0, vocab, MESH_PROMPT).astype(np.int32) for _ in range(MESH_REQ)]
+
+
+def mesh_scfg(**kw):
+    from repro_torch.serve.engine import ServeConfig
+    return ServeConfig(**{"max_batch": MAX_BATCH, "max_len": MESH_PROMPT + MESH_NEW + 1,
+                          "prefill_chunk": CHUNK, "fused": True, **kw})
+
+
+def mesh_serve(torch, eng, prompts) -> dict:
+    """Serve ``prompts`` through a (mesh) engine: the streams, the launches
+    (counted from zero just before), each closure's collectives in its last
+    call, step times and peak memory."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=MESH_NEW) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = collectives.snapshot()
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    return {"streams": [r.tokens_out for r in reqs], "launches": dict(ops.LAUNCHES),
+            "wall_s": time.monotonic() - t0, "step_ms_p50": m["step_time_p50_s"] * 1e3,
+            "step_ms_p99": m["step_time_p99_s"] * 1e3, "effective_mode": m["effective_mode"],
+            "collectives_per_closure": dict(getattr(eng, "collectives", {})),
+            "collectives_run": collectives.since(before),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_model(arch: str):
+    """(cfg, model) of ``arch`` at full width, cut to ``MESH_DEPTH`` layers."""
+    import dataclasses
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=MESH_DEPTH[arch])
+    return cfg, registry.build_model(cfg)
+
+
+def mesh_rank(rank: int, shape: tuple, runs: tuple) -> dict:
+    """One rank of a gloo world sharing the card: each run of ``runs``
+    ((name, arch, tp_policy, draft_len)) draws the arch's seeded params
+    (full width, ``MESH_DEPTH`` layers) a fragment at a time, keeping this
+    rank's bands of each (``sharding.param_placer``), builds a ServeEngine
+    on a ``shape`` mesh from them and serves the mesh prompts; on (1, 2)
+    also the EP MoE layer. The peak memory of each run: while the params
+    are drawn and cut (``init_peak_gb``), and while it serves
+    (``serve_peak_gb``)."""
+    import gc as gc_
+    import torch
+    from repro_torch.core import cascade
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import ServeEngine
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(shape, ("data", "model"))
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+    out = {"coords": dict(mesh.coords), "runs": {}}
+    for name, arch, policy, draft in runs:
+        gc_.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        cfg, model = mesh_model(arch)
+        params = model.init_params(0, ccfg, device=dev, place=sharding.param_placer(
+            mesh, policy, bool(cfg.tie_embeddings)))
+        eng = ServeEngine(model, params, ccfg, mesh_scfg(tp_policy=policy, draft_len=draft),
+                          mesh=mesh, device=dev)
+        del params
+        gc_.collect()
+        torch.cuda.synchronize()
+        init = {"init_s": time.monotonic() - t0,
+                "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "bands_gb": cascade.num_weight_bytes(eng.params) / 1e9,
+                "held_gb": torch.cuda.memory_allocated() / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        res = mesh_serve(torch, eng, mesh_prompts(cfg.vocab, repetitive=draft > 0))
+        out["runs"][name] = {**res, **init}
+        del eng
+    gc_.collect()
+    torch.cuda.empty_cache()
+    if shape == (1, 2):
+        out["ep"] = mesh_ep_layer(torch, dev, mesh)
+    return out
+
+
+def mesh_ep_layer(torch, dev, mesh) -> dict:
+    """``moe_ffn_apply_ep`` on this rank's 32 of olmoe-1b-7b's 64 experts
+    (layer 0 of the seeded full-width model, FP4, the grouped kernel)
+    against the unsharded drop-free layer on the same 8 tokens."""
+    import dataclasses
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    from repro_torch.models.moe import moe_ffn_apply, moe_ffn_init
+    from repro_torch.models.moe_shardmap import moe_ffn_apply_ep
+    cfg = dataclasses.replace(registry.get_config("olmoe-1b-7b"), moe_capacity_factor=50.0)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    layer = moe_ffn_init(gen, cfg, ccfg, device=dev)
+    x = (torch.randn((MAX_BATCH, 1, cfg.d_model), generator=gen, device=dev)).to(torch.bfloat16)
+    specs = sharding.filter_divisible(sharding.param_specs(layer, "megatron"), layer, mesh)
+    local = sharding.shard_tree(layer, specs, mesh)
+    y_ep = moe_ffn_apply_ep(local, x, cfg, ccfg, mesh)
+    y = moe_ffn_apply(layer, x, cfg, ccfg, no_drop=True)
+    err = (y_ep.float() - y.float()).abs()
+    return {"experts_local": int(local["wg"]["codes"].shape[0]),
+            "max_abs_err": float(err.max()),
+            "max_err_over_tol": float((err / (MESH_EP_RTOL * y.float().abs().amax())).max())}
+
+
+def first_stream_departure(ref: list, got: list):
+    """(request, token index) of the first token where ``got`` departs from
+    ``ref``, or None."""
+    for i, (a, b) in enumerate(zip(ref, got)):
+        j = next((t for t, (p, q) in enumerate(zip(a, b)) if p != q), None)
+        if j is not None:
+            return i, j
+    return None
+
+
+class _MeshRank:
+    """Rank ``model`` of a (1, m) mesh, as ``sharding.shard_tree`` reads it."""
+
+    def __init__(self, m: int, model: int):
+        self.shape, self.coords = {"data": 1, "model": m}, {"data": 0, "model": model}
+
+    def size(self, axis):
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis):
+        return self.coords.get(axis, 0)
+
+
+def llama_bands(torch, m: int = 8) -> dict:
+    """llama3.1-405b's packed FP4 weights, whole and rank 0's cascade bands
+    on a (1, ``m``) mesh, from its tree drawn on the meta device (no
+    memory): what one rank of ``torchrun --nproc-per-node 8 ... --mesh
+    1x8`` would hold."""
+    from repro_torch import tree as T
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    cfg = registry.get_config("llama31_405b")
+    meta = registry.build_model(cfg).init_params(
+        0, CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16), device="meta")
+    mesh = _MeshRank(m, 0)
+    band = sharding.shard_tree(meta, sharding.placed_param_specs(meta, mesh), mesh)
+    gb = lambda tree: sum(t.numel() * t.element_size() for t in T.leaves(tree)) / 1e9
+    layer = T.tree_map(lambda t: t[0], meta["layers"])
+    return {"layers": cfg.n_layers, "m": m, "whole_gb": gb(meta), "rank_bands_gb": gb(band),
+            "whole_layer_gb": gb(layer), "embed_gb": gb(meta["embed"])}
+
+
+def mesh_phase(torch, dev):
+    """Phase 6 (``mesh``): (a) column bands bit-equal at full width; (b) a
+    world of one rank over NCCL: ``allreduce_compressed`` bit-equal to the
+    same call on the CPU, and the (1, 1) mesh engine's streams equal to the
+    mesh-less engine's; (c) gloo worlds of 2 and 4 ranks sharing the card:
+    codeqwen1.5-7b cascade on (1, 2) and (2, 2), plain and speculative,
+    every stream the single-rank fused engine's and no partial-sum
+    all-reduce; megatron on (1, 2) (its all-reduces counted, its first
+    departure from cascade read with the reference's top-2 margin);
+    olmoe-1b-7b cascade on (1, 2); the EP MoE layer on (1, 2)."""
+    import gc as gc_
+    import torch.distributed as dist
+    from repro_torch.core import cascade
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import registry
+    from repro_torch.optim import grad_compression as gcmp
+    from repro_torch.serve.engine import ServeEngine
+
+    out = {"gpu": gpu_name_and_power(),
+           "note": "ranks of a gloo world share ONE H100 (time-sliced processes): the step "
+                   "times are not a multi-GPU reading",
+           "requests": MESH_REQ, "prompt_len": MESH_PROMPT, "max_new": MESH_NEW,
+           "max_batch": MAX_BATCH,
+           "cuts": [f"the gloo worlds' models at {MESH_DEPTH} layers (full width): each "
+                    "linear's bands meet through gloo between ranks sharing one card, "
+                    "which at full depth takes the phase well past two minutes",
+                    "contexts of 64 + 16 tokens in the served runs (the attention bands "
+                    f"are checked at {MESH_ATTN_T} keys in (a))"]}
+    print(json.dumps({"mesh_cuts": out["cuts"]}), flush=True)
+    out["llama31_405b_bands"] = llama_bands(torch)
+    t0 = time.monotonic()
+    out["column_bands"] = column_band_phase(torch, dev)
+    out["column_bands_s"] = time.monotonic() - t0
+
+    # (b) NCCL, a world of one rank, in this process
+    meshlib.init_world(0, 1, meshlib.free_port(), "nccl")
+    try:
+        cpu_group = dist.new_group(backend="gloo")
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(3)
+        grads = {"w": torch.randn((4096, 1024), generator=gen), "b": torch.randn((4096,), generator=gen)}
+        res = {k: 0.01 * torch.randn(v.shape, generator=gen) for k, v in grads.items()}
+        m_cpu, r_cpu = gcmp.allreduce_compressed(grads, res, cpu_group)
+        m_gpu, r_gpu = gcmp.allreduce_compressed({k: v.to(dev) for k, v in grads.items()},
+                                                 {k: v.to(dev) for k, v in res.items()},
+                                                 dist.group.WORLD)
+        comp_equal = all(torch.equal(m_cpu[k], m_gpu[k].cpu()) and
+                         torch.equal(r_cpu[k], r_gpu[k].cpu()) for k in grads)
+        if not comp_equal:
+            fail("mesh: allreduce_compressed over NCCL differs from the same call on the CPU")
+        out["nccl_world1"] = {"allreduce_compressed_bit_equal": comp_equal,
+                              "backend": dist.get_backend()}
+
+        arch = "codeqwen1.5-7b"
+        cfg, model = registry.load(arch)
+        ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16)
+        params = model.init_params(0, ccfg, device=dev)
+        out["packed_weights_gb"] = {arch: cascade.num_weight_bytes(params) / 1e9}
+        prompts = mesh_prompts(cfg.vocab, repetitive=False)
+        alone, _, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg, prompts,
+                                      "mesh_meshless", max_new=MESH_NEW,
+                                      max_len=MESH_PROMPT + MESH_NEW + 1)
+        mesh11 = meshlib.make_mesh((1, 1), ("data", "model"))
+        eng = ServeEngine(model, params, ccfg, mesh_scfg(), mesh=mesh11, device=dev)
+        one = mesh_serve(torch, eng, prompts)
+        del eng, params
+        if one["streams"] != [r.tokens_out for r in reqs]:
+            fail(f"mesh: the (1, 1) NCCL mesh engine departs from the mesh-less engine at "
+                 f"{first_stream_departure([r.tokens_out for r in reqs], one['streams'])}")
+        out["nccl_world1"]["mesh_1x1"] = {
+            "layers": cfg.n_layers, "streams_equal": True, "step_ms_p50": one["step_ms_p50"],
+            "meshless_step_ms_p50": alone["step_ms_p50"], "collectives": one["collectives_run"]}
+        # the gloo worlds' references: one rank alone, the same cut models
+        refs = {}
+        for key, rarch, draft in (("plain", arch, 0), ("spec", arch, DRAFT_LEN),
+                                  ("olmoe", "olmoe-1b-7b", 0)):
+            gc_.collect()
+            torch.cuda.empty_cache()
+            rcfg, rmodel = mesh_model(rarch)
+            rparams = rmodel.init_params(0, ccfg, device=dev)
+            run, _, reqs, rec = serve_run(torch, dev, rarch, rmodel, rparams, ccfg,
+                                          mesh_prompts(rcfg.vocab, repetitive=draft > 0),
+                                          f"mesh_ref_{key}", margins=True, max_new=MESH_NEW,
+                                          max_len=MESH_PROMPT + MESH_NEW + 1, draft_len=draft)
+            refs[key] = {"streams": [r.tokens_out for r in reqs], "top2": rec["top2"],
+                         "step_ms_p50": run["step_ms_p50"], "peak_mem_gb": run["peak_mem_gb"],
+                         "packed_weights_gb": cascade.num_weight_bytes(rparams) / 1e9}
+            del rparams
+        out["references"] = {k: {f: v[f] for f in ("step_ms_p50", "peak_mem_gb",
+                                                   "packed_weights_gb")}
+                             for k, v in refs.items()}
+    finally:
+        dist.destroy_process_group()
+    gc_.collect()
+    torch.cuda.empty_cache()
+
+    # (c) gloo worlds sharing the card
+    t1 = time.monotonic()
+    two = meshlib.run_local_ranks(2, mesh_rank, (1, 2), (
+        ("cascade_plain", "codeqwen1.5-7b", "cascade", 0),
+        ("cascade_spec", "codeqwen1.5-7b", "cascade", DRAFT_LEN),
+        ("megatron_plain", "codeqwen1.5-7b", "megatron", 0),
+        ("megatron_tied", "mamba2-370m", "megatron", 0),
+        ("olmoe_cascade", "olmoe-1b-7b", "cascade", 0)), threads=2)
+    four = meshlib.run_local_ranks(4, mesh_rank, (2, 2), (
+        ("cascade_plain", "codeqwen1.5-7b", "cascade", 0),
+        ("cascade_spec", "codeqwen1.5-7b", "cascade", DRAFT_LEN)), threads=2)
+    out["gloo_worlds_s"] = time.monotonic() - t1
+    worlds = {"1x2": two, "2x2": four}
+    summary = {}
+    for wname, ranks in worlds.items():
+        for run in ranks[0]["runs"]:
+            tied = run == "megatron_tied"        # mamba2-370m: no single-rank reference
+            ref = refs["olmoe" if run.startswith("olmoe") else
+                       "spec" if run.endswith("spec") else "plain"]
+            per_rank = [r["runs"][run] for r in ranks]
+            dec = "verify" if run.endswith("spec") else "decode"
+            psum = [collectives.partial_sum_allreduces(p["collectives_per_closure"][dec])
+                    for p in per_rank]
+            rec = {"streams_equal_single_rank": None if tied else all(
+                       p["streams"] == ref["streams"] for p in per_rank),
+                   "ranks_agree": all(p["streams"] == per_rank[0]["streams"] for p in per_rank),
+                   f"{dec}_collectives_rank0": per_rank[0]["collectives_per_closure"][dec],
+                   "partial_sum_allreduces_per_step": psum,
+                   "launches_rank0": per_rank[0]["launches"],
+                   "step_ms_p50": [p["step_ms_p50"] for p in per_rank],
+                   "single_rank_step_ms_p50": None if tied else ref["step_ms_p50"],
+                   "init_s": [p["init_s"] for p in per_rank],
+                   "init_peak_gb": [p["init_peak_gb"] for p in per_rank],
+                   "bands_gb": [p["bands_gb"] for p in per_rank],
+                   "held_gb": [p["held_gb"] for p in per_rank],
+                   "serve_peak_gb": [p["peak_mem_gb"] for p in per_rank]}
+            need = ("cascade_matmul", "norm") + (
+                ("ssd_scan",) if tied else
+                ("decode_attention" if dec == "decode" else "flash_attention",)) + (
+                ("cascade_matmul_grouped",) if run.startswith("olmoe") else ())
+            if not all(per_rank[0]["launches"][k] > 0 for k in need):
+                fail(f"mesh {wname} {run}: a kernel of the run never launched: "
+                     f"{per_rank[0]['launches']}")
+            if not rec["ranks_agree"]:
+                fail(f"mesh {wname} {run}: the ranks committed different streams")
+            if run.startswith("megatron"):
+                if not all(len(s) == MESH_NEW for s in per_rank[0]["streams"]) or min(psum) == 0:
+                    fail(f"mesh {wname} {run}: megatron did not serve every stream with its "
+                         f"all-reduces: {psum}")
+                if tied:
+                    # the head's vocabulary bands of logits are all-gathered
+                    if per_rank[0]["collectives_per_closure"]["decode"]["all_gather"]["calls"] < 1:
+                        fail(f"mesh {wname} {run}: the tied head gathered no logits")
+                    summary[f"{wname} {run}"] = rec
+                    continue
+                dep = first_stream_departure(refs["plain"]["streams"], per_rank[0]["streams"])
+                rec["first_departure_from_cascade"] = None if dep is None else {
+                    "request": dep[0], "token": dep[1],
+                    "reference_top2_margin_bf16_steps":
+                        top2_margin(refs["plain"]["top2"][dep])[1]}
+            else:
+                if any(psum):
+                    fail(f"mesh {wname} {run}: cascade made partial-sum all-reduces: {psum}")
+                if not rec["streams_equal_single_rank"]:
+                    fail(f"mesh {wname} {run}: a stream departs from the single-rank fused "
+                         f"engine's at {first_stream_departure(ref['streams'], per_rank[0]['streams'])}")
+            summary[f"{wname} {run}"] = rec
+    out["gloo"] = summary
+    ep = two[0]["ep"], two[1]["ep"]
+    out["ep_moe_1x2"] = list(ep)
+    if max(e["max_err_over_tol"] for e in ep) > 1.0:
+        fail(f"mesh: moe_ffn_apply_ep on (1, 2) outside {MESH_EP_RTOL} * max|y|: {ep}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3424,6 +3917,8 @@ def main() -> int:
     print(json.dumps({"precision_sim": sim}), flush=True)
     restart = timed("restart", restart_phase)
     print(json.dumps({"restart": restart}), flush=True)
+    mesh = timed("mesh", mesh_phase)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
 
     def per_step(arch, key, per="launches_per_decode_step"):
@@ -3722,6 +4217,7 @@ def main() -> int:
               "fake_quant_fp4": fqs, "cascade_exact": ce_res, "train": train, "qat_serve": qat,
               "train_recipe": recipe,
               "precision_sim": sim, "restart": restart, "examples_and_audit": exa,
+              "mesh": mesh,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if par_failed:

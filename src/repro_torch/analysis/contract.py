@@ -18,7 +18,13 @@ reference's ``repro/analysis/contract.py``, held to the census of a call,
   one finding a leaf (``closure:leaf/path``);
   on the plain route (CPU tensors, where every linear dequantizes by
   design) it is an info finding, as the reference treats interpret mode;
-* the collective budget: with no device mesh, an info finding.
+* the collective budget: on a mesh engine, each closure's counted
+  collectives (``engine.collectives``, ``distributed/collectives.py``: the
+  port's counterpart of the reference's HLO collective stats) held to
+  ``max_partial_sum_allreduces`` -- 0 under the cascade placement,
+  uncapped under megatron -- except the ``psum_exempt_closures``, as in the
+  reference; with no mesh, an info finding. On a mesh every rank audits
+  (each closure's collectives need all the ranks).
 
 ``audit_engine(engine)`` calls every closure of ``engine.step_closures()``
 once, on a copy of the engine's cache (the engine's own cache, sampling
@@ -35,6 +41,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.analysis import census
 from repro_torch.analysis.findings import Finding
+from repro_torch.distributed import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +56,13 @@ class ServingContract:
     strict_donation_closures: Tuple[str, ...] = (
         "decode", "sample", "write", "verify", "spec_sample", "copy_page", "reset_pos")
     require_packed_weights: bool = False
+    # the zero-partial-sum claim (paper 2.2/13.5) covers the decode-path
+    # closures; None: uncapped (the megatron baseline)
+    max_partial_sum_allreduces: Optional[int] = 0
+    # closures the partial-sum cap skips, as the reference's contract has
+    # it (its chunked prefill writes a batch-1 staging cache under a
+    # replicated placement)
+    psum_exempt_closures: Tuple[str, ...] = ("extend",)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -56,8 +70,12 @@ class ServingContract:
 
 def default_contract(engine) -> ServingContract:
     """The contract the engine's configuration promises: packed weights iff
-    it serves FP4."""
-    return ServingContract(require_packed_weights=(engine.ccfg.mode == "serve_fp4"))
+    it serves FP4, zero partial-sum all-reduces iff the cascade policy
+    placed the params (megatron is the measured baseline that has them)."""
+    return ServingContract(
+        require_packed_weights=(engine.ccfg.mode == "serve_fp4"),
+        max_partial_sum_allreduces=0 if getattr(engine, "tp_policy", "cascade") == "cascade"
+        else None)
 
 
 def _leaves(cache) -> list:
@@ -141,6 +159,23 @@ def audit_step(name: str, fn, args: tuple, contract: ServingContract, *, params=
     return stats, findings
 
 
+def collective_budget(name: str, counts: dict, contract: ServingContract,
+                      stats: dict) -> list:
+    """Hold one closure's counted collectives (a ``collectives.since``
+    record) to the partial-sum cap; adds them to ``stats``."""
+    psum = collectives.partial_sum_allreduces(counts)
+    stats.update(collectives={k: counts[k] for k in collectives.KINDS},
+                 partial_sum_allreduces=psum,
+                 collective_bytes=sum(counts[k]["bytes"] for k in collectives.KINDS))
+    cap = contract.max_partial_sum_allreduces
+    if cap is None or name in contract.psum_exempt_closures or psum <= cap:
+        return []
+    return [Finding("collective-budget", name,
+                    f"{psum} partial-sum all-reduce(s) ({counts['all_reduce_sum']['bytes']} B) "
+                    f"in one call, over the contract's {cap}: a SUM of partial products "
+                    "crossed ranks (paper Sections 2.2, 13.5)")]
+
+
 def audit_engine(engine, contract: Optional[ServingContract] = None) -> dict:
     """Call and audit every step closure of a constructed engine.
 
@@ -169,12 +204,15 @@ def audit_engine(engine, contract: Optional[ServingContract] = None) -> dict:
                 params=engine.params if entry["takes_params"] else None,
                 takes_params=entry["takes_params"], cache_arg=entry["cache_arg"],
                 cache_out=entry["cache_out"], kernel_route=kernel_route)
+            if getattr(engine, "mesh", None) is not None:
+                fs += collective_budget(name, engine.collectives[name], contract, stats)
             closures[name] = stats
             out_findings.extend(fs)
     finally:
         engine._gen.set_state(gen_state)
         engine._ckpt = ckpt
-    out_findings.append(Finding("collective-budget", "engine",
-                                "no device mesh: the collective budget is not applicable",
-                                level="info"))
+    if getattr(engine, "mesh", None) is None:
+        out_findings.append(Finding("collective-budget", "engine",
+                                    "no device mesh: the collective budget is not applicable",
+                                    level="info"))
     return {"contract": contract.to_dict(), "closures": closures, "findings": out_findings}

@@ -28,7 +28,16 @@ the same input (gate and up) through one launch for the pair
 (:func:`expert_linear_pair_apply`), and QAT fake-quantizes the whole stack
 in one launch, each expert with its own scales.
 
-Not ported: the mesh sharding hooks (Queue 1 item 10).
+Under a mesh (an installed ``distributed.sharding.ActivationPolicy``) a
+linear whose leaves are banded over ``model`` runs on its band, through the
+same route as without one: a column band (cascade; megatron's column
+modules) computes this rank's output columns and all-gathers them (or,
+asked, leaves them to a consumer that works on its columns); a row band
+(megatron's row modules) multiplies the matching band of the input's
+features and all-reduces the f32 partial sums, then adds the bias. An
+expert stack banded on N (cascade) gathers its columns; one banded on E
+(megatron's expert parallelism) runs this rank's experts on their rows of
+the buffer and gathers the experts.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,20 +137,22 @@ def _precision_sim(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.T
     return out.to(cfg.compute_dtype)
 
 
-def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
-    """y = x @ W (+ b) under the configured format; f32 accumulation, output
-    in the compute dtype."""
+def _linear_local(params: dict, x: torch.Tensor, cfg: CascadeConfig,
+                  out_dtype=None) -> torch.Tensor:
+    """y = x @ W (+ b) on the leaves as they are; f32 accumulation, output
+    in ``out_dtype`` (default: the compute dtype)."""
     cd = cfg.compute_dtype
+    od = cd if out_dtype is None else out_dtype
     b = params.get("b")
     if cfg.mode == "serve_fp4":
         if cfg.precision_sim:
-            return _precision_sim(params, x, cfg)
+            return _precision_sim(params, x, cfg).to(od)
         if cfg.use_kernel:
             # activations enter the matmul in the compute dtype, as on the
             # plain path (Mamba-2's gated norm hands over f32 after extend)
             from repro_torch.kernels import ops
             return ops.cascade_matmul(x.to(cd), params["codes"], params["scale"], b,
-                                      out_dtype=cd)
+                                      out_dtype=od)
         w = quant.dequantize_weight(params["codes"], params["scale"], cd)
     else:
         w = params["w"]
@@ -150,7 +162,65 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Ten
     out = torch.matmul(x.to(cd).to(torch.float32), w.to(torch.float32))
     if b is not None:
         out = out + b
-    return out.to(cd)
+    return out.to(od)
+
+
+def _policy_band(params: dict):
+    """(policy, banded dim from the end) of a linear's weight under the
+    installed mesh policy, or (None, None)."""
+    pol = sharding.get_activation_policy()
+    if pol is None:
+        return None, None
+    return pol, pol.band(params.get("codes", params.get("w")))
+
+
+def banded(params: dict) -> Optional[int]:
+    """The dim (-1: columns, -2: rows, -3: experts) on which a linear's
+    weight is banded over ``model`` under the installed mesh policy, or
+    None."""
+    return _policy_band(params)[1]
+
+
+def gather_columns(y: torch.Tensor) -> torch.Tensor:
+    """Every model rank's columns of ``y`` (a column-banded linear's output
+    left unjoined), joined."""
+    return sharding.get_activation_policy().gather_model(y, -1)
+
+
+def _row_band(pol, params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
+    """Megatron's row-parallel linear: this rank's rows of W times the
+    matching features of x (x whole, or already this rank's band of them:
+    the output of column-banded linears, unjoined), the f32 partial sums
+    all-reduced, then the (replicated) bias."""
+    fp4 = "codes" in params
+    kb = params["codes"].shape[-2] * 2 if fp4 else params["w"].shape[-2]
+    r = pol.model_rank
+    local = {"codes": params["codes"], "scale": params["scale"]} if fp4 else {"w": params["w"]}
+    if fp4 and params["scale"].shape[-2] > 1:                 # K-grouped scales: their band
+        g = params["scale"].shape[-2] // pol.model_size
+        local["scale"] = params["scale"][..., r * g:(r + 1) * g, :]
+    xs = x if x.shape[-1] == kb else x[..., r * kb:(r + 1) * kb]   # x may be the band already
+    part = _linear_local(local, xs, cfg, out_dtype=torch.float32)
+    out = pol.sum_model(part)
+    if params.get("b") is not None:
+        out = out + params["b"]
+    return out.to(cfg.compute_dtype)
+
+
+def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
+                 gather: bool = True) -> torch.Tensor:
+    """y = x @ W (+ b) under the configured format; f32 accumulation, output
+    in the compute dtype. Under a mesh policy a banded weight runs on its
+    band (see the module docstring); ``gather=False`` leaves a column
+    band's output as this rank's columns, for a consumer that works on
+    them (an elementwise gate, attention on the rank's heads)."""
+    pol, band = _policy_band(params)
+    if band == -1:
+        y = _linear_local(params, x, cfg)
+        return pol.gather_model(y, -1) if gather else y
+    if band == -2:
+        return _row_band(pol, params, x, cfg)
+    return _linear_local(params, x, cfg)
 
 
 def expert_linear_init(gen: torch.Generator, n_experts: int, d_in: int, d_out: int,
@@ -162,12 +232,8 @@ def expert_linear_init(gen: torch.Generator, n_experts: int, d_in: int, d_out: i
     return {k: torch.stack([p[k] for p in experts]) for k in experts[0]}
 
 
-def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
-                        rows: torch.Tensor | None = None) -> torch.Tensor:
-    """x (E, C, d_in) -> (E, C, d_out), expert e with its own weight; f32
-    accumulation, output in the compute dtype. ``rows`` (E,) int32, the
-    routed rows of each expert (the rest of its C rows are zero inputs),
-    lets the grouped kernel skip what is not routed; None means all C."""
+def _expert_local(params: dict, x: torch.Tensor, cfg: CascadeConfig,
+                  rows: torch.Tensor | None) -> torch.Tensor:
     cd = cfg.compute_dtype
     if cfg.mode == "serve_fp4":
         if cfg.use_kernel:
@@ -184,26 +250,60 @@ def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
     return torch.matmul(x.to(cd).to(torch.float32), w.to(torch.float32)).to(cd)
 
 
+def _expert_rows(pol, params: dict, x: torch.Tensor, rows):
+    """This rank's experts' rows of the (E, C, d) buffer and of ``rows``,
+    under megatron's expert parallelism (E banded over ``model``)."""
+    el = params.get("codes", params.get("w")).shape[-3]
+    e0 = pol.model_rank * el
+    return x[e0:e0 + el], (None if rows is None else rows[e0:e0 + el])
+
+
+def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
+                        rows: torch.Tensor | None = None) -> torch.Tensor:
+    """x (E, C, d_in) -> (E, C, d_out), expert e with its own weight; f32
+    accumulation, output in the compute dtype. ``rows`` (E,) int32, the
+    routed rows of each expert (the rest of its C rows are zero inputs),
+    lets the grouped kernel skip what is not routed; None means all C.
+    Under a mesh policy a banded stack runs on its band."""
+    pol, band = _policy_band(params)
+    if band == -1:
+        return pol.gather_model(_expert_local(params, x, cfg, rows), -1)
+    if band == -3:
+        return pol.gather_model(_expert_local(params, *_expert_rows(pol, params, x, rows), cfg),
+                                0)
+    return _expert_local(params, x, cfg, rows)
+
+
 def expert_linear_pair_apply(first: dict, second: dict, x: torch.Tensor, cfg: CascadeConfig,
                              rows: torch.Tensor | None = None) -> tuple:
     """:func:`expert_linear_apply` of two expert linears of one shape over
     the same x (the MoE layer's gate and up): in ``serve_fp4`` with
     ``use_kernel``, one grouped launch for both; otherwise two calls. Each
     output has the bits its own call gives it."""
-    if cfg.mode == "serve_fp4" and cfg.use_kernel:
-        from repro_torch.kernels import ops
-        return ops.cascade_matmul_grouped_pair(
-            x.to(cfg.compute_dtype), (first["codes"], first["scale"]),
-            (second["codes"], second["scale"]), rows, out_dtype=cfg.compute_dtype)
-    return (expert_linear_apply(first, x, cfg, rows), expert_linear_apply(second, x, cfg, rows))
+    if not (cfg.mode == "serve_fp4" and cfg.use_kernel):
+        return (expert_linear_apply(first, x, cfg, rows),
+                expert_linear_apply(second, x, cfg, rows))
+    from repro_torch.kernels import ops
+    pol, band = _policy_band(first)
+    xs, rs = (x, rows) if band != -3 else _expert_rows(pol, first, x, rows)
+    pair = ops.cascade_matmul_grouped_pair(
+        xs.to(cfg.compute_dtype), (first["codes"], first["scale"]),
+        (second["codes"], second["scale"]), rs, out_dtype=cfg.compute_dtype)
+    if band is None:
+        return pair
+    return tuple(pol.gather_model(y, -1 if band == -1 else 0) for y in pair)
 
 
 def linear_weight(params: dict, cfg: CascadeConfig) -> torch.Tensor:
     """Dense (d_in, d_out) weight of a linear in the compute dtype (MLA's
-    absorbed decode reads the raw matrix)."""
+    absorbed decode reads the raw matrix). Under a mesh policy a banded
+    weight's bands are all-gathered into the whole matrix."""
     if cfg.mode == "serve_fp4":
-        return quant.dequantize_weight(params["codes"], params["scale"], cfg.compute_dtype)
-    return params["w"].to(cfg.compute_dtype)
+        w = quant.dequantize_weight(params["codes"], params["scale"], cfg.compute_dtype)
+    else:
+        w = params["w"].to(cfg.compute_dtype)
+    pol, band = _policy_band(params)
+    return w if band is None else pol.gather_model(w, band)
 
 
 def tree_to_serve_fp4(params, cfg: CascadeConfig):

@@ -41,14 +41,19 @@ _FP4_MIDPOINTS = tuple((a + b) / 2.0 for a, b in zip(FP4_VALUES[1:], FP4_VALUES[
 #: Elements of a (K, N) matrix the elementwise codec takes at once: a larger
 #: one (llama3.1-405b's 16384 x 128000 head) goes by blocks of columns, each
 #: quantized or decoded on its own as every column is anyway (the same
-#: bits), so the codec's f32 and int32 transients stay near 1 GB each.
+#: bits), so the codec's f32 and int32 transients stay near 1 GB each. The
+#: encode holds about eight such transients at once, so quantization takes
+#: blocks an eighth that size (a mesh rank's init peak is one head's draw
+#: and its encode, beside its bands).
 CODEC_BLOCK = 1 << 28
 
 
-def column_blocks(k: int, n: int) -> list:
+def column_blocks(k: int, n: int, block: int | None = None) -> list:
     """Column ranges [j, j + step) of a (K, N) matrix, each at most
-    ``CODEC_BLOCK`` elements (one range when the matrix is smaller)."""
-    step = n if k * n <= CODEC_BLOCK else max(1, CODEC_BLOCK // k)
+    ``block`` (default ``CODEC_BLOCK``) elements (one range when the matrix
+    is smaller)."""
+    block = CODEC_BLOCK if block is None else block
+    step = n if k * n <= block else max(1, block // k)
     return [(j, min(j + step, n)) for j in range(0, n, step)]
 
 
@@ -120,7 +125,7 @@ def quantize_weight(w: torch.Tensor, group_size: int = 0) -> Tuple[torch.Tensor,
     scales (G, N) f32.
     """
     k, n = w.shape
-    blocks = column_blocks(k, n)
+    blocks = column_blocks(k, n, CODEC_BLOCK // 8)
     if len(blocks) > 1:
         parts = [quantize_weight(w[:, j0:j1], group_size) for j0, j1 in blocks]
         return torch.cat([p for p, _ in parts], dim=1), torch.cat([s for _, s in parts], dim=1)

@@ -13,3 +13,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA GPU is available (torch.cuda.is_available() is False); "
             "pass device='cpu' (--device cpu) to run the plain CPU path")
     return dev
+
+
+def seeded_generator(device: torch.device, seed: int):
+    """A generator on ``device`` seeded with ``seed``; None on the meta
+    device, whose draws have shapes and no values (a model's
+    ``init_params(..., device="meta")`` gives its tree's shapes)."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen

@@ -1,0 +1,429 @@
+"""Placement policies -- CASCADE column-parallel (paper-faithful) against
+Megatron-style row+column tensor parallelism -- and the port's explicit
+SPMD placement on ``torch.distributed`` (the reference's
+``repro/distributed/sharding.py``).
+
+The paper's central distribution claim (Sections 2.2, 13.5): CASCADE makes
+the OUTPUT column the unit of parallelism, so every reduction stays on one
+rank and no all-reduce of partial sums exists in the serving graph.
+
+* ``cascade`` -- every weight is sharded on its output dim over ``model``,
+  expert weights included (on their N); a linear computes this rank's
+  output columns and all-gathers them. The embedding table is sharded on
+  d, a tied one stays replicated (its head contracts over d).
+* ``megatron`` -- the baseline: the row modules (``wo``, ``w_down``,
+  ``w_out``, ``out_proj``) take a row band of their weight, multiply the
+  matching feature band of their input and all-reduce the partial sums;
+  experts are expert-parallel (E over ``model``); the embedding table is
+  sharded on the vocabulary (tied or not), its lookup all-reduced and a
+  tied head's vocabulary bands of logits all-gathered.
+
+The spec functions return, for every leaf, the reference's
+``PartitionSpec`` as a plain tuple of per-dim axis names (``None``:
+replicated; a tuple of names: sharded over their product), padded with
+``None`` to the leaf's rank; they read only ``.shape``/``.ndim`` (meta
+tensors do).
+
+Placement is explicit SPMD: every rank runs the same host program on the
+same requests and holds exactly the local bands the specs give it
+(:func:`shard_tree`); the model code runs on local tensors and calls the
+collectives of ``distributed/collectives.py`` where a band must meet the
+others. The installed :class:`ActivationPolicy` (the reference's
+``set/get/clear_activation_policy``) tells the model code which leaves are
+banded over ``model`` and on which dim. Its collective points stand where
+the reference's ``constrain_*`` hooks pin activations:
+
+* ``constrain_matmul_input`` (features replicated before a linear): here
+  the linear that made a column band gathers it (:meth:`ActivationPolicy.
+  gather_model`), or its consumer does, so every linear input that wants
+  its features whole, every residual and every recurrence and norm input is
+  whole on every rank of a model group;
+* ``constrain_replicated`` (logits rows that feed sampling, the MoE
+  dispatch, attention against a cache): logits rows are whole after the
+  head's gather; the engine's data shards each sample their own rows from
+  the full grid's noise and all-gather the tokens (``serve/engine.py``);
+  the serving MoE dispatch is drop-free, so a token's expert rows depend on
+  that token alone and a data shard dispatches its own rows;
+* ``constrain_residual``: nothing to do, the residual is never banded.
+
+Within a layer a band may stay unjoined where its consumer works on it:
+the MLP's elementwise gate on its hidden columns, attention on the rank's
+heads; it is joined before a linear that wants it whole, and handed as it
+is to a row-banded one (megatron).
+
+A mesh engine places its cache by the models' ``cache_pspecs`` (the slot
+axis over ``data``, as the reference's engine does) and by
+:func:`kv_head_bands`, the part of :func:`cache_specs` it places (the KV
+heads over ``model`` where they divide); the installed policy then says
+the KV heads are banded (``ActivationPolicy.kv_heads_banded``), and a rank
+attends on its heads, whose q/k/v are its columns of the projections,
+unjoined (``models/layers.attn_apply``). Where the heads do not divide,
+and for MLA's latent cache and Mamba-2's and Griffin's recurrent state,
+the leaves stay whole on every model rank: :func:`kv_head_bands` drops
+those bands of :func:`cache_specs` (the reference's T band, whose partial
+attentions a merge would sum in another order, is not placed).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.distributed import collectives as C
+
+# modules whose 2D weight contracts on dim 0 and expands on dim 1
+_COLUMN_MODULES = {
+    "wq", "wk", "wv", "w_gate", "w_up", "w_in", "wa", "wx", "in_proj",
+    "wq_a", "wq_b", "wkv_a", "wkv_b", "lm_head",
+}
+# modules whose OUTPUT returns to d_model (Megatron shards these on dim 0)
+_ROW_MODULES = {"wo", "w_down", "w_out", "out_proj"}
+_EXPERT_MODULES = {"wg", "wu", "wd"}
+
+
+def _pad(spec: tuple, ndim: int) -> tuple:
+    return (None,) * (ndim - len(spec)) + tuple(spec)
+
+
+def spec_for_param(path: tuple, leaf, policy: str, model_axis: str = "model",
+                   tied_embed: bool = False) -> tuple:
+    """The spec of one param leaf, by (module name, leaf name, ndim)."""
+    leaf_name = path[-1] if path else ""
+    module = path[-2] if len(path) >= 2 else ""
+    ndim = leaf.ndim
+    if module in _EXPERT_MODULES:
+        # experts (.., E, K, N) / codes (.., E, K//2, N) / scale (.., E, G, N)
+        if ndim >= 3:
+            return _pad((model_axis, None, None) if policy == "megatron"
+                        else (None, None, model_axis), ndim)
+        return _pad((None,), ndim)
+    if leaf_name == "table":                      # embedding (V, d)
+        if policy == "megatron":
+            return _pad((model_axis, None), ndim)
+        if tied_embed:
+            return _pad((None, None), ndim)
+        return _pad((None, model_axis), ndim)
+    if module == "router":
+        return _pad((None, None), ndim)
+    is_linear = module in _COLUMN_MODULES or module in _ROW_MODULES
+    row = policy == "megatron" and module in _ROW_MODULES
+    if is_linear and leaf_name in ("w", "codes"):
+        return _pad((model_axis, None) if row else (None, model_axis), ndim)
+    if is_linear and leaf_name == "scale":        # FP4 quant scales (G, N)
+        return _pad((None, None) if row else (None, model_axis), ndim)
+    if is_linear and leaf_name == "b":
+        return _pad((None,) if row else (model_axis,), ndim)
+    return (None,) * ndim
+
+
+def _map_with_path(fn, tree, path: tuple = ()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _map2(fn, a, b):
+    """``fn`` over corresponding leaves of ``a`` (a tree of tensors or
+    shapes) and ``b`` (a tree of spec tuples: a tuple is a leaf)."""
+    if isinstance(a, dict):
+        return {k: _map2(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, list):
+        return [_map2(fn, v, w) for v, w in zip(a, b)]
+    return fn(a, b)
+
+
+def param_specs(params_tree: Any, policy: str = "cascade", model_axis: str = "model",
+                tied_embed: bool = False):
+    """The spec tree of ``params_tree``. ``tied_embed`` marks the models
+    whose head is the embedding's transpose: their table stays replicated
+    under cascade, so the tied head never contracts over a banded dim."""
+    return _map_with_path(lambda p, leaf: spec_for_param(p, leaf, policy, model_axis,
+                                                         tied_embed), params_tree)
+
+
+def _axis_size(mesh, name) -> int:
+    names = name if isinstance(name, tuple) else (name,)
+    return math.prod(mesh.shape.get(a, 1) for a in names)
+
+
+def filter_divisible(specs_tree: Any, shapes_tree: Any, mesh):
+    """Drop mesh-axis names from the dims their axis size does not divide
+    (such leaves stay replicated)."""
+    def fix(leaf, spec):
+        parts = tuple(spec) + (None,) * (leaf.ndim - len(spec))
+        return tuple(name if name is not None and leaf.shape[i] % _axis_size(mesh, name) == 0
+                     else None for i, name in enumerate(parts))
+
+    return _map2(fix, shapes_tree, specs_tree)
+
+
+def _batch_axes(mesh, batch_axes) -> tuple:
+    axes = tuple(a for a in batch_axes if mesh is None or a in mesh.shape)
+    size = math.prod(mesh.shape[a] for a in axes) if mesh is not None else 1
+    return axes, size
+
+
+def batch_specs(batch_tree: Any, batch_axes=("pod", "data"), mesh=None):
+    """The leading batch dim of every input over the data axes (the M-RoPE
+    position stream's axis 1); replicated where the batch does not divide."""
+    axes, size = _batch_axes(mesh, batch_axes)
+
+    def spec(path, leaf):
+        bdim = 1 if path and path[-1] == "positions" else 0          # (3, B, S)
+        if leaf.shape[bdim] % max(size, 1) != 0:
+            return (None,) * leaf.ndim
+        out = [None] * leaf.ndim
+        out[bdim] = axes if len(axes) > 1 else (axes[0] if axes else None)
+        return tuple(out)
+
+    return _map_with_path(spec, batch_tree)
+
+
+def cache_specs(cache_tree: Any, mesh, model_axis: str = "model", batch_axes=("pod", "data")):
+    """The reference's KV/state cache spec: batch over the data axes; heads
+    (or a head-like dim) over ``model`` where divisible, else the cache's
+    time dim (k/v). Layouts: attn k/v (L, B, T, Hkv, hd); MLA c_kv (L, B,
+    T, lora); ssm state (L, B, H, P, N); conv (L, B, w-1, dim). The port's
+    caches stack every dict of leaves (``models/cache_utils.py``)."""
+    model_size = mesh.shape.get(model_axis, 1)
+    axes, data_size = _batch_axes(mesh, batch_axes)
+    baxis = axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def spec(path, leaf):
+        leaf_name = path[-1]
+        # every leaf of a dict of stacked leaves is (L, B, ...) ("layers",
+        # Griffin's "attn"); a per-slot leaf beside them is (B, ...)
+        stacked = len(path) > 1 and not path[0].isdigit()
+        if leaf.ndim == 0 or leaf_name in ("pos", "slot_pos"):
+            return (None,) * leaf.ndim
+        bdim = 1 if stacked else 0
+        out = [None] * leaf.ndim
+        if leaf.shape[bdim] % max(data_size, 1) == 0 and data_size > 1:
+            out[bdim] = baxis
+        if leaf_name in ("k", "v"):
+            hdim, tdim = leaf.ndim - 2, leaf.ndim - 3
+            if leaf.shape[hdim] % model_size == 0:
+                out[hdim] = model_axis
+            elif leaf.shape[tdim] % model_size == 0:
+                out[tdim] = model_axis
+        elif leaf_name in ("c_kv", "k_rope") and leaf.shape[-2] % model_size == 0:
+            out[-2] = model_axis
+        elif leaf_name == "state" and leaf.ndim >= bdim + 4:
+            if leaf.shape[bdim + 1] % model_size == 0:
+                out[bdim + 1] = model_axis
+        elif leaf_name in ("conv", "h"):
+            if leaf.shape[-1] % model_size == 0:
+                out[-1] = model_axis
+        return tuple(out)
+
+    return _map_with_path(spec, cache_tree)
+
+
+def kv_head_bands(cache_tree, mesh, model_axis: str = "model"):
+    """The model bands of :func:`cache_specs` that a mesh engine places:
+    its head band of every k/v leaf (the last dim but one). This is the one
+    place the rest of that spec is dropped: a k/v cache's T band (where its
+    heads do not divide the axis: the rank's partial attentions would be
+    merged in another order than the unsharded kernel's split), MLA's
+    latent rows and Mamba-2's and Griffin's state, conv and ``h`` bands
+    (their layers gather their inputs whole first). Those leaves stay
+    whole on every model rank."""
+    whole = cache_specs(cache_tree, mesh, model_axis, batch_axes=())
+    placed = mesh.shape.get(model_axis, 1) > 1
+
+    def keep(path, leaf):
+        spec = _spec_at(whole, path)
+        head = leaf.ndim - 2
+        return tuple(name if placed and i == head and path[-1] in ("k", "v") else None
+                     for i, name in enumerate(spec))
+
+    return _map_with_path(keep, cache_tree)
+
+
+def _spec_at(specs, path: tuple) -> tuple:
+    for step in path:
+        specs = specs[int(step)] if isinstance(specs, list) else specs[step]
+    return specs
+
+
+def merge_specs(a, b):
+    """Two spec trees of one tree, each dim taking the axis either names."""
+    return _map2(lambda x, y: tuple(p if p is not None else q for p, q in zip(x, y)), a, b)
+
+
+def add_data_dim(specs_tree, shapes_tree, mesh, batch_axes=("pod", "data")):
+    """ZeRO-style: also shard each leaf over the data axes on its first
+    unsharded, divisible dim (optimizer moments; FSDP params)."""
+    axes, size = _batch_axes(mesh, batch_axes)
+    daxis = axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def upd(leaf, spec):
+        if size <= 1 or leaf.ndim == 0:
+            return spec
+        parts = list(spec) + [None] * (leaf.ndim - len(spec))
+        for i in range(leaf.ndim):
+            if parts[i] is None and leaf.shape[i] % size == 0:
+                parts[i] = daxis
+                return tuple(parts)
+        return spec
+
+    return _map2(upd, shapes_tree, specs_tree)
+
+
+# ---------------------------------------------------------------------------
+# explicit SPMD placement
+# ---------------------------------------------------------------------------
+
+def _band_index(mesh, name) -> tuple:
+    """(index, count) of this rank's band over axis ``name`` (or a tuple of
+    axes, row-major over them)."""
+    names = name if isinstance(name, tuple) else (name,)
+    idx, count = 0, 1
+    for a in names:
+        idx = idx * mesh.size(a) + mesh.coord(a)
+        count *= mesh.size(a)
+    return idx, count
+
+
+def local_band(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``, in storage of its own (a
+    contiguous copy: the kernels read packed rows by their pitch). A leaf
+    replicated on every dim is returned as it is."""
+    out = t
+    for dim, name in enumerate(spec):
+        if name is None:
+            continue
+        idx, count = _band_index(mesh, name)
+        w = t.shape[dim] // count
+        out = out.narrow(dim, idx * w, w)
+    if out is t:
+        return t
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's local bands of every leaf of ``tree`` under ``specs``,
+    leaf by leaf (the full leaf can be freed as soon as its band is cut)."""
+    return _map2(lambda t, s: local_band(t, s, mesh), tree, specs)
+
+
+def placed_param_specs(params_tree: Any, mesh, policy: str = "cascade",
+                       tied_embed: bool = False):
+    """The specs a mesh engine places a param tree by:
+    ``filter_divisible(param_specs(...))`` on its whole shapes (a tree of
+    meta tensors will do)."""
+    return filter_divisible(param_specs(params_tree, policy, tied_embed=tied_embed),
+                            params_tree, mesh)
+
+
+def param_placer(mesh, policy: str = "cascade", tied_embed: bool = False):
+    """The ``place`` of a model's ``init_params``: a fragment of the param
+    tree (a layer's dict, or ``{"embed": ...}``), cut to this rank's bands
+    as soon as it is drawn. Its leaves' specs are the ones they take in the
+    whole tree: a spec reads the leaf's module, its name and its trailing
+    dims, and the layer dim a stacked leaf adds in front is never banded."""
+    return lambda fragment: shard_tree(
+        fragment, placed_param_specs(fragment, mesh, policy, tied_embed), mesh)
+
+
+def gather_band(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The inverse of :func:`local_band`: the whole leaf, all-gathered over
+    every axis that bands it (innermost axis first)."""
+    for dim in reversed(range(len(spec))):
+        name = spec[dim]
+        if name is None:
+            continue
+        for a in reversed(name if isinstance(name, tuple) else (name,)):
+            if mesh.size(a) > 1:
+                t = C.all_gather(t, mesh.group(a), dim=dim)
+    return t
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf whole again on every rank (checkpoints, failover)."""
+    return _map2(lambda t, s: gather_band(t, s, mesh), tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# the activation policy: what the model code reads while a mesh step runs
+# ---------------------------------------------------------------------------
+
+class ActivationPolicy:
+    """The installed placement of one mesh engine (or trainer): the policy
+    name, the mesh, and for each local param leaf banded over ``model``
+    the banded dim, counted from the end (a layer's view of a stacked leaf,
+    or an expert stack's, keeps its trailing dims). Leaves are found by
+    their storage, which every view of a leaf shares. ``moe_ep`` sends the
+    MoE layers to the expert-parallel dispatch (``models/moe_shardmap.py``),
+    as the reference's ``moe_ep`` flag does. ``cache_bands`` are the model
+    bands the engine placed on its cache (:func:`kv_head_bands`):
+    ``kv_heads_banded`` says whether its k/v leaves hold this rank's band
+    of the KV heads."""
+
+    def __init__(self, mesh, policy: str, local_params: Any = None, specs: Any = None,
+                 model_axis: str = "model", moe_ep: bool = False, cache_bands: Any = None):
+        self.mesh = mesh
+        self.policy = policy
+        self.moe_ep = moe_ep
+        self.kv_heads_banded = model_axis in T.leaves(cache_bands)   # names, flattened
+        self.model_axis = model_axis
+        self.model_size = mesh.size(model_axis)
+        self.model_rank = mesh.coord(model_axis)
+        self._bands: dict = {}
+        if local_params is not None and self.model_size > 1:
+            def note(t, spec):
+                for dim, name in enumerate(spec):
+                    names = name if isinstance(name, tuple) else (name,)
+                    if model_axis in names:
+                        self._bands[t.untyped_storage().data_ptr()] = dim - t.ndim
+                return t
+            _map2(note, local_params, specs)
+
+    def band(self, t: Optional[torch.Tensor]) -> Optional[int]:
+        """The dim (negative, from the end) on which local leaf ``t`` (or a
+        view of it) is banded over ``model``; None where it is whole."""
+        if t is None or not self._bands:
+            return None
+        return self._bands.get(t.untyped_storage().data_ptr())
+
+    def gather_model(self, y: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's band of ``y``, concatenated along ``dim``."""
+        return C.all_gather(y, self.mesh.group(self.model_axis), dim=dim)
+
+    def sum_model(self, y: torch.Tensor) -> torch.Tensor:
+        """The SUM of ``y`` over the model ranks (a partial-sum all-reduce)."""
+        return C.all_reduce(y, self.mesh.group(self.model_axis), "sum")
+
+
+_ACT_POLICY: Optional[ActivationPolicy] = None
+
+
+def set_activation_policy(policy: Optional[ActivationPolicy]) -> None:
+    global _ACT_POLICY
+    _ACT_POLICY = policy
+
+
+def get_activation_policy() -> Optional[ActivationPolicy]:
+    return _ACT_POLICY
+
+
+def clear_activation_policy() -> None:
+    set_activation_policy(None)
+
+
+@contextlib.contextmanager
+def activation_policy(policy: Optional[ActivationPolicy]):
+    """Install ``policy`` for the calls inside, and put back the one before
+    (an unsharded engine in the same process, a failover survivor, runs
+    with none)."""
+    prev = _ACT_POLICY
+    set_activation_policy(policy)
+    try:
+        yield policy
+    finally:
+        set_activation_policy(prev)

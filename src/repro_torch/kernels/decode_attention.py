@@ -106,9 +106,13 @@ def geometry() -> dict:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: torch.Tensor | None = None, scale: float | None = None,
                           q_pos: torch.Tensor | None = None, *,
-                          splits: int | None = None) -> torch.Tensor:
+                          splits: int | None = None,
+                          plan_rows: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel; k/v are read in place through their strides.
-    ``splits`` overrides :func:`choose_splits` (for measurement)."""
+    ``splits`` overrides :func:`choose_splits` (for measurement);
+    ``plan_rows`` chooses them for that many rows instead of B (a data
+    shard of a slot grid plans as the whole grid, so its rows' bits are the
+    unsharded grid's)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {dev}")
@@ -136,7 +140,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = hq // hkv
     hpb = heads_per_block(group)
     if splits is None:
-        splits = choose_splits(b, hkv, group, t, _sm_count(dev.index or 0))
+        splits = choose_splits(plan_rows or b, hkv, group, t, _sm_count(dev.index or 0))
     if not 1 <= splits <= _MAX_SPLITS:
         raise ValueError(f"splits must be 1-{_MAX_SPLITS}, got {splits}")
     live = None

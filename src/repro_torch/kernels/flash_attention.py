@@ -225,14 +225,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, scale: float | None = None,
                          q_offset: torch.Tensor | None = None,
                          k_pos: torch.Tensor | None = None, window: int = 0, *,
-                         splits: int | None = None) -> torch.Tensor:
+                         splits: int | None = None,
+                         plan_rows: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on bf16 CUDA tensors; raises on anything it
     does not take. q, k and v are read in place through their strides; the
     result is a (B, Hq, S, D) view of a (B, S, Hq, D) buffer, so a caller
     in the model's (B, S, H, D) layout transposes it back without a copy.
     Every query row must see at least one key (the kernel does not give the
     plain version's uniform average to a row that sees none).
-    ``splits`` overrides :func:`plan`'s split count (for measurement)."""
+    ``splits`` overrides :func:`plan`'s split count (for measurement);
+    ``plan_rows`` plans for that many rows instead of B (a data shard of a
+    slot grid plans as the whole grid, so its rows' bits are the unsharded
+    grid's)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
@@ -259,7 +263,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset.dtype != torch.int32 or tuple(q_offset.shape) != (b,) \
             or not q_offset.is_contiguous():
         raise ValueError(f"q_offset must be a contiguous ({b},) int32 tensor")
-    pl = plan(b, hq, hkv, s, t, sms=_sm_count(dev.index or 0))
+    pl = plan(plan_rows or b, hq, hkv, s, t, sms=_sm_count(dev.index or 0))
     splits = pl["splits"] if splits is None else splits
     if not 1 <= splits <= _MAX_SPLITS:
         raise ValueError(f"splits must be 1-{_MAX_SPLITS}, got {splits}")

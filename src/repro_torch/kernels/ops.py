@@ -17,6 +17,8 @@ device time apart.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +39,32 @@ LAUNCHES = {"cascade_matmul": 0, "cascade_matmul_exact": 0, "cascade_matmul_grou
 
 #: profiler range of :class:`_PlainGradient`'s backward
 PLAIN_GRADIENT = "ops.plain_gradient"
+
+#: (rows of a call, rows it plans for) while :func:`planned_rows` is on
+_PLAN_ROWS: tuple | None = None
+
+
+@contextlib.contextmanager
+def planned_rows(local: int, whole: int):
+    """Inside, an attention launch over ``local`` rows (a data shard's band
+    of a mesh engine's slot grid) chooses its split over the keys as one
+    over ``whole`` rows would, so each row takes the unsharded grid's
+    launch plan and bits. Other launches plan as they are."""
+    global _PLAN_ROWS
+    prev, _PLAN_ROWS = _PLAN_ROWS, (local, whole)
+    try:
+        yield
+    finally:
+        _PLAN_ROWS = prev
+
+
+def _plan_kw(b: int) -> dict:
+    """The ``plan_rows`` keyword of a launch over ``b`` rows, given only
+    inside :func:`planned_rows` (outside, a launch keeps the wrappers' own
+    signature, which a plain version stands in for on the card)."""
+    if _PLAN_ROWS is None or _PLAN_ROWS[0] != b:
+        return {}
+    return {"plan_rows": _PLAN_ROWS[1]}
 
 
 def reset_launch_counts() -> None:
@@ -183,7 +211,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel then reads no row past it) and ``valid[b, t]`` is nonzero; either
     may be absent. Returns (B, Hq, D) f32."""
     if _route(q) == "cuda":
-        out = _da.decode_attention_cuda(q.contiguous(), k, v, valid, scale, q_pos)
+        out = _da.decode_attention_cuda(q.contiguous(), k, v, valid, scale, q_pos,
+                                        **_plan_kw(q.shape[0]))
         LAUNCHES["decode_attention"] += 1
         return out
     return _da.decode_attention_plain(q, k, v, valid, scale, q_pos)
@@ -204,7 +233,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if _route(q) == "cuda":
         out = _kernel_call(
             lambda q, k, v: _fa.flash_attention_cuda(q, k, v, causal, scale, q_offset, k_pos,
-                                                     window),
+                                                     window, **_plan_kw(q.shape[0])),
             lambda q, k, v: _fa.flash_attention_plain(q, k, v, causal, scale, q_offset, k_pos,
                                                       window), q, k, v)
         LAUNCHES["flash_attention"] += 1

@@ -60,6 +60,27 @@ turn on one thread. On the H100 and as a CPU smoke:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --traffic --kill-at 0.2
 
+Mesh serving (explicit SPMD on ``torch.distributed``): ``--host-devices N``
+starts N local ranks in one gloo world (on the CPU, or N ranks sharing one
+card), ``--mesh DxM`` (or ``auto``) lays them out as (data, model), and
+``--tp-policy`` places the params (``cascade``: column bands, no partial-sum
+all-reduce; ``megatron``: the row+column baseline). Each rank draws the
+seeded params a layer at a time and keeps only its bands of each
+(``sharding.param_placer``): it never holds the whole model, only its
+bands (twice over while the layers' bands are stacked) and one whole
+fragment (a layer, the embedding or the head) as it is drawn. Under
+``torchrun`` the world comes from its environment (NCCL, one card a
+rank). Every rank serves the same requests; rank 0 prints.
+``--verify-collectives`` prints the decode (and verify) step's counted
+collectives and exits 1 if any partial-sum all-reduce appears (cascade
+passes; megatron, which has them by design, fails). The torchrun line
+needs eight cards (llama3.1-405b's bands a rank: the smoke's ``mesh``
+phase prints them); it has not been run:
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --host-devices 4 --mesh 2x2 --verify-collectives
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
+        --arch llama31_405b --mesh 1x8 --fused --verify-collectives
+
 The modality-stub configs (qwen2-vl-2b, musicgen-large) take embeddings from
 a stub frontend, not token prompts: the engine refuses them, as the
 reference's engine cannot serve them either. They run at the model level
@@ -81,9 +102,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives, sharding
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import registry
 from repro_torch.serve.elastic import ReplicaSet
 from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
@@ -108,7 +132,7 @@ def traffic_config(vocab: int, requests: int, rate: float, prompt_len: int, max_
                          slo_ttft_s=slo_ttft, deadline_s=deadline)
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="codeqwen1.5-7b")
     ap.add_argument("--smoke", action="store_true")
@@ -154,23 +178,87 @@ def main(argv=None) -> int:
     ap.add_argument("--kill-at", type=float, default=None, metavar="T",
                     help="with --traffic: fail replica 0 T seconds into the trace (its "
                          "streams are rebuilt on a survivor)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="start N local ranks in one gloo world (the CPU stand-in for a "
+                         "mesh of cards; on a card, N ranks sharing it)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh, e.g. 2x2 ('auto' splits the ranks)")
+    ap.add_argument("--tp-policy", default="cascade", choices=["cascade", "megatron"],
+                    help="param placement when --mesh is set")
+    ap.add_argument("--verify-collectives", action="store_true",
+                    help="print the decode (and verify) step's counted collectives; exit 1 "
+                         "if a step has a partial-sum all-reduce (the CASCADE invariant: "
+                         "cascade passes, the megatron baseline fails)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
 
     try:
-        device = resolve_device(args.device)
+        resolve_device(args.device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.traffic and (args.mesh or args.verify_collectives):
+        print("error: --traffic is a replica-fleet demo; run it without "
+              "--mesh/--verify-collectives", file=sys.stderr)
+        return 2
+    if args.verify_collectives and not args.mesh:
+        print("error: --verify-collectives reads a mesh engine's collectives: add --mesh",
+              file=sys.stderr)
+        return 2
+    if args.host_devices > 1:
+        runs = meshlib.run_local_ranks(args.host_devices, _rank_main, argv)
+        lines, rc = runs[0]
+        print("\n".join(lines))
+        return rc
+    own_world = False
+    if args.mesh and not meshlib.init_from_env():
+        # one process, no launcher: a world of one rank
+        meshlib.init_world(0, 1, meshlib.free_port(),
+                           "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
+        own_world = True
+    try:
+        lines, rc = serve(args)
+    finally:
+        if own_world:
+            dist.destroy_process_group()
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("\n".join(lines))
+    return rc
+
+
+def _rank_main(rank: int, argv) -> tuple:
+    """One local rank of ``--host-devices``: serve, and hand the lines back."""
+    return serve(parser().parse_args(argv))
+
+
+def serve(args) -> tuple:
+    """Build the model and engine the arguments ask for and serve: returns
+    (the lines to print, the exit code)."""
+    lines = []
+    say = lines.append
+    device = resolve_device(args.device)
+    mesh = meshlib.make_serving_mesh(args.mesh) if args.mesh else None
     cfg, model = registry.load(args.arch, smoke=args.smoke)
     compute = torch.float32 if device.type == "cpu" else torch.bfloat16
     ccfg = CascadeConfig(mode="train" if args.no_fp4 else "serve_fp4", compute_dtype=compute)
-    params = model.init_params(0, ccfg, device=device)
+    if mesh is None:
+        params = model.init_params(0, ccfg, device=device)
+    else:
+        # each fragment cut to this rank's bands as it is drawn: a rank never
+        # holds the whole model
+        tied = bool(getattr(cfg, "tie_embeddings", False))
+        params = model.init_params(0, ccfg, device=device,
+                                   place=sharding.param_placer(mesh, args.tp_policy, tied))
     scfg = ServeConfig(max_batch=args.max_batch,
                        max_len=args.prompt_len + args.max_new + 1, fused=args.fused,
                        draft_len=args.draft_len, ngram_max=args.ngram_max,
                        temperature=args.temperature,
                        top_k=args.top_k, sample_seed=args.sample_seed,
-                       prefix_cache=args.prefix_cache, page_size=args.page_size)
+                       prefix_cache=args.prefix_cache, page_size=args.page_size,
+                       tp_policy=args.tp_policy)
 
     if args.traffic:
         from repro_torch.serve.traffic import poisson_trace
@@ -183,20 +271,21 @@ def main(argv=None) -> int:
         recs = router.run_trace(trace, kills=kills)
         dt = time.time() - t0
         m = router.metrics()
-        print(f"mode={router.replicas.engines[0].effective_mode} device={device}")
-        print(f"traffic: {m['requests_offered']} arrivals at {args.rate:g} req/s over "
+        say(f"mode={router.replicas.engines[0].effective_mode} device={device}")
+        say(f"traffic: {m['requests_offered']} arrivals at {args.rate:g} req/s over "
               f"{args.replicas} replicas ({m['replicas_alive']} alive after {len(kills)} "
               f"kill(s), {len(router.replicas.requeued)} stream(s) rebuilt) in {dt:.2f}s")
-        print(f"  ttft p50/p99 {m['ttft_p50_s'] * 1e3:.1f}/{m['ttft_p99_s'] * 1e3:.1f} ms, "
+        say(f"  ttft p50/p99 {m['ttft_p50_s'] * 1e3:.1f}/{m['ttft_p99_s'] * 1e3:.1f} ms, "
               f"inter-token p50/p99 {m['inter_token_p50_s'] * 1e3:.1f}/"
               f"{m['inter_token_p99_s'] * 1e3:.1f} ms")
-        print(f"  SLO attainment {m['slo_attainment']:.3f} (finished {m['requests_finished']}, "
+        say(f"  SLO attainment {m['slo_attainment']:.3f} (finished {m['requests_finished']}, "
               f"shed {m['requests_shed']}, rejected {m['requests_rejected']})")
         for r in recs[:3]:
-            print(f"  req {r.uid}: {r.tokens_out}")
-        return 0
+            say(f"  req {r.uid}: {r.tokens_out}")
+        return lines, 0
 
-    eng = ServeEngine(model, params, ccfg, scfg, device=device)
+    eng = ServeEngine(model, params, ccfg, scfg, mesh=mesh, device=device)
+    del params
 
     rng = np.random.default_rng(0)
     # under --prefix-cache the requests share their first half (one system
@@ -218,20 +307,38 @@ def main(argv=None) -> int:
         total += eng.step()
     dt = time.time() - t0
     m = eng.metrics()
-    print(f"mode={m['effective_mode']} device={m['device']}"
+    say(f"mode={m['effective_mode']} device={m['device']}"
           + (f" (downgraded: {'; '.join(m['downgrades'])})" if m["downgrades"] else ""))
-    print(f"served {args.requests} requests, {total} tokens in {dt:.2f}s "
+    say(f"served {args.requests} requests, {total} tokens in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s), p99 step {m['step_time_p99_s'] * 1e3:.1f} ms, "
           f"admission wait {m['admission_wait_s_mean'] * 1e3:.1f} ms")
     if m["spec"]:
-        print(f"spec draft_len={m['draft_len']} accepted/step={m['accepted_per_step']:.2f}")
+        say(f"spec draft_len={m['draft_len']} accepted/step={m['accepted_per_step']:.2f}")
     if m["paged"]:
-        print(f"prefix cache: hit rate {m['prefix_hit_rate']:.2f} ({m['prefix_hits']}/"
+        say(f"prefix cache: hit rate {m['prefix_hit_rate']:.2f} ({m['prefix_hits']}/"
               f"{m['prefix_lookups']} tokens), pages {m['pages_in_use']}/{m['pages_total']} "
               f"(page_size={m['page_size']}), evictions {m['evictions']}")
     for r in reqs[:3]:
-        print(f"  req {r.uid}: {r.tokens_out}")
-    return 0
+        say(f"  req {r.uid}: {r.tokens_out}")
+    rc = 0
+    if mesh is not None:
+        say(f"mesh {m['mesh']} tp_policy={m['tp_policy']} rank {mesh.rank} of "
+            f"{meshlib.world_size()}")
+    if args.verify_collectives:
+        for name in ("decode", "sample", "verify", "spec_sample"):
+            c = eng.collectives.get(name)
+            if c is None:
+                continue
+            psum = collectives.partial_sum_allreduces(c)
+            say(f"collectives {name}: all_gather {c['all_gather']['calls']} "
+                f"({c['all_gather']['bytes']} B), all_reduce_sum {psum} "
+                f"({c['all_reduce_sum']['bytes']} B), all_reduce_max "
+                f"{c['all_reduce_max']['calls']}")
+            if psum:
+                say(f"FAIL: the {args.tp_policy} {name} step made {psum} partial-sum "
+                    "all-reduce(s): the zero-partial-sum invariant does not hold")
+                rc = 1
+    return lines, rc
 
 
 if __name__ == "__main__":

@@ -13,8 +13,14 @@ CPU smoke (f32 compute, no checkpointing, the kernels' plain versions):
         --smoke --device cpu --steps 20 --batch 8 --seq 64 --qat
 
 Without a card and without ``--device cpu`` it exits 2 and names the
-missing GPU. ``--mesh production`` and ``--tp-policy`` (the reference's
-sharded pod run) wait for the multi-device slice (ROADMAP Queue 1 item 10).
+missing GPU. ``--mesh host|production`` and ``--tp-policy`` are the
+reference's. The step runs unsharded, as the reference's does on its host
+mesh: every process a launcher starts (``torchrun``) holds the whole state
+and trains the same batches, so ``--mesh host --tp-policy megatron``
+trains exactly what a run without the flags does, and the policy places
+nothing. The host mesh starts no process group. ``--mesh production``
+builds the 16 x 16 mesh over a launcher's world: it needs 256 ranks and
+raises on a smaller world, naming them.
 """
 from __future__ import annotations
 
@@ -28,13 +34,16 @@ import torch
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import loop as train_loop
 
 
-def main(argv=None) -> int:
+def main(argv=None, losses: list | None = None) -> int:
+    """The CLI; each step's loss, as a Python float, is also appended to
+    ``losses`` when a list is given."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-32b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -45,7 +54,7 @@ def main(argv=None) -> int:
     ap.add_argument("--qat", action="store_true", help="FP4 quantization-aware training")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="host", choices=["host", "production"])
-    ap.add_argument("--tp-policy", default=None, choices=["cascade", "megatron"])
+    ap.add_argument("--tp-policy", default="cascade", choices=["cascade", "megatron"])
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -56,14 +65,18 @@ def main(argv=None) -> int:
                     help="run the CUDA kernels (QAT's fake quantization among them)")
     args = ap.parse_args(argv)
 
-    if args.mesh == "production" or args.tp_policy is not None:
-        raise NotImplementedError("--mesh production and --tp-policy (sharded training) are "
-                                  "not ported yet: ROADMAP Queue 1 item 10")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.mesh == "production":
+        meshlib.init_from_env()
+        meshlib.make_production_mesh()          # 16 x 16: raises below 256 ranks
+    return _train(args, device, [] if losses is None else losses)
+
+
+def _train(args, device, losses: list) -> int:
     cpu = device.type == "cpu"
     cfg, model = registry.load(args.arch, smoke=args.smoke)
     ccfg = CascadeConfig(mode="train", qat=args.qat, use_kernel=args.fused,
@@ -81,7 +94,8 @@ def main(argv=None) -> int:
 
     step_fn = train_loop.make_train_step(model, ccfg, opt, microbatches=args.microbatches,
                                          remat=not cpu)
-    losses, pending = [], None
+    pending = None
+    n0 = len(losses)
     t0 = time.time()
     for i in range(start_step, args.steps):
         state, metrics = step_fn(state, data.batch_at(i))
@@ -96,8 +110,9 @@ def main(argv=None) -> int:
                                 async_=True)
     if pending is not None:
         pending.join()
-    if losses:
-        print(f"final loss {np.mean(losses[-5:]):.4f} (first {np.mean(losses[:5]):.4f}) "
+    run = losses[n0:]
+    if run:
+        print(f"final loss {np.mean(run[-5:]):.4f} (first {np.mean(run[:5]):.4f}) "
               f"in {time.time() - t0:.1f}s device={device}")
     return 0
 

@@ -18,8 +18,12 @@ model's cache is ``{"layers": {...}}`` with each leaf stacked ``(L, B,
   ``{"attn": {"k", "v": (La, B, window, Hkv, D), "slot_pos": (La, B,
   window), "pos": (La, B)}}``.
 
-The slot axis is stated, not probed: axis 1 in ``layers`` and in every
-other dict of stacked leaves, axis 0 in a per-slot leaf beside them.
+The slot axis is stated for the slot operations below: axis 1 in
+``layers`` and in every other dict of stacked leaves, axis 0 in a per-slot
+leaf beside them. Mesh placement probes it instead, as the reference does
+(:func:`probe_slot_axes`: build the cache at two batch sizes, the one axis
+that changed is the slot axis), so :func:`slot_pspecs` places any model's
+cache without a schema of its own.
 Admission writes a batch-1 cache into a slot in place (a ring's
 ``slot_pos`` with it, so a reused slot keeps nothing of its last stream);
 nothing is reallocated.
@@ -60,6 +64,57 @@ import torch
 LAYER_SLOT_AXIS = 1
 #: the slot axis of a per-slot leaf beside ``layers`` (Mamba-2's ``pos``)
 TOP_SLOT_AXIS = 0
+#: probe shapes: small enough to be free (on the meta device), distinct
+#: enough to be unambiguous
+_PROBE_BATCHES = (2, 3)
+_PROBE_LEN = 8
+
+
+def probe_slot_axes(init_cache, probe_len: int = _PROBE_LEN):
+    """The tree of per-leaf slot-axis indices, found by probing:
+    ``init_cache(batch, max_len)`` at two batch sizes, and in each leaf
+    exactly one axis must differ."""
+    from repro_torch import tree as T
+    b0, b1 = _PROBE_BATCHES
+    small, big = init_cache(b0, probe_len), init_cache(b1, probe_len)
+
+    def axis_of(a, b):
+        diffs = [i for i, (p, q) in enumerate(zip(a.shape, b.shape)) if p != q]
+        if len(diffs) != 1:
+            raise ValueError(
+                f"cache leaf {tuple(a.shape)} -> {tuple(b.shape)}: expected exactly one "
+                f"batch-dependent axis, found {diffs}; every cache leaf must carry a "
+                "per-slot dimension")
+        return diffs[0]
+
+    return T.tree_map(axis_of, small, big)
+
+
+def slot_pspecs(spec, cache, mesh, data_axis: str = "data"):
+    """The spec tree placing each leaf's probed slot axis over ``data_axis``
+    (each data shard owns a contiguous band of slots) and every other dim
+    replicated; a leaf whose slot extent the axis does not divide stays
+    replicated."""
+    from repro_torch import tree as T
+    size = mesh.shape.get(data_axis, 1) if mesh is not None else 1
+
+    def one(ax, leaf):
+        parts = [None] * leaf.dim()
+        if size > 1 and leaf.shape[ax] % size == 0:
+            parts[ax] = data_axis
+        return tuple(parts)
+
+    return T.tree_map(one, spec, cache)
+
+
+def model_cache_pspecs(model, cache, mesh, data_axis: str = "data"):
+    """A model's ``cache_pspecs``: its cache's slot axes probed once (on
+    the meta device), then :func:`slot_pspecs`."""
+    axes = getattr(model, "_slot_axes", None)
+    if axes is None:
+        axes = probe_slot_axes(lambda b, t: model.init_cache(b, t, device="meta"))
+        model._slot_axes = axes
+    return slot_pspecs(axes, cache, mesh, data_axis)
 
 
 def _leaves(cache: dict):

@@ -32,6 +32,14 @@ its norms through the norm kernel (the residual adds folded in, as in
 prefill) and decode attention (decode). ``unbounded_context`` is set for a
 windowed config: the ring holds O(window) and the recurrence O(1) state, so
 the engine bounds no prompt by ``max_len``.
+
+Under a mesh policy (``distributed/sharding.py``) every projection of the
+recurrent blocks (``wa``, ``wx``, ``w_gate``, ``w_in``, ``w_out``) runs on
+its column band and gathers it (``core/cascade.py``), so the RG-LRU and the
+conv run on whole activations and their state stays whole on every model
+rank; local attention runs on the rank's KV heads where they divide the
+axis (``layers.attn_apply``; recurrentgemma-2b's one KV head does not, so
+its rings stay whole).
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models import remat as R
@@ -124,21 +132,28 @@ class GriffinLM:
             "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, ccfg, device=device),
         }
 
-    def init_params(self, seed: int, ccfg: CascadeConfig, device=None) -> dict:
+    def init_params(self, seed: int, ccfg: CascadeConfig, device=None,
+                    place=None) -> dict:
         """Random params from ``seed`` in the port's tree; in ``serve_fp4``
-        mode every matrix is quantized as it is drawn."""
+        mode every matrix is quantized as it is drawn.
+        ``place`` (``distributed.sharding.param_placer``) takes each
+        fragment of the tree (a layer, the embedding, the head) as soon as
+        it is drawn and keeps this rank's bands of it, so a mesh rank never
+        holds more than one whole fragment beside its bands."""
         cfg = self.cfg
         device = resolve_device(device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        return {
-            "layers": [self._rblock_init(gen, ccfg, device) if kind == "R"
-                       else self._ablock_init(gen, ccfg, device) for kind in self.kinds],
+        gen = seeded_generator(device, seed)
+        place = place or (lambda fragment: fragment)
+        params = {
+            "layers": [place(self._rblock_init(gen, ccfg, device) if kind == "R"
+                             else self._ablock_init(gen, ccfg, device)) for kind in self.kinds],
             "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
-            "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=ccfg.compute_dtype,
-                                  device=device),
-            "lm_head": cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg, device=device),
         }
+        params.update(place({"embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
+                                                   dtype=ccfg.compute_dtype, device=device)}))
+        params.update(place({"lm_head": cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg,
+                                                            device=device)}))
+        return params
 
     # --------------------------------------------------------------- RG-LRU
     def _rglru(self, lp: dict, y: torch.Tensor, ccfg: CascadeConfig, h0=None,
@@ -372,5 +387,10 @@ class GriffinLM:
         return cache
 
     # ----------------------------------------- continuous batching cache API
+    def cache_pspecs(self, cache: dict, mesh, data_axis: str = "data"):
+        """Mesh placement of a stacked cache: each leaf's probed slot axis
+        over ``data_axis`` (``cache_utils.slot_pspecs``)."""
+        return cache_utils.model_cache_pspecs(self, cache, mesh, data_axis)
+
     def write_cache(self, cache: dict, sub: dict, i: int) -> dict:
         return cache_utils.write_cache(cache, sub, i)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels.norm import add_norm_plain, gated_norm_plain, norm_plain
 from repro_torch.models import cache_utils
 
@@ -273,13 +274,27 @@ def attn_apply(
     reference's extend and verify pass none, and fail there too). The mask,
     decode attention's ``q_pos`` and flash attention's ``q_offset`` always
     read the cache rows.
+
+    Under a mesh policy whose cache holds this rank's band of the KV heads
+    (``ActivationPolicy.kv_heads_banded``: a mesh engine places them over
+    ``model`` where they divide), q/k/v stay this rank's columns of the column-banded
+    projections, which are its heads (q head h reads KV head h // G, so a
+    band of KV heads serves the matching band of q heads), the rank attends
+    on them, and their output is joined before ``wo`` (cascade) or handed
+    to a row-banded ``wo`` as it is (megatron).
     """
     b, s, _ = x.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     dev = x.device
-    q = cascade.linear_apply(params["wq"], x, ccfg).reshape(b, s, h, hd)
-    k = cascade.linear_apply(params["wk"], x, ccfg).reshape(b, s, hk, hd)
-    v = cascade.linear_apply(params["wv"], x, ccfg).reshape(b, s, hk, hd)
+    # the mesh engine's cache holds this rank's band of the KV heads: q/k/v
+    # stay this rank's heads
+    pol = sharding.get_activation_policy()
+    heads_banded = cache is not None and pol is not None and pol.kv_heads_banded
+    lin = lambda name: cascade.linear_apply(params[name], x, ccfg, gather=not heads_banded)
+    q = lin("wq").reshape(b, s, -1, hd)
+    k = lin("wk").reshape(b, s, -1, hd)
+    v = lin("wv").reshape(b, s, -1, hd)
+    h = q.shape[2]
 
     steps = torch.arange(s, dtype=torch.int32, device=dev)
     if cfg.mrope_sections and positions is None:
@@ -375,8 +390,10 @@ def attn_apply(
                                                   dtype=ccfg.resolved_kv_dtype,
                                                   window=cfg.window)
 
-    out = cascade.linear_apply(params["wo"], o.to(x.dtype).reshape(b, s, h * hd), ccfg)
-    return out, new_cache
+    o = o.to(x.dtype).reshape(b, s, h * hd)
+    if heads_banded and cascade.banded(params["wo"]) != -2:
+        o = cascade.gather_columns(o)          # wo wants every head (cascade)
+    return cascade.linear_apply(params["wo"], o, ccfg), new_cache
 
 
 def _masked_attention(q, k, v, valid, scale):
@@ -531,7 +548,12 @@ def _gelu(x):
 
 
 def mlp_apply(params: dict, x: torch.Tensor, kind: str, ccfg: CascadeConfig) -> torch.Tensor:
-    lin = lambda name, a: cascade.linear_apply(params[name], a, ccfg)
+    """The MLP. Under a mesh policy whose bands split the hidden width (w_up
+    column-banded), the elementwise gate runs on this rank's hidden columns,
+    which are joined before a w_down that wants them whole (cascade) and
+    handed as they are to a row-banded one (megatron)."""
+    banded = cascade.banded(params["w_up"]) == -1
+    lin = lambda name, a: cascade.linear_apply(params[name], a, ccfg, gather=not banded)
     if kind == "swiglu":
         hid = F.silu(lin("w_gate", x)) * lin("w_up", x)
     elif kind == "geglu":
@@ -542,7 +564,9 @@ def mlp_apply(params: dict, x: torch.Tensor, kind: str, ccfg: CascadeConfig) -> 
         hid = _gelu(lin("w_up", x))
     else:
         raise ValueError(kind)
-    return lin("w_down", hid)
+    if banded and cascade.banded(params["w_down"]) != -2:
+        hid = cascade.gather_columns(hid)
+    return cascade.linear_apply(params["w_down"], hid, ccfg)
 
 
 # ---------------------------------------------------------------------------
@@ -556,7 +580,22 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16,
 
 
 def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """The table's rows of ``tokens``. Under a mesh policy a table banded
+    on d (cascade) gathers its columns; one banded on the vocabulary
+    (megatron) looks up the ids in its band, zero rows for the others, and
+    all-reduces (each row then sums one nonzero band: exact)."""
+    table = params["table"]
+    pol = sharding.get_activation_policy()
+    band = pol.band(table) if pol is not None else None
+    if band == -1:
+        return pol.gather_model(table[tokens], -1)
+    if band == -2:
+        vb = table.shape[0]
+        local = tokens.to(torch.int64) - pol.model_rank * vb
+        mine = (local >= 0) & (local < vb)
+        rows = table[local.clamp(0, vb - 1)].to(torch.float32) * mine[..., None]
+        return pol.sum_model(rows).to(table.dtype)
+    return table[tokens]
 
 
 def tied_head(params: dict, x: torch.Tensor, compute_dtype,
@@ -567,13 +606,22 @@ def tied_head(params: dict, x: torch.Tensor, compute_dtype,
     reference computes it outside any kernel. It upcasts the whole table on
     every call. ``per_token`` (x: (B, S, d)) runs one (B, 1, d) matmul per
     token, the shape of a decode step: cuBLAS picks its f32 kernel by M,
-    and one matmul over all B * S rows rounds otherwise than decode does."""
-    w = params["table"].to(compute_dtype).to(torch.float32).T
+    and one matmul over all B * S rows rounds otherwise than decode does.
+    Under a mesh policy that bands the table on the vocabulary (megatron),
+    each rank computes the logits of its band of the vocabulary and they
+    are all-gathered, so every rank samples from the whole vocabulary."""
+    table = params["table"]
+    w = table.to(compute_dtype).to(torch.float32).T
     xf = x.to(compute_dtype).to(torch.float32)
     if per_token:
-        return torch.cat([torch.matmul(xf[:, j:j + 1].contiguous(), w)
-                          for j in range(xf.shape[1])], dim=1)
-    return torch.matmul(xf, w)
+        logits = torch.cat([torch.matmul(xf[:, j:j + 1].contiguous(), w)
+                            for j in range(xf.shape[1])], dim=1)
+    else:
+        logits = torch.matmul(xf, w)
+    pol = sharding.get_activation_policy()
+    if pol is not None and pol.band(table) == -2:
+        logits = pol.gather_model(logits, -1)
+    return logits
 
 
 def sinusoidal_positions(s: int, d: int, offset=0, device=None) -> torch.Tensor:

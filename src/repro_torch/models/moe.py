@@ -32,9 +32,13 @@ all ``n_layers`` attention caches, dense layers first (``{"layers": {"k",
 "v", "pos"}}``, or MLA's ``{"layers": {"c_kv", "k_rope", "pos"}}``), so the
 engine and ``cache_utils`` address it as the dense transformer's. The
 reference keeps ``{"dense_layers": [...], "layers": ...}``; a layer's cache
-depends only on its attention, which dense and MoE layers share. The mesh
-hooks (``constrain_*``, the shard_map expert-parallel dispatch) are not
-ported.
+depends only on its attention, which dense and MoE layers share. Under a
+mesh policy installed with ``moe_ep`` (``distributed.sharding.
+ActivationPolicy``) the routed experts take the expert-parallel dispatch
+of ``models/moe_shardmap.py`` (experts banded over ``model``, capacity
+semantics, one all-reduce to combine), as the reference's ``_moe_ffn``
+does; otherwise the capacity dispatch above, on whatever bands the policy
+gives the expert stacks (``core/cascade.py``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
@@ -315,24 +319,32 @@ class MoELM(TransformerLM):
                                   device=device)
         return p
 
-    def init_params(self, seed: int, ccfg: CascadeConfig, device=None) -> dict:
+    def init_params(self, seed: int, ccfg: CascadeConfig, device=None,
+                    place=None) -> dict:
         """Random params from ``seed`` in the reference's tree; in
         ``serve_fp4`` mode every matrix (every expert) is quantized as it
-        is drawn."""
+        is drawn.
+        ``place`` (``distributed.sharding.param_placer``) takes each
+        fragment of the tree (a layer, the embedding, the head) as soon as
+        it is drawn and keeps this rank's bands of it, so a mesh rank never
+        holds more than one whole fragment beside its bands."""
         cfg = self.cfg
         device = resolve_device(device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = seeded_generator(device, seed)
+        place = place or (lambda fragment: fragment)
         nd = cfg.first_dense_layers
-        return {
-            "dense_layers": [self._layer_init(gen, ccfg, device, moe=False) for _ in range(nd)],
+        params = {
+            "dense_layers": [place(self._layer_init(gen, ccfg, device, moe=False))
+                             for _ in range(nd)],
             "layers": cache_utils.stack_layers(
-                [self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers - nd)]),
+                [place(self._layer_init(gen, ccfg, device)) for _ in range(cfg.n_layers - nd)]),
             "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
-            "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=ccfg.compute_dtype,
-                                  device=device),
-            "lm_head": cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg, device=device),
         }
+        params.update(place({"embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
+                                                   dtype=ccfg.compute_dtype, device=device)}))
+        params.update(place({"lm_head": cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg,
+                                                            device=device)}))
+        return params
 
     # --------------------------------------------------------------- layers
     def _layer_list(self, params: dict) -> list:
@@ -358,10 +370,22 @@ class MoELM(TransformerLM):
                                         kv_len=kv_len)
         u, x = L.add_norm_apply(lp["ln2"], x, h, cfg.norm_type, use_kernel=uk)
         if "moe" in lp:
-            out = moe_ffn_apply(lp["moe"], u, cfg, ccfg, no_drop=mode != "full")
+            out = self._moe_ffn(lp["moe"], u, ccfg, no_drop=mode != "full")
         else:
             out = L.mlp_apply(lp["mlp"], u, "swiglu", ccfg)
         return x, out, new_cache
+
+    def _moe_ffn(self, lp_moe: dict, u: torch.Tensor, ccfg: CascadeConfig,
+                 no_drop: bool = False) -> torch.Tensor:
+        """The expert-parallel dispatch under a policy installed with
+        ``moe_ep`` (a training and lowering surface: it keeps capacity
+        drops), else :func:`moe_ffn_apply`."""
+        from repro_torch.distributed import sharding
+        pol = sharding.get_activation_policy()
+        if pol is not None and pol.moe_ep:
+            from repro_torch.models.moe_shardmap import moe_ffn_apply_ep
+            return moe_ffn_apply_ep(lp_moe, u, self.cfg, ccfg, pol.mesh, pol.model_axis)
+        return moe_ffn_apply(lp_moe, u, self.cfg, ccfg, no_drop=no_drop)
 
     # --------------------------------------------------------------- caches
     @property

@@ -19,6 +19,13 @@ boundary; with ``use_kernel`` the verify pass runs the conv and recurrence
 of plain decode, the recurrence through the kernel, one launch per chunk
 token. ``forward`` (the training forward) checkpoints each layer under
 ``remat`` (``models.remat``).
+
+Under a mesh policy (``distributed/sharding.py``) ``in_proj`` and
+``out_proj`` run on their column bands and gather them
+(``core/cascade.py``): ``in_proj`` packs z|x|B|C|dt in one output, so no
+band lines up with a head's work, and every layer gathers it before the
+split; the conv and SSD state stay whole on every model rank (the engine
+bands the slot axis over ``data`` only).
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
@@ -195,23 +202,28 @@ class Mamba2LM:
             "out_proj": cascade.linear_init(gen, self.d_inner, cfg.d_model, ccfg, device=device),
         }
 
-    def init_params(self, seed: int, ccfg: CascadeConfig, device=None) -> dict:
+    def init_params(self, seed: int, ccfg: CascadeConfig, device=None,
+                    place=None) -> dict:
         """Random params from ``seed``. In ``serve_fp4`` mode every matrix is
-        quantized as it is drawn."""
+        quantized as it is drawn.
+        ``place`` (``distributed.sharding.param_placer``) takes each
+        fragment of the tree (a layer, the embedding, the head) as soon as
+        it is drawn and keeps this rank's bands of it, so a mesh rank never
+        holds more than one whole fragment beside its bands."""
         cfg = self.cfg
         device = resolve_device(device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = seeded_generator(device, seed)
+        place = place or (lambda fragment: fragment)
         params = {
             "layers": cache_utils.stack_layers(
-                [self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers)]),
+                [place(self._layer_init(gen, ccfg, device)) for _ in range(cfg.n_layers)]),
             "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
-            "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=ccfg.compute_dtype,
-                                  device=device),
         }
+        params.update(place({"embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
+                                                   dtype=ccfg.compute_dtype, device=device)}))
         if not cfg.tie_embeddings:
-            params["lm_head"] = cascade.linear_init(gen, cfg.d_model, cfg.vocab, ccfg,
-                                                    device=device)
+            params.update(place({"lm_head": cascade.linear_init(gen, cfg.d_model, cfg.vocab,
+                                                                ccfg, device=device)}))
         return params
 
     # --------------------------------------------------------------- mixer
@@ -462,5 +474,10 @@ class Mamba2LM:
         return cache
 
     # ----------------------------------------- continuous batching cache API
+    def cache_pspecs(self, cache: dict, mesh, data_axis: str = "data"):
+        """Mesh placement of a stacked cache: each leaf's probed slot axis
+        over ``data_axis`` (``cache_utils.slot_pspecs``)."""
+        return cache_utils.model_cache_pspecs(self, cache, mesh, data_axis)
+
     def write_cache(self, cache: dict, sub: dict, i: int) -> dict:
         return cache_utils.write_cache(cache, sub, i)

@@ -31,7 +31,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models import remat as R
@@ -66,26 +66,32 @@ class TransformerLM:
             "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, ccfg, device=device),
         }
 
-    def init_params(self, seed: int, ccfg: CascadeConfig, device=None) -> dict:
+    def init_params(self, seed: int, ccfg: CascadeConfig, device=None,
+                    place=None) -> dict:
         """Random params from ``seed``. In ``serve_fp4`` mode every matrix is
         quantized as it is drawn (full width never holds a dense f32 tree).
         A stub-embedding config has no ``embed`` leaf and an untied head of
-        ``vocab`` columns per codebook."""
+        ``vocab`` columns per codebook.
+        ``place`` (``distributed.sharding.param_placer``) takes each
+        fragment of the tree (a layer, the embedding, the head) as soon as
+        it is drawn and keeps this rank's bands of it, so a mesh rank never
+        holds more than one whole fragment beside its bands."""
         cfg = self.cfg
         device = resolve_device(device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
+        gen = seeded_generator(device, seed)
+        place = place or (lambda fragment: fragment)
         params = {
             "layers": cache_utils.stack_layers(
-                [self._layer_init(gen, ccfg, device) for _ in range(cfg.n_layers)]),
+                [place(self._layer_init(gen, ccfg, device)) for _ in range(cfg.n_layers)]),
             "final_norm": L.norm_init(cfg.d_model, cfg.norm_type, device=device),
         }
         if not cfg.input_embeds:
-            params["embed"] = L.embed_init(gen, cfg.vocab, cfg.d_model,
-                                           dtype=ccfg.compute_dtype, device=device)
+            params.update(place({"embed": L.embed_init(gen, cfg.vocab, cfg.d_model,
+                                                       dtype=ccfg.compute_dtype,
+                                                       device=device)}))
         if not self._tied:
-            params["lm_head"] = cascade.linear_init(
-                gen, cfg.d_model, cfg.vocab * max(1, cfg.n_codebooks), ccfg, device=device)
+            params.update(place({"lm_head": cascade.linear_init(
+                gen, cfg.d_model, cfg.vocab * max(1, cfg.n_codebooks), ccfg, device=device)}))
         return params
 
     @property
@@ -297,3 +303,8 @@ class TransformerLM:
     # ----------------------------------------- continuous batching cache API
     def write_cache(self, cache: dict, sub: dict, i: int) -> dict:
         return cache_utils.write_cache(cache, sub, i)
+
+    def cache_pspecs(self, cache: dict, mesh, data_axis: str = "data"):
+        """Mesh placement of a stacked cache: each leaf's probed slot axis
+        over ``data_axis`` (``cache_utils.slot_pspecs``)."""
+        return cache_utils.model_cache_pspecs(self, cache, mesh, data_axis)

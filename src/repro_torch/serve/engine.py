@@ -97,12 +97,40 @@ by default, a ``VirtualClock`` in deterministic fleet tests). The fleet
 layer (``serve/elastic.py``, ``serve/router.py``) drives engines through
 ``submit``, ``step``, ``load``, ``evict`` and ``abort_in_flight``; a
 request rebuilt after a replica failure carries its emitted tokens inside
-its prompt (``Request.prompt_carried`` of them). Not ported yet (the
-engine raises ``NotImplementedError`` when asked): mesh serving.
+its prompt (``Request.prompt_carried`` of them).
+
+``mesh=`` (a ``launch.mesh.Mesh`` over the live process group) serves
+explicit SPMD: every rank runs this engine on the same requests, with the
+same scheduler, and holds only its own bands. The params are placed by
+``filter_divisible(param_specs(params, tp_policy))`` (``distributed/
+sharding.py``; whole params are cut, params drawn through
+``sharding.param_placer`` are taken as they are): under ``cascade`` every
+linear computes its output columns
+on each rank (the FP4 kernels too, with ``fused=True``) and all-gathers
+them, so no partial sum crosses ranks; ``megatron`` row-bands the modules
+that return to d_model and all-reduces their partial sums. The KV heads
+are banded over ``model`` where they divide it (``sharding.kv_head_bands``,
+the part of the reference's ``cache_specs`` the engine places), and each
+rank attends on its heads. The slot grid is banded over ``data``
+when ``max_batch`` divides that axis (the cache placed by
+``model.cache_pspecs``: each data shard holds its slots), else
+replicated. Each step's closure runs its shard's rows, then all-gathers
+the tokens over ``data``, so every rank's scheduler commits the whole
+grid's. Sampling draws the full grid's noise on every rank from the one
+generator and keeps its rows, so the streams are the unsharded engine's.
+Admission prefills a batch-1 staging cache on every rank (replicated over
+``data``, as the reference's staging cache) and the owning shard writes it
+into its slot. Every closure counts its collectives
+(``distributed/collectives.py``; ``step_closures()[name]["collectives"]``
+after a call), the counterpart of the reference's ``decode_step_hlo``. As
+in the reference, a mesh refuses the slot-wise loop (``ValueError``) and
+downgrades paged KV and the prefix cache to the dense cache.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import warnings
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -110,9 +138,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.core import cascade, crest
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives, sharding
+from repro_torch.kernels import ops
 from repro_torch.models import cache_utils
 from repro_torch.serve.prefix import PagePool, RadixPrefixCache
 from repro_torch.serve.spec import ngram_propose
@@ -138,20 +169,32 @@ def _truncate_logits(logits: torch.Tensor, temperature: float, top_k: int) -> to
     return x
 
 
-def _gumbel_argmax(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def _draw(shape: tuple, gen: torch.Generator, device, rows: Optional[tuple]) -> torch.Tensor:
+    """Uniforms of ``shape``; with ``rows`` = (lo, hi, total), the draw is
+    made for all ``total`` rows of the grid and rows lo:hi are kept (a data
+    shard's), so every shard's generator advances alike."""
+    if rows is None:
+        return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    lo, hi, total = rows
+    return torch.rand((total,) + tuple(shape[1:]), generator=gen, device=device,
+                      dtype=torch.float32)[lo:hi]
+
+
+def _gumbel_argmax(x: torch.Tensor, gen: torch.Generator,
+                   rows: Optional[tuple] = None) -> torch.Tensor:
     """(B, V) -> (B,) draws from softmax(x): argmax of x plus Gumbel noise.
     The noise is drawn for every row from the generator's stream by
     position, so an active row's draw never depends on another row's
-    logits."""
-    u = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+    logits (``rows``: see :func:`_draw`)."""
+    u = _draw(x.shape, gen, x.device, rows)
     gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(x + gumbel, dim=-1)
 
 
 def _sample_tokens(logits: torch.Tensor, gen: torch.Generator, temperature: float,
-                   top_k: int) -> torch.Tensor:
+                   top_k: int, rows: Optional[tuple] = None) -> torch.Tensor:
     """(B, V) logits -> (B,) sampled token ids, on the logits' device."""
-    return _gumbel_argmax(_truncate_logits(logits, temperature, top_k), gen)
+    return _gumbel_argmax(_truncate_logits(logits, temperature, top_k), gen, rows)
 
 
 #: finite logit penalty that removes the rejected draft from the residual.
@@ -162,7 +205,8 @@ _RESIDUAL_PENALTY = 1e30
 
 
 def spec_sample_accept(logits: torch.Tensor, drafts: torch.Tensor, k_eff: torch.Tensor,
-                       gen: torch.Generator, temperature: float, top_k: int):
+                       gen: torch.Generator, temperature: float, top_k: int,
+                       noise_rows: Optional[tuple] = None):
     """Speculative-sampling acceptance for a point-mass drafter.
 
     ``logits`` (B, K+1, V) verify rows (row j conditions on the prefix and
@@ -178,7 +222,8 @@ def spec_sample_accept(logits: torch.Tensor, drafts: torch.Tensor, k_eff: torch.
     removed (the residual norm(max(0, p - q))); when all k_eff drafts are
     accepted the bonus token is drawn from row k_eff. The committed
     token's marginal at every row is then p(d)·1[t=d] + (1-p(d))·p(t)/(1-p(d))
-    = p(t), plain sampled decode's distribution."""
+    = p(t), plain sampled decode's distribution. ``noise_rows``: a data
+    shard's rows of the grid (see :func:`_draw`)."""
     b, kp1, v = logits.shape
     k = kp1 - 1
     dev = logits.device
@@ -187,7 +232,7 @@ def spec_sample_accept(logits: torch.Tensor, drafts: torch.Tensor, k_eff: torch.
     drafts = drafts.to(device=dev, dtype=torch.int64)
     k_eff = k_eff.to(device=dev, dtype=torch.int64)
     p_draft = torch.exp(torch.gather(logp[:, :k], 2, drafts[..., None])[..., 0])   # (B, K)
-    u = torch.rand((b, k), generator=gen, device=dev, dtype=torch.float32)
+    u = _draw((b, k), gen, dev, noise_rows)
     real = torch.arange(k, device=dev)[None, :] < k_eff[:, None]
     accept = (u < p_draft) & real
     a = torch.cumprod(accept.to(torch.int64), dim=-1).sum(dim=-1)   # leading accepts
@@ -197,7 +242,7 @@ def spec_sample_accept(logits: torch.Tensor, drafts: torch.Tensor, k_eff: torch.
     d_rej = drafts[rows, torch.clamp(a, max=k - 1)]
     hit = (torch.arange(v, device=dev)[None, :] == d_rej[:, None]) & rejected[:, None]
     row = row - hit.to(row.dtype) * _RESIDUAL_PENALTY
-    return a, _gumbel_argmax(row, gen)
+    return a, _gumbel_argmax(row, gen, noise_rows)
 
 
 @dataclasses.dataclass
@@ -254,6 +299,9 @@ class ServeConfig:
     prefix_cache: bool = False    # radix-tree prefix cache over prompt pages (implies paged)
     evict_watermark: float = 0.9  # pool fraction in use above which LRU tree-only pages
                                   # are evicted at allocation
+    tp_policy: str = "cascade"    # param placement under a mesh: 'cascade' (column-
+                                  # parallel, no partial-sum all-reduce) or 'megatron'
+                                  # (row+column baseline with its all-reduces)
 
 
 @dataclasses.dataclass
@@ -265,12 +313,28 @@ class _Staging:
     slot: int
 
 
+def _closure(name: str, grid: bool = False):
+    """A step closure of the engine: on a mesh it runs under the engine's
+    activation policy, plans its attention as the whole grid's (``grid``:
+    over the slot grid's rows, else a batch-1 admission; ``_planned_rows``)
+    and records its counted collectives in ``engine.collectives[name]``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(self, *args):
+            if self.mesh is None:
+                return fn(self, *args)
+            before = collectives.snapshot()
+            with sharding.activation_policy(self._policy), self._planned_rows(grid):
+                out = fn(self, *args)
+            self.collectives[name] = collectives.since(before)
+            return out
+        return run
+    return deco
+
+
 class ServeEngine:
     def __init__(self, model, params, ccfg: CascadeConfig, scfg: ServeConfig,
                  mesh=None, device=None, clock=None):
-        if mesh is not None:
-            raise NotImplementedError("not ported to PyTorch yet: a device mesh "
-                                      "(ROADMAP Queue 1 item 10)")
         mcfg = getattr(model, "cfg", None)
         if getattr(mcfg, "input_embeds", False):
             raise ValueError(
@@ -307,6 +371,11 @@ class ServeEngine:
         if scfg.batched and not self.batched:
             _downgrade("batched serving requested but this model has a multi-codebook "
                        "head -- falling back to the slot-wise decode loop")
+        self.mesh = mesh
+        self.tp_policy = scfg.tp_policy
+        if mesh is not None and not self.batched:
+            raise ValueError("mesh serving requires the batched stacked-cache path "
+                             "(batched=True and a model with a flat-logits head)")
         # a ring buffer holds exactly the window: an admission chunk, and the
         # verify pass's 1 + K tokens, must fit inside it
         window = getattr(getattr(model, "attn_cfg", None), "window", 0)
@@ -352,6 +421,7 @@ class ServeEngine:
         c = scfg.prefill_chunk
         need = scfg.max_len + self._draft_len
         self._cache_len = (-(-need // c) * c) if c > 0 else need
+        self._place_on_mesh(params)
         self.paged = False
         self.prefix: Optional[RadixPrefixCache] = None
         self.pool: Optional[PagePool] = None
@@ -362,6 +432,9 @@ class ServeEngine:
                 _downgrade("paged KV requested but the engine runs the slot-wise loop -- "
                            "paging needs the batched stacked-cache path; running the dense "
                            "cache")
+            elif mesh is not None:
+                _downgrade("paged KV requested with a device mesh -- pool leaves have no "
+                           "slot axis to shard over data; running the dense cache")
             elif getattr(model, "paged_attention", False):
                 self.paged = True
             else:
@@ -388,19 +461,99 @@ class ServeEngine:
             if scfg.prefix_cache:
                 self.prefix = RadixPrefixCache(self.pool, ps, copy_page=self._cow_page)
         elif self.batched:
-            self.cache = model.init_cache(scfg.max_batch, self._cache_len,
-                                          dtype=ccfg.resolved_kv_dtype, device=self.device)
+            self.cache = self._new_cache(self._b1 - self._b0)
         else:
             # the slot-wise loop: one prefill-built cache per resident request
             self._cache_len = scfg.max_len
             self.cache = None
             self.caches: List[Any] = [None] * scfg.max_batch
         if scfg.crest_enabled:
-            head = params.get("lm_head")
+            head = self.params.get("lm_head")
             if head is not None:
-                self._probe_w = cascade.linear_weight(head, ccfg).to(torch.float32)
+                with sharding.activation_policy(self._policy):      # its bands, joined
+                    self._probe_w = cascade.linear_weight(head, ccfg).to(torch.float32)
                 self.crest_state = crest.crest_init(self._probe_w.shape[1], scfg.crest_cfg,
                                                     device=self.device)
+
+    # ----------------------------------------------------------------- mesh
+    def _place_on_mesh(self, params):
+        """Place the params on ``self.mesh`` (this rank's bands) and choose
+        this rank's rows of the slot grid, ``[_b0, _b1)``: a data shard's
+        band when ``max_batch`` divides the data axis, else all of them.
+        The specs come from the model's tree drawn on the meta device: whole
+        params are cut to their bands, and params with the bands' shapes
+        are taken as this rank's bands already (drawn through
+        ``sharding.param_placer``)."""
+        b = self.scfg.max_batch
+        self._b0, self._b1 = 0, b
+        self._policy = None
+        self._head_factor = 1         # KV heads of the whole cache / this rank's
+        self.collectives: Dict[str, dict] = {}
+        mesh = self.mesh
+        if mesh is None:
+            return
+        ds = mesh.size("data")
+        if ds > 1 and b % ds == 0:
+            self._b0 = mesh.coord("data") * (b // ds)
+            self._b1 = self._b0 + b // ds
+        tied = bool(getattr(self.model.cfg, "tie_embeddings", False))
+        whole = self.model.init_params(0, self.ccfg, device="meta")
+        self.param_specs = sharding.placed_param_specs(whole, mesh, self.scfg.tp_policy, tied)
+        shapes = lambda tree: [(p, tuple(t.shape)) for p, t in T.leaves_with_paths(tree)]
+        if shapes(params) == shapes(whole):
+            self.params = sharding.shard_tree(params, self.param_specs, mesh)
+        elif shapes(params) == shapes(sharding.shard_tree(whole, self.param_specs, mesh)):
+            self.params = params
+        else:
+            raise ValueError(f"the params are neither the whole {self.model.cfg.name} tree nor "
+                             f"this rank's {self.scfg.tp_policy} bands of it on {mesh}")
+        cache = self.model.init_cache(b, self._cache_len, device="meta")
+        self._head_bands = sharding.kv_head_bands(cache, mesh)
+        self.cache_specs = sharding.merge_specs(self.model.cache_pspecs(cache, mesh),
+                                                self._head_bands)
+        self._policy = sharding.ActivationPolicy(mesh, self.scfg.tp_policy, self.params,
+                                                 self.param_specs,
+                                                 cache_bands=self._head_bands)
+        if self._policy.kv_heads_banded:
+            self._head_factor = mesh.size("model")
+
+    @property
+    def _data_sharded(self) -> bool:
+        return self._b1 - self._b0 < self.scfg.max_batch
+
+    def _rows(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a whole-grid tensor."""
+        return t if t is None or not self._data_sharded else t[self._b0:self._b1]
+
+    def _grid(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole grid's rows of a per-shard result, gathered over data."""
+        if not self._data_sharded:
+            return t
+        return collectives.all_gather(t, self.mesh.group("data"), dim=0)
+
+    def _new_cache(self, batch: int):
+        """A cache of ``batch`` slots as this rank holds it: its band of the
+        KV heads on a mesh (the staging cache of an admission too)."""
+        cache = self.model.init_cache(batch, self._cache_len, dtype=self.ccfg.resolved_kv_dtype,
+                                      device=self.device)
+        if self._head_factor == 1:
+            return cache
+        return sharding.shard_tree(cache, self._head_bands, self.mesh)
+
+    def _planned_rows(self, grid: bool):
+        """Attention launches over this rank's rows (the grid's band, or a
+        batch-1 admission) and heads plan as the whole grid's launch would
+        (``ops.planned_rows``: the plan follows rows x KV heads), so the
+        streams keep the unsharded engine's bits at any context length."""
+        local = self._b1 - self._b0 if grid else 1
+        whole = (self.scfg.max_batch if grid else 1) * self._head_factor
+        if local == whole:
+            return contextlib.nullcontext()
+        return ops.planned_rows(local, whole)
+
+    @property
+    def _noise_rows(self) -> Optional[tuple]:
+        return (self._b0, self._b1, self.scfg.max_batch) if self._data_sharded else None
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request):
@@ -531,10 +684,7 @@ class ServeEngine:
                     self._staging = _Staging(req, self._slot_cache(slot),
                                              self._start_paged(req, slot), slot)
                 else:
-                    sub = self.model.init_cache(1, self._cache_len,
-                                                dtype=self.ccfg.resolved_kv_dtype,
-                                                device=self.device)
-                    self._staging = _Staging(req, sub, 0, slot)
+                    self._staging = _Staging(req, self._new_cache(1), 0, slot)
             st = self._staging
             prompt = st.req.prompt
             chunk = self.scfg.prefill_chunk or len(prompt)
@@ -758,52 +908,73 @@ class ServeEngine:
     # place. ``step()`` goes through them and ``step_closures()`` lists them,
     # so ``repro_torch.analysis`` audits what the step runs; the one read to
     # the host (the step's tokens) follows them.
+    #
+    # On a mesh every closure takes the whole grid's token rows, runs this
+    # rank's rows of them (``_rows``) on its local cache under the engine's
+    # activation policy, and returns the whole grid's results (``_grid``),
+    # counting its collectives into ``self.collectives[name]``.
     @staticmethod
     def _batch_of(toks: torch.Tensor, bt: Optional[torch.Tensor]) -> dict:
         return {"tokens": toks} if bt is None else {"tokens": toks, "block_table": bt}
 
+    @_closure("decode", grid=True)
     @torch.no_grad()
     def _decode_fn(self, params, toks, cache, bt=None):
         """decode_step over the slot grid, then each row's argmax (B,)."""
-        logits, cache = self.model.decode_step(params, self._batch_of(toks, bt), cache, self.ccfg)
+        logits, cache = self.model.decode_step(params, self._batch_of(self._rows(toks), bt),
+                                               cache, self.ccfg)
         # torch.argmax returns the first maximum, as jnp.argmax does
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        return self._grid(torch.argmax(logits[:, -1], dim=-1)), cache
 
+    @_closure("sample", grid=True)
     @torch.no_grad()
     def _sample_fn(self, params, toks, cache, bt=None):
         """decode_step over the slot grid, then one draw a row (B,)."""
-        logits, cache = self.model.decode_step(params, self._batch_of(toks, bt), cache, self.ccfg)
-        return _sample_tokens(logits[:, -1], self._gen, self.scfg.temperature,
-                              self.scfg.top_k), cache
+        logits, cache = self.model.decode_step(params, self._batch_of(self._rows(toks), bt),
+                                               cache, self.ccfg)
+        return self._grid(_sample_tokens(logits[:, -1], self._gen, self.scfg.temperature,
+                                         self.scfg.top_k, self._noise_rows)), cache
 
+    @_closure("extend")
     @torch.no_grad()
     def _extend_fn(self, params, toks, cache, bt, n_valid: int, kv_len: int):
         return self.model.prefill_extend(params, self._batch_of(toks, bt), cache, self.ccfg,
                                          n_valid=n_valid, kv_len=kv_len)
 
+    @_closure("write")
     @torch.no_grad()
     def _write_fn(self, cache, staging, slot: int):
-        return self.model.write_cache(cache, staging, slot)
+        """Write a staging cache into ``slot``: on a mesh, only the data
+        shard that holds the slot writes."""
+        if not self._b0 <= slot < self._b1:
+            return cache
+        return self.model.write_cache(cache, staging, slot - self._b0)
 
+    @_closure("verify", grid=True)
     @torch.no_grad()
     def _verify_fn(self, params, toks, cache, bt, kv_len: int):
         """The verify pass and each position's argmax (B, K+1)."""
-        logits, cache, ckpt = self.model.spec_verify(params, self._batch_of(toks, bt), cache,
-                                                     self.ccfg, ckpt=self._ckpt, kv_len=kv_len)
-        return torch.argmax(logits, dim=-1), cache, ckpt
+        logits, cache, ckpt = self.model.spec_verify(params,
+                                                     self._batch_of(self._rows(toks), bt),
+                                                     cache, self.ccfg, ckpt=self._ckpt,
+                                                     kv_len=kv_len)
+        return self._grid(torch.argmax(logits, dim=-1)), cache, ckpt
 
+    @_closure("spec_sample", grid=True)
     @torch.no_grad()
     def _spec_sample_fn(self, params, toks, cache, bt, keff, kv_len: int):
         """The verify pass, then acceptance and resampling on the device."""
+        toks = self._rows(toks)
         logits, cache, ckpt = self.model.spec_verify(params, self._batch_of(toks, bt), cache,
                                                      self.ccfg, ckpt=self._ckpt, kv_len=kv_len)
-        acc, fin = spec_sample_accept(logits, toks[:, 1:], keff, self._gen,
-                                      self.scfg.temperature, self.scfg.top_k)
-        return acc, fin, cache, ckpt
+        acc, fin = spec_sample_accept(logits, toks[:, 1:], self._rows(keff), self._gen,
+                                      self.scfg.temperature, self.scfg.top_k, self._noise_rows)
+        return self._grid(acc), self._grid(fin), cache, ckpt
 
+    @_closure("rewind")
     @torch.no_grad()
     def _rewind_fn(self, cache, ckpt, keep):
-        return self.model.spec_rewind(cache, ckpt, keep)
+        return self.model.spec_rewind(cache, ckpt, self._rows(keep))
 
     @torch.no_grad()
     def _copy_fn(self, cache, src: int, dst: int):
@@ -813,6 +984,7 @@ class ServeEngine:
     def _reset_pos_fn(self, cache, slot: int, value: int):
         return cache_utils.reset_slot_pos(cache, slot, value)
 
+    @_closure("pick")
     @torch.no_grad()
     def _pick_fn(self, row: torch.Tensor) -> torch.Tensor:
         """Admission's next token from a (V,) logits row: argmax, or one draw
@@ -828,7 +1000,9 @@ class ServeEngine:
         (:meth:`step_example_args`), ``cache_out`` its index among the
         outputs (-1: the output is the cache; None: no cache). The reference
         donates the cache to its closures; here they update it in place,
-        which ``repro_torch.analysis.contract`` checks leaf by leaf."""
+        which ``repro_torch.analysis.contract`` checks leaf by leaf. On a
+        mesh each entry also has ``"collectives"``: the counted collectives
+        of the closure's last call (``collectives.since``), None before one."""
         assert self.batched, "step closures exist only on the batched engine"
         reg: Dict[str, dict] = {}
 
@@ -852,6 +1026,9 @@ class ServeEngine:
             add("copy_page", self._copy_fn, 0, -1, takes_params=False)
             add("reset_pos", self._reset_pos_fn, 0, -1, takes_params=False)
         add("pick", self._pick_fn, None, None, takes_params=False)
+        if self.mesh is not None:
+            for name, entry in reg.items():
+                entry["collectives"] = self.collectives.get(name)
         return reg
 
     def step_example_args(self, name: str, cache: dict) -> tuple:
@@ -878,13 +1055,9 @@ class ServeEngine:
             if self.paged:
                 return (self.params, zeros(1, chunk), self._slot_cache(0, cache), bt[:1], chunk,
                         chunk)
-            staging = self.model.init_cache(1, self._cache_len, dtype=self.ccfg.resolved_kv_dtype,
-                                            device=dev)
-            return (self.params, zeros(1, chunk), staging, None, chunk, chunk)
+            return (self.params, zeros(1, chunk), self._new_cache(1), None, chunk, chunk)
         if name == "write":
-            staging = self.model.init_cache(1, self._cache_len, dtype=self.ccfg.resolved_kv_dtype,
-                                            device=dev)
-            return (cache, staging, 0)
+            return (cache, self._new_cache(1), 0)
         if name == "rewind":
             ckpt = self._ckpt
             if ckpt is None:        # no verify pass yet: make one on this cache
@@ -1019,6 +1192,8 @@ class ServeEngine:
             "downgrades": list(self.downgrades),
             "fused": self.fused,
             "device": str(self.device),
+            "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
+            "tp_policy": self.tp_policy,
             "paged": self.paged,
             "page_size": self._page_size if self.paged else 0,
             "prefix_cache": self.prefix is not None,

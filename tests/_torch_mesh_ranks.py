@@ -1,0 +1,215 @@
+"""The per-rank half of ``tests/test_torch_distributed.py``: the checks one
+rank of a local gloo world runs, imported by the spawned ranks (this module
+imports torch and the port only, so a rank starts without JAX).
+
+``mesh_checks(rank, shape, inputs)`` runs every multi-rank check on one
+(data, model) mesh of four ranks and returns plain Python and numpy
+results for the test process to hold against the unsharded port engine
+and the reference.
+"""
+import numpy as np
+import torch
+
+from repro_torch.core.cascade import CascadeConfig
+from repro_torch.convert import params_from_numpy
+from repro_torch.distributed import collectives, sharding
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import registry
+from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+CCFG = CascadeConfig(mode="train", compute_dtype=torch.float32)
+LENS = [8, 5, 12, 3, 20, 9]
+
+#: name -> (prompt lengths, ServeConfig overrides): the reference's
+#: test_sharding.py cases
+MODES = {
+    "greedy": (LENS, {}),
+    "budgeted": ([17, 8, 29, 4], {"max_batch": 2, "token_budget": 8}),
+    "spec": (LENS, {"draft_len": 4}),
+    "sampled": (LENS, {"temperature": 1.0, "top_k": 5, "sample_seed": 7}),
+    "spec_sampled": (LENS, {"draft_len": 3, "temperature": 0.9, "top_k": 6,
+                            "sample_seed": 13}),
+}
+
+
+def requests(cfg, lens, max_new=6, seed=0):
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new_tokens=max_new) for i, n in enumerate(lens)]
+
+
+def scfg(**kw):
+    kw.setdefault("max_batch", 4)
+    kw.setdefault("max_len", 64)
+    kw.setdefault("prefill_chunk", 8)
+    return ServeConfig(**kw)
+
+
+def run(model, params, cfg, lens, sc, mesh=None, max_new=6):
+    eng = ServeEngine(model, params, CCFG, sc, mesh=mesh, device="cpu")
+    reqs = requests(cfg, lens, max_new=max_new)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained(400)
+    return [r.tokens_out for r in reqs], eng
+
+
+def failover(model, params, cfg, mesh, dying: str):
+    """A sharded replica dies onto an unsharded survivor (or the reverse):
+    the streams, the clones' where a stream was rebuilt."""
+    from repro_torch.serve.elastic import ReplicaSet
+    e0 = ServeEngine(model, params, CCFG, scfg(max_batch=2),
+                     mesh=mesh if dying == "sharded" else None, device="cpu")
+    e1 = ServeEngine(model, params, CCFG, scfg(max_batch=2),
+                     mesh=None if dying == "sharded" else mesh, device="cpu")
+    rs = ReplicaSet([e0, e1])
+    victims = requests(cfg, [8, 12], max_new=10)
+    for v in victims:
+        rs.engines[0].submit(v)
+    for _ in range(3):
+        rs.step()
+    started = any(len(v.tokens_out) > 0 for v in victims)
+    rs.kill_replica(0)
+    rs.drain(400)
+    clones = {c.uid: c.tokens_out for c in rs.requeued}
+    return started, [clones.get(v.uid, v.tokens_out) for v in victims]
+
+
+def placed(eng, params) -> dict:
+    """Whether the mesh engine really holds bands: model-banded param
+    leaves; this rank's slot rows of the grid, its cache leaves the bands
+    ``cache_pspecs`` gives the whole grid's; and ``gather_tree`` of the
+    rank's params gives the whole params back."""
+    from repro_torch import tree as T
+    whole = eng.model.init_cache(eng.scfg.max_batch, eng._cache_len, device="meta")
+    want = T.tree_map(lambda t, s: tuple(sharding.local_band(t, s, eng.mesh).shape),
+                      whole, eng.cache_specs)
+    got = T.tree_map(lambda t: tuple(t.shape), eng.cache)
+    back = sharding.gather_tree(eng.params, eng.param_specs, eng.mesh)
+    return {"model_banded_leaves": len(eng._policy._bands),
+            "local_slots": eng._b1 - eng._b0, "max_batch": eng.scfg.max_batch,
+            "cache_specs": eng.cache_specs, "cache_is_its_band": got == want,
+            "gather_tree_whole": all(torch.equal(a, b) for a, b in
+                                     zip(T.leaves(back), T.leaves(params)))}
+
+
+def serve_checks(mesh) -> dict:
+    """Each mesh run of every family and mode, on every rank; the unsharded
+    engine's run of the same case (``ref``, its mode, and the undisturbed
+    run a failover is held to) on one rank only, the cases dealt out in
+    turn over the ranks (the test reads each from the rank that ran it)."""
+    import torch.distributed as dist
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    case = 0
+    for fam, arch in sorted(registry.FAMILY_SMOKE.items()):
+        cfg, model = registry.load(arch, smoke=True)
+        params = model.init_params(0, CCFG, device="cpu")
+        for mode, (lens, kw) in MODES.items():
+            ref, mode0 = None, None
+            if case % world == rank:
+                ref, e0 = run(model, params, cfg, lens, scfg(**kw))
+                mode0 = e0.effective_mode
+            case += 1
+            got, eng = run(model, params, cfg, lens, scfg(**kw), mesh=mesh)
+            out[("serve", fam, mode)] = {"ref": ref, "got": got,
+                                         "modes": (mode0, eng.effective_mode)}
+            if mode == "greedy":
+                out[("placed", fam)] = placed(eng, params)
+        want = None
+        if case % world == rank:
+            want, _ = run(model, params, cfg, [8, 12], scfg(max_batch=2), max_new=10)
+        case += 1
+        for dying in ("sharded", "plain"):
+            started, got = failover(model, params, cfg, mesh, dying)
+            out[("failover", fam, dying)] = {"want": want, "got": got, "started": started}
+    return out
+
+
+def contract_checks(mesh) -> dict:
+    """Megatron serves; the collective counts of each closure; the audit
+    of a cascade mesh engine, and of megatron held to zero partial sums."""
+    from repro_torch.analysis import contract
+    from repro_torch.analysis.findings import gating
+    cfg, model = registry.load(registry.FAMILY_SMOKE["transformer"], smoke=True)
+    params = model.init_params(0, CCFG, device="cpu")
+    out = {}
+    got, eng = run(model, params, cfg, [8, 5], scfg(tp_policy="megatron"), mesh=mesh)
+    out["megatron_streams"] = got
+    out["megatron_decode"] = eng.step_closures()["decode"]["collectives"]
+    # the SSM family's smoke config ties its head to the embedding, which
+    # megatron bands on the vocabulary
+    tcfg, tmodel = registry.load(registry.FAMILY_SMOKE["ssm"], smoke=True)
+    tparams = tmodel.init_params(0, CCFG, device="cpu")
+    got, eng = run(tmodel, tparams, tcfg, [8, 5, 12], scfg(tp_policy="megatron"), mesh=mesh)
+    out["megatron_tied"] = {"streams": got, "tied": bool(tcfg.tie_embeddings),
+                            "table_band": eng._policy.band(eng.params["embed"]["table"]),
+                            "decode": eng.step_closures()["decode"]["collectives"]}
+    for name, kw in (("cascade", dict(draft_len=2, temperature=0.7)),
+                     ("cascade_greedy", dict(draft_len=2))):
+        eng = ServeEngine(model, params, CCFG, scfg(**kw), mesh=mesh, device="cpu")
+        res = contract.audit_engine(eng)
+        out[f"audit_{name}"] = {
+            "gating": [f.to_dict() for f in gating(res["findings"])],
+            "psum": {n: c["partial_sum_allreduces"] for n, c in res["closures"].items()},
+            "gathers": {n: c["collectives"]["all_gather"]["calls"]
+                        for n, c in res["closures"].items()}}
+    eng = ServeEngine(model, params, CCFG, scfg(tp_policy="megatron"), mesh=mesh, device="cpu")
+    strict = contract.audit_engine(eng, contract.ServingContract(max_partial_sum_allreduces=0))
+    out["audit_megatron_strict"] = {
+        "gating": [f.to_dict() for f in gating(strict["findings"])],
+        "decode_psum": strict["closures"]["decode"]["partial_sum_allreduces"]}
+    out["audit_megatron_default"] = [f.to_dict() for f in
+                                     gating(contract.audit_engine(eng)["findings"])]
+    return out
+
+
+def compression_checks(inputs: dict) -> dict:
+    """``allreduce_compressed`` over the whole world on this rank's grads."""
+    import torch.distributed as dist
+    from repro_torch.optim import grad_compression as gc
+    rank = dist.get_rank()
+    grads = {k: torch.from_numpy(v[rank]) for k, v in inputs["grads"].items()}
+    res = {k: torch.from_numpy(v[rank]) for k, v in inputs["residuals"].items()}
+    sums = {k: gc.compressed_sum(grads[k], res[k], dist.group.WORLD)[0].numpy()
+            for k in grads}
+    mean, new_r = gc.allreduce_compressed(grads, res, dist.group.WORLD)
+    return {"sums": sums, "mean": {k: v.numpy() for k, v in mean.items()},
+            "residuals": {k: v.numpy() for k, v in new_r.items()}}
+
+
+def moe_ep_checks(mesh, inputs: dict) -> dict:
+    """``moe_ffn_apply_ep`` on this rank's band of the reference's experts
+    (placed by megatron's spec, E over ``model``) and this data shard's
+    tokens; and the drop-free ``moe_ffn_apply`` on the whole layer."""
+    from repro_torch.models.moe import moe_ffn_apply
+    from repro_torch.models.moe_shardmap import moe_ffn_apply_ep
+    cfg = registry.get_config("olmoe-1b-7b", smoke=True)
+    import dataclasses
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=50.0)
+    params = params_from_numpy(inputs["moe_params"], device="cpu")
+    specs = sharding.filter_divisible(sharding.param_specs(params, "megatron"), params, mesh)
+    local = sharding.shard_tree(params, specs, mesh)
+    x = torch.from_numpy(inputs["moe_x"])                          # (D, B, S, d)
+    xd = x[mesh.coord("data")]
+    y_ep = moe_ffn_apply_ep(local, xd, cfg, CCFG, mesh)
+    y_full = moe_ffn_apply(params, xd, cfg, CCFG)
+    # the model's dispatch under a policy installed with moe_ep
+    model = registry.build_model(cfg)
+    pol = sharding.ActivationPolicy(mesh, "megatron", local, specs, moe_ep=True)
+    with sharding.activation_policy(pol):
+        y_model = model._moe_ffn(local, xd, CCFG)
+    return {"y_ep": y_ep.numpy(), "y_full": y_full.numpy(),
+            "model_dispatch_equal": bool(torch.equal(y_model, y_ep)),
+            "e_local": int(local["wg"]["w"].shape[0])}
+
+
+def mesh_checks(rank: int, shape: tuple, inputs: dict) -> dict:
+    mesh = make_mesh(shape, ("data", "model"))
+    collectives.reset_counts()
+    out = {"coords": dict(mesh.coords)}
+    out.update(serve_checks(mesh))
+    out.update(contract_checks(mesh))
+    out["compression"] = compression_checks(inputs)
+    out["moe_ep"] = moe_ep_checks(mesh, inputs)
+    return out

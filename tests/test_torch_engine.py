@@ -183,15 +183,17 @@ def test_mamba_has_no_context_limit(mamba_models):
 
 @pytest.mark.parametrize("opt", [dict(mesh=object()), dict(batched=False)])
 def test_unported_options_raise(models, opt):
-    """A device mesh raises. ``batched=False``, once refused here too, is the
-    slot-wise loop now: its streams equal the JAX slot-wise engine's and the
-    port's batched engine's on the same prompts. (CREST, once a case here,
-    is ported: tests/test_torch_crest.py.)"""
+    """A device mesh on the slot-wise loop raises ``ValueError``, as the
+    reference's engine does (mesh serving itself is ported:
+    tests/test_torch_distributed.py). ``batched=False``, once refused here
+    too, is the slot-wise loop now: its streams equal the JAX slot-wise
+    engine's and the port's batched engine's on the same prompts. (CREST,
+    once a case here, is ported: tests/test_torch_crest.py.)"""
     cfg, jm, jp, tm, tp = models
     if "mesh" in opt:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(), mesh=opt["mesh"],
-                                device="cpu")
+        with pytest.raises(ValueError, match="mesh serving requires the batched"):
+            tengine.ServeEngine(tm, tp, T_FP4, tengine.ServeConfig(batched=False),
+                                mesh=opt["mesh"], device="cpu")
         return
     prompts = _prompts(cfg, [7, 12, 9], seed=3)
     scfg = dict(max_batch=2, max_len=40, **opt)

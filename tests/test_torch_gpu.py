@@ -1671,3 +1671,54 @@ def test_qat_train_step_through_the_kernels_matches_the_plain_route(cuda, monkey
         worst_rel[name] = float(torch.linalg.vector_norm(g - gp)) / ref
     assert max(worst_norm.values()) <= QAT_GRAD_NORM_RTOL, worst_norm
     assert max(worst_rel.values()) <= QAT_GRAD_RTOL, worst_rel
+
+
+# ---------------------------------------------------------------------------
+# mesh serving: a rank's band of a call equals those outputs of the whole call
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n,m", [(4096, 13440, 8), (13440, 4096, 4), (4096, 92416, 2),
+                                   (1024, 2048, 8), (96, 100, 4)])
+def test_cascade_matmul_column_band_equals_the_whole_calls_columns(cuda, k, n, m):
+    """Each rank's contiguous band of the packed weight (cascade placement)
+    gives exactly those columns of the unsharded call, 32-column multiples
+    or not (13440 / 8 = 1680, 100 / 4 = 25)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    codes = torch.randint(0, 256, (k // 2, n), generator=gen, device=cuda,
+                          dtype=torch.int64).to(torch.uint8)
+    scales = torch.rand((1, n), generator=gen, device=cuda) * 0.02 + 1e-3
+    x = torch.randn((8, k), generator=gen, device=cuda).to(torch.bfloat16)
+    full = ops.cascade_matmul(x, codes, scales, out_dtype=torch.bfloat16)
+    w = n // m
+    for r in range(m):
+        band = ops.cascade_matmul(x, codes[:, r * w:(r + 1) * w].contiguous(),
+                                  scales[:, r * w:(r + 1) * w].contiguous(),
+                                  out_dtype=torch.bfloat16)
+        assert torch.equal(band, full[:, r * w:(r + 1) * w]), r
+
+
+@pytest.mark.parametrize("t", [192, 1024, 4096])
+def test_attention_over_a_data_shard_plans_as_the_whole_grid(cuda, t):
+    """Decode and flash attention over half the slot grid's rows, under
+    ``ops.planned_rows``, equal the whole grid's call row for row, bit for
+    bit, at any cache length (their split over the keys follows the rows a
+    launch plans for)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    b, h, d, s = 8, 32, 128, 5
+    k = torch.randn((b, t, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, t, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(torch.bfloat16)
+    qv = torch.randn((b, h, s, d), generator=gen, device=cuda).to(torch.bfloat16)
+    pos = torch.randint(t // 2, t, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    off = (pos - s).clamp(min=0).to(torch.int32)
+    dec = lambda lo, hi: ops.decode_attention(q[lo:hi], k[lo:hi], v[lo:hi], q_pos=pos[lo:hi])
+    fla = lambda lo, hi: ops.flash_attention(qv[lo:hi], k[lo:hi].transpose(1, 2),
+                                             v[lo:hi].transpose(1, 2), q_offset=off[lo:hi])
+    for call in (dec, fla):
+        full = call(0, b)
+        with ops.planned_rows(b // 2, b):
+            for r in range(2):
+                assert torch.equal(call(r * b // 2, (r + 1) * b // 2),
+                                   full[r * b // 2:(r + 1) * b // 2])

@@ -302,7 +302,7 @@ def test_train_cli_runs_on_the_cpu_and_refuses_without_a_card(capsys, tmp_path, 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tcli.main(["--arch", ARCH, "--smoke", "--steps", "1"]) == 2
     assert "GPU" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         tcli.main(["--smoke", "--device", "cpu", "--mesh", "production"])
 
 
