@@ -170,6 +170,34 @@ each rebuilt one held to the same request served alone.
    (1, 2) within 2^-6 of the unsharded layer; each rank's bands, memory and step times
    (ranks time-slicing one card: not a multi-GPU reading).
 
+7. The dry run and the cache's model bands (``dryrun``, run before ``mesh``):
+   decode attention with its log-sum-exp (``return_lse``) at the time-band
+   shapes (qwen2.5-32b's 40/8 heads at B = 8 over a 2,048-row band,
+   recurrentgemma-2b's ring at 10/1 heads, D = 256, over a 1,024-row band
+   with the window mask): the output bit for bit the call's without lse,
+   (o, lse) held to the plain version, both calls timed beside
+   ``scaled_dot_product_attention`` on the band, with every key live and at
+   each count of splits; gloo worlds sharing the card (``BAND_WORLDS``:
+   qwen2-vl-2b at one layer and at its 28 on (1, 4), the k/v cache's time band;
+   recurrentgemma-2b, the ring's time band and the RG-LRU's ``h``/conv
+   channels, deepseek-v2-236b at depth 2, MLA's latent rows with its
+   published top-6 routing, and mamba2-370m, the SSD state's heads and conv
+   channels, on (1, 2)) at full width, each a prefill then ``BAND_STEPS``
+   decode steps through the kernels with the cache placed by the whole
+   ``cache_specs``, against the unsharded step on the rank: state bands bit
+   for bit, time bands within the run's tolerance on every token whose
+   routing held (the flips counted, the router's input held within it
+   too), the gathered cache's first layer bit for bit and its later layers
+   within the tolerance, each banded leaf 1/m of its bytes, decode attention (and
+   the SSD scan) launched for every layer and step; the dry run of
+   codeqwen1.5-7b at B = 8, T = 4,096 on a
+   world of one beside the same step on the card (``argument_bytes`` equal
+   to the step's tensors, FLOPs equal to ``FlopCounterMode`` on the card,
+   its ``temp_bytes`` within ``WORLD1_MEM_RTOL`` of the rise of
+   ``max_memory_allocated`` across the step); and
+   the 16 x 16 dry-run records of every arch at decode_32k and long_500k
+   under both policies (host work, ``DRYRUN_WORKERS`` processes).
+
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
 full record goes to ``results/chip_smoke.json``.
@@ -3798,6 +3826,462 @@ def mesh_phase(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7 (run before 6): the dry run and the cache's model bands
+# ---------------------------------------------------------------------------
+
+#: decode attention with its log-sum-exp at the time-band shapes: (name, B,
+#: Hq, Hkv, band rows, D, live): qwen2.5-32b's heads over one 2,048-row band
+#: of a 32,768-row cache on a 16-wide axis (rows live up to each slot's
+#: position in the band; one slot's position before the band, one past it),
+#: and recurrentgemma-2b's ring (10 over 1 head, D = 256) over a 1,024-row
+#: band of its 2,048-row ring, live by the window mask
+LSE_CASES = (("qwen2.5-32b_time_band", 8, 40, 8, 2048, 128, "q_pos"),
+             ("griffin_ring_band", 8, 10, 1, 1024, 256, "mask"))
+#: the lse against its plain version: the same f32 max and sum in another
+#: order, then a log
+LSE_ATOL = 1e-4
+#: splits along T at which the lse calls are timed again (where the time goes)
+LSE_SPLITS = (1, 2, 4, 8, 16, 32)
+#: gloo worlds sharing the card, each family at full width and its
+#: published routing with the cache placed by the whole ``cache_specs``:
+#: (world shape, ((arch, layers, leading layers whose cache rows must be
+#: bit-equal (None: all), the time band's relative tolerance), ...)).
+#: qwen2-vl-2b at one layer (no banded attention before a cache write: the
+#: whole cache bit-equal) and at its full 28; deepseek-v2-236b at the parity
+#: phase's depth 2 (layer 0 dense, layer 1 MLA with 160 experts, top-6), so
+#: a routing flip moves only that token's logits; recurrentgemma-2b one (R,
+#: R, A) group; mamba2-370m (state bands only) at MESH_DEPTH. A layer after
+#: a time-banded attention writes rows computed from the merge's rounding,
+#: so past the first layer the rows are held within the tolerance
+BAND_WORLDS = (((1, 4), (("qwen2-vl-2b", 1, None, 2.0 ** -6),
+                         ("qwen2-vl-2b", 28, 1, 2.0 ** -5))),
+               ((1, 2), (("recurrentgemma-2b", 3, None, 2.0 ** -6),
+                         ("deepseek-v2-236b", 2, 1, 2.0 ** -6),
+                         ("mamba2-370m", MESH_DEPTH["mamba2-370m"], None, 0.0))))
+BAND_ROWS, BAND_PROMPT, BAND_STEPS, BAND_MAX_LEN = 4, 64, 8, 128
+#: time-band logits against the unsharded step's: the bands' attentions are
+#: merged in another order than the one-band softmax sums, in f32, then
+#: rounded to bf16 before wo, so a bf16 edge may fall on the other side:
+#: max|banded - unsharded| <= rtol * max|unsharded| (the run's rtol in
+#: BAND_WORLDS); the same for the cache rows of the layers past the
+#: bit-equal ones and for a MoE layer's router input. Logits are held on
+#: every token whose routing did not flip: a last-bit difference in the
+#: router's input may swap a token's 6th expert for its 7th, and the flips
+#: are counted. Past one layer the differences compound through every later
+#: layer's bf16 roundings: qwen2-vl-2b at 28 layers read 0.0176 of
+#: max|unsharded| on an H100 (its later layers' cache 0.0132), so its rtol
+#: is 2^-5, about twice that, as the parity limits are set. Beside it, the
+#: same unsharded step through the plain versions (another summation order
+#: everywhere, no band) is read as a yardstick
+#: the world-1 check: a cell that fits one card, traced by the dry run and
+#: run for real beside it (plain route, as the dry run lowers)
+WORLD1_ARCH = "codeqwen1.5-7b"
+WORLD1_SHAPE = ("decode_b8_t4096", 4096, 8, "decode")
+#: the dry run's memory against the card's across the step (the peak of
+#: ``max_memory_allocated`` over what was allocated before it): the caching
+#: allocator rounds every block up to 512 bytes and cuBLAS takes its
+#: workspace from it
+WORLD1_MEM_RTOL, WORLD1_MEM_ATOL = 0.02, 64 << 20
+#: the 16 x 16 decode cells printed for every arch, under both policies,
+#: traced by this many processes at once (host work, 8 cores)
+DRYRUN_SHAPES = ("decode_32k", "long_500k")
+DRYRUN_WORKERS = 6
+
+
+def lse_phase(torch, dev):
+    """Decode attention with ``return_lse`` at ``LSE_CASES``: the output bit
+    for bit the call's without lse, (o, lse) against the plain version's,
+    and both calls timed beside ``scaled_dot_product_attention`` on the
+    band (it returns no lse: a floor for the library). Where the time goes:
+    the kernel again with every key of the band live, and at each count of
+    splits along T (``LSE_SPLITS``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    rows = []
+    for name, b, hq, hkv, t, d, live in LSE_CASES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        kc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn((2, b, t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = kc[1], vc[1]
+        pos = mask = None
+        if live == "q_pos":
+            # this band's rows of positions 0 .. 16 * T: one slot before the
+            # band (no live key), one past it (every key), the rest inside
+            pos = torch.tensor([-1, t + 5] + [t * i // (b - 1) for i in range(1, b - 1)],
+                               dtype=torch.int32, device=dev)
+            keys = torch.arange(t, device=dev)[None, :] <= pos[:, None]
+        else:
+            # the ring's first band of rows, as ring_decode_phase's wrapped ring
+            positions = [2040 + 300 * i for i in range(b)]
+            sp = ring_slot_pos(torch, b, GRIFFIN_WINDOW, [q_ + 1 for q_ in positions], dev)
+            p = torch.tensor(positions, dtype=torch.int32, device=dev)
+            whole = (sp >= 0) & (sp <= p[:, None]) & (p[:, None] - sp < GRIFFIN_WINDOW)
+            mask = whole[:, :t].contiguous()
+            keys = mask
+        got, lse = ops.decode_attention(q, k, v, mask, q_pos=pos, return_lse=True)
+        alone = ops.decode_attention(q, k, v, mask, q_pos=pos)
+        want, want_lse = da.decode_attention_plain(q, k, v, mask, None, pos, return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, alone):
+            fail(f"decode_attention {name}: the output with lse differs from the call without")
+        err = float((got - want).abs().max())
+        none_live = ~keys.any(dim=1)
+        if not torch.equal(torch.isneginf(lse), none_live[:, None].expand_as(lse)):
+            fail(f"decode_attention {name}: lse is -inf on other rows than those with no live key")
+        fin = ~none_live
+        lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(fin.any()) else 0.0
+        if not (err <= ATTN_ATOL and lse_err <= LSE_ATOL):
+            fail(f"decode_attention {name}: max|err| {err} (tol {ATTN_ATOL}), lse {lse_err} "
+                 f"(tol {LSE_ATOL})")
+        nc = copies_beyond_l2(k.numel() * 4)
+        sets = [(q, k if i == 0 else k.clone(), v if i == 0 else v.clone()) for i in range(nc)]
+        with_lse = lambda a, kk, vv: ops.decode_attention(a, kk, vv, mask, q_pos=pos,
+                                                          return_lse=True)
+        without = lambda a, kk, vv: ops.decode_attention(a, kk, vv, mask, q_pos=pos)
+        plain = lambda a, kk, vv: da.decode_attention_plain(a, kk, vv, mask, None, pos,
+                                                            return_lse=True)
+        lib = lambda a, kk, vv: F.scaled_dot_product_attention(
+            a[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
+            attn_mask=keys[:, None, None, :], enable_gqa=hq != hkv)
+        every_key = lambda a, kk, vv: ops.decode_attention(a, kk, vv, return_lse=True)
+        by_splits = {s: graph_ms(torch, lambda a, kk, vv, s=s: da.decode_attention_cuda(
+            a, kk, vv, mask, q_pos=pos, splits=s, return_lse=True), sets, 50)
+            for s in LSE_SPLITS}
+        n_live = int(keys.sum())
+        nbytes = q.numel() * 2 + 2 * n_live * hkv * d * 2 + b * hq * (d + 1) * 4 + (
+            b * 4 if mask is None else b * t)
+        flops = 4 * n_live * hq * d
+        rows.append({"case": name, "B": b, "Hq": hq, "Hkv": hkv, "band_rows": t, "D": d,
+                     "live_keys": n_live, "rows_without_live_key": int(none_live.sum()),
+                     "splits": da.choose_splits(b, hkv, hq // hkv, t),
+                     "out_bit_equal_without_lse": True, "max_abs_err": err, "tol": ATTN_ATOL,
+                     "lse_max_abs_err": lse_err, "lse_tol": LSE_ATOL,
+                     "ms": graph_ms(torch, with_lse, sets, 100),
+                     "ms_without_lse": graph_ms(torch, without, sets, 100),
+                     "plain_ms": graph_ms(torch, plain, sets, 20),
+                     "library_ms": graph_ms(torch, lib, sets, 100),
+                     "library_note": "scaled_dot_product_attention with the band's boolean "
+                                     "mask, no lse (NaN on a row with no live key)",
+                     "ms_every_key_live": graph_ms(torch, every_key, sets, 100),
+                     "ms_by_splits": by_splits,
+                     "bytes": nbytes, "flops": flops,
+                     "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                     "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                                  else "operations")})
+        del sets, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def band_inputs(cfg, seed: int = 29) -> dict:
+    """Prompt and decode inputs of a band run, numpy from a seed: tokens, or
+    a stub frontend's embeddings and (M-RoPE) positions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = BAND_PROMPT + BAND_STEPS
+    if cfg.input_embeds:
+        out = {"embeds": rng.standard_normal((BAND_ROWS, n, cfg.d_model)).astype(np.float32)}
+        if cfg.mrope_sections:
+            out["positions"] = np.broadcast_to(np.arange(n, dtype=np.int32),
+                                               (3, BAND_ROWS, n)).copy()
+        return out
+    return {"tokens": rng.integers(0, cfg.vocab, (BAND_ROWS, n)).astype(np.int32)}
+
+
+def band_rank(rank: int, shape: tuple, runs: tuple) -> dict:
+    """One rank of a gloo world sharing the card: each family of ``runs``
+    at full width, a prefill then ``BAND_STEPS`` decode steps through the
+    kernels, once unsharded and once with the params on their cascade
+    bands and the cache cut by the whole ``cache_specs``; the readings,
+    with each decode step's routings (experts and router input) of both."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe, registry
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(shape, ("data", "model"))
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    route = moe.route
+    rel = lambda g, w: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+    out = {}
+    for arch, layers, bit_layers, _ in runs:
+        t0 = time.monotonic()
+        cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers)
+        model = registry.build_model(cfg)
+        params = model.init_params(0, ccfg, device=dev)
+        inp = band_inputs(cfg)
+
+        def batch(lo, hi):
+            if "embeds" in inp:
+                b = {"inputs_embeds": torch.from_numpy(inp["embeds"][:, lo:hi]).to(dev)}
+                if "positions" in inp:
+                    b["positions"] = torch.from_numpy(inp["positions"][:, :, lo:hi]).to(dev)
+                return b
+            return {"tokens": torch.from_numpy(inp["tokens"][:, lo:hi]).to(dev)}
+
+        def run(p, policy, place):
+            routes = []
+
+            def record(rp, xf, rcfg):
+                gates, idx = route(rp, xf, rcfg)
+                routes.append((idx.clone(), xf.float().clone()))
+                return gates, idx
+            with sharding.activation_policy(policy):
+                logits, cache = model.prefill(p, batch(0, BAND_PROMPT), ccfg,
+                                              max_len=BAND_MAX_LEN)
+                cache = place(cache)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                before = collectives.snapshot()
+                got = []
+                moe.route = record
+                try:
+                    for j in range(BAND_STEPS):
+                        s = BAND_PROMPT + j
+                        logits, cache = model.decode_step(p, batch(s, s + 1), cache, ccfg)
+                        got.append(logits.float())
+                finally:
+                    moe.route = route
+                torch.cuda.synchronize()
+            return got, cache, dict(ops.LAUNCHES), collectives.since(before), routes
+
+        want, want_cache, _, _, want_routes = run(params, None, lambda c: c)
+        with plain_versions_on_card():
+            plain = run(params, None, lambda c: c)[0]
+        pspecs = sharding.placed_param_specs(params, mesh, "cascade", bool(cfg.tie_embeddings))
+        local = sharding.shard_tree(params, pspecs, mesh)
+        del params
+        cspecs = sharding.cache_specs(want_cache, mesh)
+        pol = sharding.ActivationPolicy(mesh, "cascade", local, pspecs, cache_bands=cspecs)
+        got, cache, launches, colls, routes = run(
+            local, pol, lambda c: sharding.shard_tree(c, cspecs, mesh))
+        whole = sharding.gather_tree(cache, cspecs, mesh)
+        leaves = {"/".join(p): (t, sharding._spec_at(cspecs, p))
+                  for p, t in T.leaves_with_paths(cache)}
+        ref_leaves = dict(("/".join(p), t) for p, t in T.leaves_with_paths(want_cache))
+        # a token whose expert list differs in any routing of its step: its
+        # logits are left out of the tolerance, and counted
+        flipped = [torch.zeros(w.shape[0], dtype=torch.bool, device=dev) for w in want]
+        per_step = len(want_routes) // BAND_STEPS
+        for i, ((iw, _), (ig, _)) in enumerate(zip(want_routes, routes)):
+            flipped[i // per_step] |= (iw != ig).any(dim=-1).reshape(flipped[0].shape[0], -1) \
+                .any(dim=-1)
+        kept = [(g[~f], w[~f]) for g, w, f in zip(got, want, flipped)]
+        cache_rel, cache_first_equal = {}, {}
+        for p, t in T.leaves_with_paths(whole):
+            k = "/".join(p)
+            ref = ref_leaves[k]
+            n = bit_layers or t.shape[0]
+            cache_first_equal[k] = bool(torch.equal(t[:n], ref[:n]))
+            if n < t.shape[0] and t.is_floating_point():
+                cache_rel[k] = rel(t[n:], ref[n:])
+            elif n < t.shape[0]:
+                cache_first_equal[k] &= bool(torch.equal(t, ref))
+        expect = {}
+        if pol.cache_band("k") == -3:              # every attention layer, each step
+            expect["decode_attention"] = BAND_STEPS * getattr(model, "n_attn", cfg.n_layers)
+        if pol.cache_band("state") is not None:
+            expect["ssd_scan"] = BAND_STEPS * cfg.n_layers
+        out[f"{arch}@{layers}"] = {
+            "layers": layers, "top_k": cfg.moe_top_k if cfg.n_experts else None,
+            "cache_bit_equal_layers": bit_layers or "all",
+            "model_bands": dict(pol._cache_bands),
+            "logits_bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+            "logits_max_rel_err": max((rel(g, w) for g, w in kept if w.numel()), default=None),
+            "logits_max_rel_err_with_flips": max(rel(g, w) for g, w in zip(got, want)),
+            "logits_rel_l2": max(float((g - w).norm() / w.norm()) for g, w in zip(got, want)),
+            "plain_versions_logits_max_rel_err": max(rel(g, w) for g, w in zip(plain, want)),
+            "routings": len(routes), "tokens_flipped": int(sum(int(f.sum()) for f in flipped)),
+            "router_input_max_rel_err": max((rel(xg, xw) for (_, xw), (_, xg)
+                                             in zip(want_routes, routes)), default=None),
+            "cache_bit_equal": cache_first_equal, "cache_later_layers_max_rel_err": cache_rel,
+            "band_bytes": {k: [t.numel() * t.element_size(),
+                               ref_leaves[k].numel() * ref_leaves[k].element_size(),
+                               "model" in spec] for k, (t, spec) in leaves.items()},
+            "launches": launches, "launches_expected": expect, "collectives": colls,
+            "s": time.monotonic() - t0}
+        del local, cache, whole, want_cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def world1_phase(torch, dev) -> dict:
+    """The dry run of ``WORLD1_ARCH`` at ``WORLD1_SHAPE`` on a fake world of
+    one rank, beside the same step run on the card: the dry run's
+    ``argument_bytes`` against the summed bytes of the tensors the step
+    holds, its FLOPs against ``FlopCounterMode`` on the real step, and its
+    ``temp_bytes`` (``peak_bytes``) against the rise of
+    ``torch.cuda.max_memory_allocated`` across the step (plus the held
+    tensors)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    shape = ShapeConfig(*WORLD1_SHAPE)
+    t0 = time.monotonic()
+    with dryrun.fake_world(1):
+        rec = dryrun.run_cell(WORLD1_ARCH, shape, make_mesh((1, 1), ("data", "model")),
+                              verbose=False)
+    trace_s = time.monotonic() - t0
+    cfg, model = registry.load(WORLD1_ARCH)
+    ccfg = CascadeConfig(mode="serve_fp4")        # the dry run's: the plain route, bf16
+    params = model.init_params(0, ccfg, device=dev)
+    cache = model.init_cache(shape.global_batch, shape.seq_len, dtype=ccfg.resolved_kv_dtype,
+                             device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch, 1), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    held = sum(t.numel() * t.element_size() for t in T.leaves([params, batch, cache]))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    flops = FlopCounterMode(display=False)
+    with flops:
+        logits, _ = model.decode_step(params, batch, cache, ccfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits).all()):
+        fail("dryrun world-1 check: the real step's logits are not finite")
+    mem = rec["memory"]
+    card_temp = peak - base
+    out = {"arch": WORLD1_ARCH, "shape": WORLD1_SHAPE, "trace_s": trace_s,
+           "argument_bytes": mem["argument_bytes"], "card_held_bytes": held,
+           "card_allocated_before_step": base,
+           "temp_bytes": mem["temp_bytes"], "card_temp_bytes": card_temp,
+           "peak_bytes": mem["peak_bytes"], "card_peak_bytes": held + card_temp,
+           "card_max_memory_allocated": peak,
+           "flops": rec["flops_per_device"], "card_flops": flops.get_total_flops(),
+           "mem_tol": f"{WORLD1_MEM_RTOL} * card + {WORLD1_MEM_ATOL} bytes"}
+    if mem["argument_bytes"] != held:
+        fail(f"dryrun world-1 check: argument_bytes {mem['argument_bytes']} != the step's "
+             f"tensors {held}")
+    if rec["flops_per_device"] != out["card_flops"]:
+        fail(f"dryrun world-1 check: FLOPs {rec['flops_per_device']} != the real step's "
+             f"{out['card_flops']}")
+    if abs(mem["temp_bytes"] - card_temp) > WORLD1_MEM_RTOL * card_temp + WORLD1_MEM_ATOL:
+        fail(f"dryrun world-1 check: temp {mem['temp_bytes']} vs the card's {card_temp} "
+             f"(peak {mem['peak_bytes']} vs {held + card_temp})")
+    del params, cache, logits
+    return out
+
+
+def dryrun_cells(policy: str, cells: list) -> list:
+    """A worker of the 16 x 16 sweep: ``cells`` ((arch, shape)) traced in
+    one fake world of 256 ranks under ``policy``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh()
+        return [dryrun.run_cell(arch, shape, mesh, tp_policy=policy, verbose=False)
+                for arch, shape in cells]
+
+
+def dryrun_sweep() -> list:
+    """Every arch at ``DRYRUN_SHAPES`` on the 16 x 16 mesh under both
+    policies, ``DRYRUN_WORKERS`` processes at once (the largest cells
+    first, each worker a policy's share)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import registry
+    cells = [(arch, shape) for arch in registry.ALIASES for shape in DRYRUN_SHAPES
+             if cfgbase.shape_applicable(registry.get_config(arch), cfgbase.SHAPES[shape])]
+    jobs = [(policy, cells[i::DRYRUN_WORKERS // 2]) for policy in ("cascade", "megatron")
+            for i in range(DRYRUN_WORKERS // 2)]
+    with cf.ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=mp.get_context("spawn")) as ex:
+        parts = list(ex.map(dryrun_cells, *zip(*jobs)))
+    return [r for part in parts for r in part]
+
+
+def dryrun_phase(torch, dev):
+    """Phase ``dryrun``: decode attention with its lse at the time-band
+    shapes; gloo worlds sharing the card decoding with the cache placed by
+    the whole ``cache_specs`` (``BAND_WORLDS``); the world-1 check; the
+    16 x 16 records of every arch at ``DRYRUN_SHAPES`` under both
+    policies."""
+    from repro_torch.launch import mesh as meshlib
+    out = {"gpu": gpu_name_and_power()}
+    out["lse"] = lse_phase(torch, dev)
+    print(json.dumps({"decode_attention_lse": out["lse"], "gpu": out["gpu"]}), flush=True)
+    t0 = time.monotonic()
+    worlds = {}
+    for shape, runs in BAND_WORLDS:
+        ranks = meshlib.run_local_ranks(math.prod(shape), band_rank, shape, runs, threads=2)
+        m = shape[1]
+        for arch, layers, _, rtol in runs:
+            run_key = f"{arch}@{layers}"
+            per = [r[run_key] for r in ranks]
+            res = per[0]
+            time_band = any(d in (-3, -2) and k in ("k", "c_kv")
+                            for k, d in res["model_bands"].items())
+            errs = [p["logits_max_rel_err"] for p in per]
+            if time_band and not all(e is not None and e <= rtol for e in errs):
+                fail(f"dryrun bands {run_key}: logits of the tokens whose routing held {errs} "
+                     f"past {rtol} of max|unsharded|")
+            if not time_band and not all(p["logits_bit_equal"] for p in per):
+                fail(f"dryrun bands {run_key}: state-band logits not bit-equal to the unsharded")
+            if not all(all(p["cache_bit_equal"].values()) for p in per):
+                fail(f"dryrun bands {run_key}: the gathered cache's first "
+                     f"{res['cache_bit_equal_layers']} layers differ from the unsharded: "
+                     f"{[p['cache_bit_equal'] for p in per]}")
+            later = [e for p in per for e in p["cache_later_layers_max_rel_err"].values()]
+            routers = [p["router_input_max_rel_err"] for p in per
+                       if p["router_input_max_rel_err"] is not None]
+            if not all(e <= rtol for e in later + routers):
+                fail(f"dryrun bands {run_key}: later layers' cache {later} or router input "
+                     f"{routers} past {rtol} of max|unsharded|")
+            for p in per:
+                for leaf, (local, whole, banded) in p["band_bytes"].items():
+                    if local * (m if banded else 1) != whole:
+                        fail(f"dryrun bands {run_key}: {leaf} holds {local} of {whole} bytes")
+            if not any(b for _, _, b in res["band_bytes"].values()):
+                fail(f"dryrun bands {run_key}: no leaf of the cache is banded over model")
+            for p in per:
+                for k, n in p["launches_expected"].items():
+                    if p["launches"][k] != n:
+                        fail(f"dryrun bands {run_key}: {k} launched {p['launches'][k]} times "
+                             f"in the banded decode steps, not {n}")
+            worlds[f"{run_key} {shape}"] = {
+                **res, "world": list(shape),
+                "logits_max_rel_err_ranks": [p["logits_max_rel_err"] for p in per],
+                "tokens_flipped_ranks": [p["tokens_flipped"] for p in per],
+                "logit_tol": "bit-equal" if not time_band else f"{rtol} * max|unsharded|"}
+    out["bands"] = worlds
+    out["bands_s"] = time.monotonic() - t0
+    print(json.dumps({"dryrun_bands": worlds}), flush=True)
+    out["world1"] = world1_phase(torch, dev)
+    print(json.dumps({"dryrun_world1": out["world1"], "gpu": out["gpu"]}), flush=True)
+    t1 = time.monotonic()
+    recs = dryrun_sweep()
+    out["sweep_s"] = time.monotonic() - t1
+    failed = [r for r in recs if r["status"] != "ok"]
+    if failed:
+        fail(f"dryrun: cells failed: {failed}")
+    out["records"] = [{
+        "arch": r["arch"], "shape": r["shape"], "tp_policy": r["tp_policy"],
+        "argument_gb": r["memory"]["argument_bytes"] / 1e9,
+        "peak_gb": r["memory"]["peak_bytes"] / 1e9, "flops": r["flops_per_device"],
+        "collectives": {k: v for k, v in r["collectives"].items() if k != "total_bytes"},
+        "trace_s": r["trace_s"]} for r in recs]
+    print(json.dumps({"dryrun_16x16": out["records"], "note": "counts of a traced step on "
+                      "fake tensors, not measurements"}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3917,6 +4401,9 @@ def main() -> int:
     print(json.dumps({"precision_sim": sim}), flush=True)
     restart = timed("restart", restart_phase)
     print(json.dumps({"restart": restart}), flush=True)
+    dry = timed("dryrun", dryrun_phase)
+    print(json.dumps({"dryrun": {k: dry[k] for k in ("gpu", "bands_s", "sweep_s")}}),
+          flush=True)
     mesh = timed("mesh", mesh_phase)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
@@ -4217,7 +4704,7 @@ def main() -> int:
               "fake_quant_fp4": fqs, "cascade_exact": ce_res, "train": train, "qat_serve": qat,
               "train_recipe": recipe,
               "precision_sim": sim, "restart": restart, "examples_and_audit": exa,
-              "mesh": mesh,
+              "dryrun": dry, "mesh": mesh,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if par_failed:

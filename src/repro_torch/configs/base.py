@@ -89,3 +89,26 @@ def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> bool:
     if shape.name == "long_500k" and not arch.subquadratic:
         return False
     return True
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every model input of this cell (the reference's
+    ``input_specs``): tensors of each input's shape and dtype on the
+    ``meta`` device, which hold no memory (the dry run makes each rank's
+    fake tensors from them). torch is imported here, so the schema above
+    stays free of any framework."""
+    import torch
+    b = shape.global_batch
+    s = 1 if shape.kind == "decode" else shape.seq_len
+    empty = lambda dims, dtype: torch.empty(dims, dtype=dtype, device="meta")
+    specs = {}
+    if arch.input_embeds:
+        specs["inputs_embeds"] = empty((b, s, arch.d_model), torch.bfloat16)
+    else:
+        specs["tokens"] = empty((b, s), torch.int32)
+    if arch.mrope_sections:
+        specs["positions"] = empty((3, b, s), torch.int32)
+    if shape.kind == "train":
+        labels = (b, s, arch.n_codebooks) if arch.n_codebooks else (b, s)
+        specs["labels"] = empty(labels, torch.int32)
+    return specs

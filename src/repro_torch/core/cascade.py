@@ -37,7 +37,14 @@ asked, leaves them to a consumer that works on its columns); a row band
 features and all-reduces the f32 partial sums, then adds the bias. An
 expert stack banded on N (cascade) gathers its columns; one banded on E
 (megatron's expert parallelism) runs this rank's experts on their rows of
-the buffer and gathers the experts.
+the buffer and gathers the experts. Under autograd a whole input that
+feeds a band has its gradient summed over the model ranks
+(``ActivationPolicy.band_input``), so a step on a mesh computes the
+unsharded gradients.
+
+On the ``meta`` device :func:`linear_init` and :func:`expert_linear_init`
+return :func:`linear_abstract`'s leaves without drawing or quantizing
+anything (a full-width tree's shapes in a fraction of a second).
 """
 from __future__ import annotations
 
@@ -73,10 +80,16 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, cfg: CascadeConfig,
     """Params for one linear layer in the configured format. In ``serve_fp4``
     mode the matrix is quantized as soon as it is drawn, so a full-width
     model never holds its dense f32 weights all at once."""
+    if _is_meta(device):
+        return linear_abstract(d_in, d_out, cfg, use_bias)
     scale = scale if scale is not None else 1.0 / (d_in ** 0.5)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device) * scale
     bias = torch.zeros((d_out,), dtype=torch.float32, device=device) if use_bias else None
     return linear_from_dense(w, cfg, bias=bias)
+
+
+def _is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
 
 
 def linear_from_dense(w: torch.Tensor, cfg: CascadeConfig,
@@ -98,7 +111,7 @@ def linear_abstract(d_in: int, d_out: int, cfg: CascadeConfig, use_bias: bool = 
     meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
     if cfg.mode == "serve_fp4":
         g = (d_in // cfg.group_size) if cfg.group_size > 0 else 1
-        p = {"codes": meta((d_in // 2, d_out), torch.uint8),
+        p = {"codes": meta((-(-d_in // 2), d_out), torch.uint8),
              "scale": meta((g, d_out), torch.float32)}
     else:
         p = {"w": meta((d_in, d_out), cfg.compute_dtype)}
@@ -199,7 +212,7 @@ def _row_band(pol, params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.T
     if fp4 and params["scale"].shape[-2] > 1:                 # K-grouped scales: their band
         g = params["scale"].shape[-2] // pol.model_size
         local["scale"] = params["scale"][..., r * g:(r + 1) * g, :]
-    xs = x if x.shape[-1] == kb else x[..., r * kb:(r + 1) * kb]   # x may be the band already
+    xs = x if x.shape[-1] == kb else pol.band_input(x)[..., r * kb:(r + 1) * kb]  # or its band
     part = _linear_local(local, xs, cfg, out_dtype=torch.float32)
     out = pol.sum_model(part)
     if params.get("b") is not None:
@@ -216,7 +229,7 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
     them (an elementwise gate, attention on the rank's heads)."""
     pol, band = _policy_band(params)
     if band == -1:
-        y = _linear_local(params, x, cfg)
+        y = _linear_local(params, pol.band_input(x), cfg)
         return pol.gather_model(y, -1) if gather else y
     if band == -2:
         return _row_band(pol, params, x, cfg)
@@ -228,6 +241,10 @@ def expert_linear_init(gen: torch.Generator, n_experts: int, d_in: int, d_out: i
     """Params of E expert linears, every leaf stacked (E, ...). Each expert
     is quantized as soon as it is drawn (``serve_fp4``), so a full-width
     model never holds its f32 experts."""
+    if _is_meta(device):
+        one = linear_abstract(d_in, d_out, cfg)
+        return {k: torch.empty((n_experts,) + tuple(v.shape), dtype=v.dtype, device="meta")
+                for k, v in one.items()}
     experts = [linear_init(gen, d_in, d_out, cfg, device=device) for _ in range(n_experts)]
     return {k: torch.stack([p[k] for p in experts]) for k in experts[0]}
 
@@ -240,8 +257,7 @@ def _expert_local(params: dict, x: torch.Tensor, cfg: CascadeConfig,
             from repro_torch.kernels import ops
             return ops.cascade_matmul_grouped(x.to(cd), params["codes"], params["scale"], rows,
                                               out_dtype=cd)
-        w = torch.stack([quant.dequantize_weight(c, s, cd)
-                         for c, s in zip(params["codes"], params["scale"])])
+        w = quant.dequantize_stack(params["codes"], params["scale"], cd)
     else:
         w = params["w"]
         if cfg.qat and cfg.mode == "train":
@@ -255,7 +271,7 @@ def _expert_rows(pol, params: dict, x: torch.Tensor, rows):
     under megatron's expert parallelism (E banded over ``model``)."""
     el = params.get("codes", params.get("w")).shape[-3]
     e0 = pol.model_rank * el
-    return x[e0:e0 + el], (None if rows is None else rows[e0:e0 + el])
+    return pol.band_input(x)[e0:e0 + el], (None if rows is None else rows[e0:e0 + el])
 
 
 def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
@@ -267,10 +283,10 @@ def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
     Under a mesh policy a banded stack runs on its band."""
     pol, band = _policy_band(params)
     if band == -1:
-        return pol.gather_model(_expert_local(params, x, cfg, rows), -1)
+        return pol.gather_model(_expert_local(params, pol.band_input(x), cfg, rows), -1)
     if band == -3:
-        return pol.gather_model(_expert_local(params, *_expert_rows(pol, params, x, rows), cfg),
-                                0)
+        xs, rs = _expert_rows(pol, params, x, rows)
+        return pol.gather_model(_expert_local(params, xs, cfg, rs), 0)
     return _expert_local(params, x, cfg, rows)
 
 
@@ -285,7 +301,10 @@ def expert_linear_pair_apply(first: dict, second: dict, x: torch.Tensor, cfg: Ca
                 expert_linear_apply(second, x, cfg, rows))
     from repro_torch.kernels import ops
     pol, band = _policy_band(first)
-    xs, rs = (x, rows) if band != -3 else _expert_rows(pol, first, x, rows)
+    if band == -3:
+        xs, rs = _expert_rows(pol, first, x, rows)
+    else:
+        xs, rs = (x, rows) if band is None else (pol.band_input(x), rows)
     pair = ops.cascade_matmul_grouped_pair(
         xs.to(cfg.compute_dtype), (first["codes"], first["scale"]),
         (second["codes"], second["scale"]), rs, out_dtype=cfg.compute_dtype)

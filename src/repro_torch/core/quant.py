@@ -160,6 +160,25 @@ def dequantize_weight(packed: torch.Tensor, scales: torch.Tensor,
     return (vals * scales[:, None, :]).reshape(k, n).to(dtype)
 
 
+def dequantize_stack(packed: torch.Tensor, scales: torch.Tensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`dequantize_weight` of every matrix of a stack (E, K/2, N), in
+    calls over as many matrices as fit ``CODEC_BLOCK`` elements (the same
+    elementwise decode, so the same bits as one call a matrix)."""
+    e, kh, n = packed.shape
+    if 2 * kh * n > CODEC_BLOCK:
+        return torch.stack([dequantize_weight(c, s, dtype) for c, s in zip(packed, scales)])
+    per = CODEC_BLOCK // (2 * kh * n)
+    parts = []
+    for i in range(0, e, per):
+        codes = unpack_fp4(packed[i:i + per], axis=1)                 # (E', K, N)
+        k = codes.shape[1]
+        g = k // scales.shape[1]
+        vals = fp4_decode(codes, torch.float32).reshape(codes.shape[0], k // g, g, n)
+        parts.append((vals * scales[i:i + per, :, None, :]).reshape(-1, k, n).to(dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 # --------------------------------------------------------------------------
 # Mantissa truncation primitives (FP5 product / FP8 accumulate)
 # --------------------------------------------------------------------------

@@ -54,14 +54,30 @@ is to a row-banded one (megatron).
 A mesh engine places its cache by the models' ``cache_pspecs`` (the slot
 axis over ``data``, as the reference's engine does) and by
 :func:`kv_head_bands`, the part of :func:`cache_specs` it places (the KV
-heads over ``model`` where they divide); the installed policy then says
-the KV heads are banded (``ActivationPolicy.kv_heads_banded``), and a rank
-attends on its heads, whose q/k/v are its columns of the projections,
-unjoined (``models/layers.attn_apply``). Where the heads do not divide,
-and for MLA's latent cache and Mamba-2's and Griffin's recurrent state,
-the leaves stay whole on every model rank: :func:`kv_head_bands` drops
-those bands of :func:`cache_specs` (the reference's T band, whose partial
-attentions a merge would sum in another order, is not placed).
+heads over ``model`` where they divide; the reference's engine places no
+model band at all); a rank then attends on its heads, whose q/k/v are its
+columns of the projections, unjoined (``models/layers.attn_apply``). The
+dry run (``launch/dryrun.py``) places the whole of :func:`cache_specs`, as
+the reference's dry run does, and the decode step carries every band:
+
+* a k/v cache's time band (where its heads do not divide the axis; the
+  ring of a windowed config too): the rank whose band holds the new row
+  writes it, every rank attends over its band and returns its (out,
+  log-sum-exp), and the bands' partials are all-gathered and merged in
+  rank order in f32 (:meth:`ActivationPolicy.join_time_bands`): the sum
+  runs in another order than the unsharded attention's, so this path is
+  held at a tolerance, not bit for bit;
+* MLA's latent rows (``c_kv``, ``k_rope``): the same, in latent space;
+* Mamba-2's ``state`` heads and ``conv`` channels, Griffin's ``h`` and
+  ``conv`` channels: the rank steps its heads or channels and gathers what
+  the next consumer needs whole; heads and channels are independent, so
+  this path is bit-equal to the unsharded step.
+
+The installed :class:`ActivationPolicy` says which dim of each cache leaf
+is banded (:meth:`ActivationPolicy.cache_band`). Only ``decode_step`` runs
+on a cache with a band other than the KV heads': extend (chunked prefill,
+the speculative verify pass) and the paged cache raise ``ValueError``
+there.
 """
 from __future__ import annotations
 
@@ -71,7 +87,6 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch import tree as T
 from repro_torch.distributed import collectives as C
 
 # modules whose 2D weight contracts on dim 0 and expands on dim 1
@@ -226,13 +241,12 @@ def cache_specs(cache_tree: Any, mesh, model_axis: str = "model", batch_axes=("p
 
 def kv_head_bands(cache_tree, mesh, model_axis: str = "model"):
     """The model bands of :func:`cache_specs` that a mesh engine places:
-    its head band of every k/v leaf (the last dim but one). This is the one
-    place the rest of that spec is dropped: a k/v cache's T band (where its
-    heads do not divide the axis: the rank's partial attentions would be
-    merged in another order than the unsharded kernel's split), MLA's
-    latent rows and Mamba-2's and Griffin's state, conv and ``h`` bands
-    (their layers gather their inputs whole first). Those leaves stay
-    whole on every model rank."""
+    its head band of every k/v leaf (the last dim but one). The engine
+    drops the rest of that spec (a k/v cache's T band, MLA's latent rows,
+    Mamba-2's and Griffin's state, conv and ``h`` bands, which the decode
+    step carries under the dry run's placement): its extend and paged
+    paths run on whole leaves, and the reference's engine places no model
+    band at all."""
     whole = cache_specs(cache_tree, mesh, model_axis, batch_axes=())
     placed = mesh.shape.get(model_axis, 1) > 1
 
@@ -331,22 +345,25 @@ def param_placer(mesh, policy: str = "cascade", tied_embed: bool = False):
         fragment, placed_param_specs(fragment, mesh, policy, tied_embed), mesh)
 
 
-def gather_band(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def gather_band(t: torch.Tensor, spec: tuple, mesh, sum_grads: bool = False) -> torch.Tensor:
     """The inverse of :func:`local_band`: the whole leaf, all-gathered over
-    every axis that bands it (innermost axis first)."""
+    every axis that bands it (innermost axis first). ``sum_grads``: the
+    ranks use the whole leaf on rows of their own (full data parallelism),
+    so under autograd its gradient is summed over them onto the band."""
     for dim in reversed(range(len(spec))):
         name = spec[dim]
         if name is None:
             continue
         for a in reversed(name if isinstance(name, tuple) else (name,)):
             if mesh.size(a) > 1:
-                t = C.all_gather(t, mesh.group(a), dim=dim)
+                t = C.all_gather(t, mesh.group(a), dim=dim, sum_grads=sum_grads)
     return t
 
 
-def gather_tree(tree: Any, specs: Any, mesh) -> Any:
-    """Every leaf whole again on every rank (checkpoints, failover)."""
-    return _map2(lambda t, s: gather_band(t, s, mesh), tree, specs)
+def gather_tree(tree: Any, specs: Any, mesh, sum_grads: bool = False) -> Any:
+    """Every leaf whole again on every rank (checkpoints, failover; a full
+    data-parallel step's params, ``sum_grads``)."""
+    return _map2(lambda t, s: gather_band(t, s, mesh, sum_grads), tree, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -354,42 +371,67 @@ def gather_tree(tree: Any, specs: Any, mesh) -> Any:
 # ---------------------------------------------------------------------------
 
 class ActivationPolicy:
-    """The installed placement of one mesh engine (or trainer): the policy
-    name, the mesh, and for each local param leaf banded over ``model``
-    the banded dim, counted from the end (a layer's view of a stacked leaf,
-    or an expert stack's, keeps its trailing dims). Leaves are found by
-    their storage, which every view of a leaf shares. ``moe_ep`` sends the
-    MoE layers to the expert-parallel dispatch (``models/moe_shardmap.py``),
-    as the reference's ``moe_ep`` flag does. ``cache_bands`` are the model
-    bands the engine placed on its cache (:func:`kv_head_bands`):
-    ``kv_heads_banded`` says whether its k/v leaves hold this rank's band
-    of the KV heads."""
+    """The installed placement of one mesh engine (or trainer, or dry-run
+    step): the policy name, the mesh, and for each local param leaf banded
+    over ``model`` the banded dim, counted from the end (a layer's view of
+    a stacked leaf, or an expert stack's, keeps its trailing dims). Leaves
+    are found by their storage, which every view of a leaf shares (fake
+    tensors too). ``moe_ep`` sends the MoE layers to the expert-parallel
+    dispatch (``models/moe_shardmap.py``), as the reference's ``moe_ep``
+    flag does. ``cache_bands`` is the spec tree of the model bands placed
+    on the cache (a mesh engine's :func:`kv_head_bands`, the dry run's
+    whole :func:`cache_specs`): :meth:`cache_band` says, by leaf name, on
+    which dim a layer's cache leaf holds this rank's band, whose offset on
+    that dim is ``model_rank`` times the local extent."""
 
     def __init__(self, mesh, policy: str, local_params: Any = None, specs: Any = None,
                  model_axis: str = "model", moe_ep: bool = False, cache_bands: Any = None):
         self.mesh = mesh
         self.policy = policy
         self.moe_ep = moe_ep
-        self.kv_heads_banded = model_axis in T.leaves(cache_bands)   # names, flattened
         self.model_axis = model_axis
         self.model_size = mesh.size(model_axis)
         self.model_rank = mesh.coord(model_axis)
         self._bands: dict = {}
-        if local_params is not None and self.model_size > 1:
+        self._cache_bands: dict = {}
+        if self.model_size == 1:
+            return
+        if local_params is not None:
             def note(t, spec):
                 for dim, name in enumerate(spec):
-                    names = name if isinstance(name, tuple) else (name,)
-                    if model_axis in names:
-                        self._bands[t.untyped_storage().data_ptr()] = dim - t.ndim
+                    if model_axis in _axis_names(name):
+                        self._bands[_storage_key(t)] = dim - t.ndim
                 return t
             _map2(note, local_params, specs)
+        for path, spec in _spec_leaves(cache_bands):
+            for dim, name in enumerate(spec):
+                if model_axis in _axis_names(name):
+                    d = dim - len(spec)
+                    if self._cache_bands.setdefault(path[-1], d) != d:
+                        raise ValueError(f"cache leaves named {path[-1]!r} are banded on "
+                                         f"two dims")
+
+    def cache_band(self, name: str) -> Optional[int]:
+        """The dim (negative, from the end) on which a cache leaf named
+        ``name`` ("k", "c_kv", "state", ...) holds this rank's band over
+        ``model``; None where it is whole."""
+        return self._cache_bands.get(name)
+
+    def join_time_bands(self, o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """Attention over the whole of a cache's time axis from every model
+        rank's partial over its band: ``o`` (..., D) this band's output,
+        ``lse`` (...) its log-sum-exp (-inf: no live key in the band). The
+        partials are all-gathered in one call and merged in rank order
+        (:func:`merge_time_bands`)."""
+        packed = torch.cat([o.to(torch.float32), lse.to(torch.float32)[..., None]], dim=-1)
+        return merge_time_bands(self.gather_model(packed[None], 0))
 
     def band(self, t: Optional[torch.Tensor]) -> Optional[int]:
         """The dim (negative, from the end) on which local leaf ``t`` (or a
         view of it) is banded over ``model``; None where it is whole."""
         if t is None or not self._bands:
             return None
-        return self._bands.get(t.untyped_storage().data_ptr())
+        return self._bands.get(_storage_key(t))
 
     def gather_model(self, y: torch.Tensor, dim: int) -> torch.Tensor:
         """Every model rank's band of ``y``, concatenated along ``dim``."""
@@ -398,6 +440,50 @@ class ActivationPolicy:
     def sum_model(self, y: torch.Tensor) -> torch.Tensor:
         """The SUM of ``y`` over the model ranks (a partial-sum all-reduce)."""
         return C.all_reduce(y, self.mesh.group(self.model_axis), "sum")
+
+    def band_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, whole on every model rank, as the input of this rank's band
+        of work: under autograd its gradient (this rank's partial) is
+        summed over the model ranks (``collectives.sum_grads``)."""
+        return C.sum_grads(x, self.mesh.group(self.model_axis))
+
+
+def merge_time_bands(parts: torch.Tensor) -> torch.Tensor:
+    """Merge the bands' attention partials ``parts`` (m, ..., D + 1): each
+    band's output and, last, its log-sum-exp. In rank order, in f32: ``m =
+    max_r lse_r``, then ``o = sum_r e^(lse_r - m) o_r / sum_r e^(lse_r -
+    m)``. A band with no live key (lse -inf) weighs 0; a row needs one live
+    key somewhere (a decode step's own token always is)."""
+    lse = parts[..., -1].to(torch.float32)
+    mx = lse.amax(dim=0)
+    w = torch.exp(lse - torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx)))
+    num, den = parts[0, ..., :-1] * w[0, ..., None], w[0]
+    for r in range(1, parts.shape[0]):
+        num = num + parts[r, ..., :-1] * w[r, ..., None]
+        den = den + w[r]
+    return num / den[..., None]
+
+
+def _axis_names(name) -> tuple:
+    return name if isinstance(name, tuple) else (name,)
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, shared by its views: the storage's
+    own handle (a fake or meta tensor's storages have no data pointers)."""
+    return t.untyped_storage()._cdata
+
+
+def _spec_leaves(specs: Any, path: tuple = ()):
+    """(path, spec) of every leaf of a spec tree (a spec is a tuple)."""
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            yield from _spec_leaves(v, path + (str(k),))
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            yield from _spec_leaves(v, path + (str(i),))
+    elif specs is not None:
+        yield path, specs
 
 
 _ACT_POLICY: Optional[ActivationPolicy] = None

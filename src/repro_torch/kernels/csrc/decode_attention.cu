@@ -34,6 +34,10 @@
 //      can be captured in a CUDA graph). With one split the block writes the
 //      output; with more, each block writes (acc, m, l) partials to a
 //      workspace and a second small kernel merges them.
+//   5. optionally the row's log-sum-exp, lse = m + log(l) over the live
+//      scaled scores (-inf where none is live), written beside the output
+//      by whichever kernel writes it: a caller holding one band of T merges
+//      its (out, lse) with the other bands' (the time-banded cache).
 // The scores: 4 lanes share a key, each dotting a quarter of D from shared
 // memory against q (f32, in shared memory), then 2 shuffles; the P.V: 16
 // lanes split D into 16-byte chunks and 8 key groups split the tile; the 8
@@ -125,10 +129,10 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ mask,
                         const int* __restrict__ q_pos, float* __restrict__ out,
-                        float* __restrict__ ws_acc, float* __restrict__ ws_ml, int Hq, int Hkv,
-                        int n_hchunks, int T_len, int D, int span, float scale, long long k_sb,
-                        long long k_st, long long k_sh, long long v_sb, long long v_st,
-                        long long v_sh) {
+                        float* __restrict__ lse, float* __restrict__ ws_acc,
+                        float* __restrict__ ws_ml, int Hq, int Hkv, int n_hchunks, int T_len,
+                        int D, int span, float scale, long long k_sb, long long k_st,
+                        long long k_sh, long long v_sb, long long v_st, long long v_sh) {
   constexpr int E = 16 / sizeof(T);          // elements per 16-byte chunk
   constexpr int kMaxC = (kMaxD / E + kDChunks - 1) / kDChunks;   // P.V chunks per lane
   extern __shared__ __align__(16) unsigned char smem[];
@@ -361,6 +365,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t orow = static_cast<size_t>(b) * Hq + h0 + g;
     if (ws_acc == nullptr) {
       out[orow * D + d] = den > 0.f ? a / den : uniform_mean(vb, v_st, T_len, d);
+      if (lse != nullptr && d == 0) lse[orow] = den > 0.f ? mred[g] + logf(den) : -INFINITY;
     } else {
       const size_t w = orow * splits + split;
       ws_acc[w * D + d] = a;
@@ -376,9 +381,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_merge(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-                       const T* __restrict__ v, float* __restrict__ out, int Hq, int Hkv,
-                       int T_len, int D, int splits, long long v_sb, long long v_st,
-                       long long v_sh) {
+                       const T* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int Hq, int Hkv, int T_len, int D, int splits,
+                       long long v_sb, long long v_st, long long v_sh) {
   const int orow = blockIdx.x;
   const int b = orow / Hq;
   const int kvh = (orow % Hq) / (Hq / Hkv);
@@ -395,6 +400,7 @@ decode_attention_merge(const float* __restrict__ ws_acc, const float* __restrict
       den = fmaf(ml[2 * s + 1], wgt[s], den);
     }
   }
+  if (lse != nullptr && threadIdx.x == 0) lse[orow] = den > 0.f ? mx + logf(den) : -INFINITY;
   const float* acc = ws_acc + static_cast<size_t>(orow) * splits * D;
   const T* vb = v + b * v_sb + kvh * v_sh;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
@@ -412,8 +418,8 @@ decode_attention_merge(const float* __restrict__ ws_acc, const float* __restrict
 
 template <typename T, int HPB>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* q_pos,
-           void* out, void* ws_acc, void* ws_ml, int B, int Hq, int Hkv, int T_len, int D,
-           int splits, float scale, const long long* st, cudaStream_t stream) {
+           void* out, void* lse, void* ws_acc, void* ws_ml, int B, int Hq, int Hkv, int T_len,
+           int D, int splits, float scale, const long long* st, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int n_hchunks = (G + HPB - 1) / HPB;
   const int per = (T_len + splits - 1) / splits;
@@ -431,26 +437,27 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
   decode_attention_kernel<T, HPB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const int*>(q_pos),
-      static_cast<float*>(out), part, static_cast<float*>(ws_ml), Hq, Hkv, n_hchunks, T_len,
-      D, span, scale, st[0], st[1], st[2], st[3], st[4], st[5]);
+      static_cast<float*>(out), splits > 1 ? nullptr : static_cast<float*>(lse), part,
+      static_cast<float*>(ws_ml), Hq, Hkv, n_hchunks, T_len, D, span, scale, st[0], st[1],
+      st[2], st[3], st[4], st[5]);
   if (splits > 1) {
     decode_attention_merge<T><<<B * Hq, kThreads, 0, stream>>>(
         static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
-        static_cast<const T*>(v), static_cast<float*>(out), Hq, Hkv, T_len, D, splits, st[3],
-        st[4], st[5]);
+        static_cast<const T*>(v), static_cast<float*>(out), static_cast<float*>(lse), Hq, Hkv,
+        T_len, D, splits, st[3], st[4], st[5]);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_heads(int hpb, const void* q, const void* k, const void* v, const void* mask,
-                 const void* q_pos, void* out, void* ws_acc, void* ws_ml, int B, int Hq,
-                 int Hkv, int T_len, int D, int splits, float scale, const long long* st,
-                 cudaStream_t s) {
+                 const void* q_pos, void* out, void* lse, void* ws_acc, void* ws_ml, int B,
+                 int Hq, int Hkv, int T_len, int D, int splits, float scale,
+                 const long long* st, cudaStream_t s) {
 #define DA_CASE(n)                                                                          \
   case n:                                                                                   \
-    return launch<T, n>(q, k, v, mask, q_pos, out, ws_acc, ws_ml, B, Hq, Hkv, T_len, D,     \
-                        splits, scale, st, s);
+    return launch<T, n>(q, k, v, mask, q_pos, out, lse, ws_acc, ws_ml, B, Hq, Hkv, T_len,  \
+                        D, splits, scale, st, s);
   switch (hpb) {
     DA_CASE(1) DA_CASE(2) DA_CASE(3) DA_CASE(4) DA_CASE(5) DA_CASE(6) DA_CASE(7) DA_CASE(8)
     default:
@@ -474,23 +481,26 @@ extern "C" void decode_attention_geometry(int* out4) {
 // the element strides st = {k_sb, k_st, k_sh, v_sb, v_st, v_sh}, every row
 // 16-byte aligned; q, k and v share one type, bf16 (is_bf16 = 1) or f32;
 // mask: (B, T) uint8, nonzero = live key, or null; q_pos: (B,) int32, key t
-// live iff t <= q_pos[b], or null; out: (B, Hq, D) f32. heads_per_block
+// live iff t <= q_pos[b], or null; out: (B, Hq, D) f32; lse: (B, Hq) f32, the
+// log-sum-exp of each row's live scaled scores (-inf where none is live), or
+// null (out's bits do not depend on it). heads_per_block
 // (1-8) query heads of a group per block; splits (1-32) blocks along T, and
 // with splits > 1 the workspaces ws_acc (B * Hq * splits * D f32) and ws_ml
 // (B * Hq * splits * 2 f32). Needs D <= 256 a multiple of 16 bytes,
 // Hq % Hkv == 0, T >= 1. Returns cudaGetLastError().
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* mask, const void* q_pos, void* out,
-                                       void* ws_acc, void* ws_ml, int B, int Hq, int Hkv,
-                                       int T_len, int D, int heads_per_block, int splits,
+                                       void* lse, void* ws_acc, void* ws_ml, int B, int Hq,
+                                       int Hkv, int T_len, int D, int heads_per_block, int splits,
                                        float scale, const long long* strides, int is_bf16,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (splits < 1 || splits > kMaxSplits || D > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
-    return launch_heads<__nv_bfloat16>(heads_per_block, q, k, v, mask, q_pos, out, ws_acc,
-                                       ws_ml, B, Hq, Hkv, T_len, D, splits, scale, strides, s);
-  return launch_heads<float>(heads_per_block, q, k, v, mask, q_pos, out, ws_acc, ws_ml, B, Hq,
-                             Hkv, T_len, D, splits, scale, strides, s);
+    return launch_heads<__nv_bfloat16>(heads_per_block, q, k, v, mask, q_pos, out, lse,
+                                       ws_acc, ws_ml, B, Hq, Hkv, T_len, D, splits, scale,
+                                       strides, s);
+  return launch_heads<float>(heads_per_block, q, k, v, mask, q_pos, out, lse, ws_acc, ws_ml, B,
+                             Hq, Hkv, T_len, D, splits, scale, strides, s);
 }

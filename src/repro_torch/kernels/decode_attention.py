@@ -7,7 +7,10 @@ given; at or past T every row is live, as the reference's clamped write
 index) and ``mask[b, t]`` is nonzero (when a (B, T) mask is given). Scores
 are scaled, set to -1e30 where dead, soft-maxed over T and contracted with
 v, all in f32; a row with no live key averages v uniformly over T. The
-result is (B, Hq, D) f32. The kernel is ``csrc/decode_attention.cu``; it
+result is (B, Hq, D) f32. Asked (``return_lse``), each row's log-sum-exp of
+its live scaled scores comes beside it, (B, Hq) f32, -inf where no key is
+live (the output there is still v's average): a caller holding one band of
+a cache's T merges the bands' outputs with it. The kernel is ``csrc/decode_attention.cu``; it
 replaces the TPU kernel ``decode_attention_pallas`` in the JAX package's
 ``kernels/flash_attention.py``. ``kernels.ops.decode_attention`` is the
 wrapper callers use.
@@ -40,8 +43,9 @@ def check_q_pos(q_pos: torch.Tensor | None, batch: int, device) -> None:
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: torch.Tensor | None = None, scale: float | None = None,
-                           q_pos: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (the reference's masked softmax)."""
+                           q_pos: torch.Tensor | None = None, return_lse: bool = False):
+    """Plain PyTorch version of the kernel (the reference's masked softmax);
+    with ``return_lse``, (out, lse) as the kernel gives them."""
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -53,8 +57,12 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bshgd,bthd->bhgst", qd, k.to(torch.float32)) * scale
     logits = logits.masked_fill(~live[:, None, None, None, :], -1e30)
     p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgst,bthd->bshgd", p, v.to(torch.float32))
-    return o.reshape(b, hq, d)
+    o = torch.einsum("bhgst,bthd->bshgd", p, v.to(torch.float32)).reshape(b, hq, d)
+    if not return_lse:
+        return o
+    dead = torch.full((), float("-inf"), device=q.device)
+    lse = torch.logsumexp(torch.where(live[:, None, None, None, :], logits, dead), dim=-1)
+    return o, lse.reshape(b, hq)
 
 
 def heads_per_block(group: int) -> int:
@@ -81,7 +89,7 @@ def choose_splits(b: int, hkv: int, group: int, t: int, sms: int = 132) -> int:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a built decode-attention library."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                             ctypes.c_float, p, i, p]
     lib.decode_attention_launch.restype = ctypes.c_int
     lib.decode_attention_geometry.argtypes = [p]
@@ -107,12 +115,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: torch.Tensor | None = None, scale: float | None = None,
                           q_pos: torch.Tensor | None = None, *,
                           splits: int | None = None,
-                          plan_rows: int | None = None) -> torch.Tensor:
+                          plan_rows: int | None = None, return_lse: bool = False):
     """Launch the CUDA kernel; k/v are read in place through their strides.
     ``splits`` overrides :func:`choose_splits` (for measurement);
     ``plan_rows`` chooses them for that many rows instead of B (a data
     shard of a slot grid plans as the whole grid, so its rows' bits are the
-    unsharded grid's)."""
+    unsharded grid's); ``return_lse`` returns (out, lse), out with the bits
+    of the call without it."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {dev}")
@@ -148,8 +157,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         live = (mask if mask.dtype == torch.bool else mask != 0).contiguous().view(torch.uint8)
     pos = None if q_pos is None else q_pos.contiguous()
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lse else None
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     ws_acc = ws_ml = None
     if splits > 1:
         ws_acc = torch.empty((b * hq * splits * d,), dtype=torch.float32, device=dev)
@@ -158,10 +168,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     st = (ctypes.c_longlong * 6)(*strides)
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = _library().decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(live), ptr(pos), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(live), ptr(pos), out.data_ptr(), ptr(lse),
         ptr(ws_acc), ptr(ws_ml), b, hq, hkv, t, d, hpb, splits, float(scale),
         ctypes.addressof(st), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
-    return out
+    return (out, lse) if return_lse else out

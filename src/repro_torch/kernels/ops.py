@@ -204,18 +204,21 @@ def cascade_matmul_exact(x4: torch.Tensor, w4: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor | None = None, *, scale: float | None = None,
-                     q_pos: torch.Tensor | None = None) -> torch.Tensor:
+                     q_pos: torch.Tensor | None = None, return_lse: bool = False):
     """Decode-step attention on a stacked cache. q: (B, Hq, D), one query
     token per slot; k/v: (B, T, Hkv, D) cache buffers. Key t of row b is
     live iff ``t <= q_pos[b]`` (q_pos: (B,) int32, the row's position; the
     kernel then reads no row past it) and ``valid[b, t]`` is nonzero; either
-    may be absent. Returns (B, Hq, D) f32."""
+    may be absent. Returns (B, Hq, D) f32; with ``return_lse`` also each
+    row's log-sum-exp (B, Hq) f32 (-inf where no key is live), the weight
+    of a band of T in a merge with the other bands."""
+    lse_kw = {"return_lse": True} if return_lse else {}
     if _route(q) == "cuda":
         out = _da.decode_attention_cuda(q.contiguous(), k, v, valid, scale, q_pos,
-                                        **_plan_kw(q.shape[0]))
+                                        **_plan_kw(q.shape[0]), **lse_kw)
         LAUNCHES["decode_attention"] += 1
         return out
-    return _da.decode_attention_plain(q, k, v, valid, scale, q_pos)
+    return _da.decode_attention_plain(q, k, v, valid, scale, q_pos, **lse_kw)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

@@ -54,7 +54,10 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.
         decay = torch.exp(dtf[:, t] * Af)                             # (Bt, H)
         state = state * decay[:, :, None, None] + \
             (dtf[:, t, :, None] * xf[:, t])[..., None] * Bh[:, t, :, None, :]
-        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]) + Df[:, :, None] * xf[:, t])
+        # a product and a sum over N, not a batched matmul: each head's y
+        # then sums in one order whatever the number of heads in the call,
+        # so a band of the heads gives the whole call's bits
+        ys.append((state * Ch[:, t, :, None, :]).sum(-1) + Df[:, :, None] * xf[:, t])
     y = torch.stack(ys, dim=1).to(x.dtype)
     if final_state_out is not None:
         final_state_out.copy_(state)

@@ -1,0 +1,537 @@
+"""Multi-pod dry run: trace every (architecture x input shape x mesh) cell
+of one rank of the production meshes, with no device and no memory (the
+reference's ``repro/launch/dryrun.py``).
+
+The reference compiles each cell for 256 or 512 virtual XLA devices and
+reads XLA's cost and memory analyses. The port's counterpart runs the real
+step code of ONE rank, rank 0, in a world of 256 or 512 ranks that PyTorch's
+``fake`` process-group backend makes (its collectives move nothing), under
+``FakeTensorMode``: every tensor is a fake CPU tensor with a shape, a dtype
+and a storage size, and nothing is allocated or computed. It is a
+device-free tool by design, as the reference's is; it is not a fallback
+from the card. Rank 0's program is the per-device record, as the
+reference's SPMD compile is. A PyTorch without the fake backend makes the
+run fail and say so; no smaller world stands in for it.
+
+For each cell this shows that the placement is coherent (the step runs on
+its bands), and records (``run_cell``) the reference's keys:
+
+* ``flops_per_device``: ``torch.utils.flop_counter.FlopCounterMode`` over
+  the step (matrix products and attention, forward, backward and
+  rematerialization). Every op the step runs is counted as often as it
+  runs; the reference's XLA count counts a while-loop body once
+  (``repro/analysis/hlo.py``), so this is its loop-corrected count;
+* ``bytes_accessed_per_device``: each op's operand bytes plus its output
+  bytes, views excluded, unfused: an upper count, not XLA's fused one;
+* ``memory``: ``argument_bytes``, the rank's local params, optimizer
+  state, batch and cache, summed leaf by leaf (an exact integer);
+  ``output_bytes``, the step's outputs that are not arguments;
+  ``temp_bytes``, the peak of the live storages beyond the arguments during
+  the step (a tally of the fake storages, each counted until it is freed);
+  ``peak_bytes`` = argument + temp, as in the reference;
+* ``collectives``: the reference's five kinds, each with ``count`` and
+  ``bytes``, and ``total_bytes``, from the port's counted collectives
+  (``distributed/collectives.py``): all-gather, and all-reduce (SUM and
+  MAX); the port makes no reduce-scatter, all-to-all or collective-permute,
+  so those are zero. ``bytes`` are the bytes each rank sends into the calls
+  (the reference counts each op's output: an all-gather's is the group's
+  size times larger);
+* ``trace_s`` (the reference's ``compile_s``): the wall seconds of drawing
+  the rank's tensors and tracing its step.
+
+A cell places its params by ``sharding.placed_param_specs`` (the
+``param_specs`` of ``--tp-policy``, replicated on the dims the axis does
+not divide: the reference's jit refuses such arguments, e.g. mamba2-370m's
+50,280-row table under megatron), its batch by ``batch_specs`` and its
+decode cache by the WHOLE of ``cache_specs`` (KV heads, else the time
+axis, MLA's latent rows, the recurrent state and conv window over
+``model``); the decode step carries those bands (``distributed/
+sharding.py``). ``pos`` and a ring's ``slot_pos`` are replicated there,
+and the rank steps its data shard's rows of them. The prefill cell places
+its output cache by the model bands of ``cache_specs`` (its rows are the
+rank's already). Cells run the reference's default ``CascadeConfig``:
+``serve_fp4`` (``train`` for train cells), ``use_kernel=False``, the
+dequantize-and-multiply route the reference lowers. Train cells run
+``train/loop.make_train_step`` with remat and AdamW, the gradients averaged
+over the data shards (one counted all-reduce a leaf and data axis), and
+the clip's global norm that of the whole gradients: the banded leaves'
+sum of squares all-reduced over ``model`` (one counted all-reduce).
+
+Policies: ``--act-policy cascade`` (the batch over ``pod``/``data``) and,
+for train cells, full data parallelism (the batch over every axis, as the
+reference's ``full_dp`` places a train cell's; ``--act-policy fulldp`` and
+``--full-dp`` each ask for it and imply the other) are ported. Under full
+data parallelism every rank holds rows of its own, so the step gathers the
+model-banded params whole once, at its start (``WholeParams``; their
+gradients summed back onto the bands): the record's temp holds them whole
+through the step, where a per-layer gather would hold one layer's.
+``seqpar``, ``none``, ``--dp-shard zero1|fsdp`` and full data parallelism
+on a serving cell raise ``ValueError`` (a FAILED record in a sweep).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod both --out DIR/x.json
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import sys
+import time
+import weakref
+from typing import Any, Callable, Optional
+
+import torch
+import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import tree as T
+from repro_torch.configs import base as cfgbase
+from repro_torch.core.cascade import CascadeConfig
+from repro_torch.distributed import collectives, sharding
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import cache_utils, registry
+from repro_torch.optim.adamw import AdamW
+from repro_torch.train import loop as train_loop
+
+#: the reference's collective kinds (``dryrun.collective_stats``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+ACT_POLICIES = ("none", "cascade", "seqpar", "fulldp")
+DP_SHARDS = ("none", "zero1", "fsdp")
+
+
+# ---------------------------------------------------------------------------
+# the world
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A ``fake`` process group of ``world_size`` ranks, this process rank 0,
+    torn down on the way out whatever happens inside."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(f"this PyTorch ({torch.__version__}) has no fake process-group "
+                           "backend: the dry run needs one and runs no smaller world") from e
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized: the dry run makes its own")
+    dist.init_process_group("fake", rank=0, world_size=world_size, store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def check_policies(act_policy: str, dp_shard: str, full_dp: bool) -> tuple:
+    """``(act_policy, full_dp)`` with full data parallelism asked by either
+    (``fulldp`` and ``--full-dp`` imply each other); ``ValueError`` for a
+    placement the port has not ported."""
+    if act_policy not in ACT_POLICIES:
+        raise ValueError(f"unknown --act-policy {act_policy!r}")
+    if act_policy in ("seqpar", "none"):
+        raise ValueError(f"--act-policy {act_policy} has no counterpart in the port's explicit "
+                         "placement yet (ROADMAP): use cascade, or fulldp with --full-dp")
+    if dp_shard != "none":
+        raise ValueError(f"--dp-shard {dp_shard} (optimizer or parameter sharding over the data "
+                         "axes) is not ported yet (ROADMAP)")
+    full_dp = bool(full_dp) or act_policy == "fulldp"
+    return ("fulldp" if full_dp else act_policy), full_dp
+
+
+# ---------------------------------------------------------------------------
+# a cell: its step and its rank's arguments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Cell:
+    """One rank's step of a cell. ``trees`` maps each argument group
+    ("params", "batch", "cache" or "opt") to its whole tree of meta tensors
+    and its spec tree; ``step(args)`` runs the step on the rank's local
+    trees (``local_args``) and returns its outputs."""
+    shape: cfgbase.ShapeConfig
+    mesh: Any
+    tp_policy: str
+    batch_axes: tuple
+    trees: dict
+    step: Callable[[dict], Any]
+
+    def local_args(self, make: Callable) -> dict:
+        """The rank's bands of every argument tree, each leaf made by
+        ``make(shape, dtype)`` (``torch.empty`` under ``FakeTensorMode``).
+        Train cells get ``requires_grad`` params, their optimizer state and
+        the train state's step, as the reference's ``TrainState``."""
+        out = {name: sharding._map2(lambda t, s: make(local_shape(t.shape, s, self.mesh),
+                                                      t.dtype), tree, specs)
+               for name, (tree, specs) in self.trees.items()}
+        if self.shape.kind == "train":
+            for p in T.leaves(out["params"]):
+                p.requires_grad_(True)
+            out["opt"] = AdamW().init(out["params"])
+            out["step"] = make((), torch.int32)
+        return out
+
+    def policy(self, args: dict) -> sharding.ActivationPolicy:
+        """The activation policy of the rank's step: its param bands (none
+        under full data parallelism, whose step runs on the params
+        gathered whole) and the decode cache's model bands."""
+        if "model" in self.batch_axes:
+            return sharding.ActivationPolicy(self.mesh, self.tp_policy)
+        return sharding.ActivationPolicy(
+            self.mesh, self.tp_policy, args["params"], self.trees["params"][1],
+            cache_bands=self.trees["cache"][1] if "cache" in self.trees else None)
+
+
+class WholeParams:
+    """``model`` under full data parallelism: ``forward`` takes the rank's
+    bands of the params and runs on them all-gathered whole over the mesh
+    (every rank holds rows of its own), the gathers' gradients summed over
+    the ranks onto the bands."""
+
+    def __init__(self, model, specs, mesh):
+        self.model, self.specs, self.mesh = model, specs, mesh
+
+    def forward(self, params, batch, ccfg, **kw):
+        whole = sharding.gather_tree(params, self.specs, self.mesh, sum_grads=True)
+        return self.model.forward(whole, batch, ccfg, **kw)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """A leaf's shape on one rank under ``spec``."""
+    return tuple(d // sharding._axis_size(mesh, name) if name is not None else d
+                 for d, name in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+def _without_axes(specs, axes: tuple):
+    """``specs`` with the names of ``axes`` dropped (a tuple of names keeps
+    the rest)."""
+    def drop(spec):
+        out = []
+        for name in spec:
+            names = tuple(n for n in sharding._axis_names(name) if n not in axes) \
+                if name is not None else ()
+            out.append(None if not names else (names[0] if len(names) == 1 else names))
+        return tuple(out)
+    return _map_specs(drop, specs)
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v) for v in specs]
+    return fn(specs)
+
+
+def _data_rows(mesh, axes: tuple, global_b: int) -> tuple:
+    """(first row, rows) of this rank's data shard of a ``global_b`` batch
+    over ``axes`` (all of them when they do not divide it)."""
+    idx, count = sharding._band_index(mesh, tuple(a for a in axes if a in mesh.shape))
+    if count <= 1 or global_b % count:
+        return 0, global_b
+    return idx * (global_b // count), global_b // count
+
+
+def rank_cache_view(cache: dict, specs: dict, batch_axes: tuple, b0: int, nb: int) -> dict:
+    """The cache as the rank's step reads it: every leaf whose slot axis
+    ``cache_specs`` leaves replicated over the data axes (``pos``, a ring's
+    ``slot_pos``) narrowed to the rank's rows ``[b0, b0 + nb)`` (a view: the
+    step's in-place writes land in the replicated leaf)."""
+    out: dict = {}
+    for path, buf, ax in cache_utils._leaves(cache):
+        spec = cache_utils._get(specs, path)
+        sharded = spec[ax] is not None and any(a in sharding._axis_names(spec[ax])
+                                               for a in batch_axes)
+        view = buf if sharded or buf.shape[ax] == nb else buf.narrow(ax, b0, nb)
+        parent = out.setdefault(path[0], {}) if len(path) == 2 else out
+        parent[path[-1]] = view
+    return out
+
+
+def build_cell(arch: str, shape, mesh, ccfg: Optional[CascadeConfig] = None,
+               tp_policy: str = "cascade", act_policy: str = "cascade",
+               dp_shard: str = "none", full_dp: bool = False, remat_policy: str = "dots",
+               cfg=None) -> Cell:
+    """The cell's step and argument trees (the reference's ``build_step``).
+    ``shape`` is a name of ``SHAPES`` or a ``ShapeConfig``; ``cfg`` another
+    config of the arch's family (a smoke config)."""
+    act_policy, full_dp = check_policies(act_policy, dp_shard, full_dp)
+    shape = cfgbase.SHAPES[shape] if isinstance(shape, str) else shape
+    if full_dp and shape.kind != "train":
+        raise ValueError(f"full data parallelism (--full-dp) on a {shape.kind} cell: the reference puts only a train "
+                         "cell's batch over every axis, and its serving cells' fulldp "
+                         "constraints (rows over model against a cache banded over model) "
+                         "have no counterpart in the port's explicit placement yet (ROADMAP)")
+    if cfg is None:
+        cfg = registry.get_config(arch)
+    model = registry.build_model(cfg)
+    if ccfg is None:
+        ccfg = CascadeConfig(mode="train" if shape.kind == "train" else "serve_fp4")
+    batch_axes = ("pod", "data", "model") if full_dp else ("pod", "data")
+    tied = bool(cfg.tie_embeddings)
+    params = model.init_params(0, ccfg, device="meta")
+    pspecs = sharding.placed_param_specs(params, mesh, tp_policy, tied)
+    batch = cfgbase.input_specs(cfg, shape)
+    bspecs = sharding.batch_specs(batch, batch_axes=batch_axes, mesh=mesh)
+    trees = {"params": (params, pspecs), "batch": (batch, bspecs)}
+    b0, nb = _data_rows(mesh, batch_axes, shape.global_batch)
+
+    if shape.kind == "train":
+        opt = AdamW()
+        reduce_axes = tuple(a for a in batch_axes if mesh.size(a) > 1)
+        n_rows = math.prod(mesh.size(a) for a in reduce_axes)
+        banded = T.leaves(sharding._map2(
+            lambda t, s: "model" in sum((sharding._axis_names(n) for n in s if n is not None),
+                                        ()), params, pspecs))
+
+        def grad_mean(grads):
+            # under full data parallelism a banded leaf's gradient is summed
+            # over model already (its gather's backward), a whole leaf's not
+            out = []
+            for g, b in zip(grads, banded):
+                for a in reduce_axes:
+                    if not (a == "model" and b):
+                        g = collectives.all_reduce(g, mesh.group(a), "sum")
+                out.append(g / n_rows if n_rows > 1 else g)
+            return out
+
+        def grad_sq(grads):
+            # the whole gradients' sum of squares: the bands' summed over model
+            sq = lambda keep: sum((torch.sum(g.to(torch.float32) ** 2)
+                                   for g, b in zip(grads, banded) if b == keep),
+                                  torch.zeros((), device=grads[0].device))
+            part = sq(True)
+            if mesh.size("model") > 1:
+                part = collectives.all_reduce(part, mesh.group("model"), "sum")
+            return part + sq(False)
+
+        train_step = train_loop.make_train_step(
+            WholeParams(model, pspecs, mesh) if full_dp else model, ccfg, opt, remat=True,
+            remat_policy=remat_policy, grad_reduce=grad_mean, grad_sq=grad_sq)
+
+        def step(args):
+            state = train_loop.TrainState(params=args["params"], opt=args["opt"],
+                                          step=args["step"])
+            return train_step(state, args["batch"])[1]
+
+    elif shape.kind == "prefill":
+        whole = model.init_cache(shape.global_batch, shape.seq_len,
+                                 dtype=ccfg.resolved_kv_dtype, device="meta")
+        model_bands = _without_axes(sharding.cache_specs(whole, mesh), batch_axes)
+
+        def step(args):
+            logits, cache = model.prefill(args["params"], args["batch"], ccfg,
+                                          max_len=shape.seq_len)
+            return logits, sharding.shard_tree(cache, model_bands, mesh)
+
+    else:
+        cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                 dtype=ccfg.resolved_kv_dtype, device="meta")
+        cspecs = sharding.cache_specs(cache, mesh)
+        trees["cache"] = (cache, cspecs)
+
+        def step(args):
+            view = rank_cache_view(args["cache"], cspecs, batch_axes, b0, nb)
+            return model.decode_step(args["params"], args["batch"], view, ccfg)[0]
+
+    return Cell(shape=shape, mesh=mesh, tp_policy=tp_policy, batch_axes=batch_axes,
+                trees=trees, step=step)
+
+
+# ---------------------------------------------------------------------------
+# tracing one rank's step
+# ---------------------------------------------------------------------------
+
+def _tensors(tree) -> list:
+    out = []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            out += _tensors(v)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class StorageTally(TorchDispatchMode):
+    """Counts, over the ops dispatched inside it, the bytes each op reads
+    and writes (operands plus outputs, views excluded) and the storages the
+    ops create: each is live from its first appearance until it is freed,
+    and ``peak`` is the most bytes live at once. Storages in ``known`` (the
+    arguments) are not counted."""
+
+    def __init__(self, known=()):
+        super().__init__()
+        self.known = set(known)
+        self.live: dict = {}
+        self.current = 0
+        self.peak = 0
+        self.bytes_accessed = 0
+
+    def _free(self, key):
+        self.current -= self.live.pop(key, 0)
+
+    def track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = sharding._storage_key(t)
+        if key in self.known or key in self.live:
+            return
+        self.live[key] = st.nbytes()
+        self.current += self.live[key]
+        self.peak = max(self.peak, self.current)
+        weakref.finalize(st, self._free, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not getattr(func, "is_view", False):
+            self.bytes_accessed += sum(_nbytes(t) for t in _tensors(args) + _tensors(kwargs)
+                                       + _tensors(out))
+        for t in _tensors(out):
+            self.track(t)
+        return out
+
+
+def _collective_record(counts: dict) -> dict:
+    got = {c: {"count": 0, "bytes": 0} for c in COLLECTIVES}
+    got["all-gather"] = {"count": counts["all_gather"]["calls"],
+                         "bytes": counts["all_gather"]["bytes"]}
+    got["all-reduce"] = {f: counts["all_reduce_sum"][k] + counts["all_reduce_max"][k]
+                         for f, k in (("count", "calls"), ("bytes", "bytes"))}
+    got["total_bytes"] = sum(v["bytes"] for v in got.values())
+    return got
+
+
+def trace_cell(cell: Cell) -> dict:
+    """Run the cell's step on fake tensors: FLOPs, bytes, memory and
+    collectives of rank 0's step (the record's numbers)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        args = cell.local_args(lambda s, dt: torch.empty(s, dtype=dt, device="cpu"))
+        leaves = [t for name in args for t in T.leaves(args[name])]
+        argument_bytes = sum(_nbytes(t) for t in leaves)
+        pol = cell.policy(args)
+        before = collectives.snapshot()
+        tally = StorageTally(sharding._storage_key(t) for t in leaves)
+        flops = FlopCounterMode(display=False)
+        with sharding.activation_policy(pol), flops, tally:
+            out = cell.step(args)
+        known = set(tally.known)
+        output_bytes = sum(st.nbytes() for st in
+                           {sharding._storage_key(t): t.untyped_storage()
+                            for t in _tensors(out)
+                            if sharding._storage_key(t) not in known}.values())
+        counts = collectives.since(before)
+    return {"flops": flops.get_total_flops(), "bytes_accessed": tally.bytes_accessed,
+            "argument_bytes": argument_bytes, "output_bytes": output_bytes,
+            "temp_bytes": tally.peak, "collectives": counts}
+
+
+def run_cell(arch: str, shape, mesh, ccfg: Optional[CascadeConfig] = None,
+             tp_policy: str = "cascade", verbose: bool = True, act_policy: str = "cascade",
+             dp_shard: str = "none", full_dp: bool = False, remat_policy: str = "dots",
+             cfg=None) -> dict:
+    """Trace one cell on rank 0 of ``mesh`` (a mesh over a fake world);
+    return its record (the reference's ``lower_cell``). ``shape``: a name of
+    ``SHAPES`` or a ``ShapeConfig``."""
+    shape = cfgbase.SHAPES[shape] if isinstance(shape, str) else shape
+    act_policy, full_dp = check_policies(act_policy, dp_shard, full_dp)
+    cfg = cfg or registry.get_config(arch)
+    if not cfgbase.shape_applicable(cfg, shape):
+        return {"arch": arch, "shape": shape.name, "status": "skipped",
+                "reason": "full-attention arch: long_500k requires sub-quadratic attention"}
+    t0 = time.time()
+    cell = build_cell(arch, shape, mesh, ccfg, tp_policy, act_policy, dp_shard, full_dp,
+                      remat_policy, cfg=cfg)
+    got = trace_cell(cell)
+    record = {
+        "arch": arch,
+        "shape": shape.name,
+        "mesh": dict(mesh.shape),
+        "tp_policy": tp_policy,
+        "act_policy": act_policy,
+        "dp_shard": dp_shard,
+        "full_dp": full_dp,
+        "moe_ep": False,
+        "status": "ok",
+        "trace_s": round(time.time() - t0, 1),
+        "flops_per_device": got["flops"],
+        "bytes_accessed_per_device": got["bytes_accessed"],
+        "memory": {
+            "argument_bytes": got["argument_bytes"],
+            "output_bytes": got["output_bytes"],
+            "temp_bytes": got["temp_bytes"],
+            "peak_bytes": got["argument_bytes"] + got["temp_bytes"],
+        },
+        "collectives": _collective_record(got["collectives"]),
+    }
+    if verbose:
+        print(json.dumps(record), flush=True)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def run_all(archs, shapes, multi_pods, **kw) -> list:
+    """Every cell of ``archs`` x ``shapes`` on each production mesh, one fake
+    world a mesh; a cell that raises becomes a FAILED record."""
+    records = []
+    for mp in multi_pods:
+        with fake_world(512 if mp else 256):
+            mesh = make_production_mesh(multi_pod=mp)
+            for arch in archs:
+                for shape in shapes:
+                    try:
+                        rec = run_cell(arch, shape, mesh, **kw)
+                    except Exception as e:     # a failure here is a bug in the port
+                        rec = {"arch": arch, "shape": shape, "mesh": dict(mesh.shape),
+                               "status": "FAILED", "error": f"{type(e).__name__}: {e}"}
+                        print(json.dumps(rec), flush=True)
+                    records.append(rec)
+    return records
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=list(cfgbase.SHAPES) + [None])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--tp-policy", default="cascade", choices=["cascade", "megatron"])
+    ap.add_argument("--act-policy", default="cascade", choices=list(ACT_POLICIES))
+    ap.add_argument("--dp-shard", default="none", choices=list(DP_SHARDS))
+    ap.add_argument("--full-dp", action="store_true")
+    ap.add_argument("--remat-policy", default="dots", choices=["dots", "none", "save_all"])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    args.act_policy, args.full_dp = check_policies(args.act_policy, args.dp_shard,
+                                                   args.full_dp)
+
+    archs = list(registry.ALIASES) if (args.all or args.arch is None) else [args.arch]
+    shapes = list(cfgbase.SHAPES) if (args.all or args.shape is None) else [args.shape]
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.multi_pod]
+    records = run_all(archs, shapes, meshes, tp_policy=args.tp_policy,
+                      act_policy=args.act_policy, dp_shard=args.dp_shard,
+                      full_dp=args.full_dp, remat_policy=args.remat_policy)
+    if args.out:
+        import os
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(records, f, indent=1)
+    n_fail = sum(r["status"] == "FAILED" for r in records)
+    print(f"\n{len(records)} cells: {len(records) - n_fail} ok/skipped, {n_fail} FAILED",
+          file=sys.stderr)
+    return 1 if n_fail else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

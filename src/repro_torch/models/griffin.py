@@ -36,10 +36,18 @@ the engine bounds no prompt by ``max_len``.
 Under a mesh policy (``distributed/sharding.py``) every projection of the
 recurrent blocks (``wa``, ``wx``, ``w_gate``, ``w_in``, ``w_out``) runs on
 its column band and gathers it (``core/cascade.py``), so the RG-LRU and the
-conv run on whole activations and their state stays whole on every model
-rank; local attention runs on the rank's KV heads where they divide the
-axis (``layers.attn_apply``; recurrentgemma-2b's one KV head does not, so
-its rings stay whole).
+conv run on whole activations and, in a mesh engine, their state stays
+whole on every model rank; local attention runs on the rank's KV heads
+where they divide the axis (``layers.attn_apply``; recurrentgemma-2b's one
+KV head does not, so the engine keeps its rings whole). Under the dry
+run's ``cache_specs`` placement the ``h`` and ``conv`` leaves hold a band
+of the channels and the rings a band of their rows: decode runs the conv
+and the RG-LRU on the rank's channels (the gates from ``wa``/``wx``/
+``w_gate`` left as the rank's columns), gathers the conv output (which
+``wa``/``wx`` contract whole) and hands the gated band to ``w_out``
+(gathered first unless megatron row-bands it), bit-equal to the unsharded
+step; the rings take ``layers.attn_apply``'s time band. Extend raises on
+such a cache.
 """
 from __future__ import annotations
 
@@ -50,13 +58,29 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device, seeded_generator
+from repro_torch.distributed import sharding
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models import remat as R
 from repro_torch.models.ssm import (_causal_conv, _conv_decode, _conv_extend, _conv_steps,
-                                    conv_prefill_state)
+                                    conv_decode_banded, conv_prefill_state)
 
 _C = 8.0  # RG-LRU gate sharpness constant (Griffin paper)
+
+
+def _columns(params: dict, x: torch.Tensor, ccfg: CascadeConfig, c0: int,
+             width: int) -> torch.Tensor:
+    """Columns ``[c0, c0 + width)`` of a linear's output: the whole output
+    when that is all of it, the rank's column band left unjoined where the
+    mesh policy bands it so, else a slice of the whole output."""
+    if cascade.banded(params) == -1:
+        y = cascade.linear_apply(params, x, ccfg, gather=False)
+        if y.shape[-1] == width:
+            return y
+        y = cascade.gather_columns(y)
+    else:
+        y = cascade.linear_apply(params, x, ccfg)
+    return y if c0 == 0 and y.shape[-1] == width else y[..., c0:c0 + width]
 
 
 def _log_depth_scan(a: torch.Tensor, g: torch.Tensor):
@@ -157,16 +181,21 @@ class GriffinLM:
 
     # --------------------------------------------------------------- RG-LRU
     def _rglru(self, lp: dict, y: torch.Tensor, ccfg: CascadeConfig, h0=None,
-               mode: str = "full", n_valid=None):
+               mode: str = "full", n_valid=None, cols: tuple | None = None):
         """y: (b, s, lru) post-conv input. Returns (out in y's dtype, h_last
         (b, lru) f32, h_all): ``h_all`` is the f32 state after every step
         (b, s, lru) in extend mode (the rewind checkpoints), else None. In
         extend mode only the first ``n_valid`` steps are real: pad steps are
         the identity (a = 1, input 0), so the carried state lands on the
-        ``n_valid`` boundary."""
-        r = torch.sigmoid(cascade.linear_apply(lp["wa"], y, ccfg).to(torch.float32))
-        i = torch.sigmoid(cascade.linear_apply(lp["wx"], y, ccfg).to(torch.float32))
-        log_a = -_C * r * F.softplus(lp["lam"])                      # (b, s, lru) <= 0
+        ``n_valid`` boundary. ``cols`` (c0, width): decode on that band of
+        the channels (``h0`` the band of the state; y whole, which ``wa``
+        and ``wx`` contract); out and h are the band's."""
+        c0, cw = cols if cols is not None else (0, y.shape[-1])
+        r = torch.sigmoid(_columns(lp["wa"], y, ccfg, c0, cw).to(torch.float32))
+        i = torch.sigmoid(_columns(lp["wx"], y, ccfg, c0, cw).to(torch.float32))
+        if cols is not None:
+            y = y[..., c0:c0 + cw]
+        log_a = -_C * r * F.softplus(lp["lam"][c0:c0 + cw])          # (b, s, lru) <= 0
         s = y.shape[1]
         if mode == "extend" and n_valid is not None:
             nv = n_valid.reshape(-1, 1, 1) if isinstance(n_valid, torch.Tensor) else n_valid
@@ -209,16 +238,31 @@ class GriffinLM:
         Returns (x, this block's MLP output still to be added, its cache)."""
         cfg = self.cfg
         uk = ccfg.use_kernel
+        pol = sharding.get_activation_policy() if cache is not None else None
+        h_band = pol.cache_band("h") if pol is not None else None
+        conv_band = pol.cache_band("conv") if pol is not None else None
+        if mode != "decode" and (h_band is not None or conv_band is not None):
+            raise ValueError(
+                "a Griffin cache banded over model (the dry run's cache_specs placement) runs "
+                "decode only: extend and the speculative verify pass need its state whole")
         if pending is None:
             u = L.norm_apply(lp["ln"], x, cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln"], x, pending, cfg.norm_type, use_kernel=uk)
-        gate = L._gelu(cascade.linear_apply(lp["w_gate"], u, ccfg).to(torch.float32))
+        # this rank's band of the channels, where the state holds one
+        cols = None if h_band is None else (pol.model_rank * cache["h"].shape[-1],
+                                             cache["h"].shape[-1])
+        c0, cw = cols if cols is not None else (0, self.lru)
+        gate = L._gelu(_columns(lp["w_gate"], u, ccfg, c0, cw).to(torch.float32))
         y = cascade.linear_apply(lp["w_in"], u, ccfg)
         new_cache = None
         if mode == "decode":
-            y_c, new_conv = _conv_decode(y, cache["conv"], lp["conv_w"], lp["conv_b"])
-            out, h_last, _ = self._rglru(lp, y_c, ccfg, cache["h"], mode)
+            if conv_band is not None:
+                y_c, new_conv = conv_decode_banded(pol, y, cache["conv"], lp["conv_w"],
+                                                   lp["conv_b"])
+            else:
+                y_c, new_conv = _conv_decode(y, cache["conv"], lp["conv_w"], lp["conv_b"])
+            out, h_last, _ = self._rglru(lp, y_c, ccfg, cache["h"], mode, cols=cols)
         elif mode == "extend":
             if collect is not None and uk:
                 y_c, new_conv, conv_full = _conv_steps(y, cache["conv"], lp["conv_w"],
@@ -240,8 +284,10 @@ class GriffinLM:
             cache["conv"].copy_(new_conv)
             cache["h"].copy_(h_last)
             new_cache = cache
-        mixed = cascade.linear_apply(lp["w_out"],
-                                     (out.to(torch.float32) * gate).to(x.dtype), ccfg)
+        mixed_in = (out.to(torch.float32) * gate).to(x.dtype)
+        if cols is not None and cascade.banded(lp["w_out"]) != -2:
+            mixed_in = pol.gather_model(mixed_in, -1)       # w_out wants every channel
+        mixed = cascade.linear_apply(lp["w_out"], mixed_in, ccfg)
         u, x = L.add_norm_apply(lp["ln2"], x, mixed, cfg.norm_type, use_kernel=uk)
         return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.distributed import sharding
+from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.norm import add_norm_plain, gated_norm_plain, norm_plain
 from repro_torch.models import cache_utils
 
@@ -157,6 +158,50 @@ def update_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None
     buf[torch.arange(b, device=buf.device)[:, None], rows] = new.to(buf.dtype)
 
 
+def write_band_row(buf: torch.Tensor, new: torch.Tensor, row: torch.Tensor,
+                   offset: int) -> None:
+    """Write ``new`` (B, ...) at whole-cache row ``row[b]`` into ``buf``
+    (B, Tb, ...), this rank's band of the cache's rows ``[offset, offset +
+    Tb)``, in place: a row outside the band is the band-holder's to write,
+    and the buffer keeps what it held there (a select, not a branch, so
+    nothing syncs)."""
+    b, tb = buf.shape[:2]
+    bi = torch.arange(b, device=buf.device)
+    local = row.to(torch.int64) - offset
+    mine = (local >= 0) & (local < tb)
+    at = local.clamp(0, tb - 1)
+    cur = buf[bi, at]
+    buf[bi, at] = torch.where(mine.reshape((b,) + (1,) * (cur.dim() - 1)),
+                              new.to(buf.dtype), cur)
+
+
+def band_softmax(logits: torch.Tensor, live: torch.Tensor) -> tuple:
+    """Softmax over the last axis among its ``live`` entries, and their
+    log-sum-exp: (p, lse), p = 0 and lse = -inf where none is live (a band
+    of a cache's time axis with no live key: its weight in a merge is 0)."""
+    x = torch.where(live, logits, torch.full((), float("-inf"), device=logits.device))
+    lse = torch.logsumexp(x, dim=-1)
+    p = torch.exp(x - torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))[..., None])
+    return p, lse
+
+
+def time_band_attend(pol, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     ccfg: CascadeConfig, scale: float, q_pos=None, mask=None) -> torch.Tensor:
+    """Decode attention of q (B, 1, H, D) over the whole of a cache's time
+    axis, from this rank's band k/v (B, Tb, Hkv, D) (``q_pos`` and
+    ``mask`` in the band's rows): its (out, lse) through decode attention
+    (the kernel under ``use_kernel``), joined with the other model ranks'
+    (``ActivationPolicy.join_time_bands``). Returns (B, 1, H, D) f32."""
+    b, _, h, hd = q.shape
+    if ccfg.use_kernel:
+        from repro_torch.kernels import ops
+        o, lse = ops.decode_attention(q[:, 0], k, v, mask, scale=scale, q_pos=q_pos,
+                                      return_lse=True)
+    else:
+        o, lse = decode_attention_plain(q[:, 0], k, v, mask, scale, q_pos, return_lse=True)
+    return pol.join_time_bands(o, lse).reshape(b, 1, h, hd)
+
+
 # ---------------------------------------------------------------------------
 # attention (GQA / MHA), full-seq and cached paths
 # ---------------------------------------------------------------------------
@@ -276,20 +321,26 @@ def attn_apply(
     read the cache rows.
 
     Under a mesh policy whose cache holds this rank's band of the KV heads
-    (``ActivationPolicy.kv_heads_banded``: a mesh engine places them over
-    ``model`` where they divide), q/k/v stay this rank's columns of the column-banded
-    projections, which are its heads (q head h reads KV head h // G, so a
-    band of KV heads serves the matching band of q heads), the rank attends
-    on them, and their output is joined before ``wo`` (cascade) or handed
-    to a row-banded ``wo`` as it is (megatron).
+    (``ActivationPolicy.cache_band("k")`` is the heads' dim: a mesh engine
+    places them over ``model`` where they divide), q/k/v stay this rank's
+    columns of the column-banded projections, which are its heads (q head h
+    reads KV head h // G, so a band of KV heads serves the matching band of
+    q heads), the rank attends on them, and their output is joined before
+    ``wo`` (cascade) or handed to a row-banded ``wo`` as it is (megatron).
+    Where the cache holds a band of its time axis instead (the dry run's
+    ``cache_specs`` placement, where the heads do not divide), decode writes
+    the new row on the rank whose band holds it and attends through
+    :func:`time_band_attend`; extend and the paged cache raise there.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
     dev = x.device
-    # the mesh engine's cache holds this rank's band of the KV heads: q/k/v
-    # stay this rank's heads
+    # the cache's model band: the KV heads (q/k/v stay this rank's heads)
+    # or the time axis
     pol = sharding.get_activation_policy()
-    heads_banded = cache is not None and pol is not None and pol.kv_heads_banded
+    kv_band = pol.cache_band("k") if cache is not None and pol is not None else None
+    heads_banded = kv_band == -2
+    time_banded = kv_band == -3
     lin = lambda name: cascade.linear_apply(params[name], x, ccfg, gather=not heads_banded)
     q = lin("wq").reshape(b, s, -1, hd)
     k = lin("wk").reshape(b, s, -1, hd)
@@ -324,10 +375,24 @@ def attn_apply(
             raise ValueError("decode takes one token per row")
         pos = cache["pos"]                               # (B,) next write index
         bt = cache.get("block_table")
+        if time_banded and (mode != "decode" or bt is not None):
+            raise ValueError(
+                "a k/v cache banded over its time axis (the dry run's cache_specs placement) "
+                "runs decode only: extend, the speculative verify pass and the paged cache "
+                "need its rows whole")
         if cfg.window > 0:
             if bt is not None:
                 raise ValueError("paged attention requires full attention")
-            o = _ring_attend(q, k, v, cache, cfg, ccfg, mode, scale, n_valid)
+            o = _ring_attend(q, k, v, cache, cfg, ccfg, mode, scale, n_valid,
+                             pol if time_banded else None)
+        elif time_banded:
+            # this rank holds rows [off, off + Tb) of the cache's T = Tb * m
+            tb = cache["k"].shape[1]
+            off = pol.model_rank * tb
+            row = pos.to(torch.int64).clamp(0, tb * pol.model_size - 1)
+            write_band_row(cache["k"], k[:, 0], row, off)
+            write_band_row(cache["v"], v[:, 0], row, off)
+            o = time_band_attend(pol, q, cache["k"], cache["v"], ccfg, scale, q_pos=pos - off)
         else:
             if bt is not None:
                 # scatter through the block table, then gather the slots' pages
@@ -409,7 +474,7 @@ def _masked_attention(q, k, v, valid, scale):
 
 
 def _ring_attend(q, k, v, cache: dict, cfg: AttnConfig, ccfg: CascadeConfig, mode: str,
-                 scale: float, n_valid) -> torch.Tensor:
+                 scale: float, n_valid, band_pol=None) -> torch.Tensor:
     """Local attention on a ring-buffer cache ``{"k", "v": (B, T, Hkv, D),
     "slot_pos": (B, T), "pos": (B,)}``, updated in place but ``pos`` (the
     caller advances it). Returns the (B, s, H, D) output.
@@ -423,21 +488,36 @@ def _ring_attend(q, k, v, cache: dict, cfg: AttnConfig, ccfg: CascadeConfig, mod
     that its earlier tokens still attend to, and s <= T keeps the chunk's
     own writes apart. The reference drops pad writes with an out-of-bounds
     index; here only the first ``n_valid`` rows are written.
+
+    ``band_pol`` (decode on a ring banded over its time axis): k/v hold this
+    rank's band of the ring's rows, ``slot_pos`` the whole ring (the
+    reference's ``cache_specs`` keeps it replicated), every rank records the
+    token's position, the rank whose band holds its row writes it, and the
+    bands' attentions are joined (``time_band_attend``).
     """
     b, s, h, hd = q.shape
     dev = q.device
-    t = cache["k"].shape[1]
+    slot_pos = cache["slot_pos"]
+    t = slot_pos.shape[1]                  # the ring's rows (k/v may hold a band of them)
     w = cfg.window
     pos = cache["pos"]
-    slot_pos = cache["slot_pos"]
     bi = torch.arange(b, device=dev)
     if mode == "decode":
         idx = pos.to(torch.int64) % t
-        update_rows(cache["k"], k, idx)
-        update_rows(cache["v"], v, idx)
+        if band_pol is None:
+            update_rows(cache["k"], k, idx)
+            update_rows(cache["v"], v, idx)
+        else:
+            off = band_pol.model_rank * cache["k"].shape[1]
+            write_band_row(cache["k"], k[:, 0], idx, off)
+            write_band_row(cache["v"], v[:, 0], idx, off)
         slot_pos[bi, idx] = pos.to(slot_pos.dtype)
         p = pos[:, None]
         valid = (slot_pos >= 0) & (slot_pos <= p) & (p - slot_pos < w)          # (B, T)
+        if band_pol is not None:
+            tb = cache["k"].shape[1]
+            return time_band_attend(band_pol, q, cache["k"], cache["v"], ccfg, scale,
+                                    mask=valid[:, off:off + tb])
         if ccfg.use_kernel:
             from repro_torch.kernels import ops
             return ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
@@ -610,7 +690,11 @@ def tied_head(params: dict, x: torch.Tensor, compute_dtype,
     Under a mesh policy that bands the table on the vocabulary (megatron),
     each rank computes the logits of its band of the vocabulary and they
     are all-gathered, so every rank samples from the whole vocabulary."""
+    pol = sharding.get_activation_policy()
     table = params["table"]
+    vocab_banded = pol is not None and pol.band(table) == -2
+    if vocab_banded:
+        x = pol.band_input(x)
     w = table.to(compute_dtype).to(torch.float32).T
     xf = x.to(compute_dtype).to(torch.float32)
     if per_token:
@@ -618,8 +702,7 @@ def tied_head(params: dict, x: torch.Tensor, compute_dtype,
                             for j in range(xf.shape[1])], dim=1)
     else:
         logits = torch.matmul(xf, w)
-    pol = sharding.get_activation_policy()
-    if pol is not None and pol.band(table) == -2:
+    if vocab_banded:
         logits = pol.gather_model(logits, -1)
     return logits
 

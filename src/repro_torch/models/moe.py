@@ -51,6 +51,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device, seeded_generator
+from repro_torch.distributed import sharding
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
@@ -195,7 +196,12 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: CascadeConfi
     (B,)}`` is updated in place (a paged one, ``(P, ps, ...)`` pools beside
     ``block_table``, through the table) and attention runs over all T rows,
     rows past each position masked: the paged view has the dense cache's T,
-    so both give the same bits."""
+    so both give the same bits. Under a policy whose cache holds a band of
+    the latent rows (``c_kv``/``k_rope`` over ``model``: the dry run's
+    ``cache_specs`` placement), decode writes the new row on the rank whose
+    band holds it, each rank scores its rows and the bands' latent contexts
+    are joined by their log-sum-exps (``ActivationPolicy.join_time_bands``,
+    f32), before ``w_v``; extend and the paged cache raise there."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dev = x.device
@@ -219,7 +225,22 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: CascadeConfi
             raise ValueError("decode takes one token per row")
         pos = cache["pos"]
         bt = cache.get("block_table")
-        if bt is not None:
+        pol = sharding.get_activation_policy()
+        band = pol.cache_band("c_kv") if pol is not None else None
+        if band is not None and (mode != "decode" or bt is not None):
+            raise ValueError(
+                "an MLA latent cache banded over its rows (the dry run's cache_specs "
+                "placement) runs decode only: extend, the speculative verify pass and the "
+                "paged cache need its rows whole")
+        off = 0
+        if band is not None:
+            tb = cache["c_kv"].shape[1]
+            off = pol.model_rank * tb
+            row = pos.to(torch.int64).clamp(0, tb * pol.model_size - 1)
+            L.write_band_row(cache["c_kv"], c_kv[:, 0], row, off)
+            L.write_band_row(cache["k_rope"], k_rope[:, 0], row, off)
+            ckv, krp = cache["c_kv"], cache["k_rope"]
+        elif bt is not None:
             ps = cache["c_kv"].shape[1]
             phys = cache_utils.paged_phys_rows(bt, pos[:, None] + steps[None, :], ps)
             cache_utils.paged_update_rows(cache["c_kv"], c_kv, phys)
@@ -237,9 +258,14 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: CascadeConfi
         q_lat = torch.einsum("bshd,lhd->bshl", q_nope.to(torch.float32), w_k)
         scores = (torch.einsum("bshl,btl->bhst", q_lat, ckv)
                   + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32), krp)) * scale
-        valid = torch.arange(t, device=dev)[None, None, :] <= rows[:, :, None]  # (B, s, T)
-        p = torch.softmax(scores.masked_fill(~valid[:, None], L.NEG_INF), dim=-1)
-        ctx = torch.einsum("bhst,btl->bshl", p, ckv)
+        valid = torch.arange(off, off + t, device=dev)[None, None, :] <= rows[:, :, None]
+        if band is None:
+            p = torch.softmax(scores.masked_fill(~valid[:, None], L.NEG_INF), dim=-1)
+            ctx = torch.einsum("bhst,btl->bshl", p, ckv)
+        else:
+            p, lse = L.band_softmax(scores, valid[:, None])                # lse (B, H, s)
+            ctx = pol.join_time_bands(torch.einsum("bhst,btl->bshl", p, ckv),
+                                      lse.transpose(1, 2))
         o = torch.einsum("bshl,lhd->bshd", ctx, w_v)                      # (b, s, H, v)
         nv = s if n_valid is None else n_valid
         cache["pos"].add_(nv if isinstance(nv, torch.Tensor) else int(nv))
@@ -380,7 +406,6 @@ class MoELM(TransformerLM):
         """The expert-parallel dispatch under a policy installed with
         ``moe_ep`` (a training and lowering surface: it keeps capacity
         drops), else :func:`moe_ffn_apply`."""
-        from repro_torch.distributed import sharding
         pol = sharding.get_activation_policy()
         if pol is not None and pol.moe_ep:
             from repro_torch.models.moe_shardmap import moe_ffn_apply_ep

@@ -24,8 +24,16 @@ Under a mesh policy (``distributed/sharding.py``) ``in_proj`` and
 ``out_proj`` run on their column bands and gather them
 (``core/cascade.py``): ``in_proj`` packs z|x|B|C|dt in one output, so no
 band lines up with a head's work, and every layer gathers it before the
-split; the conv and SSD state stay whole on every model rank (the engine
-bands the slot axis over ``data`` only).
+split. A mesh engine keeps the conv and SSD state whole on every model
+rank (it bands the slot axis over ``data`` only). Under the dry run's
+``cache_specs`` placement they are banded over ``model``, the state on its
+heads and the conv window on its channels, and decode carries the bands:
+the rank runs the depthwise conv on its channels and the recurrence on its
+heads (the same kernel, handed a band of H), and all-gathers the conv
+output (which the split into x|B|C needs whole) and the heads' y (which
+the gated norm and ``out_proj`` need whole). Heads and channels are
+independent, so the step is bit-equal to the unsharded one; extend raises
+on such a cache.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device, seeded_generator
+from repro_torch.distributed import sharding
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
@@ -165,6 +174,18 @@ def _conv_steps(x, conv_state, w, b):
     return y.reshape(bsz, s, dim), full[:, s:].to(conv_state.dtype), full
 
 
+def conv_decode_banded(pol, x, conv_state, w, b):
+    """:func:`_conv_decode` of this rank's channels of x (b, 1, dim) against
+    its band of the conv window ``conv_state`` (b, w-1, dim / m) (the
+    depthwise conv is per channel); the output's bands all-gathered whole,
+    the advanced band returned."""
+    cw = conv_state.shape[-1]
+    c0 = pol.model_rank * cw
+    y, new_state = _conv_decode(x[..., c0:c0 + cw], conv_state, w[:, c0:c0 + cw],
+                                b[c0:c0 + cw])
+    return pol.gather_model(y, -1), new_state
+
+
 def conv_prefill_state(x_raw, width: int):
     """Last ``width-1`` raw conv inputs after a whole-prompt prefill,
     left-padded with zeros when the prompt is shorter than that."""
@@ -240,12 +261,22 @@ class Mamba2LM:
         b, s, _ = u.shape
         di, g, n, h = self.d_inner, cfg.ssm_groups, cfg.ssm_state, self.n_heads
         p = cfg.ssm_head_dim
+        pol = sharding.get_activation_policy() if cache is not None else None
+        state_band = pol.cache_band("state") if pol is not None else None
+        conv_band = pol.cache_band("conv") if pol is not None else None
+        if mode != "decode" and (state_band is not None or conv_band is not None):
+            raise ValueError(
+                "a Mamba-2 cache banded over model (the dry run's cache_specs placement) runs "
+                "decode only: extend and the speculative verify pass need its state whole")
         zxbcdt = cascade.linear_apply(lp["in_proj"], u, ccfg)
         z = zxbcdt[..., :di]
         xbc = zxbcdt[..., di: di + self.conv_dim]
         dt_raw = zxbcdt[..., di + self.conv_dim:]
 
-        if mode == "decode":
+        if mode == "decode" and conv_band is not None:
+            xbc_c, new_conv = conv_decode_banded(pol, xbc, cache["conv"], lp["conv_w"],
+                                                 lp["conv_b"])
+        elif mode == "decode":
             xbc_c, new_conv = _conv_decode(xbc, cache["conv"], lp["conv_w"], lp["conv_b"])
         elif mode == "extend" and collect is not None and ccfg.use_kernel:
             xbc_c, new_conv, conv_full = _conv_steps(xbc, cache["conv"], lp["conv_w"],
@@ -268,16 +299,29 @@ class Mamba2LM:
 
         new_cache = None
         if mode == "decode":
+            # one token: the recurrence of this rank's heads, all of them
+            # unless the state is banded over model (the dry run's
+            # cache_specs placement), then y gathered whole. Heads are
+            # independent, so a band computes the same bits.
+            st = cache["state"]
+            hb, hpg = st.shape[1], h // g               # heads here, heads a group
+            if hb % hpg and hpg % hb:
+                raise ValueError(f"a band of {hb} of {h} heads splits a group of {hpg}")
+            h0 = pol.model_rank * hb if state_band is not None else 0
+            g0, gb = h0 // hpg, max(1, hb // hpg)
+            hs, gs = slice(h0, h0 + hb), slice(g0, g0 + gb)
+            args = (x[:, :, hs], dt[:, :, hs], A[hs], B[:, :, gs], C[:, :, gs], lp["D"][hs])
             if ccfg.use_kernel:
                 # fused serving: the recurrence runs through the SSD scan
                 # kernel at S = 1, writing the slot states in place. Extend
                 # stays on the chunked dual form, as in the reference.
                 from repro_torch.kernels import ops
-                y, _ = ops.ssd_decode(x, dt, A, B, C, lp["D"], cache["state"],
-                                      out_state=cache["state"])
+                y, _ = ops.ssd_decode(*args, st, out_state=st)
             else:
-                y, new_state = ssd_decode_step(x, dt, A, B, C, lp["D"], cache["state"])
-                cache["state"].copy_(new_state)
+                y, new_state = ssd_decode_step(*args, st)
+                st.copy_(new_state)
+            if state_band is not None:
+                y = pol.gather_model(y, -2)
             cache["conv"].copy_(new_conv)
             new_cache = cache
         elif mode == "extend" and collect is not None:

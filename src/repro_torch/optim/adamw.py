@@ -84,16 +84,21 @@ class AdamW:
         p.copy_((pf - lr * delta).to(p.dtype))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, grad_sq=None):
         """One step: returns (params, new state, {"gnorm", "lr"}); ``params``
         and the state's ``mu``/``nu`` are the trees passed in, updated in
-        place."""
+        place. ``grad_sq`` maps the flat gradients to their global sum of
+        squares (a mesh's: the banded leaves' summed over the ranks that
+        hold their bands); by default the sum over the leaves given."""
         step = state.step + 1
         flat_g, flat_p = T.leaves(grads), T.leaves(params)
         flat_m, flat_v = T.leaves(state.mu), T.leaves(state.nu)
-        sq = 0
-        for g in flat_g:
-            sq = sq + torch.sum(g.to(torch.float32) ** 2)
+        if grad_sq is not None:
+            sq = grad_sq(flat_g)
+        else:
+            sq = 0
+            for g in flat_g:
+                sq = sq + torch.sum(g.to(torch.float32) ** 2)
         gnorm = torch.sqrt(sq + 1e-12)
         clip = torch.clamp(_div(self.grad_clip, gnorm), max=1.0)
         lr = self.schedule(step)

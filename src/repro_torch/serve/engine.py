@@ -110,8 +110,11 @@ on each rank (the FP4 kernels too, with ``fused=True``) and all-gathers
 them, so no partial sum crosses ranks; ``megatron`` row-bands the modules
 that return to d_model and all-reduces their partial sums. The KV heads
 are banded over ``model`` where they divide it (``sharding.kv_head_bands``,
-the part of the reference's ``cache_specs`` the engine places), and each
-rank attends on its heads. The slot grid is banded over ``data``
+the part of the reference's ``cache_specs`` the engine places; the
+reference's engine places none), and each rank attends on its heads. The
+other model bands of ``cache_specs`` (the time band where the heads do not
+divide, latent rows, recurrent state) are placed by the dry run, whose
+decode step carries them, not by the engine. The slot grid is banded over ``data``
 when ``max_batch`` divides that axis (the cache placed by
 ``model.cache_pspecs``: each data shard holds its slots), else
 replicated. Each step's closure runs its shard's rows, then all-gathers
@@ -514,7 +517,7 @@ class ServeEngine:
         self._policy = sharding.ActivationPolicy(mesh, self.scfg.tp_policy, self.params,
                                                  self.param_specs,
                                                  cache_bands=self._head_bands)
-        if self._policy.kv_heads_banded:
+        if self._policy.cache_band("k") is not None:
             self._head_factor = mesh.size("model")
 
     @property

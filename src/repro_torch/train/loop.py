@@ -39,12 +39,17 @@ def _as_tensors(batch: dict, device) -> dict:
 
 
 def make_train_step(model, ccfg: CascadeConfig, optimizer: AdamW, microbatches: int = 1,
-                    remat: bool = True, remat_policy: str = "dots"):
+                    remat: bool = True, remat_policy: str = "dots", grad_reduce=None,
+                    grad_sq=None):
     """``train_step(state, batch) -> (state, metrics)``, metrics ``{"loss",
     "gnorm", "lr"}`` (0-d tensors). ``microbatches`` > 1 splits the batch
     rows and averages the gradients (and the losses), as the reference's
     ``scan``; ``remat_policy``: ``dots`` | ``none`` | ``save_all``
-    (``models.remat``). The batch may hold numpy arrays or tensors."""
+    (``models.remat``). ``grad_reduce`` (a data-parallel mesh's gradient
+    mean over its data shards) maps the list of gradients, in the params'
+    flatten order, before the update; ``grad_sq`` (its global sum of
+    squares over the bands, for the clip) goes to ``AdamW.update``. The
+    batch may hold numpy arrays or tensors."""
 
     def loss_and_grads(params, batch):
         flat = T.leaves(params)
@@ -71,8 +76,10 @@ def make_train_step(model, ccfg: CascadeConfig, optimizer: AdamW, microbatches: 
             grads = [(a / microbatches).to(p.dtype) for a, p in zip(acc, flat)]
         else:
             loss, grads = loss_and_grads(state.params, batch)
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
         params, opt, om = optimizer.update(T.unflatten_like(state.params, grads), state.opt,
-                                           state.params)
+                                           state.params, grad_sq=grad_sq)
         return TrainState(params, opt, state.step + 1), {"loss": loss, **om}
 
     return train_step

@@ -7,6 +7,8 @@ imports torch and the port only, so a rank starts without JAX).
 results for the test process to hold against the unsharded port engine
 and the reference.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -212,4 +214,177 @@ def mesh_checks(rank: int, shape: tuple, inputs: dict) -> dict:
     out.update(contract_checks(mesh))
     out["compression"] = compression_checks(inputs)
     out["moe_ep"] = moe_ep_checks(mesh, inputs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cache's model bands (the dry run's cache_specs placement)
+# ---------------------------------------------------------------------------
+
+def _band_batch(inp: dict, lo: int, hi: int) -> dict:
+    """The batch of positions [lo, hi) of a family's numpy inputs."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    if "embeds" in inp:
+        out = {"inputs_embeds": t(inp["embeds"][:, lo:hi])}
+        if "positions" in inp:
+            out["positions"] = t(inp["positions"][:, :, lo:hi])
+        return out
+    return {"tokens": t(inp["tokens"][:, lo:hi])}
+
+
+def decode_with_bands(model, params, mesh, inp: dict, ccfg=CCFG, tp_policy="cascade"):
+    """A prefill of ``inp["prompt_len"]`` positions, then a decode step for
+    each of ``inp["steps"]`` more: once unsharded, once on ``mesh`` with the
+    params on their bands and the prefill's cache cut by the whole of
+    ``cache_specs``. Returns both runs' logits and caches (the sharded cache
+    gathered whole), and the bytes of each banded leaf on this rank and
+    whole."""
+    from repro_torch import tree as T
+    s, n = inp["prompt_len"], inp["steps"]
+
+    def run(p, policy, place):
+        with sharding.activation_policy(policy):
+            logits, cache = model.prefill(p, _band_batch(inp, 0, s), ccfg, max_len=inp["max_len"])
+            cache, out = place(cache), [logits]
+            for j in range(n):
+                logits, cache = model.decode_step(p, _band_batch(inp, s + j, s + j + 1), cache,
+                                                  ccfg)
+                out.append(logits)
+        return [o.float().numpy() for o in out], cache
+
+    want_logits, want_cache = run(params, None, lambda c: c)
+    tied = bool(getattr(model.cfg, "tie_embeddings", False))
+    pspecs = sharding.placed_param_specs(params, mesh, tp_policy, tied)
+    local = sharding.shard_tree(params, pspecs, mesh)
+    cspecs = sharding.cache_specs(want_cache, mesh)
+    pol = sharding.ActivationPolicy(mesh, tp_policy, local, pspecs, cache_bands=cspecs)
+    got_logits, band_cache = run(local, pol, lambda c: sharding.shard_tree(c, cspecs, mesh))
+    banded = {"/".join(p): (t.numel() * t.element_size(),
+                            sharding._spec_at(cspecs, p))
+              for p, t in T.leaves_with_paths(band_cache)}
+    whole = {"/".join(p): t.numel() * t.element_size()
+             for p, t in T.leaves_with_paths(want_cache)}
+    back = sharding.gather_tree(band_cache, cspecs, mesh)
+    as_np = lambda c: {"/".join(p): (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+                       for p, t in T.leaves_with_paths(c)}
+    return {"want": want_logits, "got": got_logits, "cache_want": as_np(want_cache),
+            "cache_got": as_np(back), "bytes": {k: (banded[k][0], whole[k], banded[k][1])
+                                                for k in whole},
+            "model_bands": dict(pol._cache_bands)}
+
+
+def train_grads_on_mesh(mesh, tp_policy: str, tokens: np.ndarray, full_dp: bool = False) -> dict:
+    """The loss and its gradients of the dense smoke model on ``mesh`` (the
+    params on their ``tp_policy`` bands, the gradients gathered whole)
+    beside the unsharded ones: the differentiable collectives' check. With
+    ``full_dp`` each model rank takes its own rows of the batch (the dry
+    run's full data parallelism: the banded params gathered whole,
+    ``dryrun.WholeParams``), and the gradients are averaged over the model
+    ranks as the dry run's train cell averages them."""
+    from repro_torch import tree as T
+    from repro_torch.launch.dryrun import WholeParams
+    from repro_torch.train.loop import cross_entropy
+    cfg, model = registry.load(registry.FAMILY_SMOKE["transformer"], smoke=True)
+    params = model.init_params(0, CCFG, device="cpu")
+    whole = {"tokens": torch.from_numpy(tokens[:, :-1].copy()),
+             "labels": torch.from_numpy(tokens[:, 1:].copy())}
+    m, r = mesh.size("model"), mesh.coord("model")
+    rows = tokens.shape[0] // m
+    mine = {k: v[r * rows:(r + 1) * rows] for k, v in whole.items()} if full_dp else whole
+
+    def grads(p, specs, batch):
+        p = T.tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        policy, run = None, model
+        if specs is not None and full_dp:
+            run = WholeParams(model, specs, mesh)
+        elif specs is not None:
+            policy = sharding.ActivationPolicy(mesh, tp_policy, p, specs)
+        with sharding.activation_policy(policy):
+            loss = cross_entropy(run.forward(p, batch, CCFG), batch["labels"])
+            g = torch.autograd.grad(loss, T.leaves(p))
+        return loss.item(), T.unflatten_like(p, list(g))
+
+    want_loss, want = grads(params, None, whole)
+    pspecs = sharding.placed_param_specs(params, mesh, tp_policy)
+    got_loss, got = grads(sharding.shard_tree(params, pspecs, mesh), pspecs, mine)
+    if full_dp:
+        group = mesh.group("model")
+        got_loss = collectives.all_reduce(torch.tensor(got_loss), group).item() / m
+        got = sharding._map2(lambda g, s: (g if "model" in s else
+                                           collectives.all_reduce(g, group)) / m, got, pspecs)
+    got = sharding.gather_tree(got, pspecs, mesh)
+    return {"loss": (want_loss, got_loss),
+            "grads": [(a.numpy(), b.numpy()) for a, b in zip(T.leaves(want), T.leaves(got))]}
+
+
+def train_step_on_mesh(mesh, tp_policy: str, tokens: np.ndarray, full_dp: bool = False) -> dict:
+    """One step of the dry run's train cell (``dryrun.build_cell``: remat,
+    AdamW, the gradient mean and the clip's norm over the bands) on this
+    rank's bands of the dense smoke model's params, with real tensors,
+    beside ``make_train_step`` on the whole params: the gradient norm, and
+    the updated params and moments gathered whole, of each."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import loop
+    arch = registry.FAMILY_SMOKE["transformer"]
+    cfg, model = registry.load(arch, smoke=True)
+    params = model.init_params(0, CCFG, device="cpu")
+    whole = {"tokens": torch.from_numpy(tokens[:, :-1].copy()),
+             "labels": torch.from_numpy(tokens[:, 1:].copy())}
+    shape = ShapeConfig("smoke_train", tokens.shape[1] - 1, tokens.shape[0], "train")
+    cell = dryrun.build_cell(arch, shape, mesh, CCFG, tp_policy, full_dp=full_dp, cfg=cfg)
+    pspecs = cell.trees["params"][1]
+    b0, nb = dryrun._data_rows(mesh, cell.batch_axes, tokens.shape[0])
+    local = sharding.shard_tree(params, pspecs, mesh)
+    args = {"params": T.tree_map(lambda t: t.detach().clone().requires_grad_(True), local),
+            "batch": {k: v[b0:b0 + nb] for k, v in whole.items()},
+            "step": torch.zeros((), dtype=torch.int32)}
+    args["opt"] = AdamW().init(args["params"])
+    with sharding.activation_policy(cell.policy(args)):
+        got = cell.step(args)
+    ref = loop.TrainState(params=T.tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                                            params),
+                          opt=AdamW().init(params), step=torch.zeros((), dtype=torch.int32))
+    ref, want = loop.make_train_step(model, CCFG, AdamW(), remat=True)(ref, whole)
+    as_np = lambda tree: [t.detach().numpy() for t in T.leaves(tree)]
+    gather = lambda tree: sharding.gather_tree(T.tree_map(lambda t: t.detach(), tree), pspecs,
+                                               mesh)
+    return {"gnorm": (float(want["gnorm"]), float(got["gnorm"])),
+            "params": list(zip(as_np(ref.params), as_np(gather(args["params"])))),
+            "mu": list(zip(as_np(ref.opt.mu), as_np(gather(args["opt"].mu)))),
+            "nu": list(zip(as_np(ref.opt.nu), as_np(gather(args["opt"].nu))))}
+
+
+def band_checks(rank: int, shape: tuple, inputs: dict) -> dict:
+    """Every family of ``inputs["bands"]`` decoding with all of
+    ``cache_specs`` placed on ``shape`` (at the depths it gives), the dry run's
+    smoke cell on this world with real tensors (its counted collectives,
+    for the fake world's to equal) and a training step's gradients on the
+    mesh under both policies."""
+    from repro_torch.launch import dryrun
+    mesh = make_mesh(shape, ("data", "model"))
+    out = {}
+    for key, inp in inputs["bands"].items():
+        cfg = dataclasses.replace(registry.get_config(inp["arch"], smoke=True),
+                                  n_layers=inp["n_layers"],
+                                  first_dense_layers=inp["first_dense_layers"])
+        model = registry.build_model(cfg)
+        params = params_from_numpy(inp["params"], device="cpu")
+        out[key] = decode_with_bands(model, params, mesh, inp)
+    for policy in ("cascade", "megatron"):
+        for full_dp in (False, True):
+            out[("train", policy, full_dp)] = train_grads_on_mesh(
+                mesh, policy, inputs["train_tokens"], full_dp)
+            out[("step", policy, full_dp)] = train_step_on_mesh(
+                mesh, policy, inputs["train_tokens"], full_dp)
+    cfg = registry.get_config(inputs["cell"]["arch"], smoke=True)
+    cell = dryrun.build_cell(inputs["cell"]["arch"], inputs["cell"]["shape"], mesh,
+                             tp_policy=inputs["cell"]["tp_policy"], cfg=cfg)
+    args = cell.local_args(lambda s, dt: torch.zeros(s, dtype=dt))
+    before = collectives.snapshot()
+    with sharding.activation_policy(cell.policy(args)):
+        cell.step(args)
+    out["cell_collectives"] = collectives.since(before)
     return out

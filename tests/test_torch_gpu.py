@@ -188,6 +188,64 @@ def test_decode_attention_cuda_matches_plain(cuda, b, hq, hkv, t, d, live, dtype
         torch.testing.assert_close(one, want, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("b,hq,hkv,t,d", [(8, 40, 8, 2048, 128), (8, 10, 1, 1024, 256),
+                                           (3, 8, 2, 700, 16), (4, 12, 2, 192, 128)])
+@pytest.mark.parametrize("live", ["mask", "q_pos"])
+@pytest.mark.parametrize("splits", [None, 1])
+def test_decode_attention_lse_matches_plain(cuda, b, hq, hkv, t, d, live, splits):
+    """``return_lse``: the output bit-equal to the call without it (one
+    split and several: the merge kernel writes lse there), the lse within
+    1e-4 of the plain version's, -inf on the rows with no live key; the
+    shapes of a time band (qwen2.5-32b's 40/8 heads over a 2,048-row band,
+    recurrentgemma-2b's ring band at D = 256) and ragged ones."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 7 + t + hq)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    vc = torch.randn((2, b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    mask = q_pos = None
+    if live == "mask":
+        mask = torch.rand((b, t), generator=gen, device=cuda) > 0.4
+        mask[-1] = False                 # a row with no live key
+        dead = ~mask.any(dim=1)
+    else:
+        q_pos = torch.randint(0, t, (b,), generator=gen, device=cuda).to(torch.int32)
+        q_pos[0], q_pos[-1] = t + 5, -1  # every row; no row
+        dead = q_pos < 0
+    kw = {} if splits is None else {"splits": splits}
+    o, lse = tda.decode_attention_cuda(q, kc[1], vc[1], mask, None, q_pos, return_lse=True, **kw)
+    alone = tda.decode_attention_cuda(q, kc[1], vc[1], mask, None, q_pos, **kw)
+    want, want_lse = tda.decode_attention_plain(q, kc[1], vc[1], mask, None, q_pos,
+                                                return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, alone)
+    torch.testing.assert_close(o, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(torch.isneginf(lse), dead[:, None].expand_as(lse))
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=1e-4, rtol=1e-5)
+
+
+def test_decode_attention_time_bands_merge_to_the_whole(cuda):
+    """Four bands of a 4,096-row cache, each through the kernel with its
+    lse, merged in rank order (``sharding.merge_time_bands``): the whole
+    call's output within 1e-4."""
+    from repro_torch.distributed.sharding import merge_time_bands
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    b, hq, hkv, t, d, m = 8, 40, 8, 4096, 128, 4
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, t, hkv, d), generator=gen, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([5, 1000, 1023, 1024, 2500, 3071, 4000, 4095], dtype=torch.int32,
+                       device=cuda)
+    whole = ops.decode_attention(q, k, v, q_pos=pos)
+    tb = t // m
+    parts = []
+    for r in range(m):
+        o, lse = ops.decode_attention(q, k[:, r * tb:(r + 1) * tb], v[:, r * tb:(r + 1) * tb],
+                                      q_pos=pos - r * tb, return_lse=True)
+        parts.append(torch.cat([o, lse[..., None]], dim=-1))
+    torch.testing.assert_close(merge_time_bands(torch.stack(parts)), whole,
+                               atol=1e-4, rtol=1e-4)
+
+
 def test_decode_attention_raises_on_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((2, 4, 64), device=cuda, dtype=torch.bfloat16)
     kv = torch.zeros((2, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
