@@ -196,7 +196,35 @@ each rebuilt one held to the same request served alone.
    its ``temp_bytes`` within ``WORLD1_MEM_RTOL`` of the rise of
    ``max_memory_allocated`` across the step); and
    the 16 x 16 dry-run records of every arch at decode_32k and long_500k
-   under both policies (host work, ``DRYRUN_WORKERS`` processes).
+   under both policies and, under the reference roofline's optimized
+   presets (``optimized_preset``: train ``fulldp`` + ``fsdp`` + ``full_dp``
+   with remat ``none``, prefill ``seqpar``, every MoE step kind
+   ``moe_ep``), at train_4k and prefill_32k (host work, started after the
+   build in ``DRYRUN_WORKERS`` processes beside the card's phases and
+   collected here).
+
+8. An FP8 KV cache (``attention fp8 cache``, after the attention phases,
+   and ``fp8_cache`` in codeqwen's serve phase): decode attention at the
+   served step, a 4,096-row cache and qwen2.5-32b's time band, and flash
+   attention at the verify pass and an admission chunk over 4,096 live
+   keys, on an e4m3 cache: each bit-equal to the same kernel on the cache
+   upcast to bf16 and within its plain version's tolerance, timed beside the
+   bf16 kernel, the plain version and SDPA on the upcast (the cast
+   included); codeqwen1.5-7b served at full width with
+   ``kv_dtype=float8_e4m3fn`` (the plain run's prompts): every kernel of the
+   path launched, the cache half the bf16 cache's bytes, and each stream's
+   first departure from the bf16-cache run reported with that run's top-2
+   margin.
+
+9. The dry run's remaining placements (``placements``, last but one): a
+   two-rank gloo world sharing the card (``placement_rank``): codeqwen1.5-7b
+   at full width and depth 2, a prefill through the kernels under
+   ``seqpar`` on (1, 2), cascade (block outputs back to the rows by
+   all-to-all) and megatron (by reduce-scatter), against the unsharded
+   prefill; phi4-mini-3.8b at full width and depth 2, three QAT train
+   steps under ``zero1`` and ``fsdp`` on (2, 1) against the data-parallel
+   step and under ``seqpar`` on (1, 2) against the unsharded step; the
+   kernels' launches each step those of the reference run.
 
 Stdout: the card's name and power limit first, then one line per phase, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``. The
@@ -1874,6 +1902,10 @@ def serve_phase(torch, dev, arch: str):
                   "max_new": MAX_NEW, "max_batch": MAX_BATCH, "prefill_chunk": CHUNK,
                   "init_s": init_s, "profiled_decode_step": profiled,
                   "tied_head_ms": tied_head_ms})
+    fp8_run = None
+    if arch == "codeqwen1.5-7b":
+        fp8_run = fp8_cache_run(torch, dev, arch, model, params, ccfg, prompts, (reqs, prec0),
+                                plain)
 
     # repetitive prompts: plain greedy, then speculative greedy decode; the
     # streams are compared token by token
@@ -1920,6 +1952,8 @@ def serve_phase(torch, dev, arch: str):
                                              "tokens": len(moved)},
                  "plain_repetitive": rep_plain})
     out = {"plain": plain, "spec": spec}
+    if fp8_run is not None:
+        out["fp8_cache"] = fp8_run
 
     if arch == "codeqwen1.5-7b":
         # speculative sampling, twice with one seed, on one wave of requests
@@ -3383,8 +3417,9 @@ MESH_ATTN_T = 1024
 #: layers of the gloo worlds' models (full width): ranks sharing the card
 #: all-gather each linear's bands through gloo, which makes a step several
 #: times slower than one rank alone, so depth is cut to keep the phase near
-#: two minutes
-MESH_DEPTH = {"codeqwen1.5-7b": 16, "olmoe-1b-7b": 8, "mamba2-370m": 8}
+#: two minutes (codeqwen's 16 cut to 8 when the placements phase came, to
+#: keep the whole smoke near its earlier length)
+MESH_DEPTH = {"codeqwen1.5-7b": 8, "olmoe-1b-7b": 8, "mamba2-370m": 8}
 
 
 def random_fp4(torch, gen, dev, k: int, n: int, experts: int = 0):
@@ -3886,7 +3921,10 @@ WORLD1_MEM_RTOL, WORLD1_MEM_ATOL = 0.02, 64 << 20
 #: the 16 x 16 decode cells printed for every arch, under both policies,
 #: traced by this many processes at once (host work, 8 cores)
 DRYRUN_SHAPES = ("decode_32k", "long_500k")
-DRYRUN_WORKERS = 6
+#: the reference's optimized presets (``optimized_preset``) at these shapes
+PRESET_SHAPES = ("train_4k", "prefill_32k")
+#: sweep processes, started after the build and run beside the card's phases
+DRYRUN_WORKERS = 4
 
 
 def lse_phase(torch, dev):
@@ -4180,39 +4218,73 @@ def world1_phase(torch, dev) -> dict:
 
 
 def dryrun_cells(policy: str, cells: list) -> list:
-    """A worker of the 16 x 16 sweep: ``cells`` ((arch, shape)) traced in
-    one fake world of 256 ranks under ``policy``."""
+    """A worker of the 16 x 16 sweep: ``cells`` ((arch, shape, placement
+    keywords)) traced in one fake world of 256 ranks under ``policy``."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     with dryrun.fake_world(256):
         mesh = make_production_mesh()
-        return [dryrun.run_cell(arch, shape, mesh, tp_policy=policy, verbose=False)
-                for arch, shape in cells]
+        return [dryrun.run_cell(arch, shape, mesh, tp_policy=policy, verbose=False, **kw)
+                for arch, shape, kw in cells]
 
 
-def dryrun_sweep() -> list:
-    """Every arch at ``DRYRUN_SHAPES`` on the 16 x 16 mesh under both
-    policies, ``DRYRUN_WORKERS`` processes at once (the largest cells
-    first, each worker a policy's share)."""
+def optimized_preset(arch: str, shape: str) -> dict:
+    """The reference roofline's "optimized" placement of a cell
+    (``benchmarks/roofline.py``'s ``OPT_BY_KIND`` and ``OPT_MOE``): train
+    ``fulldp`` + ``fsdp`` + ``full_dp`` with remat ``none``, prefill
+    ``seqpar``, and every MoE step kind the expert-parallel dispatch
+    (cascade, remat ``dots``)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import registry
+    if registry.get_config(arch).n_experts:
+        return {"moe_ep": True}
+    if cfgbase.SHAPES[shape].kind == "train":
+        return {"act_policy": "fulldp", "dp_shard": "fsdp", "full_dp": True,
+                "remat_policy": "none"}
+    return {"act_policy": "seqpar"}
+
+
+def start_dryrun_sweep():
+    """Start the 16 x 16 sweep in ``DRYRUN_WORKERS`` spawned processes (host
+    work beside the card's phases): every arch at ``DRYRUN_SHAPES`` under
+    both policies, and at ``PRESET_SHAPES`` under the reference's optimized
+    presets (cascade), largest cells first. :func:`dryrun_sweep` collects."""
     import concurrent.futures as cf
     import multiprocessing as mp
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import registry
-    cells = [(arch, shape) for arch in registry.ALIASES for shape in DRYRUN_SHAPES
-             if cfgbase.shape_applicable(registry.get_config(arch), cfgbase.SHAPES[shape])]
-    jobs = [(policy, cells[i::DRYRUN_WORKERS // 2]) for policy in ("cascade", "megatron")
-            for i in range(DRYRUN_WORKERS // 2)]
-    with cf.ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=mp.get_context("spawn")) as ex:
-        parts = list(ex.map(dryrun_cells, *zip(*jobs)))
-    return [r for part in parts for r in part]
+    ok = lambda arch, shape: cfgbase.shape_applicable(registry.get_config(arch),
+                                                      cfgbase.SHAPES[shape])
+    cells = [(arch, shape, {}) for arch in registry.ALIASES for shape in DRYRUN_SHAPES
+             if ok(arch, shape)]
+    presets = [(arch, shape, optimized_preset(arch, shape)) for shape in PRESET_SHAPES
+               for arch in registry.ALIASES if ok(arch, shape)]
+    # the fsdp train preset's pair: the same cell gathering the params whole
+    presets += [(arch, shape, dict(kw, dp_shard="none")) for arch, shape, kw in presets
+                if kw.get("dp_shard") == "fsdp"]
+    n = DRYRUN_WORKERS
+    jobs = ([("cascade", presets[i::n]) for i in range(n)]
+            + [(policy, cells[i::n]) for policy in ("cascade", "megatron") for i in range(n)])
+    ex = cf.ProcessPoolExecutor(n, mp_context=mp.get_context("spawn"))
+    return ex, [ex.submit(dryrun_cells, *job) for job in jobs], time.monotonic()
 
 
-def dryrun_phase(torch, dev):
+def dryrun_sweep(pending) -> list:
+    """The records of the sweep :func:`start_dryrun_sweep` started."""
+    ex, futures, _ = pending
+    try:
+        return [r for f in futures for r in f.result()]
+    finally:
+        ex.shutdown()
+
+
+def dryrun_phase(torch, dev, sweep):
     """Phase ``dryrun``: decode attention with its lse at the time-band
     shapes; gloo worlds sharing the card decoding with the cache placed by
     the whole ``cache_specs`` (``BAND_WORLDS``); the world-1 check; the
     16 x 16 records of every arch at ``DRYRUN_SHAPES`` under both
-    policies."""
+    policies and at ``PRESET_SHAPES`` under the optimized presets
+    (``sweep``, started before the card's phases)."""
     from repro_torch.launch import mesh as meshlib
     out = {"gpu": gpu_name_and_power()}
     out["lse"] = lse_phase(torch, dev)
@@ -4266,19 +4338,430 @@ def dryrun_phase(torch, dev):
     out["world1"] = world1_phase(torch, dev)
     print(json.dumps({"dryrun_world1": out["world1"], "gpu": out["gpu"]}), flush=True)
     t1 = time.monotonic()
-    recs = dryrun_sweep()
-    out["sweep_s"] = time.monotonic() - t1
+    recs = dryrun_sweep(sweep)
+    out["sweep_wait_s"] = time.monotonic() - t1
+    out["sweep_s"] = time.monotonic() - sweep[2]
+    out["sweep_trace_s"] = sum(r.get("trace_s", 0) for r in recs)
     failed = [r for r in recs if r["status"] != "ok"]
     if failed:
         fail(f"dryrun: cells failed: {failed}")
+    out["fsdp_vs_whole_params"] = fsdp_layer_gathers(recs)
     out["records"] = [{
         "arch": r["arch"], "shape": r["shape"], "tp_policy": r["tp_policy"],
-        "argument_gb": r["memory"]["argument_bytes"] / 1e9,
+        "placement": {k: r[k] for k in ("act_policy", "dp_shard", "full_dp", "moe_ep")},
+        "argument_gb": r["memory"]["argument_bytes"] / 1e9, "temp_gb": r["memory"]["temp_bytes"] / 1e9,
         "peak_gb": r["memory"]["peak_bytes"] / 1e9, "flops": r["flops_per_device"],
         "collectives": {k: v for k, v in r["collectives"].items() if k != "total_bytes"},
         "trace_s": r["trace_s"]} for r in recs]
     print(json.dumps({"dryrun_16x16": out["records"], "note": "counts of a traced step on "
                       "fake tensors, not measurements"}), flush=True)
+    print(json.dumps({"dryrun_fsdp_vs_whole_params": out["fsdp_vs_whole_params"]}), flush=True)
+    return out
+
+
+def fsdp_layer_gathers(recs: list) -> dict:
+    """For each arch's train_4k cell under the optimized preset (full data
+    parallelism with FSDP), its temp against the same cell's gathering the
+    params whole at the step's start: the drop must be at least half the
+    whole params' bytes (one layer at a time is live, not all of them)."""
+    from repro_torch import tree as T
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.models import registry
+    out = {}
+    pairs = {}
+    for r in recs:
+        if r["shape"] == "train_4k" and r["full_dp"]:
+            pairs.setdefault(r["arch"], {})[r["dp_shard"]] = r
+    for arch, pair in sorted(pairs.items()):
+        model = registry.build_model(registry.get_config(arch))
+        whole = sum(t.numel() * t.element_size() for t in T.leaves(
+            model.init_params(0, CascadeConfig(mode="train"), device="meta")))
+        drop = pair["none"]["memory"]["temp_bytes"] - pair["fsdp"]["memory"]["temp_bytes"]
+        if drop < whole / 2:
+            fail(f"dryrun {arch} train_4k: fsdp's temp is only {drop} bytes below the whole "
+                 f"params' cell, under half the params' {whole}")
+        out[arch] = {"whole_params_gb": whole / 1e9, "temp_gb_whole": pair["none"]["memory"]
+                     ["temp_bytes"] / 1e9, "temp_gb_fsdp": pair["fsdp"]["memory"]["temp_bytes"]
+                     / 1e9, "drop_over_params": drop / whole}
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# an FP8 (e4m3) KV cache through both attention kernels
+# ---------------------------------------------------------------------------
+
+def fp8_decode_cases():
+    """(name, B, Hq, Hkv, T, positions, D): the served codeqwen step, the
+    4,096-row cache (split along T) and qwen2.5-32b's 2,048-row time band
+    (positions as ``LSE_CASES``': one slot before the band, one past it)."""
+    t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK
+    served = [PROMPT_LEN + 4 * i for i in range(MAX_BATCH)]
+    long_pos = [2047 + round(i * 2048 / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
+    band = [-1, 2048 + 5] + [2048 * i // (MAX_BATCH - 1) for i in range(1, MAX_BATCH - 1)]
+    return [("codeqwen_step", MAX_BATCH, 32, 32, t, served, 128),
+            ("long_4096", MAX_BATCH, 32, 32, 4096, long_pos, 128),
+            ("qwen2.5-32b_time_band", MAX_BATCH, 40, 8, 2048, band, 128)]
+
+
+#: (name, B, Hq, Hkv, S, T, offsets, D): the codeqwen verify pass and an
+#: admission chunk over 4,096 live keys (split over the keys)
+FP8_FLASH_CASES = (("verify", MAX_BATCH, 32, 32, 5, 192,
+                    [0, 27, 53, 80, 107, 133, 160, 187], 128),
+                   ("admit4064_live", 1, 32, 32, 32, 4096, [4064], 128))
+
+
+def fp8_attention_phase(torch, dev):
+    """Decode and flash attention over an e4m3 cache (``FP8_*`` cases): each
+    output bit-equal to the same kernel's on the cache upcast to bf16 (the
+    codes convert exactly), within the plain version's tolerance, and timed
+    beside the bf16 kernel, the plain version and
+    ``scaled_dot_product_attention`` on the bf16 upcast (the cast inside the
+    timed call); bounds at one byte a cache value."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
+    rows = []
+
+    def cache(gen, shape):
+        return torch.randn((2,) + shape, generator=gen, device=dev).to(fp8)[1]
+
+    def bound(nbytes, flops):
+        return {"bytes": nbytes, "flops": flops,
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                             else "operations")}
+
+    for name, b, hq, hkv, t, positions, d in fp8_decode_cases():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        q = torch.randn((b, hq, d), generator=gen, device=dev).to(bf16)
+        k, v = cache(gen, (b, t, hkv, d)), cache(gen, (b, t, hkv, d))
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        mask = torch.arange(t, device=dev)[None, :] <= pos[:, None]
+        got = ops.decode_attention(q, k, v, q_pos=pos)
+        same = ops.decode_attention(q, k.to(bf16), v.to(bf16), q_pos=pos)
+        want = da.decode_attention_plain(q, k, v, q_pos=pos)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, same) or not err <= ATTN_ATOL:
+            fail(f"decode_attention fp8 {name}: bit-equal to the bf16 upcast "
+                 f"{torch.equal(got, same)}, max|err| {err} (tol {ATTN_ATOL})")
+        live = int(mask.sum())
+        nc = copies_beyond_l2(k.numel() * 2)
+        sets8 = [(q, k.clone(), v.clone(), pos) for _ in range(nc)]
+        sets16 = [(q, kk.to(bf16), vv.to(bf16), p) for _, kk, vv, p in sets8]
+        kern = lambda a, kk, vv, p: ops.decode_attention(a, kk, vv, q_pos=p)
+        plain = lambda a, kk, vv, p: da.decode_attention_plain(a, kk, vv, q_pos=p)
+        lib = lambda a, kk, vv, p: F.scaled_dot_product_attention(
+            a[:, :, None], kk.to(bf16).transpose(1, 2), vv.to(bf16).transpose(1, 2),
+            attn_mask=mask[:, None, None, :], enable_gqa=hq != hkv)
+        big = t > 1024
+        row = {"case": name, "kernel": "decode_attention", "B": b, "Hq": hq, "Hkv": hkv,
+               "T": t, "D": d, "q_pos": positions, "live_keys": live,
+               "bit_equal_bf16_upcast": True, "max_abs_err": err, "tol": ATTN_ATOL,
+               "ms": graph_ms(torch, kern, sets8, 20 if big else 100),
+               "ms_bf16_cache": graph_ms(torch, kern, sets16, 20 if big else 100),
+               "plain_ms": graph_ms(torch, plain, sets8, 5 if big else 20),
+               "library_ms": graph_ms(torch, lib, sets8, 20 if big else 100),
+               "library_note": "scaled_dot_product_attention on the cache cast to bf16, "
+                               "the cast included"}
+        row.update(bound(q.numel() * 2 + 2 * live * hkv * d + b * 4 + b * hq * d * 4,
+                         4 * live * hq * d))
+        rows.append(row)
+        del sets8, sets16, k, v
+        torch.cuda.empty_cache()
+    for name, b, hq, hkv, s, t, offsets, d in FP8_FLASH_CASES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(s + t)
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(bf16).transpose(1, 2)
+        k = cache(gen, (b, t, hkv, d)).transpose(1, 2)
+        v = cache(gen, (b, t, hkv, d)).transpose(1, 2)
+        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        got = ops.flash_attention(q, k, v, q_offset=off)
+        same = ops.flash_attention(q, k.to(bf16), v.to(bf16), q_offset=off)
+        want = fa.flash_attention_plain(q, k, v, True, None, off)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = FLASH_RTOL * want.float().abs() + FLASH_VTOL * float(v.float().abs().max())
+        if not torch.equal(got, same) or not bool((err <= tol).all()):
+            fail(f"flash_attention fp8 {name}: bit-equal to the bf16 upcast "
+                 f"{torch.equal(got, same)}, max err/tol {float((err / tol).max())}")
+        vis = [[min(t, o + i + 1) for i in range(s)] for o in offsets]
+        kv_rows = sum(max(r) for r in vis)
+        mask = (torch.arange(t, device=dev)[None, None, :]
+                <= off[:, None, None] + torch.arange(s, device=dev)[None, :, None])[:, None]
+        nc = copies_beyond_l2(2 * kv_rows * hkv * d)
+        sets8 = [(q, k.clone(), v.clone(), off) for _ in range(nc)]
+        sets16 = [(a, kk.to(bf16), vv.to(bf16), o) for a, kk, vv, o in sets8]
+        kern = lambda a, kk, vv, o: ops.flash_attention(a, kk, vv, q_offset=o)
+        plain = lambda a, kk, vv, o: fa.flash_attention_plain(a, kk, vv, True, None, o)
+        lib = lambda a, kk, vv, o: F.scaled_dot_product_attention(
+            a, kk.to(bf16), vv.to(bf16), attn_mask=mask, enable_gqa=hq != hkv)
+        row = {"case": name, "kernel": "flash_attention", "B": b, "Hq": hq, "Hkv": hkv,
+               "S": s, "T": t, "D": d, "q_offset": offsets, "bit_equal_bf16_upcast": True,
+               "max_abs_err": float(err.max()), "max_err_over_tol": float((err / tol).max()),
+               "ms": graph_ms(torch, kern, sets8, 100),
+               "ms_bf16_cache": graph_ms(torch, kern, sets16, 100),
+               "plain_ms": graph_ms(torch, plain, sets8, 20),
+               "library_ms": graph_ms(torch, lib, sets8, 100),
+               "library_note": "scaled_dot_product_attention on the cache cast to bf16 (a "
+                               "boolean mask), the cast included"}
+        row.update(bound(2 * q.numel() * 2 + 2 * kv_rows * hkv * d,
+                         4 * d * hq * sum(sum(r) for r in vis)))
+        rows.append(row)
+        del sets8, sets16, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cache_bytes(model, dtype) -> int:
+    """Bytes of the K/V leaves of the served engine's cache (MAX_BATCH slots
+    of the serve runs' length) stored as ``dtype`` (its int32 positions
+    apart)."""
+    from repro_torch import tree as T
+    c = model.init_cache(MAX_BATCH, PROMPT_LEN + MAX_NEW + 1, dtype=dtype, device="meta")
+    return sum(t.numel() * t.element_size() for t in T.leaves(c) if t.dtype == dtype)
+
+
+def fp8_cache_run(torch, dev, arch, model, params, ccfg, prompts, plain_ref, plain_rec):
+    """The plain run's prompts served with ``kv_dtype=float8_e4m3fn``: every
+    kernel of the path launched on the FP8 cache, the cache half the bf16
+    cache's bytes, and each stream's first departure from the bf16-cache
+    run with that run's top-2 margin there (reported: an FP8 cache is
+    another function of the same weights)."""
+    ccfg8 = dataclasses.replace(ccfg, kv_dtype=torch.float8_e4m3fn)
+    run, eng, reqs, _ = serve_run(torch, dev, arch, model, params, ccfg8, prompts, "fp8_cache")
+    del eng
+    ref_reqs, ref_rec = plain_ref
+    departures = []
+    for a, b in zip(ref_reqs, reqs):
+        j = first_departure(a, b)
+        if j is not None:
+            m, steps = top2_margin(ref_rec["top2"][(a.uid, j)])
+            departures.append({"uid": a.uid, "index": j, "bf16_cache": a.tokens_out[j],
+                               "fp8_cache": b.tokens_out[j], "bf16_margin": m,
+                               "margin_bf16_steps": steps})
+    kv8, kv16 = cache_bytes(model, torch.float8_e4m3fn), cache_bytes(model, torch.bfloat16)
+    if not 0 < 2 * kv8 == kv16:
+        fail(f"serve ({arch}, fp8_cache): the FP8 cache takes {kv8} bytes, the bf16 "
+             f"cache {kv16}")
+    run.update({"kv_dtype": "float8_e4m3fn", "cache_bytes": kv8, "bf16_cache_bytes": kv16,
+                "bf16_run_peak_mem_gb": plain_rec["peak_mem_gb"],
+                "streams_equal_bf16_cache": not departures,
+                "departures": departures,
+                "streams_departing": len(departures)})
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the dry run's remaining placements on gloo worlds sharing the card
+# ---------------------------------------------------------------------------
+
+#: ``placements``: codeqwen1.5-7b at full width, depth PLACE_DEPTH, a
+#: prefill of PLACE_ROWS x PLACE_PROMPT tokens under seqpar (1, 2), cascade
+#: and megatron, through the kernels; phi4-mini-3.8b at full width, depth
+#: PLACE_DEPTH, PLACE_STEPS QAT train steps of PLACE_ROWS x TRAIN_SEQ
+#: tokens (bf16, remat "dots", the fake quant on its kernel) under zero1
+#: and fsdp on (2, 1) against the data-parallel step, and under seqpar on
+#: (1, 2) against the unsharded step on the rank
+PLACE_DEPTH, PLACE_ROWS, PLACE_PROMPT, PLACE_STEPS = 2, 4, 128, 3
+#: seqpar's logits against the unsharded prefill's, as max|diff| /
+#: max|unsharded|: the same kernels on column bands (bit-equal to the whole
+#: call) but megatron's row bands, whose f32 partial sums add in another
+#: order, then one bf16 rounding: codeqwen's parity limit
+PLACE_LOGIT_RTOL = 2.0 ** -6
+#: the train runs' params after the steps against the reference run's, as
+#: max|diff| / max|leaf| over the leaves: ZeRO's clip norm sums its squares
+#: in another order (the last bits of one scalar), seqpar's column-banded
+#: f32 products in cuBLAS's other tilings; every param is bf16, so a last
+#: bit moved by either is one bf16 step (2^-8 of the leaf's scale): limits
+#: of two steps; the losses within PLACE_LOSS_RTOL relative
+PLACE_PARAM_RTOL, PLACE_LOSS_RTOL = 2.0 ** -7, 2.0 ** -10
+
+
+def placement_rank(rank: int) -> dict:
+    """One rank of a two-rank gloo world sharing the card, on meshes (1, 2)
+    and (2, 1): the ``placements`` phase's runs; each rank computes its own
+    unsharded reference."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cascade import CascadeConfig
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import loop
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cols, rows = make_mesh((1, 2), ("data", "model")), make_mesh((2, 1), ("data", "model"))
+    rel = lambda g, w: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+    out = {}
+
+    # codeqwen1.5-7b's prefill under sequence parallelism
+    arch = "codeqwen1.5-7b"
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=PLACE_DEPTH)
+    model = registry.build_model(cfg)
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    params = model.init_params(0, ccfg, device=dev)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (PLACE_ROWS, PLACE_PROMPT))
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        want, _ = model.prefill(params, batch, ccfg, max_len=PLACE_PROMPT)
+        want_launches = dict(ops.LAUNCHES)
+        shape = ShapeConfig("place_prefill", PLACE_PROMPT, PLACE_ROWS, "prefill")
+        for tp in ("cascade", "megatron"):
+            cell = dryrun.build_cell(arch, shape, cols, ccfg, tp, act_policy="seqpar", cfg=cfg)
+            args = {"params": sharding.shard_tree(params, cell.trees["params"][1], cols),
+                    "batch": batch}
+            ops.reset_launch_counts()
+            before = collectives.snapshot()
+            with sharding.activation_policy(cell.policy(args)):
+                got, _ = cell.step(args)
+            torch.cuda.synchronize()
+            out[("seqpar_prefill", tp)] = {
+                "logits_max_rel_err": rel(got, want), "launches": dict(ops.LAUNCHES),
+                "unsharded_launches": want_launches,
+                "collectives": collectives.since(before)}
+            del args, got
+    del params, model
+    torch.cuda.empty_cache()
+
+    # phi4-mini-3.8b's QAT train steps under zero1, fsdp and seqpar
+    arch = "phi4-mini-3.8b"
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=PLACE_DEPTH)
+    model = registry.build_model(cfg)
+    tccfg = CascadeConfig(mode="train", qat=True, use_kernel=True, compute_dtype=torch.bfloat16)
+    params = model.init_params(0, tccfg, device=dev)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (PLACE_ROWS, TRAIN_SEQ + 1))
+    tokens = torch.from_numpy(toks.astype(np.int32)).to(dev)
+    shape = ShapeConfig("place_train", TRAIN_SEQ, PLACE_ROWS, "train")
+
+    def cell_run(mesh, **kw):
+        cell = dryrun.build_cell(arch, shape, mesh, tccfg, "cascade", cfg=cfg, **kw)
+        cell_step = cell.step
+        pspecs = cell.trees["params"][1]
+        args = cell.local_args(lambda s, dt: torch.zeros(s, dtype=dt, device=dev))
+        with torch.no_grad():
+            for a, p in zip(T.leaves(args["params"]),
+                            T.leaves(sharding.shard_tree(params, pspecs, mesh))):
+                a.copy_(p)
+        b0, nb = dryrun._data_rows(mesh, cell.batch_axes, PLACE_ROWS)
+        args["batch"] = {"tokens": tokens[b0:b0 + nb, :-1], "labels": tokens[b0:b0 + nb, 1:]}
+        local = {"params": [(tuple(t.shape), t.numel()) for t in T.leaves(args["params"])],
+                 "mu": [t.numel() for t in T.leaves(args["opt"].mu)]}
+        losses, launches = [], []
+        for _ in range(PLACE_STEPS):
+            ops.reset_launch_counts()
+            with sharding.activation_policy(cell.policy(args)):
+                got = cell_step(args)
+            torch.cuda.synchronize()
+            launches.append(dict(ops.LAUNCHES))
+            losses.append(float(got["loss"]))
+            args["opt"] = args["opt"]._replace(step=args["opt"].step + 1)
+        whole = sharding.gather_tree(T.tree_map(lambda t: t.detach(), args["params"]), pspecs,
+                                     mesh)
+        return {"losses": losses, "launches": launches, "params": T.leaves(whole),
+                "local": local}
+
+    def unsharded():
+        state = loop.TrainState(params=T.tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), params), opt=AdamW().init(params),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+        step = loop.make_train_step(model, tccfg, AdamW(), remat=True)
+        losses, launches = [], []
+        for _ in range(PLACE_STEPS):
+            ops.reset_launch_counts()
+            state, m = step(state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+            torch.cuda.synchronize()
+            launches.append(dict(ops.LAUNCHES))
+            losses.append(float(m["loss"]))
+        return {"losses": losses, "launches": launches,
+                "params": [t.detach() for t in T.leaves(state.params)]}
+
+    whole_numel = [t.numel() for t in T.leaves(params)]
+
+    def compare(got, ref):
+        return {"losses": got["losses"], "ref_losses": ref["losses"],
+                "loss_max_rel_err": max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ref["losses"])),
+                "params_max_rel_err": max(rel(g, w) for g, w in zip(got["params"],
+                                                                    ref["params"])),
+                "params_bit_equal_share": float(np.mean(
+                    [bool(torch.equal(g, w)) for g, w in zip(got["params"], ref["params"])])),
+                "launches_per_step": got["launches"], "ref_launches_per_step": ref["launches"],
+                "local": got.get("local"), "whole_numel": whole_numel}
+
+    ref = cell_run(rows)
+    for dp_shard in ("zero1", "fsdp"):
+        out[("train", dp_shard)] = compare(cell_run(rows, dp_shard=dp_shard), ref)
+    del ref
+    out[("train", "seqpar")] = compare(cell_run(cols, act_policy="seqpar"), unsharded())
+    return out
+
+
+def placements_phase(torch, dev):
+    """Phase ``placements``: a two-rank gloo world sharing the card
+    (``placement_rank``): sequence parallelism's prefill logits against the
+    unsharded prefill (``PLACE_LOGIT_RTOL``), the train steps under zero1
+    and fsdp against the data-parallel step and under seqpar against the
+    unsharded step (``PLACE_PARAM_RTOL``, ``PLACE_LOSS_RTOL``); every run's
+    kernel launches those of its reference, step by step; each data band
+    half its leaf."""
+    from repro_torch.launch import mesh as meshlib
+    t0 = time.monotonic()
+    ranks = meshlib.run_local_ranks(2, placement_rank, threads=2, timeout=900)
+    out = {"gpu": gpu_name_and_power(), "world_s": time.monotonic() - t0}
+    for key in sorted(ranks[0], key=str):
+        per = [r[key] for r in ranks]
+        name = "/".join(key)
+        if key[0] == "seqpar_prefill":
+            errs = [p["logits_max_rel_err"] for p in per]
+            if not all(e <= PLACE_LOGIT_RTOL for e in errs):
+                fail(f"placements {name}: logits {errs} of max|unsharded| past "
+                     f"{PLACE_LOGIT_RTOL}")
+            if any(p["launches"] != p["unsharded_launches"] for p in per):
+                fail(f"placements {name}: launches {per[0]['launches']}, the unsharded "
+                     f"prefill's {per[0]['unsharded_launches']}")
+            if not per[0]["collectives"]["all_to_all" if key[1] == "cascade"
+                                         else "reduce_scatter"]["calls"]:
+                fail(f"placements {name}: no block output returned to the rows")
+            out[name] = {"logits_max_rel_err_ranks": errs, "tol": PLACE_LOGIT_RTOL,
+                         "launches": per[0]["launches"],
+                         "collectives": per[0]["collectives"]}
+            continue
+        for p in per:
+            if p["params_max_rel_err"] > PLACE_PARAM_RTOL or \
+                    p["loss_max_rel_err"] > PLACE_LOSS_RTOL:
+                fail(f"placements {name}: params {p['params_max_rel_err']} (tol "
+                     f"{PLACE_PARAM_RTOL}), losses {p['loss_max_rel_err']} (tol "
+                     f"{PLACE_LOSS_RTOL}) from the reference run")
+            if p["launches_per_step"] != p["ref_launches_per_step"]:
+                fail(f"placements {name}: launches a step {p['launches_per_step']}, the "
+                     f"reference's {p['ref_launches_per_step']}")
+            if not all(s[k] > 0 for s in p["launches_per_step"]
+                       for k in RUN_KERNELS[(TRAIN_ARCH, "train")]):
+                fail(f"placements {name}: a kernel of the train step never launched")
+            if key[1] in ("zero1", "fsdp"):
+                # each moment leaf half its elements on a data band, or whole where
+                # no dim divides the data axis
+                local = p["local"]["mu"]
+                if not all(m in (w, w // 2) for m, w in zip(local, p["whole_numel"])) or \
+                        sum(m * 2 == w for m, w in zip(local, p["whole_numel"])) < len(local) // 2:
+                    fail(f"placements {name}: the moments are not on their data bands")
+        out[name] = {k: per[0][k] for k in ("losses", "ref_losses", "loss_max_rel_err",
+                                            "params_max_rel_err", "params_bit_equal_share")}
+        out[name].update({"params_max_rel_err_ranks": [p["params_max_rel_err"] for p in per],
+                          "launches_per_step": per[0]["launches_per_step"][-1],
+                          "tol": {"params": PLACE_PARAM_RTOL, "loss": PLACE_LOSS_RTOL}})
     return out
 
 
@@ -4304,6 +4787,7 @@ def main() -> int:
     print(json.dumps({"build_s": time.monotonic() - t0, "ptxas": regs}), flush=True)
 
     phase_s = {"build": time.monotonic() - t0}
+    sweep = start_dryrun_sweep()
 
     def timed(name, fn, *args):
         t = time.monotonic()
@@ -4335,6 +4819,8 @@ def main() -> int:
     print(json.dumps({"flash_attention": fla, "geometry": fla_geometry}), flush=True)
     fla_local = timed("flash_attention local", local_flash_phase)
     print(json.dumps({"flash_attention_local": fla_local}), flush=True)
+    fp8 = timed("attention fp8 cache", fp8_attention_phase)
+    print(json.dumps({"attention_fp8_cache": fp8, "gpu": gpu_name_and_power()}), flush=True)
     ring = timed("decode_attention ring", ring_decode_phase)
     print(json.dumps({"decode_attention_ring": ring}), flush=True)
     nrm = timed("norm", norm_phase)
@@ -4401,9 +4887,11 @@ def main() -> int:
     print(json.dumps({"precision_sim": sim}), flush=True)
     restart = timed("restart", restart_phase)
     print(json.dumps({"restart": restart}), flush=True)
-    dry = timed("dryrun", dryrun_phase)
-    print(json.dumps({"dryrun": {k: dry[k] for k in ("gpu", "bands_s", "sweep_s")}}),
-          flush=True)
+    dry = timed("dryrun", dryrun_phase, sweep)
+    print(json.dumps({"dryrun": {k: dry[k] for k in ("gpu", "bands_s", "sweep_s", "sweep_wait_s",
+                                                     "sweep_trace_s")}}), flush=True)
+    place = timed("placements", placements_phase)
+    print(json.dumps({"placements": place}), flush=True)
     mesh = timed("mesh", mesh_phase)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
@@ -4430,6 +4918,12 @@ def main() -> int:
         return {arch: stub[arch]["launches"][name] for arch in STUB_ARCHS}
 
     cq, mb, om, rg = ARCHS
+
+    def fp8_rows(kernel):
+        """The FP8-cache rows of one attention kernel, by case."""
+        return {r["case"]: {k: r[k] for k in (
+            "ms", "ms_bf16_cache", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "bit_equal_bf16_upcast")} for r in fp8 if r["kernel"] == kernel}
     fv = next(r for r in fla if r["case"] == "verify")
     ce_row = next(r for r in ces
                   if (r["M"], r["K"], r["N"], r["bias"]) == (8, 4096, 13440, False))
@@ -4574,7 +5068,9 @@ def main() -> int:
          "launches_model_level": model_level("decode_attention"),
          "decode_attention_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits", "max_abs_err")}
-             for r in atts + ring}},
+             for r in atts + ring},
+         "fp8_cache_shapes": fp8_rows("decode_attention"),
+         "launches_fp8_cache_run": srv[cq]["fp8_cache"]["launches"]["decode_attention"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:72",
@@ -4600,7 +5096,9 @@ def main() -> int:
          "flash_attention_shapes": {r["case"]: {k: r[k] for k in (
              "ms", "ms_one_split", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
              "heads_per_block") if k in r} for r in fla + fla_local},
-         "long_context_launches_by_splits": srv[cq]["long_context"]["flash_launches_by_splits"]},
+         "long_context_launches_by_splits": srv[cq]["long_context"]["flash_launches_by_splits"],
+         "fp8_cache_shapes": fp8_rows("flash_attention"),
+         "launches_fp8_cache_run": srv[cq]["fp8_cache"]["launches"]["flash_attention"]},
         {"name": "norm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/norm.cu",
          "replaces": "no TPU kernel: the reference's plain norm_apply, "
@@ -4704,7 +5202,7 @@ def main() -> int:
               "fake_quant_fp4": fqs, "cascade_exact": ce_res, "train": train, "qat_serve": qat,
               "train_recipe": recipe,
               "precision_sim": sim, "restart": restart, "examples_and_audit": exa,
-              "dryrun": dry, "mesh": mesh,
+              "dryrun": dry, "mesh": mesh, "attention_fp8_cache": fp8, "placements": place,
               "phase_s": phase_s}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if par_failed:

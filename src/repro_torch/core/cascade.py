@@ -40,7 +40,13 @@ expert stack banded on N (cascade) gathers its columns; one banded on E
 the buffer and gathers the experts. Under autograd a whole input that
 feeds a band has its gradient summed over the model ranks
 (``ActivationPolicy.band_input``), so a step on a mesh computes the
-unsharded gradients.
+unsharded gradients. Under sequence parallelism a block's output linear
+(:func:`out_apply`, inside ``sharding.rows_out``) returns this rank's rows
+of the sequence: a column band's output by one all-to-all, a row band's
+partial sums by one reduce-scatter; and a column-banded expert stack is
+re-banded by experts (:func:`experts_by_e`, one all-to-all a leaf) so the
+(E, C, d) buffer runs E over ``model``, as the reference's
+``constrain_expert_buffer`` places it.
 
 On the ``meta`` device :func:`linear_init` and :func:`expert_linear_init`
 return :func:`linear_abstract`'s leaves without drawing or quantizing
@@ -54,6 +60,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding
 
 
@@ -200,11 +207,13 @@ def gather_columns(y: torch.Tensor) -> torch.Tensor:
     return sharding.get_activation_policy().gather_model(y, -1)
 
 
-def _row_band(pol, params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
+def _row_band(pol, params: dict, x: torch.Tensor, cfg: CascadeConfig,
+              rows: bool = False) -> torch.Tensor:
     """Megatron's row-parallel linear: this rank's rows of W times the
     matching features of x (x whole, or already this rank's band of them:
     the output of column-banded linears, unjoined), the f32 partial sums
-    all-reduced, then the (replicated) bias."""
+    all-reduced (``rows``: reduce-scattered onto this rank's rows of the
+    sequence), then the (replicated) bias."""
     fp4 = "codes" in params
     kb = params["codes"].shape[-2] * 2 if fp4 else params["w"].shape[-2]
     r = pol.model_rank
@@ -214,7 +223,10 @@ def _row_band(pol, params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.T
         local["scale"] = params["scale"][..., r * g:(r + 1) * g, :]
     xs = x if x.shape[-1] == kb else pol.band_input(x)[..., r * kb:(r + 1) * kb]  # or its band
     part = _linear_local(local, xs, cfg, out_dtype=torch.float32)
-    out = pol.sum_model(part)
+    if rows:
+        out = C.reduce_scatter(part, pol.mesh.group(pol.model_axis), dim=-2)
+    else:
+        out = pol.sum_model(part)
     if params.get("b") is not None:
         out = out + params["b"]
     return out.to(cfg.compute_dtype)
@@ -234,6 +246,52 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
     if band == -2:
         return _row_band(pol, params, x, cfg)
     return _linear_local(params, x, cfg)
+
+
+def out_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
+    """A block's output linear: :func:`linear_apply`, but inside
+    ``sharding.rows_out`` (sequence parallelism) it hands back this rank's
+    rows of the sequence dim (-2) of x (B, S, K) -> (B, S/m, N): a column
+    band's output by one all-to-all over ``model`` (no gather of the whole),
+    a row band's f32 partial sums by one reduce-scatter, a whole weight's
+    output by taking the rows."""
+    if not sharding.rows_out_active():
+        return linear_apply(params, x, cfg)
+    pol, band = _policy_band(params)
+    group = pol.mesh.group(pol.model_axis)
+    if band == -1:
+        y = _linear_local(params, pol.band_input(x), cfg)
+        return C.all_to_all(y, group, split_dim=-2, cat_dim=-1)
+    if band == -2:
+        return _row_band(pol, params, x, cfg, rows=True)
+    return C.split(_linear_local(params, x, cfg), group, -2)
+
+
+def experts_by_e(params: dict) -> dict:
+    """An expert stack's leaves banded by experts over ``model``: a stack
+    column-banded there (cascade) is re-banded by one all-to-all a leaf
+    (this rank's E/m experts, every column); under autograd the gradients
+    go back to the column bands. Leaves of any other band come back as
+    they are."""
+    pol, band = _policy_band(params)
+    if band != -1:
+        return params
+    group = pol.mesh.group(pol.model_axis)
+    out = {}
+    for name, t in params.items():
+        if pol.band(t) == -1:
+            t = C.all_to_all(t, group, split_dim=-3, cat_dim=-1)
+            pol._note_band(t, -3)
+        out[name] = t
+    return out
+
+
+def _by_experts(pol, params: dict) -> bool:
+    """Sequence parallelism's E-over-``model`` expert buffer: a column-banded
+    stack of a multiple of 16 experts (the reference's rule) that the model
+    axis divides."""
+    e = params.get("codes", params.get("w")).shape[-3]
+    return pol.act == "seqpar" and e % 16 == 0 and e % pol.model_size == 0
 
 
 def expert_linear_init(gen: torch.Generator, n_experts: int, d_in: int, d_out: int,
@@ -282,6 +340,8 @@ def expert_linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
     lets the grouped kernel skip what is not routed; None means all C.
     Under a mesh policy a banded stack runs on its band."""
     pol, band = _policy_band(params)
+    if band == -1 and _by_experts(pol, params):
+        params, band = experts_by_e(params), -3
     if band == -1:
         return pol.gather_model(_expert_local(params, pol.band_input(x), cfg, rows), -1)
     if band == -3:
@@ -301,6 +361,8 @@ def expert_linear_pair_apply(first: dict, second: dict, x: torch.Tensor, cfg: Ca
                 expert_linear_apply(second, x, cfg, rows))
     from repro_torch.kernels import ops
     pol, band = _policy_band(first)
+    if band == -1 and _by_experts(pol, first):
+        first, second, band = experts_by_e(first), experts_by_e(second), -3
     if band == -3:
         xs, rs = _expert_rows(pol, first, x, rows)
     else:

@@ -83,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -270,23 +271,64 @@ def merge_specs(a, b):
     return _map2(lambda x, y: tuple(p if p is not None else q for p, q in zip(x, y)), a, b)
 
 
-def add_data_dim(specs_tree, shapes_tree, mesh, batch_axes=("pod", "data")):
+def add_data_dim(specs_tree, shapes_tree, mesh, batch_axes=("pod", "data"), first: Any = None):
     """ZeRO-style: also shard each leaf over the data axes on its first
-    unsharded, divisible dim (optimizer moments; FSDP params)."""
+    unsharded, divisible dim (optimizer moments; FSDP params). ``first``, a
+    tree of ints beside the specs, makes a leaf look from that dim on
+    before it looks at the dims in front of it (:func:`data_band_specs`)."""
     axes, size = _batch_axes(mesh, batch_axes)
     daxis = axes if len(axes) > 1 else (axes[0] if axes else None)
 
-    def upd(leaf, spec):
+    def upd(leaf, spec, start=0):
         if size <= 1 or leaf.ndim == 0:
             return spec
         parts = list(spec) + [None] * (leaf.ndim - len(spec))
-        for i in range(leaf.ndim):
+        for i in list(range(start, leaf.ndim)) + list(range(start)):
             if parts[i] is None and leaf.shape[i] % size == 0:
                 parts[i] = daxis
                 return tuple(parts)
         return spec
 
-    return _map2(upd, shapes_tree, specs_tree)
+    if first is None:
+        return _map2(upd, shapes_tree, specs_tree)
+    return _map2(lambda leaf, sf: upd(leaf, *sf), shapes_tree,
+                 _map2(lambda sp, f: (sp, f), specs_tree, first))
+
+
+def data_band_specs(specs_tree, params_tree, mesh, batch_axes=("pod", "data")):
+    """The ZeRO-1 moments' and FSDP params' specs: :func:`add_data_dim` of
+    the placed param specs, but a leaf of a stacked ``layers`` dict keeps
+    its layer dim whole, so that every layer of the stack is a band of each
+    rank's and the FSDP forward gathers one layer at a time
+    (:meth:`ActivationPolicy.gather_layer`). Such a leaf takes the data
+    axes on its first other dim that is free and divides them; else on a
+    dim banded over ``model`` that divides both (the name ``("model",
+    *data axes)``: the data band within the model band, e.g. a stacked
+    bias (L, N)) where the reference bands its layer dim; else on the
+    layer dim, as the reference. Its bytes a rank are the reference's
+    ``add_data_dim``'s in each case."""
+    axes, size = _batch_axes(mesh, batch_axes)
+    daxis = axes if len(axes) > 1 else (axes[0] if axes else None)
+    stacked = isinstance(params_tree, dict) and isinstance(params_tree.get("layers"), dict)
+
+    def band(path, leaf, spec):
+        if not (stacked and path[:1] == ("layers",) and leaf.ndim > 1) or size <= 1:
+            return add_data_dim(spec, leaf, mesh, batch_axes)
+        parts = list(spec) + [None] * (leaf.ndim - len(spec))
+        for i in range(1, leaf.ndim):
+            if parts[i] is None and leaf.shape[i] % size == 0:
+                parts[i] = daxis
+                return tuple(parts)
+        if parts[0] is not None or leaf.shape[0] % size:
+            return tuple(parts)                  # the reference bands it nowhere either
+        for i in range(1, leaf.ndim):
+            if parts[i] is not None and leaf.shape[i] % (_axis_size(mesh, parts[i]) * size) == 0:
+                parts[i] = _axis_names(parts[i]) + axes
+                return tuple(parts)
+        return add_data_dim(spec, leaf, mesh, batch_axes)
+
+    return _map_with_path(lambda path, leaf: band(path, leaf, _spec_at(specs_tree, path)),
+                          params_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +414,8 @@ def gather_tree(tree: Any, specs: Any, mesh, sum_grads: bool = False) -> Any:
 
 class ActivationPolicy:
     """The installed placement of one mesh engine (or trainer, or dry-run
-    step): the policy name, the mesh, and for each local param leaf banded
+    step): the policy name (the tp policy: ``cascade`` or ``megatron``),
+    the mesh, and for each local param leaf banded
     over ``model`` the banded dim, counted from the end (a layer's view of
     a stacked leaf, or an expert stack's, keeps its trailing dims). Leaves
     are found by their storage, which every view of a leaf shares (fake
@@ -382,27 +425,73 @@ class ActivationPolicy:
     on the cache (a mesh engine's :func:`kv_head_bands`, the dry run's
     whole :func:`cache_specs`): :meth:`cache_band` says, by leaf name, on
     which dim a layer's cache leaf holds this rank's band, whose offset on
-    that dim is ``model_rank`` times the local extent."""
+    that dim is ``model_rank`` times the local extent.
+
+    ``act`` is the activation placement (the reference's ``--act-policy``):
+
+    * ``cascade`` (and ``none``): the residual stream whole on every model
+      rank, the rank's rows of the batch only. The reference's ``none``
+      leaves GSPMD to propagate; in explicit SPMD nothing is left to
+      propagate (each param band forces its own collectives), so ``none``
+      runs the tp policy's own route with no pin, as the reference's
+      engine pairs megatron with ``none``;
+    * ``seqpar`` (sequence parallelism, the reference's
+      ``constrain_residual`` with its ``seq`` axis): between blocks a
+      (B, S, d) residual whose S divides 16 and the model axis holds this
+      rank's S/m rows (:meth:`seq_rows`); the norms run on them; the rows
+      are all-gathered before each mixer and MLP, which run the tp policy's
+      route on the whole sequence (attention over every query row, as the
+      cascade cell runs it); the block's output linear returns to the
+      rank's rows inside :func:`rows_out` (a column band by an all-to-all,
+      a row band's partial sums by a reduce-scatter). Decode (S = 1) keeps
+      the batch placement, as the reference falls back. The MoE expert
+      buffer goes E over ``model`` (``constrain_expert_buffer``): a
+      column-banded expert stack is re-banded by experts with one
+      all-to-all a leaf (``core.cascade``);
+    * ``fulldp``: the batch over every axis (the dry run's train cells).
+
+    ``data_specs`` (ZeRO-3/FSDP) is the spec tree of the local params'
+    data bands (:func:`data_band_specs`): :meth:`gather_layer` gathers a
+    layer's leaves over the data axes where the model code reads them, and
+    ``whole`` (full data parallelism) their model bands too."""
 
     def __init__(self, mesh, policy: str, local_params: Any = None, specs: Any = None,
-                 model_axis: str = "model", moe_ep: bool = False, cache_bands: Any = None):
+                 model_axis: str = "model", moe_ep: bool = False, cache_bands: Any = None,
+                 act: str = "cascade", data_specs: Any = None,
+                 data_axes: tuple = ("pod", "data"), whole: bool = False):
         self.mesh = mesh
         self.policy = policy
+        self.act = act
         self.moe_ep = moe_ep
         self.model_axis = model_axis
         self.model_size = mesh.size(model_axis)
         self.model_rank = mesh.coord(model_axis)
+        self.data_axes = tuple(a for a in data_axes if a in mesh.shape)
+        self.whole = whole
         self._bands: dict = {}
+        self._model_bands: dict = {}
+        self._data_bands: dict = {}
         self._cache_bands: dict = {}
+        if local_params is not None:
+            def note(t, spec, dspec=None):
+                for dim, name in enumerate(spec):
+                    if model_axis in _axis_names(name) and self.model_size > 1:
+                        self._model_bands[_storage_key(t)] = dim - t.ndim
+                for dim, name in enumerate(dspec or ()):
+                    daxes = tuple(a for a in _axis_names(name) if a in self.data_axes) \
+                        if name is not None else ()
+                    if daxes:
+                        self._data_bands[_storage_key(t)] = (dim - t.ndim, daxes)
+                return t
+            if data_specs is None:
+                _map2(note, local_params, specs)
+            else:
+                _map2(lambda t, sd: note(t, *sd), local_params,
+                      _map2(lambda a, b: (a, b), specs, data_specs))
+            if not whole:
+                self._bands = dict(self._model_bands)
         if self.model_size == 1:
             return
-        if local_params is not None:
-            def note(t, spec):
-                for dim, name in enumerate(spec):
-                    if model_axis in _axis_names(name):
-                        self._bands[_storage_key(t)] = dim - t.ndim
-                return t
-            _map2(note, local_params, specs)
         for path, spec in _spec_leaves(cache_bands):
             for dim, name in enumerate(spec):
                 if model_axis in _axis_names(name):
@@ -410,6 +499,62 @@ class ActivationPolicy:
                     if self._cache_bands.setdefault(path[-1], d) != d:
                         raise ValueError(f"cache leaves named {path[-1]!r} are banded on "
                                          f"two dims")
+
+    # ---- sequence parallelism
+    def seq_rows(self, s: int) -> bool:
+        """Whether a residual of ``s`` rows is held as this rank's S/m rows
+        between blocks (``seqpar``; the reference's ``S % 16`` rule)."""
+        return (self.act == "seqpar" and self.model_size > 1 and s % 16 == 0
+                and s % self.model_size == 0)
+
+    def take_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 1) of a residual whole on every model rank."""
+        return C.split(x, self.mesh.group(self.model_axis), 1)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every model rank's rows (dim 1) of ``x``, in rank order."""
+        return self.gather_model(x, 1)
+
+    # ---- ZeRO-3 / FSDP
+    def data_band(self, t: torch.Tensor):
+        """(dim from the end, data axes) of local leaf ``t``'s data band, or None."""
+        return self._data_bands.get(_storage_key(t))
+
+    def gather_layer(self, tree: Any) -> Any:
+        """``tree`` (a layer's params, or the params outside the layers) with
+        every data-banded leaf all-gathered over the data axes (and, under
+        ``whole``, every model band over ``model``). Under autograd each
+        gather's backward reduce-scatters the gradient back onto the band.
+        A gathered leaf keeps its model band's entry, so the model code
+        runs it on its band."""
+        if not self._data_bands and not self.whole:
+            return tree
+
+        def gather(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            key = _storage_key(t)
+            db, mb = self._data_bands.get(key), self._model_bands.get(key)
+            out = t
+            if db is not None:
+                for a in reversed(db[1]):
+                    if self.mesh.size(a) > 1:
+                        out = C.all_gather(out, self.mesh.group(a), dim=db[0], sum_grads=True,
+                                           grad_op="reduce_scatter")
+            if self.whole and mb is not None:
+                out = C.all_gather(out, self.mesh.group(self.model_axis), dim=mb,
+                                   sum_grads=True, grad_op="reduce_scatter")
+            elif mb is not None and out is not t:
+                self._note_band(out, mb)
+            return out
+
+        return _map_tree(gather, tree)
+
+    def _note_band(self, t: torch.Tensor, dim: int) -> None:
+        """Register a gathered leaf's model band until its storage is freed."""
+        key = _storage_key(t)
+        self._bands[key] = dim
+        weakref.finalize(t.untyped_storage(), self._bands.pop, key, None)
 
     def cache_band(self, name: str) -> Optional[int]:
         """The dim (negative, from the end) on which a cache leaf named
@@ -446,6 +591,48 @@ class ActivationPolicy:
         of work: under autograd its gradient (this rank's partial) is
         summed over the model ranks (``collectives.sum_grads``)."""
         return C.sum_grads(x, self.mesh.group(self.model_axis))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def seq_rows(s: int) -> bool:
+    """Whether the installed policy holds a residual of ``s`` rows as this
+    rank's rows between blocks (``ActivationPolicy.seq_rows``)."""
+    return _ACT_POLICY is not None and _ACT_POLICY.seq_rows(s)
+
+
+def gather_layer(tree: Any) -> Any:
+    """A layer's params as the model code reads them under the installed
+    policy (``ActivationPolicy.gather_layer``); ``tree`` itself without one."""
+    return tree if _ACT_POLICY is None else _ACT_POLICY.gather_layer(tree)
+
+
+_ROWS_OUT = False
+
+
+def rows_out_active() -> bool:
+    """Inside :func:`rows_out`: a block's output linear returns this rank's rows."""
+    return _ROWS_OUT
+
+
+@contextlib.contextmanager
+def rows_out(on: bool = True):
+    """While on, a block's output linear (``cascade.out_apply``) hands back
+    this rank's rows of its (B, S, N) output (sequence parallelism). The
+    block sets it inside its own body, so a rematerialized block sets it
+    again when it is recomputed."""
+    global _ROWS_OUT
+    prev, _ROWS_OUT = _ROWS_OUT, bool(on)
+    try:
+        yield
+    finally:
+        _ROWS_OUT = prev
 
 
 def merge_time_bands(parts: torch.Tensor) -> torch.Tensor:

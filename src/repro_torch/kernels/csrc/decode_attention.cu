@@ -37,12 +37,20 @@
 //   5. optionally the row's log-sum-exp, lse = m + log(l) over the live
 //      scaled scores (-inf where none is live), written beside the output
 //      by whichever kernel writes it: a caller holding one band of T merges
-//      its (out, lse) with the other bands' (the time-banded cache).
+//      its (out, lse) with the other bands' (the time-banded cache);
+//   6. an FP8 (e4m3) cache with bf16 q: the tiles are staged as they lie in
+//      memory, 1 byte a value (half the bf16 ring), and each pair of codes
+//      is converted in registers (e4m3 -> half -> f32, exact) where the
+//      bf16 kernel converts its pairs. The arithmetic walks D in the bf16
+//      kernel's 8-value chunks, so the result is the bf16 kernel's on the
+//      cache upcast to bf16, bit for bit.
 // The scores: 4 lanes share a key, each dotting a quarter of D from shared
 // memory against q (f32, in shared memory), then 2 shuffles; the P.V: 16
 // lanes split D into 16-byte chunks and 8 key groups split the tile; the 8
 // partial accumulators meet in shared memory at the end.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,6 +81,7 @@ static_assert(kKT % 32 == 0 && kStages >= 2, "tile of a multiple of 32 keys, >= 
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 
 // 16 bytes of T as floats
 __device__ __forceinline__ void load16(const float* p, float* f) {
@@ -85,6 +94,21 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// 8 e4m3 codes (8 bytes) as floats, a pair at a time through half (exact)
+__device__ __forceinline__ void load16(const __nv_fp8_e4m3* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_fp8x2_storage_t pair =
+        static_cast<__nv_fp8x2_storage_t>((w[i / 2] >> (16 * (i % 2))) & 0xffffu);
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3);
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&h));
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
@@ -114,32 +138,41 @@ __device__ float uniform_mean(const T* vb, long long v_st, int T_len, int d) {
   return s / T_len;
 }
 
-template <typename T>
+template <typename KV>
 __host__ __device__ constexpr int pipe_bytes(int D) {
-  return kStages * 2 * kKT * (D + 16 / static_cast<int>(sizeof(T))) * static_cast<int>(sizeof(T));
+  return kStages * 2 * kKT * (D + 16 / static_cast<int>(sizeof(KV))) * static_cast<int>(sizeof(KV));
 }
 
-template <typename T, int HPB>
+// the ring and q's rows, scores and warp maxima; the key groups' partial
+// sums reuse the same memory at the end (an e4m3 ring can be the smaller)
+template <typename KV, int HPB>
 __host__ __device__ constexpr int smem_bytes(int D) {
-  return pipe_bytes<T>(D) + (HPB * D + HPB * kKT + kWarps * HPB) * 4;
+  return pipe_bytes<KV>(D) + (HPB * D + HPB * kKT + kWarps * HPB) * 4 >
+                 (kKeyGroups * HPB * D + kKeyGroups * HPB + HPB) * 4
+             ? pipe_bytes<KV>(D) + (HPB * D + HPB * kKT + kWarps * HPB) * 4
+             : (kKeyGroups * HPB * D + kKeyGroups * HPB + HPB) * 4;
 }
 
-template <typename T, int HPB>
+// T: q's type (f32 or bf16); KV: the cache's (T, or e4m3 with bf16 q). The
+// arithmetic walks D in chunks of E = 16 / sizeof(T) values, whatever KV is
+template <typename T, typename KV, int HPB>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const uint8_t* __restrict__ mask,
+decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                        const KV* __restrict__ v, const uint8_t* __restrict__ mask,
                         const int* __restrict__ q_pos, float* __restrict__ out,
                         float* __restrict__ lse, float* __restrict__ ws_acc,
                         float* __restrict__ ws_ml, int Hq, int Hkv, int n_hchunks, int T_len,
                         int D, int span, float scale, long long k_sb, long long k_st,
                         long long k_sh, long long v_sb, long long v_st, long long v_sh) {
-  constexpr int E = 16 / sizeof(T);          // elements per 16-byte chunk
+  constexpr int E = 16 / sizeof(T);          // values per arithmetic chunk
+  constexpr int EC = 16 / sizeof(KV);        // cache values per 16-byte copy
   constexpr int kMaxC = (kMaxD / E + kDChunks - 1) / kDChunks;   // P.V chunks per lane
   extern __shared__ __align__(16) unsigned char smem[];
   const int nchunk = D / E;
-  const int row = D + E;                     // padded smem row, in elements
-  T* kv_s = reinterpret_cast<T*>(smem);      // [kStages][K, V][kKT][row]
-  float* q_s = reinterpret_cast<float*>(smem + pipe_bytes<T>(D));   // [HPB][D]
+  const int ncopy = D / EC;
+  const int row = D + EC;                    // padded smem row, in cache values
+  KV* kv_s = reinterpret_cast<KV*>(smem);    // [kStages][K, V][kKT][row]
+  float* q_s = reinterpret_cast<float*>(smem + pipe_bytes<KV>(D));  // [HPB][D]
   float* s_s = q_s + HPB * D;                // [HPB][kKT] scores of the tile
   float* wm_s = s_s + HPB * kKT;             // [kWarps][HPB] warp maxima
 
@@ -162,25 +195,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_begin = split * span;
   const int t_end = min(live_end, t_begin + span);
   const int n_tiles = t_end > t_begin ? (t_end - t_begin + kKT - 1) / kKT : 0;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const KV* kb = k + b * k_sb + kvh * k_sh;
+  const KV* vb = v + b * v_sb + kvh * v_sh;
 
   // K and V rows [t0, t0 + kKT) of tile `tile` into its ring buffer; rows at
   // or past t_end are zero-filled, never read. When a row's 16-byte chunks
   // divide the block, each lane keeps one chunk column and steps over rows
   // (no division in the loop); otherwise the lanes walk the chunks in order.
-  const bool fixed_col = kThreads % nchunk == 0;
-  const int c0 = threadIdx.x % nchunk;
-  const int r0 = threadIdx.x / nchunk;
-  const int rstep = kThreads / nchunk;
-  auto copy_chunk = [&](T* st, int t0, int is_v, int r, int c) {
+  const bool fixed_col = kThreads % ncopy == 0;
+  const int c0 = threadIdx.x % ncopy;
+  const int r0 = threadIdx.x / ncopy;
+  const int rstep = kThreads / ncopy;
+  auto copy_chunk = [&](KV* st, int t0, int is_v, int r, int c) {
     const int t = t0 + r;
     const bool in = t < t_end;
-    const T* src = is_v ? vb + (in ? t : t_begin) * v_st : kb + (in ? t : t_begin) * k_st;
-    cp_async16(st + (is_v * kKT + r) * row + c * E, src + c * E, in);
+    const KV* src = is_v ? vb + (in ? t : t_begin) * v_st : kb + (in ? t : t_begin) * k_st;
+    cp_async16(st + (is_v * kKT + r) * row + c * EC, src + c * EC, in);
   };
   auto issue = [&](int tile) {
-    T* st = kv_s + static_cast<size_t>(tile % kStages) * 2 * kKT * row;
+    KV* st = kv_s + static_cast<size_t>(tile % kStages) * 2 * kKT * row;
     const int t0 = t_begin + tile * kKT;
     if (fixed_col) {
       for (int r2 = r0; r2 < 2 * kKT; r2 += rstep) {
@@ -188,8 +221,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         copy_chunk(st, t0, is_v, r2 - is_v * kKT, c0);
       }
     } else {
-      for (int i = threadIdx.x; i < 2 * kKT * nchunk; i += kThreads)
-        copy_chunk(st, t0, i / (nchunk * kKT), (i / nchunk) % kKT, i % nchunk);
+      for (int i = threadIdx.x; i < 2 * kKT * ncopy; i += kThreads)
+        copy_chunk(st, t0, i / (ncopy * kKT), (i / ncopy) % kKT, i % ncopy);
     }
   };
 #pragma unroll
@@ -233,8 +266,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                      // the tile is in; the last tile's P.V is done
     if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
     cp_async_commit();
-    const T* ks = kv_s + static_cast<size_t>(it % kStages) * 2 * kKT * row;
-    const T* vs = ks + kKT * row;
+    const KV* ks = kv_s + static_cast<size_t>(it % kStages) * 2 * kKT * row;
+    const KV* vs = ks + kKT * row;
 
     // scores: lane (key, sub) dots chunks sub, sub + 4, ... of its key
     float sc[kQK][HPB];
@@ -313,7 +346,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < kPV; ++j) {
-      const T* vr = vs + (kg + kKeyGroups * j) * row;
+      const KV* vr = vs + (kg + kKeyGroups * j) * row;
 #pragma unroll
       for (int u = 0; u < kMaxC; ++u) {
         const int c = dc + kDChunks * u;
@@ -378,10 +411,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // merges the splits' partials of one (slot, query head): weights exp(m_s - m)
-template <typename T>
+template <typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_merge(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-                       const T* __restrict__ v, float* __restrict__ out,
+                       const KV* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int Hq, int Hkv, int T_len, int D, int splits,
                        long long v_sb, long long v_st, long long v_sh) {
   const int orow = blockIdx.x;
@@ -402,7 +435,7 @@ decode_attention_merge(const float* __restrict__ ws_acc, const float* __restrict
   }
   if (lse != nullptr && threadIdx.x == 0) lse[orow] = den > 0.f ? mx + logf(den) : -INFINITY;
   const float* acc = ws_acc + static_cast<size_t>(orow) * splits * D;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const KV* vb = v + b * v_sb + kvh * v_sh;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     if (den > 0.f) {
       float a = 0.f;
@@ -416,7 +449,7 @@ decode_attention_merge(const float* __restrict__ ws_acc, const float* __restrict
   }
 }
 
-template <typename T, int HPB>
+template <typename T, typename KV, int HPB>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* q_pos,
            void* out, void* lse, void* ws_acc, void* ws_ml, int B, int Hq, int Hkv, int T_len,
            int D, int splits, float scale, const long long* st, cudaStream_t stream) {
@@ -424,39 +457,39 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
   const int n_hchunks = (G + HPB - 1) / HPB;
   const int per = (T_len + splits - 1) / splits;
   const int span = (per + kKT - 1) / kKT * kKT;
-  const int smem = smem_bytes<T, HPB>(D);
+  const int smem = smem_bytes<KV, HPB>(D);
   static int smem_set = 48 * 1024;       // the default limit of dynamic shared memory
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, HPB>,
+    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, KV, HPB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
   const dim3 grid(B * Hkv * n_hchunks, splits);
   float* part = splits > 1 ? static_cast<float*>(ws_acc) : nullptr;
-  decode_attention_kernel<T, HPB><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  decode_attention_kernel<T, KV, HPB><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const int*>(q_pos),
       static_cast<float*>(out), splits > 1 ? nullptr : static_cast<float*>(lse), part,
       static_cast<float*>(ws_ml), Hq, Hkv, n_hchunks, T_len, D, span, scale, st[0], st[1],
       st[2], st[3], st[4], st[5]);
   if (splits > 1) {
-    decode_attention_merge<T><<<B * Hq, kThreads, 0, stream>>>(
+    decode_attention_merge<KV><<<B * Hq, kThreads, 0, stream>>>(
         static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
-        static_cast<const T*>(v), static_cast<float*>(out), static_cast<float*>(lse), Hq, Hkv,
+        static_cast<const KV*>(v), static_cast<float*>(out), static_cast<float*>(lse), Hq, Hkv,
         T_len, D, splits, st[3], st[4], st[5]);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch_heads(int hpb, const void* q, const void* k, const void* v, const void* mask,
                  const void* q_pos, void* out, void* lse, void* ws_acc, void* ws_ml, int B,
                  int Hq, int Hkv, int T_len, int D, int splits, float scale,
                  const long long* st, cudaStream_t s) {
 #define DA_CASE(n)                                                                          \
   case n:                                                                                   \
-    return launch<T, n>(q, k, v, mask, q_pos, out, lse, ws_acc, ws_ml, B, Hq, Hkv, T_len,  \
+    return launch<T, KV, n>(q, k, v, mask, q_pos, out, lse, ws_acc, ws_ml, B, Hq, Hkv, T_len,  \
                         D, splits, scale, st, s);
   switch (hpb) {
     DA_CASE(1) DA_CASE(2) DA_CASE(3) DA_CASE(4) DA_CASE(5) DA_CASE(6) DA_CASE(7) DA_CASE(8)
@@ -479,7 +512,8 @@ extern "C" void decode_attention_geometry(int* out4) {
 
 // q: (B, Hq, D) contiguous; k, v: (B, T, Hkv, D) with unit stride on D and
 // the element strides st = {k_sb, k_st, k_sh, v_sb, v_st, v_sh}, every row
-// 16-byte aligned; q, k and v share one type, bf16 (is_bf16 = 1) or f32;
+// 16-byte aligned; dtypes: q, k and v f32 (0) or bf16 (1), or bf16 q with an
+// e4m3 k and v (2);
 // mask: (B, T) uint8, nonzero = live key, or null; q_pos: (B,) int32, key t
 // live iff t <= q_pos[b], or null; out: (B, Hq, D) f32; lse: (B, Hq) f32, the
 // log-sum-exp of each row's live scaled scores (-inf where none is live), or
@@ -492,15 +526,20 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        const void* mask, const void* q_pos, void* out,
                                        void* lse, void* ws_acc, void* ws_ml, int B, int Hq,
                                        int Hkv, int T_len, int D, int heads_per_block, int splits,
-                                       float scale, const long long* strides, int is_bf16,
+                                       float scale, const long long* strides, int dtypes,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (splits < 1 || splits > kMaxSplits || D > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16)
-    return launch_heads<__nv_bfloat16>(heads_per_block, q, k, v, mask, q_pos, out, lse,
+  if (dtypes == 2)
+    return launch_heads<__nv_bfloat16, __nv_fp8_e4m3>(heads_per_block, q, k, v, mask, q_pos,
+                                                      out, lse, ws_acc, ws_ml, B, Hq, Hkv,
+                                                      T_len, D, splits, scale, strides, s);
+  if (dtypes == 1)
+    return launch_heads<__nv_bfloat16, __nv_bfloat16>(heads_per_block, q, k, v, mask, q_pos, out, lse,
                                        ws_acc, ws_ml, B, Hq, Hkv, T_len, D, splits, scale,
                                        strides, s);
-  return launch_heads<float>(heads_per_block, q, k, v, mask, q_pos, out, lse, ws_acc, ws_ml, B,
+  if (dtypes != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_heads<float, float>(heads_per_block, q, k, v, mask, q_pos, out, lse, ws_acc, ws_ml, B,
                              Hq, Hkv, T_len, D, splits, scale, strides, s);
 }

@@ -82,9 +82,17 @@
 //     once in shared memory (64 rows, padded) and its A fragments are read by
 //     ldmatrix.x4 at each k-step; the K/V ring keeps 2 stages of kKTWide =
 //     16 keys (shared memory 33 KB of Q and 33 KB of ring). At 32 keys the
-//     local body spills at 255 registers (ptxas); at 16 nothing spills.
+//     local body spills at 255 registers (ptxas); at 16 nothing spills;
+//   * an FP8 (e4m3) K/V cache (template flag kFp8): each thread loads its
+//     8 codes of a row with a plain 8-byte load, converts them in registers
+//     (e4m3 -> half -> bf16, exact) and stores the 16 bytes into the same
+//     shared-memory layout the cp.async path fills, so everything after the
+//     staging is the bf16 body: the result is the bf16 kernel's on the cache
+//     upcast to bf16, bit for bit.
 // wgmma, TMA, warp specialisation and a bf16 P are later work.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -178,6 +186,26 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Q is staged in shared memory past this head dim (its register fragments
 // would not fit beside the output row's)
+// 8 e4m3 codes at src (8-byte aligned) as 8 bf16 at dst (16-byte aligned
+// shared memory), zeros without a read when !fill; e4m3 -> half -> bf16 is exact
+__device__ __forceinline__ void stage_fp8(__nv_bfloat16* dst, const uint8_t* src, bool fill) {
+  uint4 out = make_uint4(0u, 0u, 0u, 0u);
+  if (fill) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+    const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_fp8x2_storage_t pair =
+          static_cast<__nv_fp8x2_storage_t>((w[i / 2] >> (16 * (i % 2))) & 0xffffu);
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3);
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+      o[i] = pack_bf16(f.x, f.y);
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = out;
+}
+
 template <int D>
 __host__ __device__ constexpr bool q_in_smem() {
   return D > 128;
@@ -197,8 +225,9 @@ constexpr int smem_bytes() {
 
 // kLocal: the call has k_pos or a window. Without them the body is the plain
 // causal one (visible iff key <= the row's last key), which keeps the
-// registers, and the bits, of the kernel before local attention
-template <int D, bool kLocal>
+// registers, and the bits, of the kernel before local attention. kFp8: k and
+// v are e4m3 (p.k and p.v point at bytes; their strides count bytes)
+template <int D, bool kLocal, bool kFp8>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params p) {
   constexpr int kKT = keys_per_tile<D>();  // keys per tile (shadows the default's)
   constexpr int kPitch = D + 8;           // bf16 per shared row: 16-byte rows, no bank conflicts
@@ -247,12 +276,19 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
 
   const __nv_bfloat16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
+  const uint8_t* kb8 = reinterpret_cast<const uint8_t*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const uint8_t* vb8 = reinterpret_cast<const uint8_t*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   auto copy_row = [&](__nv_bfloat16* ks, __nv_bfloat16* vs, int k0, int r, int c) {
     const int key = k0 + r;
     const bool in = key < kv_end;         // no row of this block sees a later key
     const long long src = in ? key : 0;
-    cp_async16(ks + r * kPitch + c, kb + src * p.k_st + c, in);
-    cp_async16(vs + r * kPitch + c, vb + src * p.v_st + c, in);
+    if constexpr (kFp8) {                 // converted on the way; the barrier publishes it
+      stage_fp8(ks + r * kPitch + c, kb8 + src * p.k_st + c, in);
+      stage_fp8(vs + r * kPitch + c, vb8 + src * p.v_st + c, in);
+    } else {
+      cp_async16(ks + r * kPitch + c, kb + src * p.k_st + c, in);
+      cp_async16(vs + r * kPitch + c, vb + src * p.v_st + c, in);
+    }
   };
   auto fetch = [&](int tile) {            // K and V of the split's tile `tile`
     __nv_bfloat16* ks = smem + (tile % kStages) * 2 * kTile;
@@ -539,24 +575,30 @@ flash_attention_merge(const float* __restrict__ ws_acc, const float* __restrict_
   out[b * o_sb + h * o_sh + pos * o_ss + d] = __float2bfloat16_rn(num / den);
 }
 
-template <int D, bool kLocal>
+template <int D, bool kLocal, bool kFp8>
 int launch(Params p, int B, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   static int smem_set = 48 * 1024;       // the default limit of dynamic shared memory
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D, kLocal>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D, kLocal, kFp8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
   const dim3 grid(p.n_qtiles * p.splits, p.Hkv * p.n_hchunks, B);
-  flash_attention_kernel<D, kLocal><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<D, kLocal, kFp8><<<grid, kThreads, smem, stream>>>(p);
   if (p.splits > 1) {
     const long long total = static_cast<long long>(B) * p.Hq * p.S * D;
     flash_attention_merge<D><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
         p.ws_acc, p.ws_ml, p.out, total, p.S, p.Hq, p.splits, p.o_sb, p.o_sh, p.o_ss);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(Params p, int B, cudaStream_t s, bool local, bool fp8) {
+  if (fp8) return local ? launch<D, true, true>(p, B, s) : launch<D, false, true>(p, B, s);
+  return local ? launch<D, true, false>(p, B, s) : launch<D, false, false>(p, B, s);
 }
 
 }  // namespace
@@ -572,9 +614,10 @@ extern "C" void flash_attention_geometry(int* out5) {
   out5[4] = kRows;
 }
 
-// q (B, Hq, S, D), k/v (B, Hkv, T, D), out (B, Hq, S, D): bf16, unit stride
-// on D, the element strides (batch, head, row) of q, k, v and out in
-// strides[0..11] (each a multiple of 8, every base 16-byte aligned);
+// q (B, Hq, S, D), k/v (B, Hkv, T, D), out (B, Hq, S, D): bf16 (k and v
+// e4m3 when kv_fp8), unit stride on D, the element strides (batch, head,
+// row) of q, k, v and out in strides[0..11] (each a multiple of 8, every
+// base 16-byte aligned);
 // q_offset: (B,) int32 >= 0 on the device (read only when causal); k_pos:
 // null, or (B, T) int32 contiguous on the device, key j of row b at position
 // k_pos[b, j] (< 0: no key); window: 0, or (causal) the local window. Every
@@ -589,7 +632,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       const void* q_offset, const void* k_pos, void* out,
                                       void* ws_acc, void* ws_ml, int B, int Hq, int Hkv, int S,
                                       int T, int D, int causal, int window, float scale,
-                                      int heads_per_block, int splits,
+                                      int heads_per_block, int splits, int kv_fp8,
                                       const long long* strides, void* stream) {
   const int G = Hq / Hkv;
   if (heads_per_block < 1 || heads_per_block > kMaxHeads || splits < 1 || splits > kMaxSplits ||
@@ -632,13 +675,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.o_ss = strides[11];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool local = k_pos != nullptr || window > 0;
+  const bool fp8 = kv_fp8 != 0;
   switch (D) {
-    case 16: return local ? launch<16, true>(p, B, s) : launch<16, false>(p, B, s);
-    case 32: return local ? launch<32, true>(p, B, s) : launch<32, false>(p, B, s);
-    case 64: return local ? launch<64, true>(p, B, s) : launch<64, false>(p, B, s);
-    case 96: return local ? launch<96, true>(p, B, s) : launch<96, false>(p, B, s);
-    case 128: return local ? launch<128, true>(p, B, s) : launch<128, false>(p, B, s);
-    case 256: return local ? launch<256, true>(p, B, s) : launch<256, false>(p, B, s);
+    case 16: return launch_d<16>(p, B, s, local, fp8);
+    case 32: return launch_d<32>(p, B, s, local, fp8);
+    case 64: return launch_d<64>(p, B, s, local, fp8);
+    case 96: return launch_d<96>(p, B, s, local, fp8);
+    case 128: return launch_d<128>(p, B, s, local, fp8);
+    case 256: return launch_d<256>(p, B, s, local, fp8);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -10,7 +10,10 @@ v, all in f32; a row with no live key averages v uniformly over T. The
 result is (B, Hq, D) f32. Asked (``return_lse``), each row's log-sum-exp of
 its live scaled scores comes beside it, (B, Hq) f32, -inf where no key is
 live (the output there is still v's average): a caller holding one band of
-a cache's T merges the bands' outputs with it. The kernel is ``csrc/decode_attention.cu``; it
+a cache's T merges the bands' outputs with it. An FP8 cache (k/v
+``float8_e4m3fn``, q bf16) is read as it lies; the plain version upcasts
+it, and the kernel's result is its result on the cache upcast to bf16, bit
+for bit. The kernel is ``csrc/decode_attention.cu``; it
 replaces the TPU kernel ``decode_attention_pallas`` in the JAX package's
 ``kernels/flash_attention.py``. ``kernels.ops.decode_attention`` is the
 wrapper callers use.
@@ -63,6 +66,17 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dead = torch.full((), float("-inf"), device=q.device)
     lse = torch.logsumexp(torch.where(live[:, None, None, None, :], logits, dead), dim=-1)
     return o, lse.reshape(b, hq)
+
+
+def kernel_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The kernel's dtype code: q/k/v all f32 (0) or all bf16 (1), or bf16 q
+    over an e4m3 cache (2); ``ValueError`` for any other mix."""
+    if k.dtype == v.dtype == q.dtype and q.dtype in (torch.float32, torch.bfloat16):
+        return int(q.dtype == torch.bfloat16)
+    if q.dtype == torch.bfloat16 and k.dtype == v.dtype == torch.float8_e4m3fn:
+        return 2
+    raise ValueError(f"q/k/v must share bf16 or f32, or be bf16 q over a float8_e4m3fn "
+                     f"cache, got {q.dtype}/{k.dtype}/{v.dtype}")
 
 
 def heads_per_block(group: int) -> int:
@@ -136,11 +150,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported decode attention: Hq={hq} Hkv={hkv} D={d} T={t} "
                          f"mask {None if mask is None else tuple(mask.shape)}")
     check_q_pos(q_pos, b, dev)
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q/k/v must share bf16 or f32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    dtypes = kernel_dtypes(q, k, v)
     if not q.is_contiguous() or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q must be contiguous and k/v unit-stride on D")
-    esize = q.element_size()
+    esize = k.element_size()
     strides = [k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2)]
     if (d * esize) % 16 or any((s * esize) % 16 for s in strides) \
             or k.data_ptr() % 16 or v.data_ptr() % 16:
@@ -170,7 +183,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(live), ptr(pos), out.data_ptr(), ptr(lse),
         ptr(ws_acc), ptr(ws_ml), b, hq, hkv, t, d, hpb, splits, float(scale),
-        ctypes.addressof(st), int(q.dtype == torch.bfloat16),
+        ctypes.addressof(st), dtypes,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")

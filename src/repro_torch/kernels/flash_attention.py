@@ -16,6 +16,10 @@ reference's ring-buffer extend, whose keys are the ring's rows at their
 masked to -1e30, soft-maxed over T and contracted with v in f32; the result
 is (B, Hq, S, D) in q's dtype, as the TPU kernel writes it.
 
+An FP8 cache (k/v ``float8_e4m3fn``, q bf16) is upcast by the plain
+version and converted to bf16 as the kernel stages it (exact), so the
+kernel's result is its result on the cache upcast to bf16, bit for bit.
+
 The kernel is ``csrc/flash_attention.cu``; it replaces the TPU kernel
 ``flash_attention_pallas`` in the JAX package's ``kernels/flash_attention.py``.
 ``kernels.ops.flash_attention`` is the wrapper callers use. A block holds
@@ -187,7 +191,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a built flash-attention library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                           ctypes.c_float, i, i, p, p]
+                                           ctypes.c_float, i, i, i, p, p]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_geometry.argtypes = [p]
     lib.flash_attention_geometry.restype = None
@@ -227,8 +231,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          k_pos: torch.Tensor | None = None, window: int = 0, *,
                          splits: int | None = None,
                          plan_rows: int | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel on bf16 CUDA tensors; raises on anything it
-    does not take. q, k and v are read in place through their strides; the
+    """Launch the CUDA kernel on bf16 CUDA tensors (k/v bf16 or
+    float8_e4m3fn); raises on anything it does not take. q, k and v are read in place through their strides; the
     result is a (B, Hq, S, D) view of a (B, S, Hq, D) buffer, so a caller
     in the model's (B, S, H, D) layout transposes it back without a copy.
     Every query row must see at least one key (the kernel does not give the
@@ -251,8 +255,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or hq % hkv or d not in HEAD_DIMS or s < 1 or t < 1:
         raise ValueError(f"unsupported flash attention: q {tuple(q.shape)}, k {tuple(k.shape)} "
                          f"(D must be one of {HEAD_DIMS}, Hq a multiple of Hkv)")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the kernel takes bf16 q/k/v only, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype != torch.bfloat16 or k.dtype != v.dtype \
+            or k.dtype not in (torch.bfloat16, torch.float8_e4m3fn):
+        raise ValueError(f"the kernel takes bf16 q over a bf16 or float8_e4m3fn k/v, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_strided(name, x)
     check_local(causal, k_pos, window, b, t, dev)
@@ -282,7 +288,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(), ptr(k_pos),
         out.data_ptr(), ptr(ws_acc), ptr(ws_ml), b, hq, hkv, s, t, d, int(causal), int(window),
         float(scale),
-        pl["heads_per_block"], splits, ctypes.addressof(strides),
+        pl["heads_per_block"], splits, int(k.dtype == torch.float8_e4m3fn),
+        ctypes.addressof(strides),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")

@@ -231,7 +231,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     ((B, T) int32, ``j`` when absent, < 0 for no key) and is visible iff
     that position is >= 0, <= the query's and, with ``window`` > 0, less
     than ``window`` behind it. Returns (B, Hq, S, D) in q's dtype. The CUDA
-    kernel takes bf16 only and reads q/k/v through their strides, so k/v
+    kernel takes bf16 q over bf16 or float8_e4m3fn k/v and reads q/k/v
+    through their strides, so k/v
     may be a cache's live prefix (its launch plan follows T)."""
     if _route(q) == "cuda":
         out = _kernel_call(

@@ -31,9 +31,9 @@ its bands), and records (``run_cell``) the reference's keys:
   ``peak_bytes`` = argument + temp, as in the reference;
 * ``collectives``: the reference's five kinds, each with ``count`` and
   ``bytes``, and ``total_bytes``, from the port's counted collectives
-  (``distributed/collectives.py``): all-gather, and all-reduce (SUM and
-  MAX); the port makes no reduce-scatter, all-to-all or collective-permute,
-  so those are zero. ``bytes`` are the bytes each rank sends into the calls
+  (``distributed/collectives.py``): all-gather, all-reduce (SUM and MAX),
+  reduce-scatter and all-to-all; the port makes no collective-permute, so
+  that one is zero. ``bytes`` are the bytes each rank sends into the calls
   (the reference counts each op's output: an all-gather's is the group's
   size times larger);
 * ``trace_s`` (the reference's ``compile_s``): the wall seconds of drawing
@@ -57,16 +57,34 @@ over the data shards (one counted all-reduce a leaf and data axis), and
 the clip's global norm that of the whole gradients: the banded leaves'
 sum of squares all-reduced over ``model`` (one counted all-reduce).
 
-Policies: ``--act-policy cascade`` (the batch over ``pod``/``data``) and,
-for train cells, full data parallelism (the batch over every axis, as the
-reference's ``full_dp`` places a train cell's; ``--act-policy fulldp`` and
-``--full-dp`` each ask for it and imply the other) are ported. Under full
-data parallelism every rank holds rows of its own, so the step gathers the
-model-banded params whole once, at its start (``WholeParams``; their
-gradients summed back onto the bands): the record's temp holds them whole
-through the step, where a per-layer gather would hold one layer's.
-``seqpar``, ``none``, ``--dp-shard zero1|fsdp`` and full data parallelism
-on a serving cell raise ``ValueError`` (a FAILED record in a sweep).
+Policies (the reference's flags; ``sharding.ActivationPolicy`` has each
+activation placement):
+
+* ``--act-policy cascade`` (the batch over ``pod``/``data``), ``none``
+  (in explicit SPMD the tp policy's own route with no pin: the same
+  program as cascade) and ``seqpar`` (sequence parallelism between blocks
+  on prefill and train cells, whose S divides 16; decode keeps the batch
+  placement; the MoE expert buffer E over ``model``);
+* for train cells, full data parallelism (the batch over every axis, as
+  the reference's ``full_dp`` places a train cell's; ``--act-policy
+  fulldp`` and ``--full-dp`` each ask for it and imply the other). Every
+  rank holds rows of its own, so the step gathers the model-banded params
+  whole once, at its start (``WholeParams``; their gradients summed back
+  onto the bands), or, with ``--dp-shard fsdp``, a layer at a time inside
+  its remat region (ZeRO-3 over every axis). On a serving cell the
+  reference's ``full_dp`` changes no spec, so ``--full-dp`` alone traces
+  the plain cell (the record says ``full_dp: true``); ``--act-policy
+  fulldp`` there raises ``ValueError`` (ROADMAP item 18: its rows over
+  ``model`` against a cache banded over ``model``);
+* ``--dp-shard zero1`` (the moments' data bands) and ``fsdp`` (the
+  params' too) on train cells (``train.loop.MeshGrads``); serving cells
+  ignore it, as the reference's in_specs do;
+* ``moe_ep=True`` (``run_cell``): the MoE layers through the
+  expert-parallel dispatch (``models/moe_shardmap.py``), a column-banded
+  expert stack re-banded by experts first; ``microbatches`` as the
+  reference's ``make_train_step``.
+
+A cell that raises is a FAILED record in a sweep.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape decode_32k
@@ -78,7 +96,6 @@ import argparse
 import contextlib
 import dataclasses
 import json
-import math
 import sys
 import time
 import weakref
@@ -127,19 +144,31 @@ def fake_world(world_size: int):
 
 
 def check_policies(act_policy: str, dp_shard: str, full_dp: bool) -> tuple:
-    """``(act_policy, full_dp)`` with full data parallelism asked by either
-    (``fulldp`` and ``--full-dp`` imply each other); ``ValueError`` for a
-    placement the port has not ported."""
+    """A train cell's ``(act_policy, full_dp)``, full data parallelism asked
+    by either (``fulldp`` and ``--full-dp`` imply each other);
+    ``ValueError`` for an unknown name."""
     if act_policy not in ACT_POLICIES:
         raise ValueError(f"unknown --act-policy {act_policy!r}")
-    if act_policy in ("seqpar", "none"):
-        raise ValueError(f"--act-policy {act_policy} has no counterpart in the port's explicit "
-                         "placement yet (ROADMAP): use cascade, or fulldp with --full-dp")
-    if dp_shard != "none":
-        raise ValueError(f"--dp-shard {dp_shard} (optimizer or parameter sharding over the data "
-                         "axes) is not ported yet (ROADMAP)")
+    if dp_shard not in DP_SHARDS:
+        raise ValueError(f"unknown --dp-shard {dp_shard!r}")
     full_dp = bool(full_dp) or act_policy == "fulldp"
     return ("fulldp" if full_dp else act_policy), full_dp
+
+
+def cell_policies(kind: str, act_policy: str, dp_shard: str, full_dp: bool) -> tuple:
+    """``(act_policy, full_dp)`` of a cell of step ``kind``: a train cell's
+    by :func:`check_policies`; a serving cell's as given, ``--full-dp``
+    changing no spec there (the reference's serving in_specs take their
+    default axes); ``--act-policy fulldp`` on a serving cell raises."""
+    if kind == "train":
+        return check_policies(act_policy, dp_shard, full_dp)
+    check_policies(act_policy, dp_shard, False)
+    if act_policy == "fulldp":
+        raise ValueError(f"--act-policy fulldp on a {kind} cell: the reference's fulldp pins a "
+                         "serving cell's rows over model against a cache banded over model, "
+                         "which has no counterpart in the port's explicit placement (ROADMAP "
+                         "item 18); --full-dp alone traces the plain cell")
+    return act_policy, bool(full_dp)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +187,10 @@ class Cell:
     batch_axes: tuple
     trees: dict
     step: Callable[[dict], Any]
+    act_policy: str = "cascade"
+    dp_shard: str = "none"
+    moe_ep: bool = False
+    data_specs: Any = None          # zero1/fsdp: the params' data bands (moments; fsdp params)
 
     def local_args(self, make: Callable) -> dict:
         """The rank's bands of every argument tree, each leaf made by
@@ -171,18 +204,33 @@ class Cell:
             for p in T.leaves(out["params"]):
                 p.requires_grad_(True)
             out["opt"] = AdamW().init(out["params"])
+            if self.data_specs is not None:        # the moments' data bands
+                moments = lambda: sharding._map2(
+                    lambda t, s: make(local_shape(t.shape, s, self.mesh), torch.float32),
+                    self.trees["params"][0], self.data_specs)
+                out["opt"] = out["opt"]._replace(mu=moments(), nu=moments())
             out["step"] = make((), torch.int32)
         return out
 
     def policy(self, args: dict) -> sharding.ActivationPolicy:
         """The activation policy of the rank's step: its param bands (none
         under full data parallelism, whose step runs on the params
-        gathered whole) and the decode cache's model bands."""
-        if "model" in self.batch_axes:
-            return sharding.ActivationPolicy(self.mesh, self.tp_policy)
+        gathered whole, but with FSDP, whose layers gather them), their
+        data bands under FSDP, and the decode cache's model bands."""
+        fsdp = self.dp_shard == "fsdp" and self.shape.kind == "train"
+        kw = dict(act=self.act_policy, moe_ep=self.moe_ep)
+        if "model" in self.batch_axes and not fsdp:
+            return sharding.ActivationPolicy(self.mesh, self.tp_policy, **kw)
         return sharding.ActivationPolicy(
-            self.mesh, self.tp_policy, args["params"], self.trees["params"][1],
-            cache_bands=self.trees["cache"][1] if "cache" in self.trees else None)
+            self.mesh, self.tp_policy, args["params"], self.model_specs,
+            cache_bands=self.trees["cache"][1] if "cache" in self.trees else None,
+            data_specs=self.data_specs if fsdp else None, whole="model" in self.batch_axes,
+            **kw)
+
+    @property
+    def model_specs(self):
+        """The params' model bands (their placed specs without the data bands)."""
+        return _without_axes(self.trees["params"][1], ("pod", "data"))
 
 
 class WholeParams:
@@ -197,6 +245,23 @@ class WholeParams:
     def forward(self, params, batch, ccfg, **kw):
         whole = sharding.gather_tree(params, self.specs, self.mesh, sum_grads=True)
         return self.model.forward(whole, batch, ccfg, **kw)
+
+
+class FsdpParams:
+    """``model`` under ``--dp-shard fsdp``: ``forward`` takes the rank's data
+    (and model) bands of the params; the leaves outside the layers are
+    gathered at its start, each layer's inside its remat region
+    (``models.remat.layer_fn``), by the installed policy's
+    ``gather_layer``: the whole params are never live at once."""
+
+    LAYERS = ("layers", "dense_layers")
+
+    def __init__(self, model):
+        self.model = model
+
+    def forward(self, params, batch, ccfg, **kw):
+        rest = sharding.gather_layer({k: v for k, v in params.items() if k not in self.LAYERS})
+        return self.model.forward(dict(params, **rest), batch, ccfg, **kw)
 
 
 def local_shape(shape, spec, mesh) -> tuple:
@@ -254,63 +319,42 @@ def rank_cache_view(cache: dict, specs: dict, batch_axes: tuple, b0: int, nb: in
 def build_cell(arch: str, shape, mesh, ccfg: Optional[CascadeConfig] = None,
                tp_policy: str = "cascade", act_policy: str = "cascade",
                dp_shard: str = "none", full_dp: bool = False, remat_policy: str = "dots",
-               cfg=None) -> Cell:
+               cfg=None, moe_ep: bool = False, microbatches: int = 1) -> Cell:
     """The cell's step and argument trees (the reference's ``build_step``).
     ``shape`` is a name of ``SHAPES`` or a ``ShapeConfig``; ``cfg`` another
     config of the arch's family (a smoke config)."""
-    act_policy, full_dp = check_policies(act_policy, dp_shard, full_dp)
     shape = cfgbase.SHAPES[shape] if isinstance(shape, str) else shape
-    if full_dp and shape.kind != "train":
-        raise ValueError(f"full data parallelism (--full-dp) on a {shape.kind} cell: the reference puts only a train "
-                         "cell's batch over every axis, and its serving cells' fulldp "
-                         "constraints (rows over model against a cache banded over model) "
-                         "have no counterpart in the port's explicit placement yet (ROADMAP)")
+    act_policy, full_dp = cell_policies(shape.kind, act_policy, dp_shard, full_dp)
     if cfg is None:
         cfg = registry.get_config(arch)
     model = registry.build_model(cfg)
     if ccfg is None:
         ccfg = CascadeConfig(mode="train" if shape.kind == "train" else "serve_fp4")
-    batch_axes = ("pod", "data", "model") if full_dp else ("pod", "data")
+    train = shape.kind == "train"
+    batch_axes = ("pod", "data", "model") if full_dp and train else ("pod", "data")
     tied = bool(cfg.tie_embeddings)
     params = model.init_params(0, ccfg, device="meta")
     pspecs = sharding.placed_param_specs(params, mesh, tp_policy, tied)
+    dspecs = (sharding.data_band_specs(pspecs, params, mesh)
+              if train and dp_shard != "none" else None)
     batch = cfgbase.input_specs(cfg, shape)
     bspecs = sharding.batch_specs(batch, batch_axes=batch_axes, mesh=mesh)
-    trees = {"params": (params, pspecs), "batch": (batch, bspecs)}
+    trees = {"params": (params, dspecs if dp_shard == "fsdp" and train else pspecs),
+             "batch": (batch, bspecs)}
     b0, nb = _data_rows(mesh, batch_axes, shape.global_batch)
 
-    if shape.kind == "train":
+    if train:
         opt = AdamW()
-        reduce_axes = tuple(a for a in batch_axes if mesh.size(a) > 1)
-        n_rows = math.prod(mesh.size(a) for a in reduce_axes)
-        banded = T.leaves(sharding._map2(
-            lambda t, s: "model" in sum((sharding._axis_names(n) for n in s if n is not None),
-                                        ()), params, pspecs))
-
-        def grad_mean(grads):
-            # under full data parallelism a banded leaf's gradient is summed
-            # over model already (its gather's backward), a whole leaf's not
-            out = []
-            for g, b in zip(grads, banded):
-                for a in reduce_axes:
-                    if not (a == "model" and b):
-                        g = collectives.all_reduce(g, mesh.group(a), "sum")
-                out.append(g / n_rows if n_rows > 1 else g)
-            return out
-
-        def grad_sq(grads):
-            # the whole gradients' sum of squares: the bands' summed over model
-            sq = lambda keep: sum((torch.sum(g.to(torch.float32) ** 2)
-                                   for g, b in zip(grads, banded) if b == keep),
-                                  torch.zeros((), device=grads[0].device))
-            part = sq(True)
-            if mesh.size("model") > 1:
-                part = collectives.all_reduce(part, mesh.group("model"), "sum")
-            return part + sq(False)
-
+        grads = train_loop.MeshGrads(mesh, params, pspecs, dspecs,
+                                     dp_shard if dspecs is not None else "none",
+                                     batch_axes, full_dp)
+        if dp_shard == "fsdp":
+            net = FsdpParams(model)
+        else:
+            net = WholeParams(model, pspecs, mesh) if full_dp else model
         train_step = train_loop.make_train_step(
-            WholeParams(model, pspecs, mesh) if full_dp else model, ccfg, opt, remat=True,
-            remat_policy=remat_policy, grad_reduce=grad_mean, grad_sq=grad_sq)
+            net, ccfg, opt, microbatches=microbatches, remat=True, remat_policy=remat_policy,
+            mesh_grads=grads)
 
         def step(args):
             state = train_loop.TrainState(params=args["params"], opt=args["opt"],
@@ -338,7 +382,8 @@ def build_cell(arch: str, shape, mesh, ccfg: Optional[CascadeConfig] = None,
             return model.decode_step(args["params"], args["batch"], view, ccfg)[0]
 
     return Cell(shape=shape, mesh=mesh, tp_policy=tp_policy, batch_axes=batch_axes,
-                trees=trees, step=step)
+                trees=trees, step=step, act_policy=act_policy,
+                dp_shard=dp_shard if train else "none", moe_ep=moe_ep, data_specs=dspecs)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +450,8 @@ def _collective_record(counts: dict) -> dict:
                          "bytes": counts["all_gather"]["bytes"]}
     got["all-reduce"] = {f: counts["all_reduce_sum"][k] + counts["all_reduce_max"][k]
                          for f, k in (("count", "calls"), ("bytes", "bytes"))}
+    for kind, name in (("reduce-scatter", "reduce_scatter"), ("all-to-all", "all_to_all")):
+        got[kind] = {"count": counts[name]["calls"], "bytes": counts[name]["bytes"]}
     got["total_bytes"] = sum(v["bytes"] for v in got.values())
     return got
 
@@ -437,19 +484,19 @@ def trace_cell(cell: Cell) -> dict:
 def run_cell(arch: str, shape, mesh, ccfg: Optional[CascadeConfig] = None,
              tp_policy: str = "cascade", verbose: bool = True, act_policy: str = "cascade",
              dp_shard: str = "none", full_dp: bool = False, remat_policy: str = "dots",
-             cfg=None) -> dict:
+             cfg=None, moe_ep: bool = False, microbatches: int = 1) -> dict:
     """Trace one cell on rank 0 of ``mesh`` (a mesh over a fake world);
     return its record (the reference's ``lower_cell``). ``shape``: a name of
     ``SHAPES`` or a ``ShapeConfig``."""
     shape = cfgbase.SHAPES[shape] if isinstance(shape, str) else shape
-    act_policy, full_dp = check_policies(act_policy, dp_shard, full_dp)
+    act_policy, full_dp = cell_policies(shape.kind, act_policy, dp_shard, full_dp)
     cfg = cfg or registry.get_config(arch)
     if not cfgbase.shape_applicable(cfg, shape):
         return {"arch": arch, "shape": shape.name, "status": "skipped",
                 "reason": "full-attention arch: long_500k requires sub-quadratic attention"}
     t0 = time.time()
     cell = build_cell(arch, shape, mesh, ccfg, tp_policy, act_policy, dp_shard, full_dp,
-                      remat_policy, cfg=cfg)
+                      remat_policy, cfg=cfg, moe_ep=moe_ep, microbatches=microbatches)
     got = trace_cell(cell)
     record = {
         "arch": arch,
@@ -459,7 +506,8 @@ def run_cell(arch: str, shape, mesh, ccfg: Optional[CascadeConfig] = None,
         "act_policy": act_policy,
         "dp_shard": dp_shard,
         "full_dp": full_dp,
-        "moe_ep": False,
+        "moe_ep": moe_ep,
+        "microbatches": microbatches,
         "status": "ok",
         "trace_s": round(time.time() - t0, 1),
         "flops_per_device": got["flops"],
@@ -512,16 +560,18 @@ def main(argv=None) -> int:
     ap.add_argument("--full-dp", action="store_true")
     ap.add_argument("--remat-policy", default="dots", choices=["dots", "none", "save_all"])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--moe-ep", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
     args = ap.parse_args(argv)
-    args.act_policy, args.full_dp = check_policies(args.act_policy, args.dp_shard,
-                                                   args.full_dp)
+    check_policies(args.act_policy, args.dp_shard, args.full_dp)
 
     archs = list(registry.ALIASES) if (args.all or args.arch is None) else [args.arch]
     shapes = list(cfgbase.SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.multi_pod]
     records = run_all(archs, shapes, meshes, tp_policy=args.tp_policy,
                       act_policy=args.act_policy, dp_shard=args.dp_shard,
-                      full_dp=args.full_dp, remat_policy=args.remat_policy)
+                      full_dp=args.full_dp, remat_policy=args.remat_policy,
+                      moe_ep=args.moe_ep, microbatches=args.microbatches)
     if args.out:
         import os
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

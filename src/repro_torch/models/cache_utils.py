@@ -204,6 +204,17 @@ def _rows(pos: torch.Tensor, s: int, t: int, ring: bool = False) -> tuple:
     return tuple(idx) + (rows,)
 
 
+#: one-byte float dtypes: a cache of them is moved row by row as its bytes
+FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a float8 ``t`` viewed as uint8: the row copies,
+    gathers, scatters and selects of an FP8 cache move its codes as bytes
+    (CUDA has no float8 ``index_copy_``, ``index_put_`` or ``where``)."""
+    return t.view(torch.uint8) if t.dtype in FLOAT8 else t
+
+
 def seq_rows_snapshot(cache: dict, s: int, out: dict | None = None) -> dict:
     """Copy the ``s`` rows an extend of length ``s`` will write.
 
@@ -222,7 +233,7 @@ def seq_rows_snapshot(cache: dict, s: int, out: dict | None = None) -> dict:
     for name, buf in cache.items():
         if name == "pos":
             continue
-        rows = buf[_rows(pos, s, buf.shape[pos.dim()], ring)]
+        rows = as_bytes(buf)[_rows(pos, s, buf.shape[pos.dim()], ring)].view(buf.dtype)
         snap[name] = rows if out is None else out[name].copy_(rows)
     snap["pos"] = pos.clone() if out is None else out["pos"].copy_(pos)
     return snap
@@ -247,7 +258,8 @@ def seq_rows_restore(cache: dict, snap: dict, keep: torch.Tensor) -> dict:
             continue
         idx = _rows(pos0, s, buf.shape[pos0.dim()], ring)
         mask = rejected.reshape(rejected.shape + (1,) * (buf.dim() - pos0.dim() - 1))
-        buf[idx] = torch.where(mask, snap[name], buf[idx])
+        raw = as_bytes(buf)
+        raw[idx] = torch.where(mask, as_bytes(snap[name]), raw[idx])
     cache["pos"].copy_(pos0 + keep.to(pos0.dtype))
     return cache
 
@@ -287,7 +299,7 @@ def paged_gather(pool: torch.Tensor, bt: torch.Tensor, page_size: int) -> torch.
     read the trash page and lie above the slot's ``pos``."""
     b, nb = bt.shape
     idx = bt.to(torch.int64)[:, :, None] * page_size + torch.arange(page_size, device=bt.device)
-    out = _flat(pool).index_select(0, idx.reshape(-1))
+    out = _flat(as_bytes(pool)).index_select(0, idx.reshape(-1)).view(pool.dtype)
     return out.view((b, nb * page_size) + pool.shape[2:])
 
 
@@ -300,8 +312,8 @@ def paged_update_rows(pool: torch.Tensor, new: torch.Tensor, phys: torch.Tensor)
     mapping taken out, so K and V share one. Writes whose block is unbacked
     (page 0 in the table) or past capacity land on the trash page."""
     b, s = new.shape[:2]
-    _flat(pool).index_copy_(0, phys.reshape(-1), new.reshape((b * s,) + new.shape[2:])
-                            .to(pool.dtype))
+    _flat(as_bytes(pool)).index_copy_(0, phys.reshape(-1), as_bytes(
+        new.reshape((b * s,) + new.shape[2:]).to(pool.dtype)))
 
 
 def _paged_rows(cache: dict, bt: torch.Tensor, s: int, pos: torch.Tensor):
@@ -329,7 +341,7 @@ def paged_rows_snapshot(cache: dict, bt: torch.Tensor, s: int, out: dict | None 
     for name, buf in cache.items():
         if name == "pos":
             continue
-        rows = _flat(buf, pos.dim() - 1)[idx]
+        rows = _flat(as_bytes(buf), pos.dim() - 1)[idx].view(buf.dtype)
         snap[name] = rows if out is None else out[name].copy_(rows)
     snap["pos"] = pos.clone() if out is None else out["pos"].copy_(pos)
     return snap
@@ -350,9 +362,9 @@ def paged_rows_restore(cache: dict, snap: dict, bt: torch.Tensor, keep: torch.Te
     for name, buf in cache.items():
         if name == "pos":
             continue
-        flat = _flat(buf, pos0.dim() - 1)
+        flat = _flat(as_bytes(buf), pos0.dim() - 1)
         mask = rejected.reshape(rejected.shape + (1,) * (buf.dim() - pos0.dim() - 1))
-        flat[idx] = torch.where(mask, snap[name], flat[idx])
+        flat[idx] = torch.where(mask, as_bytes(snap[name]), flat[idx])
     cache["pos"].copy_(pos0 + keep.to(pos0.dtype))
     return cache
 

@@ -227,8 +227,9 @@ class GriffinLM:
     # ---------------------------------------------------------------- blocks
     def _rblock(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache=None,
                 mode: str = "full", n_valid=None, collect: dict | None = None,
-                pending: torch.Tensor | None = None):
-        """One recurrent block. ``pending``: the previous block's MLP output,
+                pending: torch.Tensor | None = None, seq: bool = False):
+        """One recurrent block (``seq``: sequence parallelism, as
+        ``TransformerLM._block``'s). ``pending``: the previous block's MLP output,
         not yet added to ``x`` (added inside this block's first norm).
         ``decode``/``extend`` update ``cache`` ({conv, h}) in place;
         ``prefill`` returns a new one. ``collect`` (a verify chunk of s
@@ -237,6 +238,7 @@ class GriffinLM:
         before the chunk and after each token ("h": (B, s+1, lru) f32).
         Returns (x, this block's MLP output still to be added, its cache)."""
         cfg = self.cfg
+        lp = L.seq_norms(lp, seq, ("ln", "ln2"))
         uk = ccfg.use_kernel
         pol = sharding.get_activation_policy() if cache is not None else None
         h_band = pol.cache_band("h") if pol is not None else None
@@ -249,6 +251,7 @@ class GriffinLM:
             u = L.norm_apply(lp["ln"], x, cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln"], x, pending, cfg.norm_type, use_kernel=uk)
+        (u,) = L.seq_whole(seq, u)
         # this rank's band of the channels, where the state holds one
         cols = None if h_band is None else (pol.model_rank * cache["h"].shape[-1],
                                              cache["h"].shape[-1])
@@ -287,24 +290,33 @@ class GriffinLM:
         mixed_in = (out.to(torch.float32) * gate).to(x.dtype)
         if cols is not None and cascade.banded(lp["w_out"]) != -2:
             mixed_in = pol.gather_model(mixed_in, -1)       # w_out wants every channel
-        mixed = cascade.linear_apply(lp["w_out"], mixed_in, ccfg)
+        with sharding.rows_out(seq):
+            mixed = cascade.out_apply(lp["w_out"], mixed_in, ccfg)
         u, x = L.add_norm_apply(lp["ln2"], x, mixed, cfg.norm_type, use_kernel=uk)
-        return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
 
     def _ablock(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache=None,
                 mode: str = "full", max_len: int | None = None, n_valid=None,
-                pending: torch.Tensor | None = None):
-        """One local-attention block (``pending`` as in :meth:`_rblock`)."""
+                pending: torch.Tensor | None = None, seq: bool = False):
+        """One local-attention block (``pending`` and ``seq`` as in
+        :meth:`_rblock`)."""
         cfg = self.cfg
+        lp = L.seq_norms(lp, seq, ("ln", "ln2"))
         uk = ccfg.use_kernel
         if pending is None:
             u = L.norm_apply(lp["ln"], x, cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln"], x, pending, cfg.norm_type, use_kernel=uk)
-        h, nc = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, cache=cache, mode=mode,
-                             max_len=max_len, n_valid=n_valid)
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            h, nc = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, cache=cache, mode=mode,
+                                 max_len=max_len, n_valid=n_valid)
         u, x = L.add_norm_apply(lp["ln2"], x, h, cfg.norm_type, use_kernel=uk)
-        return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), nc
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), nc
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
                 cache=None, max_len: int | None = None, n_valid=None, collect=None,
@@ -317,6 +329,7 @@ class GriffinLM:
         leaves the tail out, the bits are the same)."""
         rblock = R.layer_fn(self._rblock, remat, remat_policy)
         ablock = R.layer_fn(self._ablock, remat, remat_policy)
+        x, seq = L.seq_layers(x, mode)
         pending, rcaches, acaches = None, [], []
         for li, kind in enumerate(self.kinds):
             lp = params["layers"][li]
@@ -324,13 +337,14 @@ class GriffinLM:
                 ri = len(rcaches)
                 c = cache_utils.layer_view(cache["layers"], ri) if cache is not None else None
                 ck = cache_utils.layer_view(collect, ri) if collect is not None else None
-                x, pending, nc = rblock(lp, x, ccfg, c, mode, n_valid, ck, pending)
+                x, pending, nc = rblock(lp, x, ccfg, c, mode, n_valid, ck, pending, seq)
                 rcaches.append(nc)
             else:
                 c = (cache_utils.layer_view(cache["attn"], len(acaches)) if cache is not None
                      else None)
-                x, pending, nc = ablock(lp, x, ccfg, c, mode, max_len, n_valid, pending)
+                x, pending, nc = ablock(lp, x, ccfg, c, mode, max_len, n_valid, pending, seq)
                 acaches.append(nc)
+        x, pending = L.seq_whole(seq, x, pending)
         return x, pending, rcaches, acaches
 
     # --------------------------------------------------------------- api

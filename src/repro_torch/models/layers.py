@@ -29,6 +29,7 @@ from repro_torch.distributed import sharding
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.norm import add_norm_plain, gated_norm_plain, norm_plain
 from repro_torch.models import cache_utils
+from repro_torch.models.cache_utils import as_bytes
 
 #: the masked-logit value of the reference (not -inf: a row with no live
 #: key then averages uniformly instead of producing NaN)
@@ -155,7 +156,7 @@ def update_rows(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None
     t = buf.shape[1]
     start = idx.to(torch.int64).clamp(0, t - s)
     rows = start[:, None] + torch.arange(s, device=buf.device)
-    buf[torch.arange(b, device=buf.device)[:, None], rows] = new.to(buf.dtype)
+    as_bytes(buf)[torch.arange(b, device=buf.device)[:, None], rows] = as_bytes(new.to(buf.dtype))
 
 
 def write_band_row(buf: torch.Tensor, new: torch.Tensor, row: torch.Tensor,
@@ -170,9 +171,10 @@ def write_band_row(buf: torch.Tensor, new: torch.Tensor, row: torch.Tensor,
     local = row.to(torch.int64) - offset
     mine = (local >= 0) & (local < tb)
     at = local.clamp(0, tb - 1)
-    cur = buf[bi, at]
-    buf[bi, at] = torch.where(mine.reshape((b,) + (1,) * (cur.dim() - 1)),
-                              new.to(buf.dtype), cur)
+    raw = as_bytes(buf)
+    cur = raw[bi, at]
+    raw[bi, at] = torch.where(mine.reshape((b,) + (1,) * (cur.dim() - 1)),
+                              as_bytes(new.to(buf.dtype)), cur)
 
 
 def band_softmax(logits: torch.Tensor, live: torch.Tensor) -> tuple:
@@ -458,7 +460,7 @@ def attn_apply(
     o = o.to(x.dtype).reshape(b, s, h * hd)
     if heads_banded and cascade.banded(params["wo"]) != -2:
         o = cascade.gather_columns(o)          # wo wants every head (cascade)
-    return cascade.linear_apply(params["wo"], o, ccfg), new_cache
+    return cascade.out_apply(params["wo"], o, ccfg), new_cache
 
 
 def _masked_attention(q, k, v, valid, scale):
@@ -529,8 +531,9 @@ def _ring_attend(q, k, v, cache: dict, cfg: AttnConfig, ccfg: CascadeConfig, mod
     key_pos = torch.cat([slot_pos.to(torch.int32), rows.to(torch.int32)], dim=1)   # (B, T+s)
     if ccfg.use_kernel:
         from repro_torch.kernels import ops
-        att_k = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
-        att_v = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+        cat = lambda buf, new: torch.cat([as_bytes(buf), as_bytes(new.to(buf.dtype))],
+                                         dim=1).view(buf.dtype)
+        att_k, att_v = cat(cache["k"], k), cat(cache["v"], v)
         o = ops.flash_attention(q.transpose(1, 2), att_k.transpose(1, 2), att_v.transpose(1, 2),
                                 scale=scale, q_offset=pos, k_pos=key_pos,
                                 window=w).transpose(1, 2)
@@ -542,7 +545,7 @@ def _ring_attend(q, k, v, cache: dict, cfg: AttnConfig, ccfg: CascadeConfig, mod
     n = s if n_valid is None else max(0, min(int(n_valid), s))
     widx = rows[:, :n] % t                                                         # (B, n)
     for name, new in (("k", k), ("v", v), ("slot_pos", rows)):
-        cache[name][bi[:, None], widx] = new[:, :n].to(cache[name].dtype)
+        as_bytes(cache[name])[bi[:, None], widx] = as_bytes(new[:, :n].to(cache[name].dtype))
     return o
 
 
@@ -553,8 +556,9 @@ def _build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, s: int,
     whatever ``max_len`` is (the last ``window`` positions, or the prompt
     padded with empty rows), rolled so position p sits at row p % window."""
     b = k.shape[0]
-    if dtype is not None:
-        k, v = k.to(dtype), v.to(dtype)
+    # padded and rolled in the compute dtype, then cast (the same codes: a
+    # float8 cache's pads and rolls need no float8 kernels)
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
     pos = torch.full((b,), s, dtype=torch.int32, device=k.device)
     if window > 0:
         t = window
@@ -567,11 +571,12 @@ def _build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, s: int,
             pos_last = torch.cat([torch.arange(s, dtype=torch.int32, device=k.device),
                                   torch.full((t - s,), -1, dtype=torch.int32, device=k.device)])
         shift = s % t if s >= t else 0
-        return {"k": torch.roll(k_last, shift, dims=1), "v": torch.roll(v_last, shift, dims=1),
+        return {"k": cast(torch.roll(k_last, shift, dims=1)),
+                "v": cast(torch.roll(v_last, shift, dims=1)),
                 "slot_pos": torch.roll(pos_last, shift).expand(b, t).contiguous(), "pos": pos}
     t = max_len if max_len is not None else s
     pad = (0, 0, 0, 0, 0, t - s)
-    return {"k": F.pad(k, pad), "v": F.pad(v, pad), "pos": pos}
+    return {"k": cast(F.pad(k, pad)), "v": cast(F.pad(v, pad)), "pos": pos}
 
 
 def attn_cache_init(batch: int, max_len: int, cfg: AttnConfig, dtype=torch.bfloat16,
@@ -627,6 +632,33 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default form
 
 
+def seq_layers(x: torch.Tensor, mode: str) -> tuple:
+    """(x, seq) for a layer loop over the (B, S, d) embeddings ``x``: under
+    sequence parallelism (``sharding.seq_rows``; whole-sequence modes only)
+    this rank's rows and True, else x and False."""
+    seq = mode in ("full", "prefill") and sharding.seq_rows(x.shape[1])
+    return (sharding.get_activation_policy().take_rows(x) if seq else x), seq
+
+
+def seq_norms(lp: dict, seq: bool, names: tuple) -> dict:
+    """A block's params with its norms' (``names``) as norms over this
+    rank's rows read them (``seq``): under autograd each rank's gradient of
+    a norm's scale is its rows' part, so it is summed over the model ranks
+    (``ActivationPolicy.band_input``)."""
+    if not seq:
+        return lp
+    pol = sharding.get_activation_policy()
+    return dict(lp, **{n: {k: pol.band_input(v) for k, v in lp[n].items()} for n in names})
+
+
+def seq_whole(seq: bool, *xs):
+    """The tensors ``xs`` (this rank's rows when ``seq``) whole again."""
+    if not seq:
+        return xs
+    pol = sharding.get_activation_policy()
+    return tuple(None if t is None else pol.gather_rows(t) for t in xs)
+
+
 def mlp_apply(params: dict, x: torch.Tensor, kind: str, ccfg: CascadeConfig) -> torch.Tensor:
     """The MLP. Under a mesh policy whose bands split the hidden width (w_up
     column-banded), the elementwise gate runs on this rank's hidden columns,
@@ -646,7 +678,7 @@ def mlp_apply(params: dict, x: torch.Tensor, kind: str, ccfg: CascadeConfig) -> 
         raise ValueError(kind)
     if banded and cascade.banded(params["w_down"]) != -2:
         hid = cascade.gather_columns(hid)
-    return cascade.linear_apply(params["w_down"], hid, ccfg)
+    return cascade.out_apply(params["w_down"], hid, ccfg)
 
 
 # ---------------------------------------------------------------------------

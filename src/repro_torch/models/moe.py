@@ -289,10 +289,10 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: CascadeConfi
         if mode == "prefill":
             pad = (0, 0, 0, (max_len if max_len is not None else s) - s)
             kvd = ccfg.resolved_kv_dtype
-            new_cache = {"c_kv": F.pad(c_kv.to(kvd), pad), "k_rope": F.pad(k_rope.to(kvd), pad),
+            new_cache = {"c_kv": F.pad(c_kv, pad).to(kvd), "k_rope": F.pad(k_rope, pad).to(kvd),
                          "pos": torch.full((b,), s, dtype=torch.int32, device=dev)}
 
-    out = cascade.linear_apply(params["wo"], o.to(x.dtype).reshape(b, s, h * cfg.v_head_dim),
+    out = cascade.out_apply(params["wo"], o.to(x.dtype).reshape(b, s, h * cfg.v_head_dim),
                                ccfg)
     return out, new_cache
 
@@ -373,32 +373,45 @@ class MoELM(TransformerLM):
         return params
 
     # --------------------------------------------------------------- layers
+    def _remat_layer(self, params: dict, i: int) -> bool:
+        """The MoE layers only: the reference's ``jax.checkpoint`` wraps its
+        scan over them and leaves the dense layers in front as they are."""
+        return i >= len(params["dense_layers"])
+
     def _layer_list(self, params: dict) -> list:
         return list(params["dense_layers"]) + cache_utils.unstack_layers(params["layers"])
 
     def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
                max_len: int | None = None, n_valid=None, kv_len: int | None = None,
-               pending: torch.Tensor | None = None):
+               pending: torch.Tensor | None = None, seq: bool = False):
         """``TransformerLM._block`` with MLA or MHA attention and the routed
         experts (``moe`` layers, drop-free but in ``full`` mode) or a dense
-        SwiGLU MLP."""
+        SwiGLU MLP. ``seq`` as there; the routed experts' output (whole:
+        the combine gathers the expert buffer) is cut to the rank's rows."""
         cfg = self.cfg
+        lp = L.seq_norms(lp, seq, ("ln1", "ln2"))
         uk = ccfg.use_kernel
         if pending is None:
             u = L.norm_apply(lp["ln1"], x, cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln1"], x, pending, cfg.norm_type, use_kernel=uk)
-        if self.use_mla:
-            h, new_cache = mla_apply(lp["attn"], u, cfg, ccfg, cache, mode, max_len, n_valid)
-        else:
-            h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, cache=cache,
-                                        mode=mode, max_len=max_len, n_valid=n_valid,
-                                        kv_len=kv_len)
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            if self.use_mla:
+                h, new_cache = mla_apply(lp["attn"], u, cfg, ccfg, cache, mode, max_len, n_valid)
+            else:
+                h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, cache=cache,
+                                            mode=mode, max_len=max_len, n_valid=n_valid,
+                                            kv_len=kv_len)
         u, x = L.add_norm_apply(lp["ln2"], x, h, cfg.norm_type, use_kernel=uk)
+        (u,) = L.seq_whole(seq, u)
         if "moe" in lp:
             out = self._moe_ffn(lp["moe"], u, ccfg, no_drop=mode != "full")
+            if seq:
+                out = sharding.get_activation_policy().take_rows(out)
         else:
-            out = L.mlp_apply(lp["mlp"], u, "swiglu", ccfg)
+            with sharding.rows_out(seq):
+                out = L.mlp_apply(lp["mlp"], u, "swiglu", ccfg)
         return x, out, new_cache
 
     def _moe_ffn(self, lp_moe: dict, u: torch.Tensor, ccfg: CascadeConfig,

@@ -14,6 +14,11 @@ cascade-banded experts and gathers).
 Capacity semantics are the reference's: each local expert keeps at most
 ``cap`` assignments, in token order; ``cap`` is computed from the data
 shard's own token count.
+
+Under cascade's spec the expert stacks are banded on their columns; the
+dispatch re-bands them by experts first (``cascade.experts_by_e``, one
+all-to-all a leaf, the resharding the reference's ``shard_map`` asks of
+GSPMD for its ``P("model", ...)`` expert specs).
 """
 from __future__ import annotations
 
@@ -81,6 +86,8 @@ def moe_ffn_apply_ep(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: Casca
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     cap = ep_capacity(b * s, cfg)
+    # a column-banded stack (cascade's spec) is re-banded by experts first
+    params = dict(params, **{n: cascade.experts_by_e(params[n]) for n in ("wg", "wu", "wd")})
     with sharding.activation_policy(None):       # the local experts run as they are
         y = local_moe(xf, params, cfg, ccfg, mesh.coord(model_axis), cap)
     y = collectives.all_reduce(y, mesh.group(model_axis), "sum")

@@ -362,19 +362,25 @@ class Mamba2LM:
 
         # the gate y * silu(z) runs inside the gated norm (z read in place)
         y = L.gated_norm_apply(lp["gnorm"], y.reshape(b, -1, di), z, use_kernel=ccfg.use_kernel)
-        return cascade.linear_apply(lp["out_proj"], y, ccfg), new_cache
+        return cascade.out_apply(lp["out_proj"], y, ccfg), new_cache
 
-    def _block(self, lp, x, ccfg, cache, mode, n_valid=None, collect=None, pending=None):
+    def _block(self, lp, x, ccfg, cache, mode, n_valid=None, collect=None, pending=None,
+               seq=False):
         """One layer. ``pending``: the previous layer's mixer output, not yet
         added to the residual stream ``x``; the add runs inside this layer's
-        input norm (one add-norm). Returns (x, this layer's mixer output,
-        still to be added, its cache)."""
+        input norm (one add-norm). ``seq``: x and pending are this rank's
+        rows (sequence parallelism), gathered after the norm; the mixer's
+        ``out_proj`` returns the rank's rows. Returns (x, this layer's mixer
+        output, still to be added, its cache)."""
         uk = ccfg.use_kernel
+        lp = L.seq_norms(lp, seq, ("ln",))
         if pending is None:
             u = L.norm_apply(lp["ln"], x, self.cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln"], x, pending, self.cfg.norm_type, use_kernel=uk)
-        h, nc = self._mixer(lp, u, ccfg, cache, mode, n_valid, collect)
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            h, nc = self._mixer(lp, u, ccfg, cache, mode, n_valid, collect)
         return x, h, nc
 
     # --------------------------------------------------------------- api
@@ -398,16 +404,18 @@ class Mamba2LM:
         output still to be added, and the per-layer caches. ``remat``: each
         layer one checkpointed region under ``remat_policy``
         (``models.remat``)."""
-        def block(lp, x, c, ck, pending):
-            return self._block(lp, x, ccfg, c, mode, n_valid, ck, pending=pending)
+        def block(lp, x, c, ck, pending, seq):
+            return self._block(lp, x, ccfg, c, mode, n_valid, ck, pending=pending, seq=seq)
 
         body = R.layer_fn(block, remat, remat_policy)
+        x, seq = L.seq_layers(x, mode)
         pending, caches = None, []
         for i, lp in enumerate(cache_utils.unstack_layers(params["layers"])):
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
             ck = cache_utils.layer_view(collect, i) if collect is not None else None
-            x, pending, nc = body(lp, x, c, ck, pending)
+            x, pending, nc = body(lp, x, c, ck, pending, seq)
             caches.append(nc)
+        x, pending = L.seq_whole(seq, x, pending)
         return x, pending, caches
 
     def forward(self, params: dict, batch: dict, ccfg: CascadeConfig, remat: bool = False,

@@ -32,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cascade
 from repro_torch.core.cascade import CascadeConfig
 from repro_torch.device import resolve_device, seeded_generator
+from repro_torch.distributed import sharding
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models import remat as R
@@ -132,23 +133,32 @@ class TransformerLM:
 
     def _block(self, lp: dict, x: torch.Tensor, ccfg: CascadeConfig, cache, mode: str,
                max_len: int | None = None, n_valid=None, kv_len: int | None = None,
-               pending: torch.Tensor | None = None, positions: torch.Tensor | None = None):
+               pending: torch.Tensor | None = None, positions: torch.Tensor | None = None,
+               seq: bool = False):
         """One layer. ``pending``: the previous layer's MLP output, not yet
         added to the residual stream ``x``; the add runs inside ln1 (one
         add-norm), as this layer's attention output's runs inside ln2.
         ``positions``: the rotary positions (see ``layers.attn_apply``).
+        ``seq``: x and pending are this rank's rows (sequence parallelism);
+        the norms run on them, the rows are gathered before attention and
+        the MLP, and their output linears return the rank's rows.
         Returns (x, this layer's MLP output, still to be added, new cache)."""
         cfg = self.cfg
+        lp = L.seq_norms(lp, seq, ("ln1", "ln2"))
         uk = ccfg.use_kernel
         if pending is None:
             u = L.norm_apply(lp["ln1"], x, cfg.norm_type, use_kernel=uk)
         else:
             u, x = L.add_norm_apply(lp["ln1"], x, pending, cfg.norm_type, use_kernel=uk)
-        h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, positions=positions,
-                                    cache=cache, mode=mode, max_len=max_len, n_valid=n_valid,
-                                    kv_len=kv_len)
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            h, new_cache = L.attn_apply(lp["attn"], u, self.attn_cfg, ccfg, positions=positions,
+                                        cache=cache, mode=mode, max_len=max_len,
+                                        n_valid=n_valid, kv_len=kv_len)
         u, x = L.add_norm_apply(lp["ln2"], x, h, cfg.norm_type, use_kernel=uk)
-        return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
+        (u,) = L.seq_whole(seq, u)
+        with sharding.rows_out(seq):
+            return x, L.mlp_apply(lp["mlp"], u, cfg.mlp_kind, ccfg), new_cache
 
     def _layers(self, params: dict, x: torch.Tensor, ccfg: CascadeConfig, mode: str,
                 cache=None, block_table: torch.Tensor | None = None, remat: bool = False,
@@ -158,18 +168,26 @@ class TransformerLM:
         ids, handed to every layer's attention. ``remat``: each layer one
         checkpointed region under ``remat_policy`` (``models.remat``); the
         un-added MLP output (``pending``) passes from region to region."""
-        def block(lp, x, c, pending):
-            return self._block(lp, x, ccfg, c, mode, pending=pending, **kw)
+        def block(lp, x, c, pending, seq):
+            return self._block(lp, x, ccfg, c, mode, pending=pending, seq=seq, **kw)
 
         body = R.layer_fn(block, remat, remat_policy)
+        plain = R.layer_fn(block, False)
+        x, seq = L.seq_layers(x, mode)
         pending, caches = None, []
         for i, lp in enumerate(self._layer_list(params)):
             c = cache_utils.layer_view(cache["layers"], i) if cache is not None else None
             if block_table is not None:
                 c = dict(c, block_table=block_table)
-            x, pending, nc = body(lp, x, c, pending)
+            run = body if self._remat_layer(params, i) else plain
+            x, pending, nc = run(lp, x, c, pending, seq)
             caches.append(nc)
+        x, pending = L.seq_whole(seq, x, pending)
         return x, pending, caches
+
+    def _remat_layer(self, params: dict, i: int) -> bool:
+        """Whether layer ``i`` is a checkpointed region under ``remat``: all are."""
+        return True
 
     def _layer_list(self, params: dict) -> list:
         """Every layer's params, in order (``cache_utils.unstack_layers``)."""

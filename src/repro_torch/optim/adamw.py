@@ -84,12 +84,15 @@ class AdamW:
         p.copy_((pf - lr * delta).to(p.dtype))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, grad_sq=None):
+    def update(self, grads, state: AdamWState, params, grad_sq=None, param_view=None):
         """One step: returns (params, new state, {"gnorm", "lr"}); ``params``
         and the state's ``mu``/``nu`` are the trees passed in, updated in
         place. ``grad_sq`` maps the flat gradients to their global sum of
         squares (a mesh's: the banded leaves' summed over the ranks that
-        hold their bands); by default the sum over the leaves given."""
+        hold their bands); by default the sum over the leaves given.
+        ``param_view(i, p)`` is the part of flat param ``i`` the update
+        writes (ZeRO-1: the rank's data band, of the gradient's and the
+        moments' shape); by default the whole param."""
         step = state.step + 1
         flat_g, flat_p = T.leaves(grads), T.leaves(params)
         flat_m, flat_v = T.leaves(state.mu), T.leaves(state.nu)
@@ -105,7 +108,9 @@ class AdamW:
         stepf = step.to(torch.float32)
         b1c = 1 - torch.pow(torch.full_like(stepf, self.b1), stepf)
         b2c = 1 - torch.pow(torch.full_like(stepf, self.b2), stepf)
-        for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
+        for i, (g, m, v, p) in enumerate(zip(flat_g, flat_m, flat_v, flat_p)):
+            if param_view is not None:
+                p = param_view(i, p)
             decay = p.dim() >= 2            # the reference's mask (see the module doc)
             if p.dim() and p.numel() > PIECE:
                 rows = max(1, PIECE // (p.numel() // p.shape[0]))

@@ -24,8 +24,16 @@ reference's (``repro.launch.dryrun``), on the CPU.
 * The CLI on ``qwen2-vl-2b decode_32k`` under both policies: status ok and
   ``peak_bytes < 16e9`` (the bound of the reference's own slow test,
   ``tests/test_analysis.py``), and no process group left afterwards.
-* The placements the port has not ported raise ``ValueError``.
+* The reference's other placements: ``--dp-shard zero1|fsdp`` (with and
+  without ``--full-dp``) keep the reference's argument bytes, its
+  ``add_data_dim`` on the filtered param specs for the moments (and the
+  params under FSDP); ``--act-policy seqpar|none`` keep them too; MoE cells
+  trace under ``seqpar`` (the expert buffer E over ``model``) and with
+  ``moe_ep``; FSDP holds one layer's params whole at a time; ``--full-dp``
+  alone on a serving cell traces the plain cell, and ``--act-policy
+  fulldp`` there raises (ROADMAP item 18).
 """
+import dataclasses
 import functools
 import json
 import math
@@ -54,6 +62,7 @@ from repro.models import registry as jregistry
 from repro.optim.adamw import AdamW as JAdamW
 from repro_torch import tree as T
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.cascade import CascadeConfig
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as meshlib
@@ -108,19 +117,30 @@ def _reference_trees(arch: str, shape_name: str):
     return cfg, params, batch, cache
 
 
-def reference_argument_bytes(arch: str, shape_name: str, multi_pod: bool, policy: str) -> dict:
-    """The reference's per-device argument bytes of a cell, by group."""
+def reference_argument_bytes(arch: str, shape_name: str, multi_pod: bool, policy: str,
+                             dp_shard: str = "none", full_dp: bool = False) -> dict:
+    """The reference's per-device argument bytes of a cell, by group
+    (``build_step``'s in_specs: the moments, and under FSDP the params, on
+    ``add_data_dim`` of the param specs; a train cell's batch over every
+    axis under ``full_dp``)."""
     cfg, params, batch, cache = _reference_trees(arch, shape_name)
     mesh = ShapeOnlyMesh(MESHES[multi_pod])
     pspecs = jshd.filter_divisible(
         jshd.param_specs(params, policy, tied_embed=cfg.tie_embeddings), params, mesh)
-    out = {"params": _tree_bytes(params, pspecs, mesh.shape),
-           "batch": _tree_bytes(batch, jshd.batch_specs(batch, mesh=mesh), mesh.shape)}
+    mspecs = pspecs
+    train = jbase.SHAPES[shape_name].kind == "train"
+    if train and dp_shard in ("zero1", "fsdp"):
+        mspecs = jshd.add_data_dim(pspecs, params, mesh)
+    axes = ("pod", "data", "model") if full_dp and train else ("pod", "data")
+    out = {"params": _tree_bytes(params, mspecs if dp_shard == "fsdp" and train else pspecs,
+                                 mesh.shape),
+           "batch": _tree_bytes(batch, jshd.batch_specs(batch, batch_axes=axes, mesh=mesh),
+                                mesh.shape)}
     if cache is not None:
         out["cache"] = _tree_bytes(cache, jshd.cache_specs(cache, mesh), mesh.shape)
     if jbase.SHAPES[shape_name].kind == "train":
         opt = jax.eval_shape(lambda: JAdamW().init(params))
-        moments = _tree_bytes(opt.mu, pspecs, mesh.shape) + _tree_bytes(opt.nu, pspecs, mesh.shape)
+        moments = _tree_bytes(opt.mu, mspecs, mesh.shape) + _tree_bytes(opt.nu, mspecs, mesh.shape)
         out["opt"] = moments + 4 + 4          # AdamWState.step and TrainState.step, int32
     return out
 
@@ -142,8 +162,8 @@ def production_mesh(request):
     return request.param, RankZeroMesh(MESHES[request.param])
 
 
-def _port_argument_bytes(arch, shape, mesh, policy) -> dict:
-    cell = dryrun.build_cell(arch, shape, mesh, tp_policy=policy)
+def _port_argument_bytes(arch, shape, mesh, policy, **kw) -> dict:
+    cell = dryrun.build_cell(arch, shape, mesh, tp_policy=policy, **kw)
     args = cell.local_args(lambda s, dt: torch.empty(s, dtype=dt, device="meta"))
     got = {k: sum(t.numel() * t.element_size() for t in T.leaves(v)) for k, v in args.items()}
     got["opt"] = got.get("opt", 0) + got.pop("step", 0)
@@ -158,6 +178,31 @@ def test_argument_bytes_are_the_reference_spec_arithmetic(production_mesh, arch,
     want = reference_argument_bytes(arch, shape, multi_pod, policy)
     got = _port_argument_bytes(arch, shape, mesh, policy)
     assert got == want, (arch, shape, multi_pod, policy)
+
+
+@pytest.mark.parametrize("kw", [dict(dp_shard="zero1"), dict(dp_shard="fsdp"),
+                                dict(dp_shard="fsdp", full_dp=True)],
+                         ids=["zero1", "fsdp", "fsdp-full-dp"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_argument_bytes_under_zero1_and_fsdp_are_the_reference_arithmetic(production_mesh,
+                                                                          arch, kw):
+    """``train_4k`` under cascade: the moments (ZeRO-1), and the params too
+    (FSDP), on the reference's ``add_data_dim`` of the filtered param
+    specs, to the byte; the port's data band keeps a stacked leaf's layer
+    dim whole (``sharding.data_band_specs``), at the same bytes a rank."""
+    multi_pod, mesh = production_mesh
+    want = reference_argument_bytes(arch, "train_4k", multi_pod, "cascade", **kw)
+    assert _port_argument_bytes(arch, "train_4k", mesh, "cascade", **kw) == want
+
+
+@pytest.mark.parametrize("act_policy", ["seqpar", "none"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_seqpar_and_none_keep_the_reference_argument_bytes(arch, shape, act_policy):
+    mesh = RankZeroMesh(MESHES[False])
+    want = reference_argument_bytes(arch, shape, False, "cascade")
+    got = _port_argument_bytes(arch, shape, mesh, "cascade", act_policy=act_policy)
+    assert got == want
 
 
 def test_qwen25_32b_kv_cache_is_a_sixteenth_a_rank(production_mesh):
@@ -215,7 +260,7 @@ def port_cell(arch: str, kind: str) -> dict:
 def test_record_has_the_reference_keys():
     want = reference_cell("codeqwen1.5-7b", "decode")
     got = port_cell("codeqwen1.5-7b", "decode")
-    assert set(got) == (set(want) - {"compile_s", "dot_flops"}) | {"trace_s"}
+    assert set(got) == (set(want) - {"compile_s", "dot_flops"}) | {"trace_s", "microbatches"}
     assert set(got["memory"]) == set(want["memory"])
     assert set(got["collectives"]) == set(want["collectives"])
     assert all(set(v) == {"count", "bytes"} for k, v in got["collectives"].items()
@@ -248,7 +293,17 @@ def _named_differences(arch: str, kind: str) -> dict:
       window; the port's a product and a sum;
     * ``ssd_decode``: the reference's decode y is an einsum over N; the
       port's a product and a sum (each head sums alike whatever the heads
-      in the call, so a band of heads is bit-equal).
+      in the call, so a band of heads is bit-equal);
+    * ``ssd_state_grads``: the backward of the chunked SSD's two
+      three-operand einsums (the chunk states ``bcqh,bcqhn,bcqhp->bchpn``
+      and the carried output ``bcqh,bcqhn,bchpn->bcqhp``): the reference's
+      gradient of the (b, c, q, h) operand contracts N in a dot, two a layer;
+      the port's einsum takes it through a product and a sum.
+
+    The MoE family's train step has no named difference: its dense layers
+    in front run outside the checkpointed regions, and a product with no
+    batch dims (MLA's ``btl,lhd->bthd``, a one-batch ``bmm``) is saved, as
+    the reference's ``jax.checkpoint`` leaves them.
     """
     from repro_torch.models.moe import ROUTER_ROWS
     cfg = registry.get_config(arch, smoke=True)
@@ -259,7 +314,7 @@ def _named_differences(arch: str, kind: str) -> dict:
         n_moe = cfg.n_layers - cfg.first_dense_layers
         cap = -(-t // 8) * 8
         e, k, d = cfg.n_experts, cfg.moe_top_k, cfg.d_model
-        if t * k * e * cap <= 1 << 22:
+        if t * k * e * cap <= 1 << 22 and kind != "train":
             out["moe_dispatch"] = -2 * (t * k) * (e * cap) * d * n_moe
         out["router_rows"] = 2 * (-t % ROUTER_ROWS) * d * e * n_moe
     if kind == "decode" and cfg.family == "ssm":
@@ -267,6 +322,9 @@ def _named_differences(arch: str, kind: str) -> dict:
         out["conv_decode"] = -2 * t * cfg.conv_width * model.conv_dim * cfg.n_layers
         out["ssd_decode"] = (-2 * t * model.n_heads * cfg.ssm_head_dim * cfg.ssm_state
                              * cfg.n_layers)
+    if kind == "train" and cfg.family == "ssm":
+        model = registry.build_model(cfg)
+        out["ssd_state_grads"] = -2 * 2 * t * model.n_heads * cfg.ssm_state * cfg.n_layers
     if kind == "decode" and cfg.family == "hybrid":
         model = registry.build_model(cfg)
         out["conv_decode"] = -2 * t * cfg.conv_width * model.lru * model.n_rec
@@ -275,7 +333,8 @@ def _named_differences(arch: str, kind: str) -> dict:
 
 @pytest.mark.parametrize("arch,kind", [("mamba2-370m", "decode"), ("recurrentgemma-2b", "decode"),
                                        ("olmoe-1b-7b", "decode"), ("olmoe-1b-7b", "prefill"),
-                                       ("deepseek-v2-236b", "decode"), ("qwen2-vl-2b", "decode")])
+                                       ("deepseek-v2-236b", "decode"), ("qwen2-vl-2b", "decode"),
+                                       ("mamba2-370m", "train"), ("deepseek-v2-236b", "train")])
 def test_flops_differ_from_the_reference_by_named_ops(arch, kind):
     want = reference_cell(arch, kind)["dot_flops"]
     got = port_cell(arch, kind)["flops_per_device"]
@@ -341,15 +400,67 @@ def test_cli_traces_a_decode_cell_within_the_reference_bound(policy, tmp_path, c
     assert "0 FAILED" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(act_policy="seqpar"), "seqpar"), (dict(act_policy="none"), "none"),
-    (dict(dp_shard="zero1"), "zero1"), (dict(dp_shard="fsdp"), "fsdp"),
-])
-def test_unported_placements_raise(kw, match):
+@pytest.mark.parametrize("kw", [dict(act_policy="seqpar"), dict(act_policy="none"),
+                                dict(dp_shard="zero1"), dict(dp_shard="fsdp")],
+                         ids=["seqpar", "none", "zero1", "fsdp"])
+def test_every_placement_of_the_reference_is_accepted(kw):
     args = dict(act_policy="cascade", dp_shard="none", full_dp=False)
     args.update(kw)
-    with pytest.raises(ValueError, match=match):
-        dryrun.check_policies(**args)
+    assert dryrun.check_policies(**args) == (args["act_policy"], False)
+    with pytest.raises(ValueError, match="unknown"):
+        dryrun.check_policies(**dict(args, dp_shard="zero9"))
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("kw", [dict(act_policy="seqpar"), dict(moe_ep=True)],
+                         ids=["seqpar", "moe_ep"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_cells_trace_under_seqpar_and_moe_ep(arch, kw, kind):
+    """A (2, 2) fake world, 16 experts: under ``seqpar`` the column-banded
+    expert stacks are re-banded by experts (all-to-alls) and the residual's
+    rows return to each rank by all-to-alls; ``moe_ep`` runs the
+    expert-parallel dispatch on cascade's bands (re-banded likewise)."""
+    cfg = dataclasses.replace(registry.get_config(arch, smoke=True), n_experts=16)
+    with dryrun.fake_world(4):
+        mesh = meshlib.make_mesh((2, 2), ("data", "model"))
+        rec = dryrun.run_cell(arch, SMOKE_SHAPES[kind], mesh, verbose=False, cfg=cfg, **kw)
+    assert rec["status"] == "ok" and rec["flops_per_device"] > 0
+    assert rec["collectives"]["all-to-all"]["count"] > 0
+    assert rec["moe_ep"] == kw.get("moe_ep", False)
+
+
+def test_fsdp_gathers_one_layer_at_a_time():
+    """``--full-dp --dp-shard fsdp`` on a (2, 2) fake world: the params and
+    moments a quarter a rank, each layer gathered inside its remat region,
+    so the step's temp is below the ``--full-dp`` record's (which gathers
+    every param whole at the start) by more than half the whole params."""
+    cfg = dataclasses.replace(registry.get_config("codeqwen1.5-7b", smoke=True), n_layers=6)
+    whole = sum(t.numel() * t.element_size() for t in T.leaves(
+        registry.build_model(cfg).init_params(0, CascadeConfig(), device="meta")))
+    with dryrun.fake_world(4):
+        mesh = meshlib.make_mesh((2, 2), ("data", "model"))
+        run = lambda **kw: dryrun.run_cell("codeqwen1.5-7b", SMOKE_SHAPES["train"], mesh,
+                                           verbose=False, cfg=cfg, full_dp=True, **kw)
+        dp, fsdp = run(), run(dp_shard="fsdp")
+    assert fsdp["memory"]["temp_bytes"] < dp["memory"]["temp_bytes"] - whole // 2
+    assert fsdp["collectives"]["reduce-scatter"]["count"] > 0
+    assert fsdp["dp_shard"] == "fsdp" and fsdp["full_dp"]
+
+
+def test_full_dp_alone_on_a_serving_cell_traces_the_plain_cell():
+    """The reference's ``full_dp`` changes no serving spec: the record is
+    the plain cell's, but for ``full_dp: true``."""
+    cfg = registry.get_config("codeqwen1.5-7b", smoke=True)
+    with dryrun.fake_world(4):
+        mesh = meshlib.make_mesh((2, 2), ("data", "model"))
+        for kind in ("decode", "prefill"):
+            plain = dryrun.run_cell("codeqwen1.5-7b", SMOKE_SHAPES[kind], mesh, verbose=False,
+                                    cfg=cfg)
+            dp = dryrun.run_cell("codeqwen1.5-7b", SMOKE_SHAPES[kind], mesh, verbose=False,
+                                 cfg=cfg, full_dp=True)
+            assert dp["full_dp"] and dp["act_policy"] == "cascade"
+            for key in ("memory", "collectives", "flops_per_device"):
+                assert dp[key] == plain[key], (kind, key)
 
 
 @pytest.mark.parametrize("kw", [dict(act_policy="fulldp"), dict(full_dp=True)],
@@ -369,14 +480,17 @@ def test_fulldp_and_full_dp_imply_each_other(kw):
 
 
 def test_full_dp_serving_cell_raises_and_a_failed_cell_is_recorded():
-    """fulldp is ported for train cells; a serving cell raises, and in a
-    sweep becomes a FAILED record naming it."""
+    """``--act-policy fulldp`` is ported for train cells; on a serving cell
+    it raises, naming ROADMAP item 18, and in a sweep becomes a FAILED
+    record naming it."""
     with dryrun.fake_world(1):
         mesh = meshlib.make_mesh((1, 1), ("data", "model"))
-        with pytest.raises(ValueError, match="full-dp"):
+        with pytest.raises(ValueError, match="item 18"):
             dryrun.build_cell("codeqwen1.5-7b", SMOKE_SHAPES["decode"], mesh,
                               act_policy="fulldp", full_dp=True,
                               cfg=registry.get_config("codeqwen1.5-7b", smoke=True))
+    recs = dryrun.run_all(["codeqwen1.5-7b"], ["decode_32k"], [False], act_policy="fulldp")
+    assert recs[0]["status"] == "FAILED" and "item 18" in recs[0]["error"]
     assert not dist.is_initialized()
 
 

@@ -1780,3 +1780,176 @@ def test_attention_over_a_data_shard_plans_as_the_whole_grid(cuda, t):
             for r in range(2):
                 assert torch.equal(call(r * b // 2, (r + 1) * b // 2),
                                    full[r * b // 2:(r + 1) * b // 2])
+
+
+# ---------------------------------------------------------------------------
+# an FP8 (e4m3) KV cache through both attention kernels
+# ---------------------------------------------------------------------------
+
+def _fp8_cache(gen, shape, device):
+    """An e4m3 cache drawn from N(0, 1) (every code a finite value)."""
+    return torch.randn(shape, generator=gen, device=device).to(torch.float8_e4m3fn)
+
+
+# (B, Hq, Hkv, T, D, live, splits): the served codeqwen step, qwen2.5-32b's
+# GQA 40/8 at T = 4,096 (split) and on its 2,048-row time band with lse,
+# Griffin's ring band (10/1, D = 256, a mask), D = 80 and D = 64
+FP8_DECODE_CASES = [(8, 32, 32, 192, 128, "q_pos", None), (8, 32, 32, 4096, 128, "q_pos", None),
+                    (8, 40, 8, 2048, 128, "q_pos", None), (8, 10, 1, 1024, 256, "mask", None),
+                    (8, 10, 1, 2048, 256, "mask", 1), (2, 6, 2, 300, 80, "q_pos", None),
+                    (8, 32, 32, 192, 64, "mask", None), (2, 40, 8, 4096, 128, "q_pos", 3)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,live,splits", FP8_DECODE_CASES)
+def test_decode_attention_on_an_fp8_cache_is_the_kernel_on_its_bf16_upcast(
+        cuda, b, hq, hkv, t, d, live, splits):
+    """The kernel reading e4m3 K/V (converted in registers) gives the bits
+    it gives on the cache upcast to bf16 (exact), out and lse, and stays
+    within the plain version's tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(b + t + d)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kc = _fp8_cache(gen, (2, b, t, hkv, d), cuda)
+    vc = _fp8_cache(gen, (2, b, t, hkv, d), cuda)
+    mask = q_pos = None
+    if live == "mask":
+        mask = torch.rand((b, t), generator=gen, device=cuda) > 0.3
+    else:
+        q_pos = torch.randint(0, t, (b,), generator=gen, device=cuda).to(torch.int32)
+        q_pos[0] = t + 5
+    kw = {} if splits is None else {"splits": splits}
+    o8, l8 = tda.decode_attention_cuda(q, kc[1], vc[1], mask, None, q_pos, return_lse=True, **kw)
+    o16, l16 = tda.decode_attention_cuda(q, kc[1].to(torch.bfloat16), vc[1].to(torch.bfloat16),
+                                         mask, None, q_pos, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o8, o16) and torch.equal(l8, l16)
+    want = tda.decode_attention_plain(q, kc[1], vc[1], mask, q_pos=q_pos)
+    torch.testing.assert_close(o8, want, atol=1e-4, rtol=1e-4)
+
+
+# (name, B, Hq, Hkv, S, T, D, offsets, local): the verify chunk, an
+# admission chunk (split over 4,096 live keys), GQA 40/8, D = 64, and
+# Griffin's [ring, chunk] at D = 256 with k_pos and its window
+FP8_FLASH_CASES = [("verify", 8, 32, 32, 5, 192, 128, [0, 27, 53, 80, 107, 133, 160, 187], False),
+                   ("admit4064", 1, 32, 32, 32, 4096, 128, [4064], False),
+                   ("g5_verify", 8, 40, 8, 5, 192, 128, [0, 27, 53, 80, 107, 133, 160, 187],
+                    False),
+                   ("d64_admit", 1, 32, 32, 32, 160, 64, [128], False),
+                   ("griffin_ring", 2, 10, 1, 8, 72, 256, [100, 70], True)]
+
+
+@pytest.mark.parametrize("name,b,hq,hkv,s,t,d,offsets,local", FP8_FLASH_CASES,
+                         ids=[c[0] for c in FP8_FLASH_CASES])
+def test_flash_attention_on_an_fp8_cache_is_the_kernel_on_its_bf16_upcast(
+        cuda, name, b, hq, hkv, s, t, d, offsets, local):
+    """e4m3 K/V staged into shared memory as bf16 (exact): the bits of the
+    kernel on the cache upcast to bf16, within the plain version's
+    tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 3 + t)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kc = _fp8_cache(gen, (2, b, t, hkv, d), cuda)
+    vc = _fp8_cache(gen, (2, b, t, hkv, d), cuda)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    kw = {}
+    if local:                                      # ring rows at scattered positions
+        kpos = torch.randint(-1, int(max(offsets)), (b, t), generator=gen, device=cuda)
+        kpos[:, -s:] = off[:, None] + torch.arange(s, device=cuda)[None, :]
+        kw = dict(k_pos=kpos.to(torch.int32), window=64)
+    args8 = (q.transpose(1, 2), kc[1].transpose(1, 2), vc[1].transpose(1, 2))
+    args16 = (args8[0], kc[1].to(torch.bfloat16).transpose(1, 2),
+              vc[1].to(torch.bfloat16).transpose(1, 2))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*args8, q_offset=off, **kw)
+    same = ops.flash_attention(*args16, q_offset=off, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2
+    assert torch.equal(got, same)
+    want = tfa.flash_attention_plain(*args8, q_offset=off, **kw)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_tolerance(want, vc[1].float())).all()), float(err.max())
+
+
+def test_the_attention_kernels_refuse_other_cache_mixes(cuda):
+    q = torch.zeros((2, 4, 64), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((2, 8, 2, 64), device=cuda, dtype=torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):       # f32 q over e4m3
+        ops.decode_attention(q.float(), kv, kv)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):       # e5m2
+        ops.decode_attention(q, kv.to(torch.float8_e5m2), kv.to(torch.float8_e5m2))
+    with pytest.raises(ValueError, match="float8_e4m3fn"):       # k and v differ
+        ops.decode_attention(q, kv, kv.to(torch.bfloat16))
+    qf = torch.zeros((1, 4, 8, 64), device=cuda, dtype=torch.bfloat16)
+    kf = torch.zeros((1, 4, 8, 64), device=cuda, dtype=torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        ops.flash_attention(qf, kf, kf.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        ops.flash_attention(qf, kf.to(torch.float8_e5m2), kf.to(torch.float8_e5m2))
+
+
+def test_fp8_cache_row_ops_on_the_card_equal_the_cpu_ones(cuda):
+    """The cache's row work on float8 CUDA tensors (the dense row write, the
+    paged pool's scatter and gather, a verify snapshot and rewind, the
+    Griffin [ring, chunk] concatenation): every code the CPU's."""
+    from repro_torch.models import cache_utils as cu
+    from repro_torch.models import layers as tl
+    gen = torch.Generator().manual_seed(5)
+    codes = lambda *s: torch.randn(s, generator=gen).to(torch.float8_e4m3fn)
+    same = lambda a, b: torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+    buf, new, idx = codes(4, 16, 2, 8), codes(4, 3, 2, 8), torch.tensor([0, 5, 13, 20])
+    dense = []
+    for dev in (cuda, "cpu"):
+        dense.append(buf.to(dev))
+        tl.update_rows(dense[-1], new.to(dev).to(torch.float32), idx.to(dev))
+    assert same(*dense)
+    pool, bt = codes(6, 4, 2, 8), torch.tensor([[1, 3, 0], [2, 5, 4]])
+    rows = torch.tensor([[2, 3, 4], [9, 10, 11]])
+    outs = []
+    for dev in (cuda, "cpu"):
+        p = pool.to(dev)
+        phys = cu.paged_phys_rows(bt.to(dev), rows.to(dev), 4)
+        cu.paged_update_rows(p, new[:2].to(dev), phys)
+        outs.append((p, cu.paged_gather(p, bt.to(dev), 4)))
+    assert same(outs[0][0], outs[1][0]) and same(outs[0][1], outs[1][1])
+    cat = torch.cat([buf.to(cuda), new.to(cuda)], dim=1)
+    assert same(cat, torch.cat([buf, new], dim=1))
+    cache = {"k": buf, "v": buf.clone(), "pos": torch.tensor([1, 4, 9, 12])}
+    keep = torch.tensor([0, 2, 3, 1])
+    res = []
+    for dev in (cuda, "cpu"):
+        c = {k: v.clone().to(dev) for k, v in cache.items()}
+        snap = cu.seq_rows_snapshot(c, 3)
+        tl.update_rows(c["k"], new.to(dev), c["pos"])
+        c["pos"].add_(3)
+        cu.seq_rows_restore(c, snap, keep.to(dev))
+        res.append(c)
+    assert same(res[0]["k"], res[1]["k"]) and torch.equal(res[0]["pos"].cpu(), res[1]["pos"])
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "recurrentgemma-2b", "deepseek-v2-236b"])
+def test_an_fp8_cache_serves_through_the_kernels(cuda, arch):
+    """The engine with ``kv_dtype=float8_e4m3fn`` and ``fused=True`` at smoke
+    size, plain and speculative (codeqwen also paged with the prefix
+    cache): every request ends with its tokens and the attention kernels
+    launched on the FP8 cache (MLA's latent cache: its pad and row writes
+    on float8, no attention kernel)."""
+    cfg, model = registry.load(arch, smoke=True)
+    ccfg = CascadeConfig(mode="serve_fp4", use_kernel=True, kv_dtype=torch.float8_e4m3fn)
+    params = model.init_params(0, ccfg, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (12, 5, 20, 9)]
+    runs = [{}, {"draft_len": 3}]
+    if arch == "codeqwen1.5-7b":
+        runs.append({"prefix_cache": True, "page_size": 4})
+    for kw in runs:
+        eng = engine.ServeEngine(model, params, ccfg, engine.ServeConfig(
+            fused=True, max_batch=2, max_len=48, prefill_chunk=8, **kw), device=cuda)
+        ops.reset_launch_counts()
+        reqs = [engine.Request(uid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert all(len(r.tokens_out) == 6 and r.done for r in reqs), kw
+        if arch == "deepseek-v2-236b":         # MLA's latent attention runs no kernel
+            assert ops.LAUNCHES["cascade_matmul"] > 0, kw
+            continue
+        assert ops.LAUNCHES["flash_attention"] > 0, kw
+        assert kw.get("draft_len") or ops.LAUNCHES["decode_attention"] > 0, kw
