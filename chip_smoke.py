@@ -1069,6 +1069,86 @@ def local_flash_phase(torch, dev):
     return rows
 
 
+#: the non-default logits scale of the ``softmax_scale`` phase
+#: (``AttnConfig.softmax_scale``; 1/sqrt(128) = 0.0884, 1/sqrt(256) = 0.0625)
+SOFTMAX_SCALE = 0.07
+
+
+def softmax_scale_phase(torch, dev):
+    """Both attention kernels at a non-default logits scale
+    (``AttnConfig.softmax_scale``): decode attention at the served codeqwen
+    step, flash attention at its verify pass and an admission chunk, and
+    Griffin's local flash attention (head dim 256, ``k_pos``, window) over
+    [ring, chunk]. Each kernel call is held to its plain version at that
+    scale with the tolerance of its phase above, and must differ from the
+    default-scale kernel call; the launches of the scaled calls are
+    counted."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    out = {"scale": SOFTMAX_SCALE, "cases": []}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    launches = {"decode_attention": 0, "flash_attention": 0}
+
+    def counted(fn, *args, **kw):
+        ops.reset_launch_counts()
+        y = fn(*args, **kw)
+        for kind in launches:
+            launches[kind] += ops.LAUNCHES[kind]
+        return y
+
+    def check(name, kind, scaled, plain, default, tol):
+        err = (scaled.float() - plain.float()).abs()
+        moved = float((scaled.float() - default.float()).abs().max())
+        row = {"case": name, "kernel": kind, "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol).max()), "moved_from_default": moved}
+        if not bool((err <= tol).all()) or not moved > 0:
+            fail(f"softmax_scale {name}: the {kind} kernel at scale {SOFTMAX_SCALE} against "
+                 f"its plain version, or against the default scale: {row}")
+        out["cases"].append(row)
+
+    # decode attention: the served step (8 slots of codeqwen's 32 heads)
+    t = -(-(PROMPT_LEN + MAX_NEW + 1) // CHUNK) * CHUNK
+    pos = torch.tensor([PROMPT_LEN + 4 * i for i in range(MAX_BATCH)], dtype=torch.int32,
+                       device=dev)
+    q, k, v = rnd(MAX_BATCH, 32, 128), rnd(MAX_BATCH, t, 32, 128), rnd(MAX_BATCH, t, 32, 128)
+    scaled = counted(ops.decode_attention, q, k, v, q_pos=pos, scale=SOFTMAX_SCALE)
+    check("codeqwen_step", "decode_attention", scaled,
+          da.decode_attention_plain(q, k, v, q_pos=pos, scale=SOFTMAX_SCALE),
+          ops.decode_attention(q, k, v, q_pos=pos), ATTN_ATOL)
+    # flash attention: the verify pass and an admission chunk at offset 96
+    n = DRAFT_LEN + 1
+    tv = -(-(PROMPT_LEN + MAX_NEW + 1 + DRAFT_LEN) // CHUNK) * CHUNK
+    verify_off = [round(i * (tv - n) / (MAX_BATCH - 1)) for i in range(MAX_BATCH)]
+    for name, b, s, tk, offsets, hq, hkv, d, ring, window in (
+            ("verify", MAX_BATCH, n, tv, verify_off, 32, 32, 128, 0, 0),
+            ("admit_off96", 1, CHUNK, 96 + CHUNK, [96], 32, 32, 128, 0, 0),
+            ("griffin_admit_off96", 1, CHUNK, GRIFFIN_WINDOW + CHUNK, [96], GRIFFIN_HEADS, 1,
+             GRIFFIN_D, GRIFFIN_WINDOW, GRIFFIN_WINDOW)):
+        qv = rnd(b, s, hq, d).transpose(1, 2)
+        kc, vc = rnd(b, tk, hkv, d), rnd(b, tk, hkv, d)
+        kk, vv = kc.transpose(1, 2), vc.transpose(1, 2)
+        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        k_pos = None
+        if ring:
+            qrows = off[:, None] + torch.arange(s, device=dev, dtype=torch.int32)
+            k_pos = torch.cat([ring_slot_pos(torch, b, ring, offsets, dev), qrows], dim=1)
+        kw = dict(q_offset=off, k_pos=k_pos, window=window)
+        scaled = counted(ops.flash_attention, qv, kk, vv, scale=SOFTMAX_SCALE, **kw)
+        plain = fa.flash_attention_plain(qv, kk, vv, True, SOFTMAX_SCALE, off, k_pos, window)
+        tol = FLASH_RTOL * plain.float().abs() + FLASH_VTOL * float(vc.float().abs().max())
+        check(name, "flash_attention", scaled, plain, ops.flash_attention(qv, kk, vv, **kw), tol)
+    torch.cuda.synchronize()
+    out["launches"] = launches
+    if launches != {"decode_attention": 1, "flash_attention": 3}:
+        fail(f"softmax_scale: the scaled calls launched {launches}, not one decode and three "
+             "flash attentions")
+    return out
+
+
 def ring_decode_phase(torch, dev):
     """Decode attention at Griffin's ring: 8 slots, a 2,048-row ring, 10
     query heads over one KV head of 256 (two blocks of 5 heads), the (B, T)
@@ -3374,15 +3454,64 @@ def audit_phase(torch, dev):
     return out
 
 
+#: the serve CLI's ``--audit`` runs: (name, arguments, the closures its
+#: engine names: ``ServeEngine.step_closures`` of a greedy engine, dense or
+#: paged)
+SERVE_AUDIT_RUNS = (
+    ("codeqwen_fused", ["--arch", "codeqwen1.5-7b", "--fused", "--requests", "4",
+                        "--prompt-len", "64", "--max-new", "8", "--max-batch", str(MAX_BATCH)],
+     ("decode", "extend", "write", "pick")),
+    ("codeqwen_fused_prefix", ["--arch", "codeqwen1.5-7b", "--fused", "--prefix-cache",
+                               "--requests", "4", "--prompt-len", "64", "--max-new", "8",
+                               "--max-batch", str(MAX_BATCH)],
+     ("decode", "extend", "copy_page", "reset_pos", "pick")),
+    ("smoke_mesh_1x2", ["--smoke", "--host-devices", "2", "--mesh", "1x2", "--fused",
+                        "--requests", "4", "--max-new", "4"],
+     ("decode", "extend", "write", "pick")))
+
+
+def serve_audit_runs() -> dict:
+    """``python -m repro_torch.launch.serve ... --audit`` in a child process
+    for each of ``SERVE_AUDIT_RUNS``, as a user runs it: it must exit 0,
+    print one ``audit <closure>:`` line for every closure its engine names
+    and a summary with no gating finding, and then serve (the mesh run: two
+    gloo ranks sharing the card, each auditing its own engine)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {}
+    for name, args, closures in SERVE_AUDIT_RUNS:
+        t0 = time.monotonic()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args, "--audit"],
+                             capture_output=True, text=True, timeout=600, env=env,
+                             cwd=str(ROOT))
+        lines = res.stdout.splitlines()
+        closure_lines = [ln for ln in lines if re.match(r"audit \w+:", ln)]
+        audited = [ln.split(":")[0].split()[1] for ln in closure_lines]
+        summary = [ln for ln in lines if ln.startswith("audit: ")]
+        rec = {"rc": res.returncode, "wall_s": time.monotonic() - t0, "closures": audited,
+               "summary": summary, "served": [ln for ln in lines if ln.startswith("served")],
+               "closure_lines": closure_lines}
+        if res.returncode != 0 or sorted(audited) != sorted(closures) or len(summary) != 1 \
+                or not summary[0].endswith(" 0 gating") or not rec["served"] \
+                or "SERVING CONTRACT VIOLATED" in res.stdout:
+            fail(f"serve --audit {name}: {rec}; stderr: {res.stderr[-3000:]}")
+        out[name] = rec
+    return out
+
+
 def examples_and_audit_phase(torch, dev):
-    """Phase 5: the two examples, the audit matrix and the sync contrast."""
+    """Phase 5: the two examples, the audit matrix, the serve CLI's
+    ``--audit`` runs and the sync contrast."""
     t0 = time.monotonic()
     ex = examples_phase(torch, dev)
     t1 = time.monotonic()
     contrast = sync_contrast(torch, dev)
     au = audit_phase(torch, dev)
+    t2 = time.monotonic()
+    cli = serve_audit_runs()
     return {"gpu": gpu_name_and_power(), "examples": ex, "sync_contrast": contrast,
-            "audit": au, "examples_s": t1 - t0, "audit_s": time.monotonic() - t1}
+            "audit": au, "serve_audit": cli, "examples_s": t1 - t0, "audit_s": t2 - t1,
+            "serve_audit_s": time.monotonic() - t2}
 
 
 # ---------------------------------------------------------------------------
@@ -3923,6 +4052,8 @@ WORLD1_MEM_RTOL, WORLD1_MEM_ATOL = 0.02, 64 << 20
 DRYRUN_SHAPES = ("decode_32k", "long_500k")
 #: the reference's optimized presets (``optimized_preset``) at these shapes
 PRESET_SHAPES = ("train_4k", "prefill_32k")
+#: the serving cells traced again under ``--act-policy fulldp`` (cascade)
+FULLDP_SHAPES = ("decode_32k", "prefill_32k")
 #: sweep processes, started after the build and run beside the card's phases
 DRYRUN_WORKERS = 4
 
@@ -4247,8 +4378,9 @@ def optimized_preset(arch: str, shape: str) -> dict:
 def start_dryrun_sweep():
     """Start the 16 x 16 sweep in ``DRYRUN_WORKERS`` spawned processes (host
     work beside the card's phases): every arch at ``DRYRUN_SHAPES`` under
-    both policies, and at ``PRESET_SHAPES`` under the reference's optimized
-    presets (cascade), largest cells first. :func:`dryrun_sweep` collects."""
+    both policies, at ``PRESET_SHAPES`` under the reference's optimized
+    presets and at ``FULLDP_SHAPES`` under serving fulldp (cascade), largest
+    cells first. :func:`dryrun_sweep` collects."""
     import concurrent.futures as cf
     import multiprocessing as mp
     from repro_torch.configs import base as cfgbase
@@ -4262,6 +4394,9 @@ def start_dryrun_sweep():
     # the fsdp train preset's pair: the same cell gathering the params whole
     presets += [(arch, shape, dict(kw, dp_shard="none")) for arch, shape, kw in presets
                 if kw.get("dp_shard") == "fsdp"]
+    # serving fulldp: each rank's rows of the batch over model between blocks
+    presets += [(arch, shape, {"act_policy": "fulldp"}) for shape in FULLDP_SHAPES
+                for arch in registry.ALIASES if ok(arch, shape)]
     n = DRYRUN_WORKERS
     jobs = ([("cascade", presets[i::n]) for i in range(n)]
             + [(policy, cells[i::n]) for policy in ("cascade", "megatron") for i in range(n)])
@@ -4580,6 +4715,91 @@ PLACE_LOGIT_RTOL = 2.0 ** -6
 #: bit moved by either is one bf16 step (2^-8 of the leaf's scale): limits
 #: of two steps; the losses within PLACE_LOSS_RTOL relative
 PLACE_PARAM_RTOL, PLACE_LOSS_RTOL = 2.0 ** -7, 2.0 ** -10
+#: serving fulldp on (1, 2): codeqwen1.5-7b at full width, depth PLACE_DEPTH,
+#: FULLDP_ROWS rows (3 over the 2-wide model axis: a rank's share padded),
+#: the dry run's prefill cell over PLACE_PROMPT tokens and its decode cell
+#: (one step over a cache of FULLDP_CACHE rows filled by the unsharded
+#: prefill), through the kernels: the mixers and MLPs run on the gathered
+#: rows, the norms on a rank's rows, so the logits and the new cache must
+#: equal the unsharded step's bit for bit, with its launches
+FULLDP_ROWS, FULLDP_CACHE = 3, PLACE_PROMPT + CHUNK
+
+
+def fulldp_runs(torch, dev, cols, arch, cfg, model, params, ccfg) -> dict:
+    """Serving fulldp on ``cols`` (1, 2): the dry run's prefill cell over
+    FULLDP_ROWS x PLACE_PROMPT tokens and its decode cell (one step over a
+    FULLDP_CACHE-row cache filled by the unsharded prefill) against the
+    unsharded prefill and decode step: logits and caches (gathered whole)
+    compared bit for bit, the launches and the counted collectives."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    rel = lambda g, w: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+    out = {}
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (FULLDP_ROWS, PLACE_PROMPT + 1))
+    prompt = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)).to(dev)}
+    step_tok = {"tokens": torch.from_numpy(toks[:, -1:].astype(np.int32)).to(dev)}
+    zeros = lambda s, dt: torch.zeros(s, dtype=dt, device=dev)
+
+    def fulldp_cell(kind, seq_len):
+        cell = dryrun.build_cell(arch, ShapeConfig(f"fulldp_{kind}", seq_len, FULLDP_ROWS,
+                                                   kind),
+                                 cols, ccfg, act_policy="fulldp", cfg=cfg)
+        args = cell.local_args(zeros)
+        for a, p in zip(T.leaves(args["params"]),
+                        T.leaves(sharding.shard_tree(params, cell.trees["params"][1],
+                                                     cols))):
+            a.copy_(p)
+        return cell, args
+
+    def run_cell(cell, args):
+        ops.reset_launch_counts()
+        before = collectives.snapshot()
+        with sharding.activation_policy(cell.policy(args)):
+            got = cell.step(args)
+        torch.cuda.synchronize()
+        return got, dict(ops.LAUNCHES), collectives.since(before)
+
+    ops.reset_launch_counts()
+    want, want_cache = model.prefill(params, prompt, ccfg, max_len=PLACE_PROMPT)
+    want_launches = dict(ops.LAUNCHES)
+    cell, args = fulldp_cell("prefill", PLACE_PROMPT)
+    args["batch"] = prompt
+    (got, got_cache), launches, coll = run_cell(cell, args)
+    bands = dryrun._without_axes(sharding.cache_specs(want_cache, cols), cell.batch_axes)
+    got_cache = sharding.gather_tree(got_cache, bands, cols)
+    out[("fulldp", "prefill")] = {
+        "logits_bit_equal": bool(torch.equal(got, want)),
+        "logits_max_rel_err": rel(got, want),
+        "cache_bit_equal": all(torch.equal(a, b) for a, b in
+                               zip(T.leaves(got_cache), T.leaves(want_cache))),
+        "launches": launches, "unsharded_launches": want_launches, "collectives": coll}
+    del cell, args, got, got_cache, want_cache
+    # the decode cell: its cache args the unsharded prefill's cut by cache_specs
+    _, cache = model.prefill(params, prompt, ccfg, max_len=FULLDP_CACHE)
+    cell, args = fulldp_cell("decode", FULLDP_CACHE)
+    cspecs = cell.trees["cache"][1]
+    for a, c in zip(T.leaves(args["cache"]), T.leaves(sharding.shard_tree(cache, cspecs,
+                                                                           cols))):
+        a.copy_(c)
+    args["batch"] = step_tok
+    got, launches, coll = run_cell(cell, args)
+    ops.reset_launch_counts()
+    want, want_cache = model.decode_step(params, step_tok, cache, ccfg)
+    torch.cuda.synchronize()
+    got_cache = sharding.gather_tree(args["cache"], cspecs, cols)
+    out[("fulldp", "decode")] = {
+        "logits_bit_equal": bool(torch.equal(got, want)),
+        "logits_max_rel_err": rel(got, want),
+        "cache_bit_equal": all(torch.equal(a, b) for a, b in
+                               zip(T.leaves(got_cache), T.leaves(want_cache))),
+        "launches": launches, "unsharded_launches": dict(ops.LAUNCHES),
+        "collectives": coll}
+    del cell, args, cache, got_cache, want_cache
+    return out
 
 
 def placement_rank(rank: int) -> dict:
@@ -4632,6 +4852,7 @@ def placement_rank(rank: int) -> dict:
                 "unsharded_launches": want_launches,
                 "collectives": collectives.since(before)}
             del args, got
+        out.update(fulldp_runs(torch, dev, cols, arch, cfg, model, params, ccfg))
     del params, model
     torch.cuda.empty_cache()
 
@@ -4711,7 +4932,8 @@ def placement_rank(rank: int) -> dict:
 def placements_phase(torch, dev):
     """Phase ``placements``: a two-rank gloo world sharing the card
     (``placement_rank``): sequence parallelism's prefill logits against the
-    unsharded prefill (``PLACE_LOGIT_RTOL``), the train steps under zero1
+    unsharded prefill (``PLACE_LOGIT_RTOL``), serving fulldp's prefill and
+    decode step against the unsharded ones (bit for bit), the train steps under zero1
     and fsdp against the data-parallel step and under seqpar against the
     unsharded step (``PLACE_PARAM_RTOL``, ``PLACE_LOSS_RTOL``); every run's
     kernel launches those of its reference, step by step; each data band
@@ -4723,6 +4945,24 @@ def placements_phase(torch, dev):
     for key in sorted(ranks[0], key=str):
         per = [r[key] for r in ranks]
         name = "/".join(key)
+        if key[0] == "fulldp":
+            if not all(p["logits_bit_equal"] and p["cache_bit_equal"] for p in per):
+                readings = [{k: p[k] for k in ("logits_bit_equal", "logits_max_rel_err",
+                                               "cache_bit_equal")} for p in per]
+                fail(f"placements {name}: the logits or the cache differ from the unsharded "
+                     f"step's: {readings}")
+            if any(p["launches"] != p["unsharded_launches"] for p in per):
+                fail(f"placements {name}: launches {per[0]['launches']}, the unsharded "
+                     f"step's {per[0]['unsharded_launches']}")
+            attention = "flash_attention" if key[1] == "prefill" else "decode_attention"
+            if not all(per[0]["launches"][k] > 0 for k in ("cascade_matmul", attention, "norm")):
+                fail(f"placements {name}: a kernel of the step never launched: "
+                     f"{per[0]['launches']}")
+            if not per[0]["collectives"]["all_to_all"]["calls"]:
+                fail(f"placements {name}: no block output returned to the rows")
+            out[name] = {"logits_bit_equal": True, "cache_bit_equal": True,
+                         "launches": per[0]["launches"], "collectives": per[0]["collectives"]}
+            continue
         if key[0] == "seqpar_prefill":
             errs = [p["logits_max_rel_err"] for p in per]
             if not all(e <= PLACE_LOGIT_RTOL for e in errs):
@@ -4819,6 +5059,9 @@ def main() -> int:
     print(json.dumps({"flash_attention": fla, "geometry": fla_geometry}), flush=True)
     fla_local = timed("flash_attention local", local_flash_phase)
     print(json.dumps({"flash_attention_local": fla_local}), flush=True)
+    scaled = timed("attention softmax_scale", softmax_scale_phase)
+    print(json.dumps({"attention_softmax_scale": scaled, "gpu": gpu_name_and_power()}),
+          flush=True)
     fp8 = timed("attention fp8 cache", fp8_attention_phase)
     print(json.dumps({"attention_fp8_cache": fp8, "gpu": gpu_name_and_power()}), flush=True)
     ring = timed("decode_attention ring", ring_decode_phase)

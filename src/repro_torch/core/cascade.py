@@ -40,10 +40,11 @@ expert stack banded on N (cascade) gathers its columns; one banded on E
 the buffer and gathers the experts. Under autograd a whole input that
 feeds a band has its gradient summed over the model ranks
 (``ActivationPolicy.band_input``), so a step on a mesh computes the
-unsharded gradients. Under sequence parallelism a block's output linear
-(:func:`out_apply`, inside ``sharding.rows_out``) returns this rank's rows
-of the sequence: a column band's output by one all-to-all, a row band's
-partial sums by one reduce-scatter; and a column-banded expert stack is
+unsharded gradients. Under sequence parallelism (and serving ``fulldp``) a
+block's output linear (:func:`out_apply`, inside ``sharding.rows_out``)
+returns this rank's rows of the sequence (of the batch): a column band's
+output by one all-to-all, a row band's partial sums by one reduce-scatter;
+and under sequence parallelism a column-banded expert stack is
 re-banded by experts (:func:`experts_by_e`, one all-to-all a leaf) so the
 (E, C, d) buffer runs E over ``model``, as the reference's
 ``constrain_expert_buffer`` places it.
@@ -224,7 +225,8 @@ def _row_band(pol, params: dict, x: torch.Tensor, cfg: CascadeConfig,
     xs = x if x.shape[-1] == kb else pol.band_input(x)[..., r * kb:(r + 1) * kb]  # or its band
     part = _linear_local(local, xs, cfg, out_dtype=torch.float32)
     if rows:
-        out = C.reduce_scatter(part, pol.mesh.group(pol.model_axis), dim=-2)
+        out = C.reduce_scatter(pol.pad_rows(part), pol.mesh.group(pol.model_axis),
+                               dim=pol.rows_dim)
     else:
         out = pol.sum_model(part)
     if params.get("b") is not None:
@@ -250,21 +252,22 @@ def linear_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig,
 
 def out_apply(params: dict, x: torch.Tensor, cfg: CascadeConfig) -> torch.Tensor:
     """A block's output linear: :func:`linear_apply`, but inside
-    ``sharding.rows_out`` (sequence parallelism) it hands back this rank's
-    rows of the sequence dim (-2) of x (B, S, K) -> (B, S/m, N): a column
-    band's output by one all-to-all over ``model`` (no gather of the whole),
-    a row band's f32 partial sums by one reduce-scatter, a whole weight's
-    output by taking the rows."""
+    ``sharding.rows_out`` it hands back this rank's rows of x (B, S, K):
+    (B, S/m, N) under sequence parallelism, (B/m, S, N) under serving
+    ``fulldp`` (``ActivationPolicy.rows_dim``; the rows padded to a multiple
+    of m): a column band's output by one all-to-all over ``model`` (no
+    gather of the whole), a row band's f32 partial sums by one
+    reduce-scatter, a whole weight's output by taking the rows."""
     if not sharding.rows_out_active():
         return linear_apply(params, x, cfg)
     pol, band = _policy_band(params)
-    group = pol.mesh.group(pol.model_axis)
     if band == -1:
         y = _linear_local(params, pol.band_input(x), cfg)
-        return C.all_to_all(y, group, split_dim=-2, cat_dim=-1)
+        return C.all_to_all(pol.pad_rows(y), pol.mesh.group(pol.model_axis),
+                            split_dim=pol.rows_dim, cat_dim=-1)
     if band == -2:
         return _row_band(pol, params, x, cfg, rows=True)
-    return C.split(_linear_local(params, x, cfg), group, -2)
+    return pol.take_rows(_linear_local(params, x, cfg))
 
 
 def experts_by_e(params: dict) -> dict:

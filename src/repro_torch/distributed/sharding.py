@@ -448,7 +448,20 @@ class ActivationPolicy:
       buffer goes E over ``model`` (``constrain_expert_buffer``): a
       column-banded expert stack is re-banded by experts with one
       all-to-all a leaf (``core.cascade``);
-    * ``fulldp``: the batch over every axis (the dry run's train cells).
+    * ``fulldp`` (pure data parallelism, the reference's batch over every
+      axis): a train step's batch is placed over every axis already (the
+      dry run's train cells gather the params whole). In the serving modes
+      (``prefill``, ``decode``) the batch comes placed over the data axes,
+      as the reference's serving in_specs leave it, and between blocks each
+      rank holds its share of its data group's rows over ``model``
+      (:meth:`holds_rows`: dim 0, padded to a multiple of the axis where it
+      does not divide, as GSPMD pads an uneven shard). The params keep their
+      tp bands: the rows are gathered before each mixer and MLP, which run
+      the tp policy's route on the data group's rows (the cache read and
+      written where the plain cell reads and writes it), and the block's
+      output linear returns the rank's rows inside :func:`rows_out`, as
+      under ``seqpar``. The expert buffer and the logits rows are whole, as
+      the reference replicates them.
 
     ``data_specs`` (ZeRO-3/FSDP) is the spec tree of the local params'
     data bands (:func:`data_band_specs`): :meth:`gather_layer` gathers a
@@ -468,6 +481,7 @@ class ActivationPolicy:
         self.model_rank = mesh.coord(model_axis)
         self.data_axes = tuple(a for a in data_axes if a in mesh.shape)
         self.whole = whole
+        self._rows = 0                   # the row count of the rows whole (``pad_rows``)
         self._bands: dict = {}
         self._model_bands: dict = {}
         self._data_bands: dict = {}
@@ -500,20 +514,47 @@ class ActivationPolicy:
                         raise ValueError(f"cache leaves named {path[-1]!r} are banded on "
                                          f"two dims")
 
-    # ---- sequence parallelism
+    # ---- rows between blocks: sequence parallelism and serving fulldp
     def seq_rows(self, s: int) -> bool:
         """Whether a residual of ``s`` rows is held as this rank's S/m rows
         between blocks (``seqpar``; the reference's ``S % 16`` rule)."""
         return (self.act == "seqpar" and self.model_size > 1 and s % 16 == 0
                 and s % self.model_size == 0)
 
+    def holds_rows(self, x: torch.Tensor, mode: str) -> bool:
+        """Whether a layer loop in ``mode`` over the (B, S, d) embeddings
+        ``x`` holds this rank's rows of them between blocks: ``seqpar``'s
+        rows of the sequence in the whole-sequence modes, ``fulldp``'s rows
+        of the batch in the serving modes."""
+        if self.act == "fulldp":
+            return self.model_size > 1 and mode in ("prefill", "decode")
+        return mode in ("full", "prefill") and self.seq_rows(x.shape[1])
+
+    @property
+    def rows_dim(self) -> int:
+        """The dim of a (B, S, ...) activation whose rows a rank holds:
+        the batch's under ``fulldp``, else the sequence's."""
+        return 0 if self.act == "fulldp" else 1
+
+    def pad_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (its rows whole) with its row count noted, padded with
+        zero rows to a multiple of the model axis (a no-op where it divides)."""
+        d, m = self.rows_dim, self.model_size
+        self._rows = x.shape[d]
+        if self._rows % m == 0:
+            return x
+        pad = [0, 0] * (x.ndim - 1 - d) + [0, -self._rows % m]
+        return torch.nn.functional.pad(x, pad)
+
     def take_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows (dim 1) of a residual whole on every model rank."""
-        return C.split(x, self.mesh.group(self.model_axis), 1)
+        """This rank's rows of an activation whole on every model rank."""
+        return C.split(self.pad_rows(x), self.mesh.group(self.model_axis), self.rows_dim)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every model rank's rows (dim 1) of ``x``, in rank order."""
-        return self.gather_model(x, 1)
+        """Every model rank's rows of ``x``, in rank order, without the pad."""
+        y = self.gather_model(x, self.rows_dim)
+        return y if y.shape[self.rows_dim] == self._rows else y.narrow(self.rows_dim, 0,
+                                                                        self._rows)
 
     # ---- ZeRO-3 / FSDP
     def data_band(self, t: torch.Tensor):
@@ -601,10 +642,10 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
-def seq_rows(s: int) -> bool:
-    """Whether the installed policy holds a residual of ``s`` rows as this
-    rank's rows between blocks (``ActivationPolicy.seq_rows``)."""
-    return _ACT_POLICY is not None and _ACT_POLICY.seq_rows(s)
+def holds_rows(x: torch.Tensor, mode: str) -> bool:
+    """Whether the installed policy holds this rank's rows of a layer loop's
+    residual between blocks (``ActivationPolicy.holds_rows``)."""
+    return _ACT_POLICY is not None and _ACT_POLICY.holds_rows(x, mode)
 
 
 def gather_layer(tree: Any) -> Any:
@@ -624,9 +665,9 @@ def rows_out_active() -> bool:
 @contextlib.contextmanager
 def rows_out(on: bool = True):
     """While on, a block's output linear (``cascade.out_apply``) hands back
-    this rank's rows of its (B, S, N) output (sequence parallelism). The
-    block sets it inside its own body, so a rematerialized block sets it
-    again when it is recomputed."""
+    this rank's rows of its (B, S, N) output (``seqpar``, serving
+    ``fulldp``). The block sets it inside its own body, so a rematerialized
+    block sets it again when it is recomputed."""
     global _ROWS_OUT
     prev, _ROWS_OUT = _ROWS_OUT, bool(on)
     try:

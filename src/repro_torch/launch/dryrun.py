@@ -73,9 +73,19 @@ activation placement):
   onto the bands), or, with ``--dp-shard fsdp``, a layer at a time inside
   its remat region (ZeRO-3 over every axis). On a serving cell the
   reference's ``full_dp`` changes no spec, so ``--full-dp`` alone traces
-  the plain cell (the record says ``full_dp: true``); ``--act-policy
-  fulldp`` there raises ``ValueError`` (ROADMAP item 18: its rows over
-  ``model`` against a cache banded over ``model``);
+  the plain cell (the record says ``full_dp: true``). ``--act-policy
+  fulldp`` there keeps the plain cell's arguments (the params on their tp
+  bands, the batch over ``pod``/``data``, the cache by ``cache_specs``: the
+  reference's in_specs do not change) and places the activations as the
+  reference's ``constrain_residual`` and ``constrain_matmul_input`` pin
+  them: between blocks each rank holds its share of its data group's rows
+  over ``model`` (padded where the axis does not divide them), and the
+  params keep their bands: the rows are gathered before each mixer and MLP,
+  which run the cascade cell's route (attention against a time, latent or
+  state band of the cache as that cell runs it), and the block's output
+  linear returns the rank's rows (``sharding.ActivationPolicy``, ``act =
+  "fulldp"``). Gathering the weights whole instead would move every param
+  each step; gathering the rows moves a layer's activations;
 * ``--dp-shard zero1`` (the moments' data bands) and ``fsdp`` (the
   params' too) on train cells (``train.loop.MeshGrads``); serving cells
   ignore it, as the reference's in_specs do;
@@ -159,16 +169,11 @@ def cell_policies(kind: str, act_policy: str, dp_shard: str, full_dp: bool) -> t
     """``(act_policy, full_dp)`` of a cell of step ``kind``: a train cell's
     by :func:`check_policies`; a serving cell's as given, ``--full-dp``
     changing no spec there (the reference's serving in_specs take their
-    default axes); ``--act-policy fulldp`` on a serving cell raises."""
+    default axes), ``--act-policy fulldp`` implying ``full_dp``."""
     if kind == "train":
         return check_policies(act_policy, dp_shard, full_dp)
     check_policies(act_policy, dp_shard, False)
-    if act_policy == "fulldp":
-        raise ValueError(f"--act-policy fulldp on a {kind} cell: the reference's fulldp pins a "
-                         "serving cell's rows over model against a cache banded over model, "
-                         "which has no counterpart in the port's explicit placement (ROADMAP "
-                         "item 18); --full-dp alone traces the plain cell")
-    return act_policy, bool(full_dp)
+    return act_policy, bool(full_dp) or act_policy == "fulldp"
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +546,8 @@ def run_all(archs, shapes, multi_pods, **kw) -> list:
                     try:
                         rec = run_cell(arch, shape, mesh, **kw)
                     except Exception as e:     # a failure here is a bug in the port
-                        rec = {"arch": arch, "shape": shape, "mesh": dict(mesh.shape),
+                        rec = {"arch": arch, "shape": getattr(shape, "name", shape),
+                               "mesh": dict(mesh.shape),
                                "status": "FAILED", "error": f"{type(e).__name__}: {e}"}
                         print(json.dumps(rec), flush=True)
                     records.append(rec)

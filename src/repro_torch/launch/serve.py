@@ -73,13 +73,27 @@ fragment (a layer, the embedding or the head) as it is drawn. Under
 rank). Every rank serves the same requests; rank 0 prints.
 ``--verify-collectives`` prints the decode (and verify) step's counted
 collectives and exits 1 if any partial-sum all-reduce appears (cascade
-passes; megatron, which has them by design, fails). The torchrun line
-needs eight cards (llama3.1-405b's bands a rank: the smoke's ``mesh``
+passes; megatron, which has them by design, fails). Under
+``--host-devices`` the exit code is the largest of the ranks', and the
+FAIL lines of every rank that failed are printed with its number. The
+torchrun line needs eight cards (llama3.1-405b's bands a rank: the smoke's ``mesh``
 phase prints them); it has not been run:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --host-devices 4 --mesh 2x2 --verify-collectives
     torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
         --arch llama31_405b --mesh 1x8 --fused --verify-collectives
+
+``--audit`` holds every step closure of the engine just built to the serving
+contract (``analysis/contract.py``: no read to the host inside a step, the
+cache updated in place, packed weights on the FP4 path, no weight densified
+on the kernel route, on a mesh no partial-sum all-reduce under cascade)
+before anything is served: one line a closure, the findings and a summary,
+and exit 1 with ``SERVING CONTRACT VIOLATED`` on a gating finding. It
+composes with ``--fused``, ``--prefix-cache`` and ``--mesh`` (every rank
+audits its own engine), on the H100 and as a CPU smoke:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
+        --requests 4 --prompt-len 128 --max-new 8 --max-batch 8 --fused --audit
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --audit
 
 The modality-stub configs (qwen2-vl-2b, musicgen-large) take embeddings from
 a stub frontend, not token prompts: the engine refuses them, as the
@@ -189,10 +203,18 @@ def parser() -> argparse.ArgumentParser:
                     help="print the decode (and verify) step's counted collectives; exit 1 "
                          "if a step has a partial-sum all-reduce (the CASCADE invariant: "
                          "cascade passes, the megatron baseline fails)")
+    ap.add_argument("--audit", action="store_true",
+                    help="audit every step closure of the constructed engine against the "
+                         "serving contract (host reads, in-place cache, packed weights, "
+                         "densified weights, collective budget) and exit 1 on any gating "
+                         "finding, before serving; composes with --mesh/--fused/--prefix-cache")
     return ap
 
 
-def main(argv=None) -> int:
+def main(argv=None, checks: tuple = ()) -> int:
+    """The CLI. ``checks``: callables ``check(engine) -> FAIL lines`` run on
+    every rank after ``--audit``, before serving (they must pickle under
+    ``--host-devices``)."""
     args = parser().parse_args(argv)
 
     try:
@@ -200,19 +222,22 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if args.traffic and (args.mesh or args.verify_collectives):
+    if args.traffic and (args.mesh or args.verify_collectives or args.audit):
         print("error: --traffic is a replica-fleet demo; run it without "
-              "--mesh/--verify-collectives", file=sys.stderr)
+              "--mesh/--verify-collectives/--audit", file=sys.stderr)
         return 2
     if args.verify_collectives and not args.mesh:
         print("error: --verify-collectives reads a mesh engine's collectives: add --mesh",
               file=sys.stderr)
         return 2
     if args.host_devices > 1:
-        runs = meshlib.run_local_ranks(args.host_devices, _rank_main, argv)
-        lines, rc = runs[0]
-        print("\n".join(lines))
-        return rc
+        runs = meshlib.run_local_ranks(args.host_devices, _rank_main, argv, tuple(checks))
+        print("\n".join(runs[0][0]))
+        for rank, (_, rc, fails) in enumerate(runs):
+            if rc:
+                print(f"rank {rank} of {len(runs)}: exit {rc}")
+                print("\n".join(f"rank {rank}: {line}" for line in fails))
+        return max(rc for _, rc, _ in runs)
     own_world = False
     if args.mesh and not meshlib.init_from_env():
         # one process, no launcher: a world of one rank
@@ -220,7 +245,7 @@ def main(argv=None) -> int:
                            "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
         own_world = True
     try:
-        lines, rc = serve(args)
+        lines, rc, _ = serve(args, checks)
     finally:
         if own_world:
             dist.destroy_process_group()
@@ -229,14 +254,52 @@ def main(argv=None) -> int:
     return rc
 
 
-def _rank_main(rank: int, argv) -> tuple:
+def _rank_main(rank: int, argv, checks: tuple) -> tuple:
     """One local rank of ``--host-devices``: serve, and hand the lines back."""
-    return serve(parser().parse_args(argv))
+    return serve(parser().parse_args(argv), checks)
 
 
-def serve(args) -> tuple:
+def audit(eng) -> tuple:
+    """``--audit``: every step closure of ``eng`` held to its serving contract
+    (``analysis.contract.audit_engine``). Returns (the lines to print, the
+    FAIL lines: the gating findings and the verdict, empty when it holds).
+    A closure's line gives its host transfers and reads, its packed params,
+    its cache leaves updated in place (the reference's donation aliases) and,
+    on a mesh, its partial-sum all-reduces."""
+    from repro_torch.analysis import contract, format_findings, gating
+    res = contract.audit_engine(eng)
+    lines = []
+    for name, st in res["closures"].items():
+        lines.append(f"audit {name}: in_place={st.get('cache_leaves_in_place', '-')}"
+                     f"/{st.get('cache_major_leaves', '-')} host_xfer={st['host_transfers']} "
+                     f"host_reads={st['host_reads']} "
+                     f"psum_ar={st.get('partial_sum_allreduces', '-')} "
+                     f"packed_params={st.get('packed_params', '-')}")
+    bad = gating(res["findings"])
+    if res["findings"]:
+        lines.append(format_findings(res["findings"]))
+    lines.append(f"audit: {len(res['closures'])} closure(s), {len(res['findings'])} "
+                 f"finding(s), {len(bad)} gating")
+    fails = []
+    if bad:
+        fails = format_findings(bad).splitlines() + ["SERVING CONTRACT VIOLATED"]
+        lines.append(fails[-1])
+    return lines, fails
+
+
+def _any_rank(failed: bool) -> bool:
+    """Whether any rank of the world failed (every rank learns the same)."""
+    if not dist.is_initialized():
+        return failed
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    flag = torch.tensor([int(failed)], device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
+def serve(args, checks: tuple = ()) -> tuple:
     """Build the model and engine the arguments ask for and serve: returns
-    (the lines to print, the exit code)."""
+    (the lines to print, the exit code, the FAIL lines)."""
     lines = []
     say = lines.append
     device = resolve_device(args.device)
@@ -282,10 +345,25 @@ def serve(args) -> tuple:
               f"shed {m['requests_shed']}, rejected {m['requests_rejected']})")
         for r in recs[:3]:
             say(f"  req {r.uid}: {r.tokens_out}")
-        return lines, 0
+        return lines, 0, []
 
     eng = ServeEngine(model, params, ccfg, scfg, mesh=mesh, device=device)
     del params
+
+    # held before anything is served; on a mesh every rank stops if any failed
+    fails = []
+    if args.audit:
+        out, bad = audit(eng)
+        lines += out
+        fails += bad
+    for check in checks:
+        bad = list(check(eng))
+        lines += bad
+        fails += bad
+    if _any_rank(bool(fails)):
+        if not fails:
+            say("not served: the checks failed on another rank")
+        return lines, 1 if fails else 0, fails
 
     rng = np.random.default_rng(0)
     # under --prefix-cache the requests share their first half (one system
@@ -335,10 +413,11 @@ def serve(args) -> tuple:
                 f"({c['all_reduce_sum']['bytes']} B), all_reduce_max "
                 f"{c['all_reduce_max']['calls']}")
             if psum:
-                say(f"FAIL: the {args.tp_policy} {name} step made {psum} partial-sum "
-                    "all-reduce(s): the zero-partial-sum invariant does not hold")
+                fails.append(f"FAIL: the {args.tp_policy} {name} step made {psum} partial-sum "
+                             "all-reduce(s): the zero-partial-sum invariant does not hold")
+                say(fails[-1])
                 rc = 1
-    return lines, rc
+    return lines, rc, fails
 
 
 if __name__ == "__main__":

@@ -219,6 +219,8 @@ class AttnConfig:
     rope_fraction: float = 1.0
     window: int = 0              # 0 = full causal; > 0 = local attention window
     mrope_sections: tuple = ()   # Qwen2-VL M-RoPE bands (half-dim units); () = plain RoPE
+    # the logits' scale; None (and, as in the reference, 0.0) = 1/sqrt(head_dim)
+    softmax_scale: float | None = None
     q_chunk: int = 0             # chunked attention for long prefill (0 = off)
 
 
@@ -368,7 +370,7 @@ def attn_apply(
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
 
-    scale = 1.0 / (hd ** 0.5)
+    scale = cfg.softmax_scale or 1.0 / (hd ** 0.5)
 
     if mode in ("decode", "extend"):
         if cache is None:
@@ -633,10 +635,12 @@ def _gelu(x):
 
 
 def seq_layers(x: torch.Tensor, mode: str) -> tuple:
-    """(x, seq) for a layer loop over the (B, S, d) embeddings ``x``: under
-    sequence parallelism (``sharding.seq_rows``; whole-sequence modes only)
-    this rank's rows and True, else x and False."""
-    seq = mode in ("full", "prefill") and sharding.seq_rows(x.shape[1])
+    """(x, seq) for a layer loop over the (B, S, d) embeddings ``x``: where
+    the installed policy holds this rank's rows between blocks
+    (``sharding.holds_rows``: sequence parallelism's rows of the sequence,
+    serving fulldp's rows of the batch) those rows and True, else x and
+    False."""
+    seq = sharding.holds_rows(x, mode)
     return (sharding.get_activation_policy().take_rows(x) if seq else x), seq
 
 

@@ -2,10 +2,10 @@
 rank of a local gloo world runs, imported by the spawned ranks (this module
 imports torch and the port only, so a rank starts without JAX).
 
-``mesh_checks(rank, shape, inputs)`` runs every multi-rank check on one
-(data, model) mesh of four ranks and returns plain Python and numpy
-results for the test process to hold against the unsharded port engine
-and the reference.
+``mesh_checks(rank, shapes, inputs)`` runs every multi-rank check on each
+(data, model) mesh of ``shapes`` over one world of four ranks and returns,
+by shape, plain Python and numpy results for the test process to hold
+against the unsharded port engine and the reference.
 """
 import dataclasses
 
@@ -95,14 +95,15 @@ def placed(eng, params) -> dict:
                                      zip(T.leaves(back), T.leaves(params)))}
 
 
-def serve_checks(mesh) -> dict:
-    """Each mesh run of every family and mode, on every rank; the unsharded
-    engine's run of the same case (``ref``, its mode, and the undisturbed
-    run a failover is held to) on one rank only, the cases dealt out in
-    turn over the ranks (the test reads each from the rank that ran it)."""
+def serve_checks(meshes: dict) -> dict:
+    """Each mesh run of every family and mode on each of ``meshes`` (shape
+    -> mesh), on every rank; the unsharded engine's run of the same case
+    (``ref``, its mode, and the undisturbed run a failover is held to) once,
+    on one rank only, the cases dealt out in turn over the ranks (the test
+    reads each from the rank that ran it). Returns the results by shape."""
     import torch.distributed as dist
     rank, world = dist.get_rank(), dist.get_world_size()
-    out = {}
+    out = {shape: {} for shape in meshes}
     case = 0
     for fam, arch in sorted(registry.FAMILY_SMOKE.items()):
         cfg, model = registry.load(arch, smoke=True)
@@ -113,18 +114,21 @@ def serve_checks(mesh) -> dict:
                 ref, e0 = run(model, params, cfg, lens, scfg(**kw))
                 mode0 = e0.effective_mode
             case += 1
-            got, eng = run(model, params, cfg, lens, scfg(**kw), mesh=mesh)
-            out[("serve", fam, mode)] = {"ref": ref, "got": got,
-                                         "modes": (mode0, eng.effective_mode)}
-            if mode == "greedy":
-                out[("placed", fam)] = placed(eng, params)
+            for shape, mesh in meshes.items():
+                got, eng = run(model, params, cfg, lens, scfg(**kw), mesh=mesh)
+                out[shape][("serve", fam, mode)] = {"ref": ref, "got": got,
+                                                    "modes": (mode0, eng.effective_mode)}
+                if mode == "greedy":
+                    out[shape][("placed", fam)] = placed(eng, params)
         want = None
         if case % world == rank:
             want, _ = run(model, params, cfg, [8, 12], scfg(max_batch=2), max_new=10)
         case += 1
-        for dying in ("sharded", "plain"):
-            started, got = failover(model, params, cfg, mesh, dying)
-            out[("failover", fam, dying)] = {"want": want, "got": got, "started": started}
+        for shape, mesh in meshes.items():
+            for dying in ("sharded", "plain"):
+                started, got = failover(model, params, cfg, mesh, dying)
+                out[shape][("failover", fam, dying)] = {"want": want, "got": got,
+                                                        "started": started}
     return out
 
 
@@ -206,14 +210,15 @@ def moe_ep_checks(mesh, inputs: dict) -> dict:
             "e_local": int(local["wg"]["w"].shape[0])}
 
 
-def mesh_checks(rank: int, shape: tuple, inputs: dict) -> dict:
-    mesh = make_mesh(shape, ("data", "model"))
+def mesh_checks(rank: int, shapes: tuple, inputs: dict) -> dict:
+    meshes = {shape: make_mesh(shape, ("data", "model")) for shape in shapes}
     collectives.reset_counts()
-    out = {"coords": dict(mesh.coords)}
-    out.update(serve_checks(mesh))
-    out.update(contract_checks(mesh))
-    out["compression"] = compression_checks(inputs)
-    out["moe_ep"] = moe_ep_checks(mesh, inputs)
+    out = serve_checks(meshes)
+    compression = compression_checks(inputs)          # over the whole world
+    for shape, mesh in meshes.items():
+        out[shape].update(contract_checks(mesh))
+        out[shape].update(coords=dict(mesh.coords), compression=compression,
+                          moe_ep=moe_ep_checks(mesh, inputs))
     return out
 
 
@@ -388,3 +393,9 @@ def band_checks(rank: int, shape: tuple, inputs: dict) -> dict:
         cell.step(args)
     out["cell_collectives"] = collectives.since(before)
     return out
+
+
+def fail_on_rank_one(eng) -> list:
+    """A serve CLI check (``launch.serve.main(checks=...)``) that fails on
+    rank 1 of a mesh engine alone."""
+    return ["FAIL: planted check on rank 1"] if eng.mesh.rank == 1 else []

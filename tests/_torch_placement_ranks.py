@@ -12,7 +12,12 @@ imports torch and the port only, so a rank starts without JAX.
   ``--act-policy seqpar`` (its logits) and a loss and its gradients with
   the params on their bands under sequence parallelism, beside the
   unsharded model's; the MoE with its expert buffer E over ``model``; the
-  expert-parallel dispatch on cascade's column-banded experts.
+  expert-parallel dispatch on cascade's column-banded experts;
+* ``("fulldp", arch, kind)``: on the (1, 2) mesh, the dry run's prefill and
+  decode cells under ``--act-policy fulldp`` (each rank holds its share of
+  the batch's rows between blocks) beside the unsharded model's prefill and
+  decode step: the logits and the new cache, gathered whole; and the
+  decode cell under the plain cascade placement.
 """
 import dataclasses
 
@@ -31,6 +36,10 @@ from repro_torch.train.loop import cross_entropy
 CCFG = CascadeConfig(mode="train", compute_dtype=torch.float32)
 DENSE = registry.FAMILY_SMOKE["transformer"]
 STEPS = 3
+#: serving fulldp's archs -> whether decode merges attention over a banded
+#: time or latent axis of the cache (recurrentgemma-2b's ring, MLA's latent)
+FULLDP_ARCHS = {"codeqwen1.5-7b": False, "olmoe-1b-7b": False, "mamba2-370m": False,
+                "recurrentgemma-2b": True, "deepseek-v2-236b": True}
 
 
 def _as_np(tree) -> list:
@@ -146,6 +155,65 @@ def moe_ep_cascade(mesh, tokens: np.ndarray) -> dict:
     return out
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy().copy()
+
+
+def fulldp_serving(mesh, arch: str, tokens: np.ndarray, max_len: int, device="cpu",
+                   ccfg: CascadeConfig = CCFG) -> dict:
+    """The dry run's prefill cell (over ``tokens[:, :-1]``) and decode cell
+    (one step on the token after them, over a cache of ``max_len`` rows
+    filled by the unsharded prefill) under ``--act-policy fulldp``, beside
+    the unsharded prefill and decode step. Returns each kind's (want, got)
+    logits and caches, the sharded caches gathered whole."""
+    cfg, model = registry.load(arch, smoke=True)
+    params = model.init_params(0, ccfg, device=device)
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    prompt = {"tokens": torch.from_numpy(tokens[:, :-1].copy()).to(device)}
+    step_tok = {"tokens": torch.from_numpy(tokens[:, -1:].copy()).to(device)}
+    as_np = lambda c: {"/".join(p): _np(t) for p, t in T.leaves_with_paths(c)}
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    out = {}
+    with torch.no_grad():
+        # prefill: the cell's cache comes out on the model bands of cache_specs
+        shape = ShapeConfig("smoke_prefill", s, b, "prefill")
+        cell = dryrun.build_cell(arch, shape, mesh, ccfg, act_policy="fulldp", cfg=cfg)
+        args = cell.local_args(zeros)
+        _fill(args, params, cell.trees["params"][1], mesh)
+        args["batch"] = prompt
+        want, want_cache = model.prefill(params, prompt, ccfg, max_len=s)
+        with sharding.activation_policy(cell.policy(args)):
+            got, got_cache = cell.step(args)
+        bands = dryrun._without_axes(sharding.cache_specs(want_cache, mesh), cell.batch_axes)
+        out["prefill"] = {"logits": (_np(want), _np(got)),
+                          "cache": (as_np(want_cache),
+                                    as_np(sharding.gather_tree(got_cache, bands, mesh)))}
+        # decode, under fulldp and the plain cell's cascade placement: the
+        # cell's cache args are the prefill's cache cut by cache_specs
+        shape = ShapeConfig("smoke_decode", max_len, b, "decode")
+        _, cache = model.prefill(params, prompt, ccfg, max_len=max_len)
+        for act in ("cascade", "fulldp"):
+            cell = dryrun.build_cell(arch, shape, mesh, ccfg, act_policy=act, cfg=cfg)
+            args = cell.local_args(zeros)
+            _fill(args, params, cell.trees["params"][1], mesh)
+            cspecs = cell.trees["cache"][1]
+            for a, w in zip(T.leaves(args["cache"]),
+                            T.leaves(sharding.shard_tree(cache, cspecs, mesh))):
+                a.copy_(w)
+            args["batch"] = step_tok
+            with sharding.activation_policy(cell.policy(args)):
+                got = cell.step(args)
+            out[act] = (_np(got), as_np(sharding.gather_tree(args["cache"], cspecs, mesh)))
+        want, want_cache = model.decode_step(params, step_tok, cache, ccfg)
+        out["decode"] = {"logits": (_np(want), out["fulldp"][0]),
+                         "cache": (as_np(want_cache), out.pop("fulldp")[1])}
+        out["cascade_cell"] = out.pop("cascade")
+        out["bands"] = sorted({"/".join(p) for p, spec in sharding._spec_leaves(cspecs)
+                               if any(n is not None and "model" in sharding._axis_names(n)
+                                      for n in spec)})
+    return out
+
+
 def placement_checks(rank: int, inputs: dict) -> dict:
     rows = make_mesh((2, 1), ("data", "model"))
     cols = make_mesh((1, 2), ("data", "model"))
@@ -160,4 +228,16 @@ def placement_checks(rank: int, inputs: dict) -> dict:
     out[("seqpar", "mamba", "cascade")] = seqpar_grads(cols, "mamba2-370m", "cascade",
                                                        inputs["train"], {})
     out["moe_ep"] = moe_ep_cascade(cols, inputs["prefill"])
+    for arch, tokens in inputs["fulldp"].items():
+        out[("fulldp", arch)] = fulldp_serving(cols, arch, tokens, inputs["fulldp_max_len"])
     return out
+
+
+def fulldp_card(rank: int, inputs: dict) -> dict:
+    """One rank of a two-rank gloo world sharing the card: ``fulldp_serving``
+    on the (1, 2) mesh, FP4 params, bf16, through the kernels."""
+    torch.cuda.set_device(0)
+    cols = make_mesh((1, 2), ("data", "model"))
+    ccfg = CascadeConfig(mode="serve_fp4", compute_dtype=torch.bfloat16, use_kernel=True)
+    return {arch: fulldp_serving(cols, arch, tokens, inputs["fulldp_max_len"], "cuda", ccfg)
+            for arch, tokens in inputs["fulldp"].items()}

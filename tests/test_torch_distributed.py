@@ -1,9 +1,10 @@
 """The port's multi-device layer on the CPU: explicit SPMD over local gloo
 worlds of four ranks (``launch.mesh.run_local_ranks``, one thread a rank).
 
-One spawn per mesh shape, (2, 2) and (1, 4), runs every multi-rank check
-(``tests/_torch_mesh_ranks.py``) and hands the results back; the tests
-below read them. They mirror the reference's ``tests/test_sharding.py``:
+One spawn of four ranks runs every multi-rank check on each mesh shape,
+(2, 2) and (1, 4), of its world (``tests/_torch_mesh_ranks.py``; each
+unsharded reference run once, dealt out over the ranks) and hands the
+results back by shape; the tests below read them. They mirror the reference's ``tests/test_sharding.py``:
 
 * the cascade engine (params banded by ``param_specs``, the slot grid over
   ``data``) emits exactly the unsharded port engine's tokens for the four
@@ -70,11 +71,16 @@ def inputs() -> dict:
     return {"grads": grads, "residuals": res, "moe_params": mp, "moe_x": x, "moe_cfg": cfg}
 
 
-@pytest.fixture(scope="module", params=SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-def world(request):
-    shape = request.param
+@pytest.fixture(scope="module")
+def worlds():
     inp = {k: v for k, v in inputs().items() if k != "moe_cfg"}
-    return shape, meshlib.run_local_ranks(4, R.mesh_checks, shape, inp, timeout=300)
+    return meshlib.run_local_ranks(4, R.mesh_checks, tuple(SHAPES), inp, timeout=600)
+
+
+@pytest.fixture(scope="module", params=SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def world(request, worlds):
+    shape = request.param
+    return shape, [r[shape] for r in worlds]
 
 
 # ---------------------------------------------------------------------------

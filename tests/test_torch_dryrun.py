@@ -30,8 +30,13 @@ reference's (``repro.launch.dryrun``), on the CPU.
   params under FSDP); ``--act-policy seqpar|none`` keep them too; MoE cells
   trace under ``seqpar`` (the expert buffer E over ``model``) and with
   ``moe_ep``; FSDP holds one layer's params whole at a time; ``--full-dp``
-  alone on a serving cell traces the plain cell, and ``--act-policy
-  fulldp`` there raises (ROADMAP item 18).
+  alone on a serving cell traces the plain cell.
+* ``--act-policy fulldp`` on serving cells: the arguments are the plain
+  cell's, the reference's spec arithmetic to the byte, at ``decode_32k``
+  and ``prefill_32k`` on both production meshes; every family's smoke
+  cells trace with each rank's rows returned by all-to-alls and no
+  partial-sum all-reduce under cascade; a sweep gives ``status: ok`` on
+  every cell.
 """
 import dataclasses
 import functools
@@ -479,19 +484,58 @@ def test_fulldp_and_full_dp_imply_each_other(kw):
     assert (rec["act_policy"], rec["full_dp"]) == ("fulldp", True)
 
 
-def test_full_dp_serving_cell_raises_and_a_failed_cell_is_recorded():
-    """``--act-policy fulldp`` is ported for train cells; on a serving cell
-    it raises, naming ROADMAP item 18, and in a sweep becomes a FAILED
-    record naming it."""
-    with dryrun.fake_world(1):
-        mesh = meshlib.make_mesh((1, 1), ("data", "model"))
-        with pytest.raises(ValueError, match="item 18"):
-            dryrun.build_cell("codeqwen1.5-7b", SMOKE_SHAPES["decode"], mesh,
-                              act_policy="fulldp", full_dp=True,
-                              cfg=registry.get_config("codeqwen1.5-7b", smoke=True))
-    recs = dryrun.run_all(["codeqwen1.5-7b"], ["decode_32k"], [False], act_policy="fulldp")
-    assert recs[0]["status"] == "FAILED" and "item 18" in recs[0]["error"]
+@pytest.mark.parametrize("arch", sorted(registry.FAMILY_SMOKE.values()))
+def test_fulldp_sweep_gives_ok_on_every_serving_cell(arch):
+    """``--act-policy fulldp`` over a family's smoke decode and prefill cells
+    on both production meshes (``run_all``, which records a cell that raises
+    as FAILED): every record ``ok``, full data parallelism recorded, the rows
+    returned to each rank by all-to-alls, no partial-sum all-reduce."""
+    recs = dryrun.run_all([arch], [SMOKE_SHAPES["decode"], SMOKE_SHAPES["prefill"]],
+                          [False, True], act_policy="fulldp",
+                          cfg=registry.get_config(arch, smoke=True), verbose=False)
+    assert [r["status"] for r in recs] == ["ok"] * 4
+    for rec in recs:
+        assert (rec["act_policy"], rec["full_dp"]) == ("fulldp", True)
+        assert rec["collectives"]["all-to-all"]["count"] > 0
+        assert rec["collectives"]["all-reduce"]["count"] == 0
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_argument_bytes_of_fulldp_serving_cells_are_the_reference_arithmetic(production_mesh,
+                                                                           shape, arch):
+    """The reference's fulldp leaves a serving cell's in_specs as they are:
+    the port's fulldp cell takes the plain cell's arguments, to the byte."""
+    multi_pod, mesh = production_mesh
+    want = reference_argument_bytes(arch, shape, multi_pod, "cascade")
+    assert _port_argument_bytes(arch, shape, mesh, "cascade", act_policy="fulldp") == want
+
+
+@pytest.mark.parametrize("policy", ["cascade", "megatron"])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("arch", sorted(registry.FAMILY_SMOKE.values()))
+def test_fulldp_serving_cells_trace_with_the_rows_over_model(arch, kind, policy):
+    """A (2, 2) fake world, 6 rows (3 a data group, padded to 4 over the
+    model axis): each rank holds its rows between blocks and every block's
+    output linear returns them (an all-to-all of a column band under
+    cascade, a reduce-scatter of megatron's partial sums). The FLOPs are the
+    plain cell's (every matmul runs on the gathered rows), and cascade
+    makes no partial-sum all-reduce."""
+    cfg = registry.get_config(arch, smoke=True)
+    shape = ShapeConfig(f"t_{kind}6", SMOKE_SHAPES[kind].seq_len, 6, kind)
+    with dryrun.fake_world(4):
+        mesh = meshlib.make_mesh((2, 2), ("data", "model"))
+        run = lambda **kw: dryrun.run_cell(arch, shape, mesh, tp_policy=policy, verbose=False,
+                                           cfg=cfg, **kw)
+        plain, dp = run(), run(act_policy="fulldp")
+    assert dp["status"] == "ok" and (dp["act_policy"], dp["full_dp"]) == ("fulldp", True)
+    assert dp["flops_per_device"] == plain["flops_per_device"]
+    assert dp["memory"]["argument_bytes"] == plain["memory"]["argument_bytes"]
+    returned = "all-to-all" if policy == "cascade" else "reduce-scatter"
+    assert dp["collectives"][returned]["count"] > plain["collectives"][returned]["count"] == 0
+    if policy == "cascade":
+        assert dp["collectives"]["all-reduce"]["count"] == 0
 
 
 def test_fake_world_refuses_a_live_group_and_is_torn_down_on_error():

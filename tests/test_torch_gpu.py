@@ -6,6 +6,9 @@ a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -21,6 +24,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import registry
 from repro_torch.serve import engine
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import _torch_placement_ranks as R  # noqa: E402  (torch and the port only)
 
 pytestmark = pytest.mark.gpu
 
@@ -1953,3 +1960,117 @@ def test_an_fp8_cache_serves_through_the_kernels(cuda, arch):
             continue
         assert ops.LAUNCHES["flash_attention"] > 0, kw
         assert kw.get("draft_len") or ops.LAUNCHES["decode_attention"] > 0, kw
+
+
+# ---------------------------------------------------------------------------
+# AttnConfig.softmax_scale through both attention kernels
+# ---------------------------------------------------------------------------
+
+SOFTMAX_SCALE = 0.07
+
+
+@pytest.mark.parametrize("window", [0, 16], ids=["full", "window"])
+@pytest.mark.parametrize("mode", ["prefill", "extend", "decode"])
+def test_softmax_scale_reaches_both_attention_kernels(cuda, mode, window):
+    """``layers.attn_apply`` with ``AttnConfig(softmax_scale=0.07)`` on the
+    kernel route (prefill and extend: ``flash_attention``; decode:
+    ``decode_attention``) against its plain route at that scale, f32 q/k/v
+    cast to bf16 for the kernels: within 2^-7 of max|plain| + 1e-3 (the
+    attention output rounded once to bf16 before ``wo``); and moved from the
+    default scale's kernel route by more than that."""
+    from repro_torch.models import layers as L
+    kw = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, qkv_bias=True, window=window)
+    scaled, default = L.AttnConfig(**kw, softmax_scale=SOFTMAX_SCALE), L.AttnConfig(**kw)
+    params = L.attn_init(torch.Generator(device=cuda).manual_seed(3), scaled,
+                         CascadeConfig(mode="train"), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, s = 3, {"prefill": 24, "extend": 8, "decode": 1}[mode]
+    x = torch.randn((b, s, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    prompt = torch.randn((b, 20, 256), generator=gen, device=cuda).to(torch.bfloat16)
+
+    def run(cfg, use_kernel):
+        ccfg = CascadeConfig(mode="train", compute_dtype=torch.bfloat16, use_kernel=use_kernel)
+        if mode == "prefill":
+            return L.attn_apply(params, x, cfg, ccfg, mode="prefill", max_len=48)[0]
+        _, cache = L.attn_apply(params, prompt, cfg, ccfg, mode="prefill", max_len=48)
+        return L.attn_apply(params, x, cfg, ccfg, cache=cache, mode=mode)[0]
+
+    ops.reset_launch_counts()
+    got = run(scaled, True)
+    torch.cuda.synchronize()
+    kernel = "decode_attention" if mode == "decode" else "flash_attention"
+    assert ops.LAUNCHES[kernel] >= 1
+    want = run(scaled, False)
+    tol = 2.0 ** -7 * float(want.float().abs().max()) + 1e-3
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert float((run(default, True).float() - got.float()).abs().max()) > tol
+
+
+@pytest.mark.parametrize("case", ["decode", "verify", "admit", "griffin_local"])
+def test_softmax_scale_kernels_match_their_plain_versions(cuda, case):
+    """The kernels at scale 0.07 at the chip smoke's codeqwen shapes (the
+    served decode step; the verify pass; an admission chunk at offset 96)
+    and Griffin's local attention (D = 256, ``k_pos``, window 2048): within
+    each kernel's tolerance of its plain version at that scale."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    if case == "decode":
+        q, k, v = rnd(8, 32, 128), rnd(8, 192, 32, 128), rnd(8, 192, 32, 128)
+        pos = torch.tensor([128 + 4 * i for i in range(8)], dtype=torch.int32, device=cuda)
+        got = ops.decode_attention(q, k, v, q_pos=pos, scale=SOFTMAX_SCALE)
+        want = tda.decode_attention_plain(q, k, v, q_pos=pos, scale=SOFTMAX_SCALE)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    b, s, t, off, hq, hkv, d, ring = {
+        "verify": (8, 5, 192, [round(i * 187 / 7) for i in range(8)], 32, 32, 128, 0),
+        "admit": (1, 32, 128, [96], 32, 32, 128, 0),
+        "griffin_local": (1, 32, 2048 + 32, [96], 10, 1, 256, 2048)}[case]
+    qv = rnd(b, s, hq, d).transpose(1, 2)
+    kc, vc = rnd(b, t, hkv, d), rnd(b, t, hkv, d)
+    offs = torch.tensor(off, dtype=torch.int32, device=cuda)
+    k_pos, window = None, 0
+    if ring:
+        rows = offs[:, None] + torch.arange(s, device=cuda, dtype=torch.int32)
+        k_pos, window = torch.cat([ring_slot_pos(b, ring, off, cuda), rows], dim=1), ring
+    args = (qv, kc.transpose(1, 2), vc.transpose(1, 2))
+    got = ops.flash_attention(*args, scale=SOFTMAX_SCALE, q_offset=offs, k_pos=k_pos,
+                              window=window)
+    want = tfa.flash_attention_plain(*args, True, SOFTMAX_SCALE, offs, k_pos, window)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_tolerance(want, vc)).all()), float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# serving fulldp: two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fulldp_world():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card")
+    from repro_torch.launch import mesh as meshlib
+    rng = np.random.default_rng(0)
+    inputs = {"fulldp": {a: rng.integers(0, 256, (3, 13)).astype(np.int32)
+                         for a in R.FULLDP_ARCHS}, "fulldp_max_len": 24}
+    return meshlib.run_local_ranks(2, R.fulldp_card, inputs, threads=2, timeout=600)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", list(R.FULLDP_ARCHS))
+def test_fulldp_serving_cell_on_the_card_equals_the_unsharded_step(fulldp_world, arch, kind):
+    """The dry run's prefill and decode cells under ``--act-policy fulldp``
+    on (1, 2), FP4 params, bf16, through the kernels, 3 rows (a rank's share
+    padded): the norms run on a rank's rows, the kernels on the gathered
+    rows, whose bits do not depend on the row count, so the logits and the
+    cache are the unsharded step's bit for bit; where the cache's time or
+    latent rows are banded, decode merges the bands' attentions (as the
+    plain cell does): the plain cascade cell's bits."""
+    for rank in (0, 1):
+        res = fulldp_world[rank][arch]
+        (want, got), (cache_want, cache_got) = res[kind]["logits"], res[kind]["cache"]
+        assert np.isfinite(got).all()
+        ref = res["cascade_cell"] if kind == "decode" and R.FULLDP_ARCHS[arch] else (want,
+                                                                                  cache_want)
+        np.testing.assert_array_equal(got, ref[0])
+        for name in cache_want:
+            np.testing.assert_array_equal(cache_got[name], ref[1][name], err_msg=name)

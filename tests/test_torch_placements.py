@@ -21,6 +21,18 @@ cascade's bands on a (1, 2) mesh, each against the unsharded step.
   another order than the whole matmul's); each param leaf on its bands.
 * ``moe_ep`` on cascade's column-banded experts: the logits of megatron's
   expert bands, within ``SEQPAR_TOL``.
+* ``fulldp`` on serving cells (the dry run's prefill and decode cells under
+  ``--act-policy fulldp``, 3 rows over the 2-wide model axis, so a rank's
+  share is padded): each rank holds its rows between blocks, the params
+  keep their cascade bands and the mixers and MLPs run on the gathered
+  rows. No sum changes order: the prefill and the decode step of the dense
+  model, olmoe (MoE) and Mamba-2 (its SSD state and conv banded over
+  ``model``) give the unsharded logits and cache bit for bit. Where
+  ``cache_specs`` bands a cache's time or latent rows (recurrentgemma-2b's
+  ring, deepseek-v2-236b's MLA latent), decode merges the bands'
+  attentions by their log-sum-exps in another order than the unsharded
+  softmax (``test_torch_cache_bands.py``): within ``SEQPAR_TOL`` of the
+  unsharded step, and bit-equal to the plain cascade cell's.
 """
 import sys
 from pathlib import Path
@@ -46,6 +58,9 @@ def world():
     inputs = {"train": rng.integers(0, 256, (4, 33)).astype(np.int32),
               "moe_train": rng.integers(0, 256, (2, 33)).astype(np.int32),
               "prefill": rng.integers(0, 256, (2, 32)).astype(np.int32)}
+    inputs["fulldp"] = {arch: rng.integers(0, 256, (3, 13)).astype(np.int32)
+                        for arch in R.FULLDP_ARCHS}
+    inputs["fulldp_max_len"] = 24
     return meshlib.run_local_ranks(2, R.placement_checks, inputs, timeout=600)
 
 
@@ -91,3 +106,36 @@ def test_moe_ep_on_cascade_bands_equals_expert_bands(world):
     for rank in (0, 1):
         out = world[rank]["moe_ep"]
         np.testing.assert_allclose(out["cascade"], out["megatron"], **SEQPAR_TOL)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", list(R.FULLDP_ARCHS))
+def test_fulldp_serving_cell_equals_the_unsharded_step(world, arch, kind):
+    merged = kind == "decode" and R.FULLDP_ARCHS[arch]
+    for rank in (0, 1):
+        res = world[rank][("fulldp", arch)]
+        (want, got), (cache_want, cache_got) = res[kind]["logits"], res[kind]["cache"]
+        assert set(cache_got) == set(cache_want)
+        if merged:
+            np.testing.assert_allclose(got, want, **SEQPAR_TOL)
+            plain, plain_cache = res["cascade_cell"]
+            np.testing.assert_array_equal(got, plain)
+        else:
+            np.testing.assert_array_equal(got, want)
+        for name, w in cache_want.items():
+            if merged:
+                np.testing.assert_allclose(cache_got[name], w, err_msg=name, **SEQPAR_TOL)
+                np.testing.assert_array_equal(cache_got[name], plain_cache[name], err_msg=name)
+            else:
+                np.testing.assert_array_equal(cache_got[name], w, err_msg=name)
+
+
+def test_fulldp_decode_runs_against_a_cache_banded_over_model(world):
+    """Every family's decode cache holds bands over ``model`` (KV heads, a
+    ring's time rows, MLA's latent rows, the SSD state and conv channels)."""
+    bands = {arch: world[0][("fulldp", arch)]["bands"] for arch in R.FULLDP_ARCHS}
+    assert bands == {"codeqwen1.5-7b": ["layers/k", "layers/v"],
+                     "olmoe-1b-7b": ["layers/k", "layers/v"],
+                     "mamba2-370m": ["layers/conv", "layers/state"],
+                     "recurrentgemma-2b": ["attn/k", "attn/v", "layers/conv", "layers/h"],
+                     "deepseek-v2-236b": ["layers/c_kv", "layers/k_rope"]}
