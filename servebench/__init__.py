@@ -1,0 +1,1 @@
+"""The serving benchmark of the PyTorch/CUDA port (see run.py)."""
