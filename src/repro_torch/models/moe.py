@@ -55,6 +55,7 @@ from repro_torch.distributed import sharding
 from repro_torch.models import cache_utils
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.trace import span
 
 #: the router's f32 product runs over a whole number of blocks of this many
 #: rows, so a decode step (8 rows), an admission chunk (32) and a verify
@@ -131,25 +132,28 @@ def moe_ffn_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, ccfg: CascadeC
     k, e = cfg.moe_top_k, cfg.n_experts
     cap = (-(-t // 8) * 8) if no_drop else _capacity(t, cfg)
     xf = x.reshape(t, d)
-    gates, idx = route(params, xf, cfg)
-    dst, keep, rows = dispatch(idx, e, cap)
-
-    xk = xf[:, None].expand(t, k, d).reshape(t * k, d)                  # token-major
-    buf = xf.new_zeros((e * cap + 1, d)).index_add_(0, dst, xk)[:-1].reshape(e, cap, d)
+    with span("moe.route"):
+        gates, idx = route(params, xf, cfg)
+    with span("moe.dispatch"):
+        dst, keep, rows = dispatch(idx, e, cap)
+        xk = xf[:, None].expand(t, k, d).reshape(t * k, d)              # token-major
+        buf = xf.new_zeros((e * cap + 1, d)).index_add_(0, dst, xk)[:-1].reshape(e, cap, d)
     gate, up = cascade.expert_linear_pair_apply(params["wg"], params["wu"], buf, ccfg, rows)
     h = F.silu(gate.to(torch.float32))
     h = (h * up.to(torch.float32)).to(buf.dtype)
     out = cascade.expert_linear_apply(params["wd"], h, ccfg, rows).reshape(e * cap, d)  # (E*C, d)
+    shared = L.mlp_apply(params["shared"], xf, "swiglu", ccfg) if "shared" in params else None
 
-    got = torch.where(keep[:, None], out[torch.clamp(dst, max=e * cap - 1)],
-                      torch.zeros((), dtype=out.dtype, device=out.device))
-    w = (got.to(torch.float32) * gates.reshape(-1)[:, None]).reshape(t, k, d)
-    y = w[:, 0]
-    for j in range(1, k):                       # in top-k order, as the reference sums
-        y = y + w[:, j]
-    if "shared" in params:
-        y = y + L.mlp_apply(params["shared"], xf, "swiglu", ccfg).to(torch.float32)
-    return y.reshape(b, s, d).to(x.dtype)
+    with span("moe.combine"):
+        got = torch.where(keep[:, None], out[torch.clamp(dst, max=e * cap - 1)],
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+        w = (got.to(torch.float32) * gates.reshape(-1)[:, None]).reshape(t, k, d)
+        y = w[:, 0]
+        for j in range(1, k):                   # in top-k order, as the reference sums
+            y = y + w[:, j]
+        if shared is not None:
+            y = y + shared.to(torch.float32)
+        return y.reshape(b, s, d).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

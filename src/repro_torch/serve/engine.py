@@ -151,6 +151,7 @@ from repro_torch.models import cache_utils
 from repro_torch.serve.prefix import PagePool, RadixPrefixCache
 from repro_torch.serve.spec import ngram_propose
 from repro_torch.serve.traffic import MonotonicClock
+from repro_torch.trace import span
 
 #: methods a model needs for speculative decode
 _SPEC_API = ("spec_verify", "spec_rewind")
@@ -707,20 +708,23 @@ class ServeEngine:
                     bt = self._bt_dev()[st.slot:st.slot + 1]
                 # the chunk's valid rows end by c0 + chunk: no key past that
                 # is live for them (pad rows past it attend to garbage)
-                logits, st.cache = self._extend_fn(self.params, self._tokens(toks), st.cache, bt,
-                                                   n, c0 + chunk)
+                with span("engine.admit.chunk"):
+                    logits, st.cache = self._extend_fn(self.params, self._tokens(toks), st.cache,
+                                                       bt, n, c0 + chunk)
                 st.consumed += n
                 spent += n
             if st.consumed < len(prompt):
                 return                      # budget exhausted mid-prompt
-            nxt = self._pick(logits[0, -1])
+            with span("engine.admit.pick"):
+                nxt = self._pick(logits[0, -1])
             self._commit_token(st.req, nxt)
             if self.paged:
                 if self.prefix is not None:
                     # publish the prompt's full pages for later hits
                     self.prefix.insert(prompt, self._slot_pages[st.slot])
             else:
-                self.cache = self._write_fn(self.cache, st.cache, st.slot)
+                with span("engine.admit.write"):
+                    self.cache = self._write_fn(self.cache, st.cache, st.slot)
             self.slots[st.slot] = st.req
             if self.spec:
                 # the visible stream: the prompt (failover-carried tokens are
@@ -806,18 +810,22 @@ class ServeEngine:
 
     @torch.no_grad()
     def _decode_batched(self, active: List[int]) -> int:
-        toks = np.zeros((self.scfg.max_batch, 1), np.int32)
-        for i in active:
-            toks[i, 0] = self.slots[i].tokens_out[-1]
+        with span("engine.decode.prepare"):
+            toks = np.zeros((self.scfg.max_batch, 1), np.int32)
+            for i in active:
+                toks[i, 0] = self.slots[i].tokens_out[-1]
+            toks_dev, bt = self._batch(toks, active, 0)
         step = self._sample_fn if self._sampled else self._decode_fn
-        toks_dev, bt = self._batch(toks, active, 0)
-        nxt, self.cache = step(self.params, toks_dev, self.cache, bt)
-        nxt = nxt.cpu().numpy()         # the step's one read to the host
-        for i in active:
-            req = self.slots[i]
-            tok = int(nxt[i])
-            self._commit_token(req, tok)
-            self._retire_if_done(req, i, tok)
+        with span("engine.decode.forward"):
+            nxt, self.cache = step(self.params, toks_dev, self.cache, bt)
+        with span("engine.decode.sync"):
+            nxt = nxt.cpu().numpy()     # the step's one read to the host
+        with span("engine.decode.commit"):
+            for i in active:
+                req = self.slots[i]
+                tok = int(nxt[i])
+                self._commit_token(req, tok)
+                self._retire_if_done(req, i, tok)
         return len(active)
 
     @torch.no_grad()
@@ -1074,18 +1082,20 @@ class ServeEngine:
 
     def step(self) -> int:
         """One engine step; returns the number of decode tokens produced."""
-        self._admit()
+        with span("engine.admit"):
+            self._admit()
         active = self._active()
         if not active:
             return 0
-        t0 = self.clock.now()
-        self._steps += 1
-        if self.scfg.crest_enabled and self._steps % self.scfg.crest_every == 0:
-            self._crest_probe()
-        produced = (self._decode_spec(active) if self.spec
-                    else self._decode_batched(active) if self.batched
-                    else self._decode_slotwise(active))
-        self.step_times.append(self.clock.now() - t0)
+        with span("engine.decode"):
+            t0 = self.clock.now()
+            self._steps += 1
+            if self.scfg.crest_enabled and self._steps % self.scfg.crest_every == 0:
+                self._crest_probe()
+            produced = (self._decode_spec(active) if self.spec
+                        else self._decode_batched(active) if self.batched
+                        else self._decode_slotwise(active))
+            self.step_times.append(self.clock.now() - t0)
         self._decode_tokens += produced
         return produced
 
